@@ -1,0 +1,423 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+Drives the port's main path — ``AMGSolver(AMGConfig(backend="torch",
+n_pods=2, lanes=4)).setup(A).pcg(b)`` on the 27-point ``laplace_3d(64)``
+(262,144 rows, 8 stacked ranks of 32,768 rows) — after building the three
+hand-written CUDA kernels from this checkout and holding each against its
+plain PyTorch version at the shapes that path gives it.
+
+Phases (any failure exits non-zero):
+
+1. device: card name and power limit (``nvidia-smi``), CUDA capability;
+2. build: ``nvcc`` for every kernel source, all at once;
+3. kernels: each kernel in float32 and float64 (BCSR at bs 8 and 16) on the
+   lowered hierarchy's own operands, against its plain version (error
+   normalized by the plain result's max magnitude: float32 1e-5, float64
+   1e-12), with device times (CUDA events around bursts of 10 calls queued
+   behind a GPU spin, median of 25) of the kernel, the plain version and
+   ``torch.sparse.mm`` on the same operator in CSR, the wrapper's host cost
+   per call, and the bytes-over-bandwidth bound;
+4. f64 PCG to 1e-8, residual history against the numpy host backend
+   (≤ 1e-7 of r0), true residual in numpy, setup / lowering / per-iteration
+   times, and the device time of a warm solve by kernel (``torch.profiler``);
+5. multi-RHS PCG on ``[n, 8]``, each column against its single-RHS run;
+6. f32 PCG to 1e-5;
+7. launch counts of the main-path runs (each counter set to 0 just before a
+   run and read just after): every kernel launched;
+8. one JSON line with every kernel's numbers;
+9. last line: ``{"ok": true, "device": {...}}``.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
+CUDA card and refuses to run without one.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SIZE = 64                     # laplace_3d(SIZE): 262,144 rows
+DEVICE = "cuda"
+N_PODS, LANES = 2, 4
+K_RHS = 8
+SEED = 0
+SAMPLES, BURST = 25, 10      # kernel timings: median of 25 bursts of 10
+SLEEP_CYCLES = 5_000_000     # ~3 ms of GPU spin: the host queues a burst
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+# the card's highest dense rate for each type (H100 SXM data sheet): float32
+# outside the tensor cores, float64 on them
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+HIST_TOL = 1e-7
+KERNELS = {   # name -> (source, Pallas kernel it replaces)
+    "ell_spmv": ("src/repro_torch/kernels/spmv/csrc/ell_spmv.cu",
+                 "src/repro/kernels/spmv/spmv.py:75"),
+    "ell_spmm": ("src/repro_torch/kernels/spmv/csrc/ell_spmm.cu",
+                 "src/repro/kernels/spmv/spmv.py:104"),
+    "bcsr_spmm": ("src/repro_torch/kernels/spmv/csrc/bcsr_spmm.cu",
+                  "src/repro/kernels/spmv/bcsr.py:65"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def time_ms(fn) -> tuple[float, float]:
+    """(device ms, host ms) per call of ``fn()``, medians over SAMPLES
+    bursts of BURST calls (after a warm-up).  Each burst is queued behind a
+    GPU spin, so the CUDA events around it time the calls back to back on
+    the card rather than the host's enqueue rate; the host clock around the
+    enqueue loop gives what one call costs the host."""
+    fn()
+    torch.cuda.synchronize()
+    dev, host = [], []
+    for _ in range(SAMPLES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(BURST):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / BURST)
+        end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end) / BURST)
+    return float(np.median(dev)), float(np.median(host))
+
+
+def ell_to_csr(cols: torch.Tensor, vals: torch.Tensor, m: int) -> torch.Tensor:
+    """The rank-stacked ELL operator as one block-diagonal CSR tensor
+    ``[D·n, D·m]`` (stored entries only), for ``torch.sparse.mm``."""
+    D, n, _ = cols.shape
+    keep = cols >= 0
+    rows = torch.arange(D * n, device=cols.device).reshape(D, n, 1).expand_as(cols)
+    offs = (torch.arange(D, device=cols.device) * m).reshape(D, 1, 1)
+    idx = torch.stack([rows[keep], (cols.long() + offs)[keep]])
+    return torch.sparse_coo_tensor(idx, vals[keep], (D * n, D * m)).coalesce() \
+        .to_sparse_csr()
+
+
+def bcsr_to_csr(bcols: torch.Tensor, bvals: torch.Tensor, m: int) -> torch.Tensor:
+    """The rank-stacked block-ELL operator as one block-diagonal CSR tensor
+    ``[D·mb·bs, D·m]`` holding the blocks' nonzero entries."""
+    D, mb, Kb, bs, _ = bvals.shape
+    dev = bcols.device
+    r = (torch.arange(mb, device=dev).reshape(1, mb, 1, 1, 1) * bs
+         + torch.arange(bs, device=dev).reshape(1, 1, 1, bs, 1))
+    c = (bcols.long().reshape(D, mb, Kb, 1, 1) * bs
+         + torch.arange(bs, device=dev).reshape(1, 1, 1, 1, bs))
+    d = torch.arange(D, device=dev).reshape(D, 1, 1, 1, 1)
+    shape = (D, mb, Kb, bs, bs)
+    keep = ((bcols >= 0).reshape(D, mb, Kb, 1, 1).expand(shape)
+            & (bvals != 0) & (c < m))
+    rows = (d * mb * bs + r).expand(shape)[keep]
+    cols = (d * m + c).expand(shape)[keep]
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), bvals[keep],
+                                   (D * mb * bs, D * m)).coalesce().to_sparse_csr()
+
+
+def kernel_case(name, fn, plain, library, args, nbytes, flops):
+    """Run one kernel against its plain version; time all three."""
+    y = fn(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    scale = float(ref.abs().max()) or 1.0
+    dtype = ref.dtype
+    check(err <= RTOL[dtype] * scale,
+          f"{name} {dtype}: max |kernel - plain| = {err:.3e} exceeds "
+          f"{RTOL[dtype]:g} x max|plain| = {RTOL[dtype] * scale:.3e}")
+    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
+    ms, host_ms = time_ms(lambda: fn(*args))
+    row = {"dtype": str(dtype).replace("torch.", ""),
+           "shape": [list(a.shape) for a in args],
+           "max_abs_err": err, "rel_err": err / scale,
+           "ms": ms, "host_ms": host_ms,
+           "plain_ms": time_ms(lambda: plain(*args))[0],
+           "library_ms": time_ms(library)[0],
+           "bound_ms": bound_s * 1e3,
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                        >= flops / PEAK_FLOPS[dtype] else "operations")}
+    log(f"  {name:9s} {row['dtype']:7s} {row['shape']}: err {err:.2e} "
+        f"(rel {err / scale:.1e}) kernel {row['ms']:.4f} ms (host "
+        f"{host_ms:.4f} ms/call), plain "
+        f"{row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms")
+    return row
+
+
+def kernel_phase(dh64, dh32) -> dict[str, list]:
+    """Every kernel at the main path's shapes, f32 and f64."""
+    from repro_torch.kernels.spmv import bcsr as kb
+    from repro_torch.kernels.spmv import ref
+    from repro_torch.kernels.spmv import spmv as ks
+
+    rng = np.random.default_rng(SEED)
+    out: dict[str, list] = {n: [] for n in KERNELS}
+    for dh in (dh64, dh32):
+        dev, dt = dh.device, dh.dtype
+        s = torch.finfo(dt).bits // 8
+        # level 0's on-process ELL block: what every level-0 apply launches
+        a0 = dh._arrs[0]["A"]
+        cols, vals = a0["on_cols"], a0["on_vals"]
+        D, n, K = cols.shape
+        m = dh.levels[0].A.plan.local_n
+        nnz = int((cols >= 0).sum())
+        x = torch.as_tensor(rng.standard_normal((D, m)), dtype=dt, device=dev)
+        X = torch.as_tensor(rng.standard_normal((D, m, K_RHS)), dtype=dt,
+                            device=dev)
+        csr = ell_to_csr(cols, vals, m)
+        xf, Xf = x.reshape(-1, 1), X.reshape(-1, K_RHS)
+        # bytes: every slot's column id, the values of stored entries only
+        # (the kernels never load a padded slot's value), x and y once
+        out["ell_spmv"].append(dict(kernel_case(
+            "ell_spmv", ks.ell_spmv, ref.ell_spmv_ref,
+            lambda: torch.sparse.mm(csr, xf), (cols, vals, x),
+            D * n * K * 4 + nnz * s + D * (m + n) * s, 2 * nnz), k=1))
+        out["ell_spmm"].append(dict(kernel_case(
+            "ell_spmm", ks.ell_spmm, ref.ell_spmm_ref,
+            lambda: torch.sparse.mm(csr, Xf), (cols, vals, X),
+            D * n * K * 4 + nnz * s + D * (m + n) * K_RHS * s,
+            2 * nnz * K_RHS), k=K_RHS))
+        # the BCSR levels' on-process blocks, lowered at both block sizes
+        for l, dl in enumerate(dh.levels):
+            if dl.A.local_kernel != "bcsr":
+                continue
+            for bs in kb.BLOCK_SIZES:
+                op = copy.copy(dl.A)
+                op.lower_bcsr(bs)
+                bcols = torch.as_tensor(op.bcsr_on_bcols, device=dev)
+                bvals = torch.as_tensor(op.bcsr_on_bvals, dtype=dt, device=dev)
+                _, mb, Kb = bcols.shape
+                ml = op.plan.local_n
+                nblk = int((bcols >= 0).sum())     # stored blocks
+                bnnz = int((bvals != 0).sum())
+                for k in (1, K_RHS):
+                    xb = torch.as_tensor(rng.standard_normal((D, ml, k)),
+                                         dtype=dt, device=dev)
+                    bcsr = bcsr_to_csr(bcols, bvals, ml)
+                    xbf = xb.reshape(-1, k)
+                    row = kernel_case(
+                        f"bcsr_spmm L{l} bs{bs} k{k}", kb.bcsr_spmm,
+                        ref.bcsr_apply_ref,
+                        lambda: torch.sparse.mm(bcsr, xbf), (bcols, bvals, xb),
+                        # every block id; stored blocks only (the kernel
+                        # skips padded slots); x and y once
+                        D * mb * Kb * 4 + nblk * bs * bs * s
+                        + D * (ml + mb * bs) * k * s,
+                        2 * nblk * bs * bs * k)
+                    row.update(level=l, bs=bs, k=k,
+                               main_path=bs == dl.A.block_size, stored_nnz=bnnz)
+                    out["bcsr_spmm"].append(row)
+    check(out["bcsr_spmm"], "no level of the main path lowered to BCSR")
+    return out
+
+
+def counted(fn):
+    """Run ``fn`` with every launch counter set to 0 just before; return its
+    result and the counts read just after."""
+    from repro_torch.kernels.spmv.ops import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, launch_counts()
+
+
+def device_profile(fn) -> dict:
+    """Device time of ``fn()`` by kernel name, from ``torch.profiler``
+    (CUPTI).  Empty when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = by_name.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    return by_name
+
+
+def history_diff(a, b) -> float:
+    n = min(len(a), len(b))
+    r0 = a[0] or 1.0
+    return max(abs(x - y) / r0 for x, y in zip(a[:n], b[:n]))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.amg import AMGConfig, AMGSolver
+    from repro_torch.amg.problems import laplace_3d
+    from repro_torch.kernels.spmv.build import build
+
+    # 1. device
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"device: {name}, capability {cap[0]}.{cap[1]}, "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(smi)
+
+    # 2. build
+    t0 = time.perf_counter()
+    per = build()
+    log(f"build: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in per.items()) or 'cached'})")
+
+    # the main path's problem and sessions (host setup + lowering)
+    A = laplace_3d(SIZE)
+    rng = np.random.default_rng(SEED)
+    b = rng.standard_normal(A.nrows)
+    cfg64 = AMGConfig(backend="torch", n_pods=N_PODS, lanes=LANES,
+                      dtype="float64", tol=1e-8, device=DEVICE)
+    t0 = time.perf_counter()
+    bound64 = AMGSolver(cfg64).setup(A)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dh64 = bound64.dist_hierarchy
+    t_lower64 = time.perf_counter() - t0
+    log(f"laplace_3d({SIZE}): {A.nrows} rows, {A.nnz} nnz, "
+        f"{len(dh64.levels)} levels; host setup {t_setup:.2f} s, "
+        f"lowering f64 {t_lower64:.2f} s")
+    log(f"  layouts: {[r['kernel'] + (str(r['block_size']) if r['block_size'] else '') for r in dh64.kernel_table()]}")
+    log(f"  strategies: {[(r['level'], r['op'], r['strategy']) for r in dh64.selection_table()]}")
+    bound32 = AMGSolver(dataclasses.replace(cfg64, dtype="float32", tol=1e-5)) \
+        .setup(A)
+    t0 = time.perf_counter()
+    dh32 = bound32.dist_hierarchy
+    log(f"  lowering f32 {time.perf_counter() - t0:.2f} s")
+
+    # 3. kernels
+    log(f"kernels (device time per call: CUDA events, median of {SAMPLES} "
+        f"bursts of {BURST} queued behind a GPU spin):")
+    rows = kernel_phase(dh64, dh32)
+
+    # 4. main path, f64
+    res, c_single = counted(lambda: bound64.pcg(b))
+    check(res.converged, f"f64 PCG did not converge: {res.residuals[-3:]}")
+    host = AMGSolver(dataclasses.replace(cfg64, backend="host")).setup(A)
+    res_h = host.pcg(b)
+    hd = history_diff(res_h.residuals, res.residuals)
+    check(abs(res_h.iterations - res.iterations) <= 1 and hd <= HIST_TOL,
+          f"f64 PCG history vs host: diff {hd:.2e}, iterations "
+          f"{res.iterations} vs {res_h.iterations}")
+    true_rel = float(np.linalg.norm(b - A.matvec(res.x)) / np.linalg.norm(b))
+    check(true_rel < 1e-7, f"true residual {true_rel:.2e}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = bound64.pcg(b)
+    ms_iter = (time.perf_counter() - t0) * 1e3 / max(warm.iterations, 1)
+    log(f"pcg f64: {res.iterations} iterations, converged, history vs host "
+        f"{hd:.2e}, true residual {true_rel:.2e}, {ms_iter:.3f} ms/iteration "
+        f"(warm, whole call / iterations), launches {c_single}")
+    # where the time of that warm solve goes on the device
+    prof = device_profile(lambda: bound64.pcg(b))
+    dev_ms = sum(v[0] for v in prof.values())
+    busy = dev_ms / (ms_iter * max(warm.iterations, 1)) if prof else None
+    top_dev = sorted(prof.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"  device time (torch.profiler) of the warm solve: "
+        + (f"{dev_ms:.3f} ms = {dev_ms / max(warm.iterations, 1):.3f} "
+           f"ms/iteration, busy share {busy:.3f} of the unprofiled wall time"
+           if prof else "not measured (no device events)"))
+    for kname, (kms, kcount) in top_dev:
+        log(f"    {kms:9.3f} ms {kcount:6d}x  {kname[:100]}")
+
+    # 5. multi-RHS
+    B = np.stack([b] + [rng.standard_normal(A.nrows)
+                        for _ in range(K_RHS - 1)], axis=1)
+    resm, c_multi = counted(lambda: bound64.pcg(B))
+    check(resm.converged, "multi-RHS PCG did not converge")
+    worst = 0.0
+    for j in range(K_RHS):
+        rj = res if j == 0 else bound64.pcg(B[:, j])
+        cj = resm.columns[j]
+        xd = float(np.abs(cj.x - rj.x).max() / np.abs(rj.x).max())
+        worst = max(worst, history_diff(rj.residuals, cj.residuals), xd)
+        check(abs(rj.iterations - cj.iterations) <= 1,
+              f"column {j}: {cj.iterations} vs {rj.iterations} iterations")
+    check(worst <= HIST_TOL, f"multi-RHS columns vs single runs: {worst:.2e}")
+    log(f"pcg f64 [n, {K_RHS}]: {resm.iterations} iterations, columns vs "
+        f"single-RHS runs {worst:.2e}, launches {c_multi}")
+
+    # 6. f32 session
+    res32, c_f32 = counted(lambda: bound32.pcg(b))
+    check(res32.converged, f"f32 PCG did not converge: {res32.residuals[-3:]}")
+    log(f"pcg f32 (tol 1e-5): {res32.iterations} iterations, launches {c_f32}")
+
+    # 7. launch counts over the main-path runs
+    launches = {k: c_single[k] + c_multi[k] + c_f32[k] for k in KERNELS}
+    for k, v in launches.items():
+        check(v > 0, f"{k} was never launched on the main path")
+    log(f"launches on the main path: {launches}")
+
+    # 8. the kernels line: top-level numbers are the first float64 case on
+    # the main path's operands (BCSR: its block size, one RHS); every dtype
+    # / block-size / RHS case is under "variants"
+    kernels = []
+    for k, (src, replaces) in KERNELS.items():
+        top = next(r for r in rows[k] if r["dtype"] == "float64"
+                   and r.get("main_path", True)
+                   and r["k"] == (K_RHS if k == "ell_spmm" else 1))
+        kernels.append({
+            "name": k, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[k], "max_abs_err": top["max_abs_err"],
+            "max_err": top["max_abs_err"], "ms": top["ms"],
+            "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "card": smi,
+            "variants": rows[k]})
+    print(json.dumps({"kernels": kernels,
+                      "path": {"setup_s": t_setup, "lowering_f64_s": t_lower64,
+                               "pcg_f64_iterations": res.iterations,
+                               "pcg_f64_ms_per_iteration": ms_iter,
+                               "pcg_f64_device_ms": dev_ms if prof else None,
+                               "pcg_f64_device_busy_share": busy,
+                               "pcg_f64_top_device": [
+                                   [kn[:100], km, kc]
+                                   for kn, (km, kc) in top_dev],
+                               "history_vs_host": hd,
+                               "true_residual": true_rel,
+                               "multi_rhs_worst": worst,
+                               "pcg_f32_iterations": res32.iterations,
+                               "launches_per_run": {"f64": c_single,
+                                                    "f64_multi": c_multi,
+                                                    "f32": c_f32}}}),
+          flush=True)
+    log(smi)
+    # 9. result
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

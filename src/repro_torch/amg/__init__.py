@@ -1,0 +1,23 @@
+"""Algebraic multigrid on PyTorch (port of :mod:`repro.amg`).
+
+The host setup (Algorithm 1), the numpy reference solve and the lowering
+are numpy copies of the reference; the distributed solve phase runs on
+rank-stacked tensors through the CUDA kernels::
+
+    from repro_torch.amg import AMGConfig, AMGSolver
+
+    cfg = AMGConfig(backend="torch", n_pods=2, lanes=4, dtype="float64")
+    res = AMGSolver(cfg).setup(A).pcg(b)
+"""
+from .api import (AMGConfig, AMGSolver, BoundSolver, RequestOptions,
+                  SessionStore, available_backends, register_backend)
+from .csr import CSR
+from .dist_solve import DistHierarchy
+from .hierarchy import Hierarchy, Level, setup
+from .solve import (MultiSolveResult, SolveOptions, SolveResult, pcg, solve,
+                    vcycle)
+
+__all__ = ["CSR", "Hierarchy", "Level", "setup", "SolveOptions", "SolveResult",
+           "MultiSolveResult", "pcg", "solve", "vcycle", "AMGConfig",
+           "AMGSolver", "BoundSolver", "RequestOptions", "SessionStore",
+           "available_backends", "register_backend", "DistHierarchy"]

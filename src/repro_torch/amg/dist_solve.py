@@ -1,0 +1,589 @@
+"""Device-resident distributed AMG solve phase on rank-stacked tensors
+(PyTorch port of :mod:`repro.amg.dist_solve`).
+
+At :meth:`DistHierarchy.build` time, for every level ℓ and every solve-phase
+operator — ``A_ℓ`` (smoother sweeps + residual), ``P_ℓ`` (interpolation) and
+``R_ℓ`` (restriction) — the host lowering (a numpy copy of the reference's
+``_lower_levels``) builds the operator's communication graph, picks
+standard / NAP-2 / NAP-3 from the max-rate models of Eqs. (4)–(6), and builds
+a :class:`~repro_torch.amg.dist_spmv.DistOperator` for the winner.  The level
+arrays then move to the device once.
+
+Execution runs all D = ``n_pods × lanes`` ranks in one process with the rank
+as the leading tensor dim (pod-major, the reference's device order).  The
+reference's ten fused ``shard_map`` programs (``cycle``, ``vcycle``,
+``pcg_init``, ``pcg_step``, ``resid_norm`` and their ``*_m`` multi-RHS twins)
+are plain methods here: every SpMV is one
+:meth:`~repro_torch.amg.dist_spmv.DistOperator.apply` (halo exchange + one
+kernel launch for all ranks), dots and norms go through
+:func:`~repro_torch.core.nap_collectives.hier_psum`, and the coarsest level
+gathers its residual with ``hier_all_gather`` and applies the dense
+pseudo-inverse with ``torch.matmul``.  Only the convergence check touches
+the host: one residual norm per outer iteration.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.nap_collectives import hier_all_gather, hier_psum
+from ..core.perf_model import (TPU_V5E, MachineParams, overlap_efficiency,
+                               spmv_compute_times)
+from ..core.selector import select
+from ..core.topology import Partition, Topology
+from ..device import resolve_device
+from ..kernels.spmv.ops import select_dist_kernel
+from .dist import rect_vector_graph, schedule_comm_stats
+from .dist_spmv import DistOperator, build_dist_operator
+from .hierarchy import Hierarchy
+from .interpolation import estimate_rho_DinvA
+from .smoothers import chebyshev_coeffs, chebyshev_recurrence
+from .solve import (CYCLE_CHILDREN, MultiSolveResult, SolveOptions,
+                    SolveResult, level_visits)
+
+SOLVE_STRATEGIES = ("standard", "nap2", "nap3")
+# compute dtypes the kernels take, and the numpy dtype each lowers with
+DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+@dataclasses.dataclass
+class DistLevel:
+    """Device form of one hierarchy level: operators + smoother data."""
+
+    A: DistOperator
+    dinv: np.ndarray                     # [D, rows_local] (0 on padded rows)
+    P: DistOperator | None = None        # fine rows × coarse cols
+    R: DistOperator | None = None        # coarse rows × fine cols
+    rho: float = 1.0                     # ρ(D⁻¹A) for Chebyshev
+    coarse_inv: np.ndarray | None = None  # [D, rows_local, D*rows_local]
+    strategies: dict[str, str] = dataclasses.field(default_factory=dict)
+    modeled: dict[str, dict[str, float]] = dataclasses.field(default_factory=dict)
+    # local-kernel layout decision for A (select_dist_kernel dict)
+    local_kernel: dict = dataclasses.field(default_factory=dict)
+    # per-op modeled message/byte counts for the selected strategy
+    comm_stats: dict[str, dict] = dataclasses.field(default_factory=dict)
+    # on/off-process split of A (nnz counts, modeled t_on/t_off/t_comm)
+    onoff: dict = dataclasses.field(default_factory=dict)
+
+
+class DistHierarchy:
+    """An AMG hierarchy lowered onto a (pods × lanes) rank grid, its arrays
+    resident on one device.  Built once per hierarchy and reusable across
+    any number of :func:`dist_solve` / :func:`dist_pcg` calls.
+
+    ``comm_log``: set it to a list to record, in order, the canonical name
+    of every collective step the programs run (``None``, the default,
+    records nothing).
+    """
+
+    def __init__(self, h: Hierarchy, n_pods: int, lanes: int,
+                 levels: list[DistLevel], dtype: torch.dtype,
+                 device: torch.device, use_kernel: bool,
+                 reduce_strategy: str, overlap: bool):
+        self.h = h
+        self.n_pods, self.lanes = n_pods, lanes
+        self.levels = levels
+        self.dtype = dtype
+        self.device = device
+        self.use_kernel = use_kernel
+        self.reduce_strategy = reduce_strategy
+        # True: every apply is A_on·x + A_off·halo; False: the fused serial
+        # form A·[x | halo]
+        self.overlap = overlap
+        self.comm_log: list | None = None
+        # level arrays, moved to the device once at build time
+        self._arrs = [self._level_arrays(lv) for lv in levels]
+
+    # ------------------------------------------------------------------ build
+    @classmethod
+    def build(cls, h: Hierarchy, n_pods: int, lanes: int, *,
+              params: MachineParams = TPU_V5E,
+              strategy: str = "auto",
+              strategies: tuple[str, ...] = SOLVE_STRATEGIES,
+              dtype: torch.dtype = torch.float32,
+              device: str | torch.device = "cuda",
+              use_kernel: bool | None = None,
+              reduce_strategy: str = "nap3",
+              overlap: bool = True) -> "DistHierarchy":
+        """Lower ``h`` onto the rank grid, selecting each operator's strategy.
+
+        ``strategy="auto"`` picks per level and per operator from the
+        performance models; any explicit strategy name forces it everywhere.
+        ``use_kernel=None``/``True`` routes every local product through the
+        kernel wrappers (the CUDA kernels on a CUDA device, their plain
+        versions on the CPU); ``False`` takes the plain versions explicitly.
+        """
+        if dtype not in DTYPES:
+            raise NotImplementedError(
+                f"dtype {dtype} is not ported yet; the kernels take "
+                f"torch.float32 and torch.float64")
+        device = resolve_device(device)
+        levels = cls._lower_levels(h.levels, n_pods, lanes, params=params,
+                                   strategy=strategy, strategies=strategies,
+                                   dtype=DTYPES[dtype])
+        return cls(h, n_pods, lanes, levels, dtype, device,
+                   True if use_kernel is None else bool(use_kernel),
+                   reduce_strategy, bool(overlap))
+
+    @classmethod
+    def _lower_levels(cls, src_levels, n_pods: int, lanes: int, *, params,
+                      strategy, strategies, dtype) -> list[DistLevel]:
+        """Per-level lowering (numpy copy of the reference's): comm graphs,
+        strategy selection, halo plans, ELL blocks, optional BCSR."""
+        topo = Topology(n_nodes=n_pods, ppn=lanes)
+        D = topo.n_procs
+
+        def choose(graph, op_name, compute=(0.0, 0.0)):
+            # ``compute=(t_on, t_off)`` makes the ranking overlap-aware:
+            # max(T_comm, T_on) + T_off — zero (the default, and always when
+            # params.Rf is unset) reduces to the serial comm-only model
+            if strategy != "auto":
+                return strategy, {}, {}
+            sel = select(graph, params, strategies, compute=compute)
+            return sel.strategy, dict(sel.times), dict(sel.comm_times)
+
+        def make_op(M, strat, row_part, col_part, graph):
+            return build_dist_operator(M, n_pods, lanes, strat,
+                                       row_part=row_part, col_part=col_part,
+                                       graph=graph, dtype=dtype)
+
+        def onoff_compute(M, row_part, col_part):
+            """Per-device max on/off nnz → modeled (t_on, t_off) split."""
+            on_max = off_max = 0
+            for q in range(D):
+                rlo, rhi = row_part.local_range(q)
+                clo, chi = col_part.local_range(q)
+                sub = M.submatrix_rows(rlo, rhi)
+                on = int(((sub.indices >= clo) & (sub.indices < chi)).sum())
+                on_max = max(on_max, on)
+                off_max = max(off_max, sub.nnz - on)
+            return spmv_compute_times(params, on_max, off_max)
+
+        parts = [Partition.balanced(lv.A.nrows, topo) for lv in src_levels]
+        levels: list[DistLevel] = []
+        for l, lv in enumerate(src_levels):
+            part = parts[l]
+            gA = rect_vector_graph(lv.A, part, part)
+            compA = onoff_compute(lv.A, part, part)
+            sA, tA, cA = choose(gA, "spmv_A", compA)
+            Aop = make_op(lv.A, sA, part, part, gA)
+            # per-level local-kernel layout: ELL gather vs dense-block BCSR
+            # (A only; the coarsest A never runs a SpMV, its solve is dense)
+            sel = select_dist_kernel(Aop.ell_cols)
+            if sel["kernel"] == "bcsr" and l + 1 < len(src_levels):
+                Aop.lower_bcsr(sel["block_size"])
+            else:
+                sel = dict(sel, kernel="ell", block_size=0)
+            d = lv.A.diagonal()
+            dinv = 1.0 / np.where(d == 0, 1.0, d)
+            dinv_dev = np.zeros((D, part.max_local_size), dtype=np.float64)
+            for q in range(D):
+                lo, hi = part.local_range(q)
+                dinv_dev[q, : hi - lo] = dinv[lo:hi]
+            dl = DistLevel(A=Aop, dinv=dinv_dev,
+                           strategies={"spmv_A": sA},
+                           modeled={"spmv_A": tA},
+                           local_kernel=sel)
+            dl.comm_stats["spmv_A"] = schedule_comm_stats(gA, sA)
+            nnz = Aop.onoff_nnz()
+            t_on, t_off = compA
+            t_comm = cA.get(sA, 0.0)
+            dl.onoff = {**nnz, "local_nnz": nnz["on_nnz"] + nnz["off_nnz"],
+                        "halo_empty": Aop.halo_empty,
+                        "t_on": t_on, "t_off": t_off, "t_comm": t_comm,
+                        "eff_modeled": overlap_efficiency(t_comm, t_on, t_off)}
+            if lv.P is not None and l + 1 < len(src_levels):
+                cpart = parts[l + 1]
+                gP = rect_vector_graph(lv.P, part, cpart)
+                sP, tP, _ = choose(gP, "interp",
+                                   onoff_compute(lv.P, part, cpart))
+                dl.P = make_op(lv.P, sP, part, cpart, gP)
+                gR = rect_vector_graph(lv.R, cpart, part)
+                sR, tR, _ = choose(gR, "restrict",
+                                   onoff_compute(lv.R, cpart, part))
+                dl.R = make_op(lv.R, sR, cpart, part, gR)
+                dl.rho = estimate_rho_DinvA(lv.A)
+                dl.strategies.update(interp=sP, restrict=sR)
+                dl.modeled.update(interp=tP, restrict=tR)
+                dl.comm_stats["interp"] = schedule_comm_stats(gP, sP)
+                dl.comm_stats["restrict"] = schedule_comm_stats(gR, sR)
+            else:
+                if lv.P is not None:
+                    raise ValueError(
+                        f"level {l} has P but no coarser level (coarsening "
+                        f"stalled); refusing the dense coarse solve at "
+                        f"n={lv.A.nrows}")
+                # coarsest: distributed dense pseudo-inverse solve
+                pinv = np.linalg.pinv(lv.A.to_dense())
+                m = part.max_local_size
+                cinv = np.zeros((D, m, D * m), dtype=np.float64)
+                for q in range(D):
+                    lo, hi = part.local_range(q)
+                    for e in range(D):
+                        elo, ehi = part.local_range(e)
+                        cinv[q, : hi - lo, e * m: e * m + ehi - elo] = \
+                            pinv[lo:hi, elo:ehi]
+                dl.coarse_inv = cinv
+            levels.append(dl)
+        return levels
+
+    # ------------------------------------------------------------- reporting
+    def selection_table(self) -> list[dict]:
+        """One row per (level, op): chosen strategy + modeled seconds."""
+        rows = []
+        for l, dl in enumerate(self.levels):
+            for op, s in dl.strategies.items():
+                rows.append({"level": l, "op": op, "strategy": s,
+                             "modeled": dict(dl.modeled.get(op, {}))})
+        return rows
+
+    def kernel_table(self) -> list[dict]:
+        """One row per level: the local-kernel layout that runs for A."""
+        return [{"level": l, "kernel": dl.A.local_kernel,
+                 "block_size": dl.A.block_size,
+                 "rows_local": dl.A.rows_local,
+                 "halo_empty": dl.A.halo_empty}
+                for l, dl in enumerate(self.levels)]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the level tensors resident on the device."""
+        return int(sum(t.numel() * t.element_size()
+                       for a in self._arrs for v in a.values()
+                       for t in (v.values() if isinstance(v, dict) else (v,))))
+
+    # ----------------------------------------------------------- host layout
+    def scatter(self, x: np.ndarray, level: int = 0) -> torch.Tensor:
+        """Global ``[n(, k)]`` → rank-stacked ``[D, local(, k)]`` on device."""
+        arr = self.levels[level].A.scatter_x(np.asarray(x),
+                                             dtype=DTYPES[self.dtype])
+        return torch.from_numpy(arr).to(self.device)
+
+    def gather(self, x_dev: torch.Tensor, level: int = 0) -> np.ndarray:
+        return self.levels[level].A.gather_y(x_dev.cpu().numpy())
+
+    # --------------------------------------------------------- device pieces
+    def _level_arrays(self, dl: DistLevel) -> dict:
+        dev, dt = self.device, self.dtype
+        a = {"A": dl.A.to_device(dev, dt),
+             "dinv": torch.as_tensor(dl.dinv).to(device=dev, dtype=dt)}
+        if dl.P is not None:
+            a["P"] = dl.P.to_device(dev, dt)
+            a["R"] = dl.R.to_device(dev, dt)
+        if dl.coarse_inv is not None:
+            a["cinv"] = torch.as_tensor(dl.coarse_inv).to(device=dev, dtype=dt)
+        return a
+
+    def _spmv(self, op: DistOperator, arrs: dict, x: torch.Tensor):
+        return op.apply(arrs, x, use_kernel=self.use_kernel,
+                        overlap=self.overlap, log=self.comm_log)
+
+    def _pdot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Per-rank replicated dot: ``[D]`` for ``[D, n]`` operands, per
+        column ``[D, k]`` for ``[D, n, k]``."""
+        return hier_psum((a * b).sum(dim=1), self.n_pods, self.lanes,
+                         strategy=self.reduce_strategy, log=self.comm_log)
+
+    def _pnorm(self, r: torch.Tensor) -> torch.Tensor:
+        return torch.sqrt(self._pdot(r, r))
+
+    def _relax(self, dl: DistLevel, arrs: dict, x, b, opts, sweeps: int):
+        if sweeps == 0:
+            return x
+        aA = arrs["A"]
+        dinv = arrs["dinv"]
+        if x.ndim == 3:                  # [D, local, k]: broadcast over RHS
+            dinv = dinv[..., None]
+        if opts.smoother == "jacobi":
+            for _ in range(sweeps):
+                x = x + opts.omega * dinv * (b - self._spmv(dl.A, aA, x))
+            return x
+        if opts.smoother == "chebyshev":
+            # the recurrence shared with the host backend, its matvec swapped
+            # for the level's distributed SpMV
+            degree = opts.cheby_degree * sweeps
+            theta, delta, sigma = chebyshev_coeffs(dl.rho)
+            return chebyshev_recurrence(
+                lambda v: self._spmv(dl.A, aA, v), dinv, x, b, degree,
+                theta, delta, sigma)
+        raise NotImplementedError(
+            f"smoother {opts.smoother!r} is not ported yet: the block "
+            f"smoothers need per-rank dense [D, m, m] factors (ROADMAP, "
+            f"port queue: block smoothers)")
+
+    def _cycle_dev(self, b, x, opts, level: int = 0,
+                   shape: str | None = None):
+        """One cycle of ``shape`` (default ``opts.cycle``) on the device; the
+        per-shape coarse revisits of
+        :data:`~repro_torch.amg.solve.CYCLE_CHILDREN` recurse in Python."""
+        shape = shape or opts.cycle
+        dl = self.levels[level]
+        a = self._arrs[level]
+        if dl.coarse_inv is not None:                 # coarsest: direct solve
+            full = hier_all_gather(b, self.n_pods, self.lanes,
+                                   log=self.comm_log)  # [D, D*rows_local(,k)]
+            if b.ndim == 2:
+                return torch.matmul(a["cinv"], full.unsqueeze(-1)).squeeze(-1)
+            return torch.matmul(a["cinv"], full)
+        if x is None:
+            x = torch.zeros_like(b)
+        x = self._relax(dl, a, x, b, opts, opts.presweeps)
+        r = b - self._spmv(dl.A, a["A"], x)
+        rc = self._spmv(dl.R, a["R"], r)
+        ec = None
+        for child in CYCLE_CHILDREN[shape]:           # coarse-grid solve(s)
+            ec = self._cycle_dev(rc, ec, opts, level + 1, shape=child)
+        x = x + self._spmv(dl.P, a["P"], ec)
+        x = self._relax(dl, a, x, b, opts, opts.postsweeps)
+        return x
+
+    # ------------------------------------------------------------- programs
+    # The reference's ten fused programs.  Vectors are [D, local] (single
+    # RHS) or [D, local, k] (the *_m twins: every SpMV a native SpMM, one
+    # halo exchange for all k columns); norms and dots come back per rank,
+    # [D] or [D, k], every rank holding the same value.
+
+    def _spmv0(self, x):
+        return self._spmv(self.levels[0].A, self._arrs[0]["A"], x)
+
+    def resid_norm(self, x, b, opts):
+        return self._pnorm(b - self._spmv0(x))
+
+    def cycle(self, x, b, opts):
+        x = self._cycle_dev(b, x, opts)
+        return x, self._pnorm(b - self._spmv0(x))
+
+    def vcycle(self, b, opts):
+        return self._cycle_dev(b, None, opts)
+
+    def pcg_init(self, x, b, opts):
+        r = b - self._spmv0(x)                      # x0 warm start
+        z = self._cycle_dev(r, None, opts)
+        return r, z, self._pdot(r, z), self._pnorm(r)
+
+    def pcg_step(self, x, r, p, rz, opts):
+        Ap = self._spmv0(p)
+        alpha = (rz / self._pdot(p, Ap)).unsqueeze(1)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rnorm = self._pnorm(r)
+        z = self._cycle_dev(r, None, opts)
+        rz_new = self._pdot(r, z)
+        p = z + (rz_new / rz).unsqueeze(1) * p
+        return x, r, p, rz_new, rnorm
+
+    # the multi-RHS twins of the first four are the same computation on
+    # [D, local, k] operands (per-column dots come out of _pdot as [D, k])
+    resid_norm_m = resid_norm
+    cycle_m = cycle
+    vcycle_m = vcycle
+    pcg_init_m = pcg_init
+
+    def pcg_step_m(self, x, r, p, rz, opts):
+        Ap = self._spmv0(p)
+        # columns that already converged exactly (rz = pAp = 0, e.g. a zero
+        # RHS) must not poison the batch with 0/0 NaNs: guard the divisions
+        # so such columns step by exactly zero
+        den = self._pdot(p, Ap)
+        alpha = (rz / torch.where(den == 0, 1.0, den)).unsqueeze(1)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rnorm = self._pnorm(r)
+        z = self._cycle_dev(r, None, opts)
+        rz_new = self._pdot(r, z)
+        p = z + (rz_new / torch.where(rz == 0, 1.0, rz)).unsqueeze(1) * p
+        return x, r, p, rz_new, rnorm
+
+
+# --------------------------------------------------------------------------
+# Solver drivers (host loop = convergence check only)
+# --------------------------------------------------------------------------
+
+# defaults of DistHierarchy.build, used to normalize cache keys so kwargs
+# dicts that spell a default explicitly hit the same entry
+_BUILD_DEFAULTS = dict(params=TPU_V5E, strategy="auto",
+                       strategies=SOLVE_STRATEGIES, dtype=torch.float32,
+                       device="cuda", use_kernel=None,
+                       reduce_strategy="nap3", overlap=True)
+DIST_CACHE_SIZE = 8
+
+
+def _freeze_kwargs(kw: dict) -> tuple | None:
+    """Hashable cache key for a DistHierarchy.build kwargs dict (normalized
+    against the build defaults), or ``None`` when any value is unhashable."""
+    items = []
+    for k, v in sorted({**_BUILD_DEFAULTS, **kw}.items()):
+        try:
+            hash(v)
+        except TypeError:
+            return None
+        items.append((k, v))
+    return tuple(items)
+
+
+def _ensure_dist(h, dist, **build_kwargs) -> DistHierarchy:
+    """Resolve ``dist=`` (a prebuilt DistHierarchy or a build-kwargs dict)
+    to a DistHierarchy; kwargs dicts go through the per-hierarchy
+    ``dist_cache`` so repeated calls reuse ONE lowering."""
+    if isinstance(h, DistHierarchy):
+        return h
+    if isinstance(dist, DistHierarchy):
+        return dist
+    if dist is None:
+        raise ValueError(
+            "backend='torch' needs dist=: pass a prebuilt DistHierarchy "
+            "(reused across calls) or a DistHierarchy.build kwargs dict "
+            "with at least n_pods and lanes")
+    kw = dict(dist)
+    kw.update(build_kwargs)
+    key = _freeze_kwargs(kw)
+    cache = getattr(h, "dist_cache", None)
+    if cache is not None and key is not None and key in cache:
+        return cache[key]
+    try:
+        n_pods, lanes = kw.pop("n_pods"), kw.pop("lanes")
+    except KeyError as e:
+        raise ValueError(f"dist= kwargs dict must set {e.args[0]!r}") from None
+    dh = DistHierarchy.build(h, n_pods, lanes, **kw)
+    if cache is not None and key is not None:
+        cache[key] = dh
+        while len(cache) > DIST_CACHE_SIZE:      # oldest-first eviction
+            cache.pop(next(iter(cache)))
+    return dh
+
+
+def _norms(b: np.ndarray):
+    """Per-column norms of b as a denominator: [k] for [n, k], scalar else."""
+    nb = np.linalg.norm(b, axis=0)
+    return np.where(nb == 0, 1.0, nb)
+
+
+def _host(v: torch.Tensor):
+    """Rank 0's copy of a replicated norm: a float, or a float64 [k] array."""
+    v = v[0]
+    return float(v) if v.ndim == 0 else v.cpu().numpy().astype(np.float64)
+
+
+def cycle_comm_stats(dh: DistHierarchy, opts=None) -> dict:
+    """Modeled communication of ONE cycle of ``opts``'s shape + smoother:
+    each level's per-op message/byte counts times the SpMVs a visit costs
+    times the cycle shape's per-level visit counts.  ``coarse_*`` totals
+    cover levels ≥ 1."""
+    opts = opts or SolveOptions()
+    visits = level_visits(len(dh.levels), opts.cycle)
+    sweep_spmvs = opts.spmvs_per_sweep() * (opts.presweeps + opts.postsweeps)
+    keys = ("inter_msgs", "inter_bytes", "intra_msgs", "intra_bytes")
+    per_level = []
+    totals = dict.fromkeys(keys, 0)
+    coarse = {"coarse_inter_msgs": 0, "coarse_intra_msgs": 0}
+    for l, dl in enumerate(dh.levels):
+        row = dict.fromkeys(keys, 0)
+        if dl.coarse_inv is None and "spmv_A" in dl.comm_stats:
+            n_spmv = sweep_spmvs + 1                  # sweeps + residual
+            for k in keys:
+                row[k] += n_spmv * dl.comm_stats["spmv_A"][k]
+            for op in ("interp", "restrict"):
+                if op in dl.comm_stats:
+                    for k in keys:
+                        row[k] += dl.comm_stats[op][k]
+        entry = {"level": l, "visits": visits[l]}
+        for k in keys:
+            entry[k] = row[k] * visits[l]
+            totals[k] += entry[k]
+        if l > 0:
+            coarse["coarse_inter_msgs"] += entry["inter_msgs"]
+            coarse["coarse_intra_msgs"] += entry["intra_msgs"]
+        per_level.append(entry)
+    return {"cycle": opts.cycle, "smoother": opts.smoother,
+            "per_level": per_level, **totals, **coarse}
+
+
+def dist_vcycle(dh: DistHierarchy, b: np.ndarray, opts=None) -> np.ndarray:
+    """One device-resident cycle (``opts.cycle`` shape) from a zero initial
+    guess (``b``: [n] or [n, k])."""
+    opts = opts or SolveOptions()
+    return dh.gather(dh.vcycle(dh.scatter(np.asarray(b)), opts))
+
+
+def _column_results(dh, x, res, nb, tol):
+    """Slice a batched solve into per-column SolveResults: each column
+    reports the iteration at which IT first converged and a residual
+    history truncated there, as the host backend does."""
+    X = dh.gather(x)
+    k = X.shape[1]
+    cols = []
+    for j in range(k):
+        hist = [float(r[j]) for r in res]
+        nbj = float(nb[j])
+        it = next((i for i, r in enumerate(hist) if r / nbj < tol), None)
+        if it is None:
+            cols.append(SolveResult(X[:, j], hist, len(hist) - 1, False))
+        else:
+            cols.append(SolveResult(X[:, j], hist[: it + 1], it, True))
+    return MultiSolveResult(X, cols)
+
+
+def dist_solve(dh: DistHierarchy, b: np.ndarray, tol: float = 1e-8,
+               maxiter: int = 100, opts=None, x0: np.ndarray | None = None):
+    """Stationary AMG iteration x ← x + cycle(b − Ax) on the device.
+
+    ``b`` may be ``[n]`` or ``[n, k]``; the multi-RHS form batches all k
+    systems and iterates until every column converges.
+    """
+    opts = opts or SolveOptions()
+    b = np.asarray(b)
+    bd = dh.scatter(b)
+    x = dh.scatter(np.zeros_like(b) if x0 is None else np.asarray(x0))
+    if b.ndim == 2:
+        nb = _norms(b)
+        res = [_host(dh.resid_norm_m(x, bd, opts))]
+        for _ in range(maxiter):
+            if (res[-1] / nb < tol).all():
+                break
+            x, rn = dh.cycle_m(x, bd, opts)
+            res.append(_host(rn))
+        return _column_results(dh, x, res, nb, tol)
+    nb = float(np.linalg.norm(b)) or 1.0
+    res = [_host(dh.resid_norm(x, bd, opts))]
+    for it in range(maxiter):
+        if res[-1] / nb < tol:
+            return SolveResult(dh.gather(x), res, it, True)
+        x, rn = dh.cycle(x, bd, opts)
+        res.append(_host(rn))
+    return SolveResult(dh.gather(x), res, maxiter, res[-1] / nb < tol)
+
+
+def dist_pcg(dh: DistHierarchy, b: np.ndarray, tol: float = 1e-8,
+             maxiter: int = 200, opts=None, x0: np.ndarray | None = None):
+    """AMG-preconditioned CG, preconditioner + operator on the device.
+
+    Supports ``x0=`` warm starts and multi-RHS ``b`` of shape ``[n, k]``.
+    """
+    opts = opts or SolveOptions()
+    b = np.asarray(b)
+    multi = b.ndim == 2
+    bd = dh.scatter(b)
+    x = dh.scatter(np.zeros_like(b) if x0 is None else np.asarray(x0))
+    init, step = ((dh.pcg_init_m, dh.pcg_step_m) if multi
+                  else (dh.pcg_init, dh.pcg_step))
+    r, z, rz, rnorm = init(x, bd, opts)
+    p = z
+    if multi:
+        nb = _norms(b)
+        res = [_host(rnorm)]
+        for _ in range(maxiter):
+            if (res[-1] / nb < tol).all():
+                break
+            x, r, p, rz, rnorm = step(x, r, p, rz, opts)
+            res.append(_host(rnorm))
+        return _column_results(dh, x, res, nb, tol)
+    nb = float(np.linalg.norm(b)) or 1.0
+    res = [_host(rnorm)]
+    for it in range(maxiter):
+        if res[-1] / nb < tol:
+            return SolveResult(dh.gather(x), res, it, True)
+        x, r, p, rz, rnorm = step(x, r, p, rz, opts)
+        res.append(_host(rnorm))
+    return SolveResult(dh.gather(x), res, maxiter, res[-1] / nb < tol)

@@ -1,0 +1,104 @@
+"""Build and load the hand-written CUDA kernels of :mod:`repro_torch.kernels.spmv`.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into its own shared library with a plain C interface, which is loaded with
+:mod:`ctypes`.  Builds happen at first use (or through :func:`build`), into
+``build/repro_torch/`` at the root of the checkout; a library's file name
+carries a hash of its source and flags, so an edited source is rebuilt and an
+unchanged one is reused.  Several sources build concurrently, one ``nvcc``
+process each.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# kernel name -> (source, C entry point, argtypes)
+KERNELS = {
+    "ell_spmv": ("ell_spmv.cu", "ell_spmv_launch",
+                 [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P]),
+    "ell_spmm": ("ell_spmm.cu", "ell_spmm_launch",
+                 [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _P]),
+    "bcsr_spmm": ("bcsr_spmm.cu", "bcsr_spmm_launch",
+                  [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _INT, _P]),
+}
+
+_LOADED: dict[str, ctypes._CFuncPtr] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else the toolkit's default install location."""
+    home = os.environ.get("CUDA_HOME")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + \
+            [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the repro_torch CUDA kernels")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names=None) -> dict[str, float]:
+    """Compile the named kernels (all by default) that are not built yet,
+    every ``nvcc`` started at once; returns seconds per compiled kernel.
+    Raises with the compiler's output when a build fails."""
+    names = list(KERNELS) if names is None else list(names)
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        out = library_path(n)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[n][0])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    seconds, errors = {}, []
+    for n, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[n] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {KERNELS[n][0]} "
+                          f"(exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return seconds
+
+
+def kernel(name: str):
+    """The C entry point of kernel ``name`` (built on first use), with its
+    argument types declared."""
+    fn = _LOADED.get(name)
+    if fn is None:
+        build([name])
+        _, symbol, argtypes = KERNELS[name]
+        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LOADED[name] = fn
+    return fn
