@@ -1,10 +1,18 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's main path — ``AMGSolver(AMGConfig(backend="torch",
-n_pods=2, lanes=4)).setup(A).pcg(b)`` on the 27-point ``laplace_3d(64)``
-(262,144 rows, 8 stacked ranks of 32,768 rows) — after building the three
-hand-written CUDA kernels from this checkout and holding each against its
-plain PyTorch version at the shapes that path gives it.
+Drives the port's two paths, after building the four hand-written CUDA
+kernels from this checkout and holding each against its plain PyTorch
+version at the shapes its path gives it:
+
+- the distributed solve, ``AMGSolver(AMGConfig(backend="torch", n_pods=2,
+  lanes=4)).setup(A).pcg(b)`` on the 27-point ``laplace_3d(64)`` (262,144
+  rows, 8 stacked ranks of 32,768 rows), through ``ell_spmv``, ``ell_spmm``
+  and ``bcsr_spmm``;
+- LM serving, ``Engine(cfg, init_lm(qwen3-1.7b)).run()`` at full width (28
+  layers, d_model 2048, 16/8 heads of 128, vocab 151,936; float32 random
+  weights from a seeded generator), 8 requests of 512-2048 prompt tokens and
+  32 greedy new tokens in batches of 4, prefill attention through
+  ``flash_attention``.
 
 Phases (any failure exits non-zero):
 
@@ -22,10 +30,23 @@ Phases (any failure exits non-zero):
    times, and the device time of a warm solve by kernel (``torch.profiler``);
 5. multi-RHS PCG on ``[n, 8]``, each column against its single-RHS run;
 6. f32 PCG to 1e-5;
-7. launch counts of the main-path runs (each counter set to 0 just before a
-   run and read just after): every kernel launched;
-8. one JSON line with every kernel's numbers;
-9. last line: ``{"ok": true, "device": {...}}``.
+7. launch counts of the solve runs (each counter set to 0 just before a
+   run and read just after): every sparse kernel launched;
+8. flash attention at the serving run's prefill shape (f32 and bf16), with
+   a 256-key window, with fewer queries than keys, and at head dim 64,
+   against its plain version (error over max|plain|: float32 2e-5, bfloat16
+   1e-2), with device times of the kernel, the plain version and
+   ``scaled_dot_product_attention``, and the flop / byte bound;
+9. LM serving: one warm-up request, then the 8 requests with the counters
+   set to 0 just before and read just after (28 ``flash_attention``
+   launches per prefill batch); prefill seconds, decode tokens/s, and the
+   device busy share of one decode step (``torch.profiler``);
+10. kernel vs plain on the served batches, teacher-forced with the served
+   tokens: prefill logits and every decode step's logits through the
+   kernel and through the plain attention agree to 1e-4 of max|logits|;
+   greedy-token agreement is printed, not asserted;
+11. one JSON line with every kernel's numbers;
+12. last line: ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and refuses to run without one.
@@ -53,18 +74,24 @@ SAMPLES, BURST = 25, 10      # kernel timings: median of 25 bursts of 10
 SLEEP_CYCLES = 5_000_000     # ~3 ms of GPU spin: the host queues a burst
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 # the card's highest dense rate for each type (H100 SXM data sheet): float32
-# outside the tensor cores, float64 on them
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+# outside the tensor cores, float64 and bfloat16 on them
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12,
+              torch.bfloat16: 989e12}
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+FLASH_RTOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 HIST_TOL = 1e-7
-KERNELS = {   # name -> (source, Pallas kernel it replaces)
-    "ell_spmv": ("src/repro_torch/kernels/spmv/csrc/ell_spmv.cu",
-                 "src/repro/kernels/spmv/spmv.py:75"),
-    "ell_spmm": ("src/repro_torch/kernels/spmv/csrc/ell_spmm.cu",
-                 "src/repro/kernels/spmv/spmv.py:104"),
-    "bcsr_spmm": ("src/repro_torch/kernels/spmv/csrc/bcsr_spmm.cu",
-                  "src/repro/kernels/spmv/bcsr.py:65"),
+LOGITS_RTOL = 1e-4
+SPMV_KERNELS = ("ell_spmv", "ell_spmm", "bcsr_spmm")
+# the Pallas kernel each replaces (the sources: repro_torch.kernels.build)
+REPLACES = {
+    "ell_spmv": "src/repro/kernels/spmv/spmv.py:75",
+    "ell_spmm": "src/repro/kernels/spmv/spmv.py:104",
+    "bcsr_spmm": "src/repro/kernels/spmv/bcsr.py:65",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:86",
 }
+# LM serving: qwen3-1.7b at full width, 8 requests, prompts of 512-2048
+LM_ARCH, LM_REQUESTS, LM_BATCH, LM_NEW = "qwen3-1.7b", 8, 4, 32
+LM_PROMPT = (512, 2048)
 
 
 def log(msg: str) -> None:
@@ -131,17 +158,19 @@ def bcsr_to_csr(bcols: torch.Tensor, bvals: torch.Tensor, m: int) -> torch.Tenso
                                    (D * mb * bs, D * m)).coalesce().to_sparse_csr()
 
 
-def kernel_case(name, fn, plain, library, args, nbytes, flops):
+def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
+                library_name="torch.sparse.mm"):
     """Run one kernel against its plain version; time all three."""
     y = fn(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
-    err = float((y - ref).abs().max())
-    scale = float(ref.abs().max()) or 1.0
+    err = float((y.double() - ref.double()).abs().max())
+    scale = float(ref.double().abs().max()) or 1.0
     dtype = ref.dtype
-    check(err <= RTOL[dtype] * scale,
+    rtol = RTOL[dtype] if rtol is None else rtol
+    check(err <= rtol * scale,
           f"{name} {dtype}: max |kernel - plain| = {err:.3e} exceeds "
-          f"{RTOL[dtype]:g} x max|plain| = {RTOL[dtype] * scale:.3e}")
+          f"{rtol:g} x max|plain| = {rtol * scale:.3e}")
     bound_s = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
     ms, host_ms = time_ms(lambda: fn(*args))
     row = {"dtype": str(dtype).replace("torch.", ""),
@@ -156,8 +185,8 @@ def kernel_case(name, fn, plain, library, args, nbytes, flops):
     log(f"  {name:9s} {row['dtype']:7s} {row['shape']}: err {err:.2e} "
         f"(rel {err / scale:.1e}) kernel {row['ms']:.4f} ms (host "
         f"{host_ms:.4f} ms/call), plain "
-        f"{row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms, "
-        f"bound {row['bound_ms']:.4f} ms")
+        f"{row['plain_ms']:.4f} ms, {library_name} {row['library_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
 
@@ -168,7 +197,7 @@ def kernel_phase(dh64, dh32) -> dict[str, list]:
     from repro_torch.kernels.spmv import spmv as ks
 
     rng = np.random.default_rng(SEED)
-    out: dict[str, list] = {n: [] for n in KERNELS}
+    out: dict[str, list] = {n: [] for n in SPMV_KERNELS}
     for dh in (dh64, dh32):
         dev, dt = dh.device, dh.dtype
         s = torch.finfo(dt).bits // 8
@@ -228,14 +257,24 @@ def kernel_phase(dh64, dh32) -> dict[str, list]:
     return out
 
 
+def launch_counters() -> dict:
+    """Every kernel wrapper, by kernel name (each carries ``.launches``)."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.spmv.bcsr import bcsr_spmm
+    from repro_torch.kernels.spmv.spmv import ell_spmm, ell_spmv
+    return {"ell_spmv": ell_spmv, "ell_spmm": ell_spmm,
+            "bcsr_spmm": bcsr_spmm, "flash_attention": flash_attention}
+
+
 def counted(fn):
     """Run ``fn`` with every launch counter set to 0 just before; return its
     result and the counts read just after."""
-    from repro_torch.kernels.spmv.ops import launch_counts, reset_launch_counts
-    reset_launch_counts()
+    wrappers = launch_counters()
+    for w in wrappers.values():
+        w.launches = 0
     res = fn()
     torch.cuda.synchronize()
-    return res, launch_counts()
+    return res, {k: w.launches for k, w in wrappers.items()}
 
 
 def device_profile(fn) -> dict:
@@ -258,6 +297,196 @@ def device_profile(fn) -> dict:
     return by_name
 
 
+def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through, queries right-aligned."""
+    qpos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.minimum(qpos + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_phase(S: int) -> list[dict]:
+    """flash_attention at the serving run's prefill shape (f32, bf16), with
+    a window, with Sq < Skv and at head dim 64, against its plain version;
+    ``scaled_dot_product_attention`` timed as the yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # label, dtype, B, Hq, Hkv, Sq, Skv, D, window
+        ("prefill", f32, LM_BATCH, 16, 8, S, S, 128, None),
+        ("prefill", bf16, LM_BATCH, 16, 8, S, S, 128, None),
+        ("window 256", f32, LM_BATCH, 16, 8, S, S, 128, 256),
+        ("Sq < Skv", f32, LM_BATCH, 16, 8, 128, 1024, 128, None),
+        ("head dim 64", f32, LM_BATCH, 14, 2, S, S, 64, None),
+    ]
+    rows = []
+    for label, dt, B, Hq, Hkv, Sq, Skv, D, window in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dt)
+                   for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                                 (B, Hkv, Skv, D)))
+        qpos = torch.arange(Sq, device=DEVICE)[:, None] + (Skv - Sq)
+        kpos = torch.arange(Skv, device=DEVICE)[None, :]
+        mask = (qpos >= kpos) & ((qpos - kpos) < (window or Skv + 1))
+        if window is None and Sq == Skv:
+            def library(q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+        else:
+            def library(q=q, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      enable_gqa=True)
+        pairs = visible_pairs(Sq, Skv, True, window)
+        row = kernel_case(
+            f"flash_attention {label}",
+            lambda q, k, v, w=window: flash_attention(q, k, v, True, w),
+            lambda q, k, v, w=window: attention_ref(q, k, v, True, w),
+            library, (q, k, v),
+            # q, k, v read once, o written once; 4 flops per visible pair
+            # and head dim (q.k and p.v)
+            (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+            4 * B * Hq * D * pairs, rtol=FLASH_RTOL[dt], library_name="sdpa")
+        row.update(case=label, window=window, visible_pairs=pairs,
+                   main_path=label == "prefill")
+        rows.append(row)
+        del q, k, v, mask
+    return rows
+
+
+def lm_workload(vocab: int) -> list[np.ndarray]:
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)
+    return [rng.integers(0, vocab, n, dtype=np.int32) for n in lengths]
+
+
+def lm_serve(cfg, prompts) -> dict:
+    """The serving path: init, a warm-up request, then the counted run."""
+    from repro_torch.models import init_lm
+    from repro_torch.serve import Engine, Request
+
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=SEED, dtype=torch.float32, device=DEVICE)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    ctx_len = max(len(p) for p in prompts) + LM_NEW + 8     # as run_lm sizes it
+    # warm-up (cuBLAS handles, the kernel library's load), not counted
+    warm = Engine(cfg, model, max_batch=LM_BATCH, ctx_len=ctx_len, device=DEVICE)
+    warm.submit(Request(rid=0, prompt=prompts[0][:64], max_new_tokens=2))
+    warm.run()
+    eng = Engine(cfg, model, max_batch=LM_BATCH, ctx_len=ctx_len, device=DEVICE)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, counts = counted(eng.run)
+    wall = time.perf_counter() - t0
+    check(sorted(out) == list(range(len(reqs))), f"answered {sorted(out)}")
+    for rid, toks in out.items():
+        check(toks.shape == (LM_NEW,) and ((toks >= 0) & (toks < cfg.vocab)).all(),
+              f"request {rid}: bad tokens {toks}")
+    n_batches = -(-len(reqs) // LM_BATCH)
+    check(counts["flash_attention"] == cfg.n_layers * n_batches,
+          f"flash_attention launched {counts['flash_attention']} times, want "
+          f"{cfg.n_layers} layers x {n_batches} prefill batches")
+    s = eng.stats
+    info = {"arch": cfg.name, "params": sum(p.numel() for p in model.parameters()),
+            "requests": len(reqs), "batches": s["batches"],
+            "prompt_lengths": [len(p) for p in prompts], "new_tokens": LM_NEW,
+            "ctx_len": ctx_len, "init_s": t_init, "wall_s": wall,
+            "prefill_s": s["prefill_s"], "decode_s": s["decode_s"],
+            "decode_tok_s": s["tokens"] / s["decode_s"],
+            "decode_step_ms": s["decode_s"] * 1e3 / (n_batches * (LM_NEW - 1)),
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": counts}
+    log(f"serve {cfg.name} f32 ({info['params'] / 1e9:.3f}B params, init "
+        f"{t_init:.2f} s): {len(out)} requests (prompts {info['prompt_lengths']},"
+        f" {LM_NEW} new tokens, batches of {LM_BATCH}) in {wall:.2f} s; "
+        f"prefill {s['prefill_s']:.3f} s, decode {info['decode_tok_s']:.1f} "
+        f"tok/s ({info['decode_step_ms']:.2f} ms/step), peak "
+        f"{info['peak_gb']:.1f} GiB, launches {counts}")
+    return {"model": model, "reqs": reqs, "out": out, "ctx_len": ctx_len,
+            "info": info}
+
+
+def lm_check(cfg, run) -> dict:
+    """Kernel vs plain on the served batches, teacher-forced with the served
+    tokens, plus the device busy share of one decode step."""
+    from repro_torch.serve.engine import pad_prompts, prefill_to_decode_cache
+
+    model, reqs, out = run["model"], run["reqs"], run["out"]
+    worst = {"prefill": 0.0, "decode": 0.0}
+    agree = {"kernel": 0, "plain": 0, "total": 0}
+    step = None
+    with torch.inference_mode():
+        for b0 in range(0, len(reqs), LM_BATCH):
+            batch = reqs[b0:b0 + LM_BATCH]
+            prompts = torch.as_tensor(pad_prompts(batch), device=DEVICE)
+            S = prompts.shape[1]
+            served = torch.as_tensor(np.stack([out[r.rid] for r in batch]),
+                                     device=DEVICE)
+            logits, caches = {}, {}
+            for use_kernel in (True, False):
+                lg, c = model(prompts, return_cache=True, use_kernel=use_kernel)
+                caches[use_kernel] = prefill_to_decode_cache(
+                    cfg, c, run["ctx_len"], S)
+                del c
+                logits[use_kernel] = lg
+            lk, lp = logits[True], logits[False]
+            err = float((lk - lp).abs().max()) / float(lk.abs().max())
+            worst["prefill"] = max(worst["prefill"], err)
+            last = {u: logits[u][:, -1].clone() for u in logits}
+            del logits, lk, lp
+            for t in range(LM_NEW):
+                want = served[:, t]
+                agree["kernel"] += int((last[True].argmax(-1) == want).sum())
+                agree["plain"] += int((last[False].argmax(-1) == want).sum())
+                agree["total"] += len(batch)
+                if t == LM_NEW - 1:
+                    break
+                tok = served[:, t:t + 1]
+                if step is None:     # one step alone: wall and device time
+                    for _ in range(3):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        model.decode_step(tok, caches[True], S + t)
+                        torch.cuda.synchronize()
+                        wall_ms = (time.perf_counter() - t0) * 1e3
+                    prof = device_profile(
+                        lambda: model.decode_step(tok, caches[True], S + t))
+                    dev_ms = sum(v[0] for v in prof.values())
+                    step = {"wall_ms": wall_ms,
+                            "device_ms": dev_ms if prof else None,
+                            "busy_share": dev_ms / wall_ms if prof else None,
+                            "top_device": [[kn[:100], km, kc] for kn, (km, kc) in
+                                           sorted(prof.items(),
+                                                  key=lambda kv: -kv[1][0])[:6]]}
+                for u in (True, False):
+                    last[u], caches[u] = model.decode_step(tok, caches[u], S + t)
+                err = float((last[True] - last[False]).abs().max()) \
+                    / float(last[True].abs().max())
+                worst["decode"] = max(worst["decode"], err)
+            del caches, last
+    check(worst["prefill"] <= LOGITS_RTOL and worst["decode"] <= LOGITS_RTOL,
+          f"kernel vs plain logits: {worst} exceed {LOGITS_RTOL:g} x max|logits|")
+    res = {"logits_rel_err": worst, "greedy_agreement": agree,
+           "decode_step": step}
+    log(f"kernel vs plain (teacher-forced): prefill logits {worst['prefill']:.2e}, "
+        f"decode logits {worst['decode']:.2e} of max|logits|; greedy tokens as "
+        f"served: kernel {agree['kernel']}/{agree['total']}, plain "
+        f"{agree['plain']}/{agree['total']}")
+    log(f"  one decode step: {step['wall_ms']:.3f} ms wall, device "
+        + (f"{step['device_ms']:.3f} ms, busy share {step['busy_share']:.3f}"
+           if step["device_ms"] is not None else "time not measured (no events)"))
+    for kn, km, kc in step["top_device"]:
+        log(f"    {km:9.3f} ms {kc:6d}x  {kn}")
+    return res
+
+
 def history_diff(a, b) -> float:
     n = min(len(a), len(b))
     r0 = a[0] or 1.0
@@ -272,7 +501,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.amg import AMGConfig, AMGSolver
     from repro_torch.amg.problems import laplace_3d
-    from repro_torch.kernels.spmv.build import build
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.build import build, source_path
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -372,22 +602,47 @@ def main() -> int:
     check(res32.converged, f"f32 PCG did not converge: {res32.residuals[-3:]}")
     log(f"pcg f32 (tol 1e-5): {res32.iterations} iterations, launches {c_f32}")
 
-    # 7. launch counts over the main-path runs
-    launches = {k: c_single[k] + c_multi[k] + c_f32[k] for k in KERNELS}
+    # 7. launch counts over the solve runs
+    launches = {k: c_single[k] + c_multi[k] + c_f32[k] for k in SPMV_KERNELS}
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the main path")
-    log(f"launches on the main path: {launches}")
+    log(f"launches on the solve path: {launches}")
+    del bound64, bound32, host, dh64, dh32
+    torch.cuda.empty_cache()
 
-    # 8. the kernels line: top-level numbers are the first float64 case on
-    # the main path's operands (BCSR: its block size, one RHS); every dtype
-    # / block-size / RHS case is under "variants"
+    # 8. flash attention at the serving run's shapes
+    cfg = get_arch(LM_ARCH)
+    prompts = lm_workload(cfg.vocab)
+    S = max(len(p) for p in prompts)
+    log(f"flash_attention (S = {S}, the longest prompt; device time as above):")
+    rows["flash_attention"] = flash_phase(S)
+    torch.cuda.empty_cache()
+
+    # 9. LM serving
+    run = lm_serve(cfg, prompts)
+    launches["flash_attention"] = run["info"]["launches"]["flash_attention"]
+
+    # 10. kernel vs plain, teacher-forced
+    lm = lm_check(cfg, run)
+    del run["model"]
+
+    # 11. the kernels line: top-level numbers are the main path's case
+    # (sparse kernels: the first float64 case on its operands, BCSR at its
+    # block size with one RHS; flash: float32 at the prefill shape); every
+    # dtype / shape case is under "variants"
     kernels = []
-    for k, (src, replaces) in KERNELS.items():
-        top = next(r for r in rows[k] if r["dtype"] == "float64"
-                   and r.get("main_path", True)
-                   and r["k"] == (K_RHS if k == "ell_spmm" else 1))
+    for k, replaces in REPLACES.items():
+        if k == "flash_attention":
+            top = next(r for r in rows[k] if r["main_path"]
+                       and r["dtype"] == "float32")
+        else:
+            top = next(r for r in rows[k] if r["dtype"] == "float64"
+                       and r.get("main_path", True)
+                       and r["k"] == (K_RHS if k == "ell_spmm" else 1))
         kernels.append({
-            "name": k, "route": "cuda", "source": src, "replaces": replaces,
+            "name": k, "route": "cuda",
+            "source": str(source_path(k).relative_to(ROOT)),
+            "replaces": replaces,
             "launches": launches[k], "max_abs_err": top["max_abs_err"],
             "max_err": top["max_abs_err"], "ms": top["ms"],
             "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
@@ -409,10 +664,11 @@ def main() -> int:
                                "pcg_f32_iterations": res32.iterations,
                                "launches_per_run": {"f64": c_single,
                                                     "f64_multi": c_multi,
-                                                    "f32": c_f32}}}),
+                                                    "f32": c_f32}},
+                      "lm": {**run["info"], **lm}}),
           flush=True)
     log(smi)
-    # 9. result
+    # 12. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

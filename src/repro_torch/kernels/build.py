@@ -1,8 +1,9 @@
-"""Build and load the hand-written CUDA kernels of :mod:`repro_torch.kernels.spmv`.
+"""Build and load the hand-written CUDA kernels of :mod:`repro_torch.kernels`.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into its own shared library with a plain C interface, which is loaded with
-:mod:`ctypes`.  Builds happen at first use (or through :func:`build`), into
+Every kernel family registers its sources in the one :data:`KERNELS` table.
+Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
+shared library with a plain C interface, which is loaded with :mod:`ctypes`.
+Builds happen at first use (or through :func:`build`), into
 ``build/repro_torch/`` at the root of the checkout; a library's file name
 carries a hash of its source and flags, so an edited source is rebuilt and an
 unchanged one is reused.  Several sources build concurrently, one ``nvcc``
@@ -18,20 +19,26 @@ import subprocess
 import time
 from pathlib import Path
 
-CSRC = Path(__file__).with_name("csrc")
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# kernel name -> (source, C entry point, argtypes)
+# kernel name -> (source relative to this package, C entry point, argtypes)
 KERNELS = {
-    "ell_spmv": ("ell_spmv.cu", "ell_spmv_launch",
+    "ell_spmv": ("spmv/csrc/ell_spmv.cu", "ell_spmv_launch",
                  [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P]),
-    "ell_spmm": ("ell_spmm.cu", "ell_spmm_launch",
+    "ell_spmm": ("spmv/csrc/ell_spmm.cu", "ell_spmm_launch",
                  [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _P]),
-    "bcsr_spmm": ("bcsr_spmm.cu", "bcsr_spmm_launch",
+    "bcsr_spmm": ("spmv/csrc/bcsr_spmm.cu", "bcsr_spmm_launch",
                   [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _INT, _P]),
+    # q, k, v, o; B, Hq, Hkv, Sq, Skv, D; (b, h, s) strides of q, k, v, o;
+    # causal, window (-1: none), bf16, stream
+    "flash_attention": ("flash_attention/csrc/flash_attention.cu",
+                        "flash_attention_launch",
+                        [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
+                        + [_INT, _I64, _INT, _P]),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}
@@ -49,9 +56,12 @@ def nvcc_path() -> str:
                        "to build the repro_torch CUDA kernels")
 
 
+def source_path(name: str) -> Path:
+    return KERNELS_DIR / KERNELS[name][0]
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(src.read_bytes()
+    digest = hashlib.sha256(source_path(name).read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -71,7 +81,7 @@ def build(names=None) -> dict[str, float]:
     for n in todo:
         out = library_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[n][0])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(n))]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)

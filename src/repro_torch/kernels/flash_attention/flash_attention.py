@@ -1,0 +1,98 @@
+"""Causal GQA flash attention: the wrapper of the hand-written CUDA kernel
+``csrc/flash_attention.cu``.
+
+It replaces the Pallas kernel ``flash_attention`` of
+``repro/kernels/flash_attention/flash_attention.py``.  Layout
+``[B, H, S, D]``: q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]`` with
+``Hq % Hkv == 0``; queries are right-aligned at Skv.  The operands may be
+strided views (the models' time-major ``[B, S, H, D]`` tensors transposed)
+as long as the D dim is contiguous; the output has q's strides.
+
+The wrapper takes the plain version (:mod:`.ref`) only for tensors that lie
+on the CPU; for CUDA tensors it launches the kernel on the current stream or
+raises.  ``flash_attention.launches`` counts the kernel launches it made.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..build import kernel
+from .ref import attention_ref
+
+DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (64, 128)
+
+
+def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   window: int | None) -> bool:
+    """Validate the operands; True when they lie on a CUDA device (the
+    kernel runs), False when on the CPU (the plain version runs)."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}; want q "
+                         f"[B, Hq, Sq, D] and k = v [B, Hkv, Skv, D]")
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)} disagree (Hq % Hkv must be 0)")
+    if Sq > Skv:
+        # queries are right-aligned at Skv, so a row i < Sq - Skv would see
+        # no key at all; the Pallas kernel and attention_ref disagree on
+        # such rows, and the models never make them
+        raise ValueError(f"flash_attention: Sq = {Sq} > Skv = {Skv}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window = {window} < 1 hides "
+                         f"every key")
+    if q.dtype != k.dtype or v.dtype != k.dtype:
+        raise TypeError(f"flash_attention: q, k, v types differ: {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError("flash_attention: operands lie on different devices")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention: the kernel takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes head dims "
+                         f"{HEAD_DIMS}, got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        # rows are read as 16-byte (float32) / 8-byte (bfloat16) vectors
+        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must have a contiguous, "
+                             f"16-byte aligned D dim and strides that are "
+                             f"multiples of 4, got strides {t.stride()}")
+    if B * Hq > 65535:
+        raise ValueError(f"flash_attention: B * Hq = {B * Hq} > 65535")
+    return True
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] → [B, Hq, Sq, D]."""
+    if not check_operands(q, k, v, window):
+        return attention_ref(q, k, v, causal=causal, window=window)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)          # q's strides (dense, non-overlapping)
+    if B == 0 or Hq == 0 or Sq == 0:
+        return out
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    rc = kernel("flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Hq, Hkv, Sq, Skv, D, *strides, int(causal),
+        -1 if window is None else int(window), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
+                           f"error {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

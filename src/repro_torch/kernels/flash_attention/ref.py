@@ -1,0 +1,37 @@
+"""Plain PyTorch version of blockwise causal GQA attention (+ sliding
+window): the port of ``repro/kernels/flash_attention/ref.py``
+``attention_ref``, and what the CUDA kernel is held against."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D]; Hq % Hkv == 0.
+
+    Returns [B, Hq, Sq, D] in q's type.  Scores are float32 and masked with
+    -1e30 (not -inf); queries are right-aligned at Skv (the decode case).
+    ``window``: attend only to keys with 0 <= q_pos - k_pos < window.
+    """
+    sq, d = q.shape[2], q.shape[3]
+    skv = k.shape[2]
+    group = q.shape[1] // k.shape[1]
+    kx = k.repeat_interleave(group, dim=1).float()
+    vx = v.repeat_interleave(group, dim=1).float()
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))   # in float32
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)

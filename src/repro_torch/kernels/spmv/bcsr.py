@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import kernel
+from ..build import kernel
 from .ref import bcsr_apply_ref, block_x
 from .spmv import check_operands, raise_on_error
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import kernel
+from ..build import kernel
 from .ref import ell_spmm_ref, ell_spmv_ref
 
 FLOAT_DTYPES = (torch.float32, torch.float64)

@@ -109,3 +109,47 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         DistHierarchy.build(bound.hierarchy, 2, 4, dtype=torch.bfloat16,
                             device="cpu")
+
+
+def test_lm_entry_points_refuse_cuda_without_a_card(monkeypatch):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_lm
+    from repro_torch.serve import Engine
+
+    cfg = get_arch("qwen3-1.7b").reduced(n_layers=2, d_model=32, n_heads=4,
+                                        vocab=64)
+    model = init_lm(cfg, dtype=torch.float32, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_lm(cfg)                                # default device="cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen3-1.7b", "--reduced"])
+    # asking for the CPU explicitly is the only way onto it
+    assert Engine(cfg, model, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch,match", [
+    ("mixtral-8x22b", "MoE"), ("qwen3-moe-235b-a22b", "MoE"),
+    ("xlstm-125m", "block kinds"), ("recurrentgemma-9b", "block kinds"),
+    ("musicgen-medium", "embed_input"), ("phi-3-vision-4.2b", "embed_input")])
+def test_unported_lm_configs_raise(arch, match):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_cache, init_lm
+
+    cfg = get_arch(arch).reduced()
+    with pytest.raises(NotImplementedError, match=match):
+        init_lm(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+        init_cache(cfg, 1, 8, device="cpu")
+
+
+def test_amg_serving_is_not_ported_yet():
+    from repro_torch.launch import serve
+
+    with pytest.raises(NotImplementedError, match="AMGService"):
+        serve.main(["--solver", "amg"])

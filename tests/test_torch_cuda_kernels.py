@@ -1,8 +1,11 @@
 """The CUDA kernels on the card (marker ``cuda``; skipped where there is no
 card): each kernel against its plain version over ragged shapes — every
 lane-group width of the ELL SpMV, rows that do not fill a block, sources
-that are not a multiple of the BCSR block size, degenerate shapes — and a
-small distributed PCG on the card against the same solve on the CPU.
+that are not a multiple of the BCSR block size, degenerate shapes; flash
+attention over ragged lengths, windows, decode alignment, both head dims,
+float32 and bfloat16, strided time-major views and a failed launch — a
+small distributed PCG on the card against the same solve on the CPU, and a
+small LM forward on the card against the CPU.
 
 Run on a machine with an NVIDIA card::
 
@@ -13,6 +16,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.spmv import bcsr, ref, spmv  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -125,3 +131,100 @@ def test_dist_pcg_on_the_card_matches_the_cpu(dev, overlap):
     assert m_gpu.converged and np.isfinite(m_gpu.x).all()
     assert not m_gpu.x[:, 2].any()                       # zero column stays 0
     assert np.abs(m_gpu.x - m_cpu.x).max() <= 1e-7 * np.abs(m_cpu.x).max()
+
+
+# flash attention: error over max|plain|, float32 at the reference suite's
+# 2e-5, bfloat16 at 1e-2 (its 8-bit mantissa; both sides round the output)
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# (B, Hq, Hkv, Sq, Skv, D, window)
+FA_CASES = [
+    (2, 16, 8, 256, 256, 128, None),     # the qwen3 shape, whole tiles
+    (1, 4, 2, 77, 77, 128, None),        # ragged S: one partial tile
+    (3, 2, 1, 1, 1, 64, None),           # a single token
+    (1, 4, 4, 200, 200, 64, 17),         # window narrower than a tile
+    (2, 8, 2, 130, 130, 128, 64),        # window of exactly one tile
+    (1, 14, 2, 13, 301, 64, None),       # Sq < Skv, right-aligned (decode)
+    (1, 4, 2, 96, 1000, 128, 300),       # decode alignment with a window
+]
+
+
+def _close_fa(got, want):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    scale = float(want.float().abs().max()) or 1.0
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FA_TOL[want.dtype] * scale, (err, scale)
+
+
+def _qkv(case, dtype, dev, seed=0):
+    B, Hq, Hkv, Sq, Skv, D, _ = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_attention(dev, case, causal, dtype):
+    q, k, v = _qkv(case, dtype, dev)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=case[-1])
+    assert fa.flash_attention.launches == before + 1
+    _close_fa(out, attention_ref(q, k, v, causal=causal, window=case[-1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_time_major_views(dev, dtype):
+    """The models' [B, S, H, D] tensors go in as strided views, no copy."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((2, 150, 16, 128), generator=g, device=dev).to(dtype)
+    k = torch.randn((2, 150, 8, 128), generator=g, device=dev).to(dtype)
+    v = torch.randn((2, 150, 8, 128), generator=g, device=dev).to(dtype)
+    out = fa_ops.attention(q, k, v, causal=True)
+    assert out.is_contiguous()
+    _close_fa(out, fa_ops.attention(q, k, v, causal=True, use_kernel=False))
+
+
+def test_flash_attention_failed_launch_raises(dev, monkeypatch):
+    """A head dim the kernel has no instance for: the C side refuses it
+    (cudaErrorInvalidValue) and the wrapper raises instead of falling
+    back; no launch is counted."""
+    monkeypatch.setattr(fa, "HEAD_DIMS", (64, 96, 128))
+    q, k, v = _qkv((1, 2, 2, 8, 8, 96, None), torch.float32, dev)
+    before = fa.flash_attention.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        fa.flash_attention(q, k, v)
+    assert fa.flash_attention.launches == before
+    q, k, v = _qkv((1, 2, 2, 9, 8, 64, None), torch.float32, dev)
+    with pytest.raises(ValueError, match="Sq = 9 > Skv = 8"):
+        fa.flash_attention(q, k, v)
+
+
+def test_lm_forward_on_the_card_matches_the_cpu(dev):
+    """A small qwen3 (head dim 64) through the kernel on the card against
+    the plain version on the CPU: logits and one decode step at 1e-4."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_lm
+    from repro_torch.serve import prefill_to_decode_cache
+
+    cfg = get_arch("qwen3-1.7b").reduced(n_layers=3, d_model=256, n_heads=4,
+                                        vocab=512)
+    model = init_lm(cfg, seed=0, dtype=torch.float32, device="cuda")
+    cpu = init_lm(cfg, seed=0, dtype=torch.float32, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 300)), dtype=torch.long)
+    before = fa.flash_attention.launches
+    with torch.inference_mode():
+        got, c_gpu = model(tokens.to(dev), return_cache=True)
+        want, c_cpu = cpu(tokens, return_cache=True)
+        assert fa.flash_attention.launches == before + cfg.n_layers
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+        step = tokens[:, -1:]
+        lg, _ = model.decode_step(step.to(dev),
+                                  prefill_to_decode_cache(cfg, c_gpu, 320, 300), 300)
+        lc, _ = cpu.decode_step(step, prefill_to_decode_cache(cfg, c_cpu, 320, 300),
+                                300)
+        assert float((lg.cpu() - lc).abs().max()) <= 1e-4 * float(lc.abs().max())
