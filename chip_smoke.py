@@ -18,16 +18,23 @@ Phases (any failure exits non-zero):
 
 1. device: card name and power limit (``nvidia-smi``), CUDA capability;
 2. build: ``nvcc`` for every kernel source, all at once;
-3. kernels: each kernel in float32 and float64 (BCSR at bs 8 and 16) on the
-   lowered hierarchy's own operands, against its plain version (error
-   normalized by the plain result's max magnitude: float32 1e-5, float64
-   1e-12), with device times (CUDA events around bursts of 10 calls queued
-   behind a GPU spin, median of 25) of the kernel, the plain version and
-   ``torch.sparse.mm`` on the same operator in CSR, the wrapper's host cost
-   per call, and the bytes-over-bandwidth bound;
+3. kernels: each kernel in float32 and float64 (BCSR at bs 8 and 16, cut
+   to the true rows) on the lowered hierarchy's own operands, against its
+   plain version (error normalized by the plain result's max magnitude:
+   float32 1e-5, float64 1e-12), with device times (CUDA events around
+   bursts of 10 calls queued behind a GPU spin, median of 25) of the
+   kernel, the plain version and ``torch.sparse.mm`` on the same operator in
+   CSR, the wrapper's host cost per call, and the bytes-over-bandwidth
+   bound; ``ell_spmv`` in float64 at every ELL operand the f64 solve
+   launches (levels, A/P/R, on/off parts), with its launches per solve
+   (tallied by operand in a counted solve of its own; the tally must equal
+   the launch counter there and in phase 4's counted run) and the sum of
+   launches × (time − bound) over them;
 4. f64 PCG to 1e-8, residual history against the numpy host backend
    (≤ 1e-7 of r0), true residual in numpy, setup / lowering / per-iteration
-   times, and the device time of a warm solve by kernel (``torch.profiler``);
+   times, and the device time of a warm solve by kernel
+   (``torch.profiler``); before it, 10 BCSR applies of each BCSR level
+   profiled alone: 10 device kernels, all ``bcsr_spmm``'s;
 5. multi-RHS PCG on ``[n, 8]``, each column against its single-RHS run;
 6. f32 PCG to 1e-5;
 7. launch counts of the solve runs (each counter set to 0 just before a
@@ -53,6 +60,7 @@ CUDA card and refuses to run without one.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
@@ -80,6 +88,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12,
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 FLASH_RTOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 HIST_TOL = 1e-7
+APPLY_REPS = 10               # BCSR applies profiled alone, per BCSR level
 LOGITS_RTOL = 1e-4
 SPMV_KERNELS = ("ell_spmv", "ell_spmm", "bcsr_spmm")
 # the Pallas kernel each replaces (the sources: repro_torch.kernels.build)
@@ -139,9 +148,11 @@ def ell_to_csr(cols: torch.Tensor, vals: torch.Tensor, m: int) -> torch.Tensor:
         .to_sparse_csr()
 
 
-def bcsr_to_csr(bcols: torch.Tensor, bvals: torch.Tensor, m: int) -> torch.Tensor:
-    """The rank-stacked block-ELL operator as one block-diagonal CSR tensor
-    ``[D·mb·bs, D·m]`` holding the blocks' nonzero entries."""
+def bcsr_to_csr(bcols: torch.Tensor, bvals: torch.Tensor, m: int,
+                rows: int) -> torch.Tensor:
+    """The first ``rows`` rows of each rank's block-ELL operator as one
+    block-diagonal CSR tensor ``[D·rows, D·m]`` holding the blocks' nonzero
+    entries."""
     D, mb, Kb, bs, _ = bvals.shape
     dev = bcols.device
     r = (torch.arange(mb, device=dev).reshape(1, mb, 1, 1, 1) * bs
@@ -151,11 +162,11 @@ def bcsr_to_csr(bcols: torch.Tensor, bvals: torch.Tensor, m: int) -> torch.Tenso
     d = torch.arange(D, device=dev).reshape(D, 1, 1, 1, 1)
     shape = (D, mb, Kb, bs, bs)
     keep = ((bcols >= 0).reshape(D, mb, Kb, 1, 1).expand(shape)
-            & (bvals != 0) & (c < m))
-    rows = (d * mb * bs + r).expand(shape)[keep]
-    cols = (d * m + c).expand(shape)[keep]
-    return torch.sparse_coo_tensor(torch.stack([rows, cols]), bvals[keep],
-                                   (D * mb * bs, D * m)).coalesce().to_sparse_csr()
+            & (bvals != 0) & (c < m) & (r < rows))
+    ri = (d * rows + r).expand(shape)[keep]
+    ci = (d * m + c).expand(shape)[keep]
+    return torch.sparse_coo_tensor(torch.stack([ri, ci]), bvals[keep],
+                                   (D * rows, D * m)).coalesce().to_sparse_csr()
 
 
 def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
@@ -190,8 +201,83 @@ def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
     return row
 
 
-def kernel_phase(dh64, dh32) -> dict[str, list]:
-    """Every kernel at the main path's shapes, f32 and f64."""
+def ell_operands(dh) -> dict[str, tuple]:
+    """Every ELL operand of the lowered hierarchy, by name ("L0 A_on"):
+    (cols, vals, length of the x it reads)."""
+    out = {}
+    for l, (dl, a) in enumerate(zip(dh.levels, dh._arrs)):
+        for op_name in ("A", "P", "R"):
+            op = getattr(dl, op_name)
+            if op is None:
+                continue
+            arrs = a[op_name]
+            out[f"L{l} {op_name}_on"] = (arrs["on_cols"], arrs["on_vals"],
+                                         op.plan.local_n)
+            out[f"L{l} {op_name}_off"] = (arrs["off_cols"], arrs["off_vals"],
+                                          op.plan.halo_len)
+    return out
+
+
+def operand_launches(bound, b) -> tuple[dict[str, int], int]:
+    """``ell_spmv`` launches of one solve by operand (the column-id tensor
+    each launch reads), from a counted solve of its own, and its iteration
+    count.  A call is tallied only where the wrapper's launch counter moved;
+    the tally must add up to the counter, every launch on a named operand."""
+    from repro_torch.kernels.spmv import ops
+    from repro_torch.kernels.spmv import spmv as ks
+
+    names = {cols.data_ptr(): name for name, (cols, _, _)
+             in ell_operands(bound.dist_hierarchy).items()}
+    seen: collections.Counter = collections.Counter()
+    real = ops.ell_spmv
+
+    def recorded(cols, vals, x):
+        before = ks.ell_spmv.launches
+        y = real(cols, vals, x)
+        seen[names.get(cols.data_ptr(), "other")] += ks.ell_spmv.launches - before
+        return y
+
+    ops.ell_spmv = recorded
+    try:
+        res, counts = counted(lambda: bound.pcg(b))
+    finally:
+        ops.ell_spmv = real
+    per_solve = {k: v for k, v in seen.items() if v}
+    check("other" not in per_solve,
+          f"{per_solve.get('other')} ell_spmv launches on no named operand")
+    check(sum(per_solve.values()) == counts["ell_spmv"],
+          f"ell_spmv launches by operand add up to {sum(per_solve.values())}, "
+          f"the counter says {counts['ell_spmv']}")
+    return per_solve, res.iterations
+
+
+def ell_case(label, cols, vals, m, rng, launches=None):
+    """``ell_spmv`` at one operand, with ``torch.sparse.mm`` on its CSR."""
+    from repro_torch.kernels.spmv import ref
+    from repro_torch.kernels.spmv import spmv as ks
+
+    dev, dt = vals.device, vals.dtype
+    s = torch.finfo(dt).bits // 8
+    D, n, K = cols.shape
+    nnz = int((cols >= 0).sum())
+    x = torch.as_tensor(rng.standard_normal((D, m)), dtype=dt, device=dev)
+    csr = ell_to_csr(cols, vals, m)
+    xf = x.reshape(-1, 1)
+    # bytes: every slot's column id, the values of stored entries only
+    # (the kernels never load a padded slot's value), x and y once
+    row = kernel_case(f"ell_spmv {label}", ks.ell_spmv, ref.ell_spmv_ref,
+                      lambda: torch.sparse.mm(csr, xf), (cols, vals, x),
+                      D * n * K * 4 + nnz * s + D * (m + n) * s, 2 * nnz)
+    row.update(k=1, operand=label, main_path=label == "L0 A_on",
+               fill=nnz / max(D * n * K, 1), launches_per_solve=launches)
+    return row
+
+
+def kernel_phase(dh64, dh32, per_solve: dict[str, int]) -> tuple[dict, float]:
+    """Every kernel at the main path's shapes, f32 and f64; ``ell_spmv`` in
+    f64 at every operand the f64 solve launches (``per_solve``).  Returns
+    the rows by kernel and the sum of launches × (ms − bound ms) of
+    ``ell_spmv`` over one f64 solve."""
     from repro_torch.kernels.spmv import bcsr as kb
     from repro_torch.kernels.spmv import ref
     from repro_torch.kernels.spmv import spmv as ks
@@ -202,28 +288,28 @@ def kernel_phase(dh64, dh32) -> dict[str, list]:
         dev, dt = dh.device, dh.dtype
         s = torch.finfo(dt).bits // 8
         # level 0's on-process ELL block: what every level-0 apply launches
-        a0 = dh._arrs[0]["A"]
-        cols, vals = a0["on_cols"], a0["on_vals"]
+        # (the first row, the kernels line's top-level number), then in f64
+        # every other ELL operand the solve launches
+        operands = ell_operands(dh)
+        for name, (cols, vals, m) in operands.items():
+            if name == "L0 A_on" or (dt == torch.float64 and per_solve.get(name)):
+                out["ell_spmv"].append(ell_case(
+                    name, cols, vals, m, rng,
+                    per_solve.get(name) if dt == torch.float64 else None))
+        cols, vals, m = operands["L0 A_on"]
         D, n, K = cols.shape
-        m = dh.levels[0].A.plan.local_n
         nnz = int((cols >= 0).sum())
-        x = torch.as_tensor(rng.standard_normal((D, m)), dtype=dt, device=dev)
         X = torch.as_tensor(rng.standard_normal((D, m, K_RHS)), dtype=dt,
                             device=dev)
         csr = ell_to_csr(cols, vals, m)
-        xf, Xf = x.reshape(-1, 1), X.reshape(-1, K_RHS)
-        # bytes: every slot's column id, the values of stored entries only
-        # (the kernels never load a padded slot's value), x and y once
-        out["ell_spmv"].append(dict(kernel_case(
-            "ell_spmv", ks.ell_spmv, ref.ell_spmv_ref,
-            lambda: torch.sparse.mm(csr, xf), (cols, vals, x),
-            D * n * K * 4 + nnz * s + D * (m + n) * s, 2 * nnz), k=1))
+        Xf = X.reshape(-1, K_RHS)
         out["ell_spmm"].append(dict(kernel_case(
             "ell_spmm", ks.ell_spmm, ref.ell_spmm_ref,
             lambda: torch.sparse.mm(csr, Xf), (cols, vals, X),
             D * n * K * 4 + nnz * s + D * (m + n) * K_RHS * s,
             2 * nnz * K_RHS), k=K_RHS))
-        # the BCSR levels' on-process blocks, lowered at both block sizes
+        # the BCSR levels' on-process blocks, lowered at both block sizes;
+        # x unpadded, the product cut to the true rows, as an apply asks
         for l, dl in enumerate(dh.levels):
             if dl.A.local_kernel != "bcsr":
                 continue
@@ -233,28 +319,52 @@ def kernel_phase(dh64, dh32) -> dict[str, list]:
                 bcols = torch.as_tensor(op.bcsr_on_bcols, device=dev)
                 bvals = torch.as_tensor(op.bcsr_on_bvals, dtype=dt, device=dev)
                 _, mb, Kb = bcols.shape
-                ml = op.plan.local_n
+                ml, rows = op.plan.local_n, op.rows_local
                 nblk = int((bcols >= 0).sum())     # stored blocks
                 bnnz = int((bvals != 0).sum())
+                bcsr = bcsr_to_csr(bcols, bvals, ml, rows)
                 for k in (1, K_RHS):
                     xb = torch.as_tensor(rng.standard_normal((D, ml, k)),
                                          dtype=dt, device=dev)
-                    bcsr = bcsr_to_csr(bcols, bvals, ml)
                     xbf = xb.reshape(-1, k)
                     row = kernel_case(
-                        f"bcsr_spmm L{l} bs{bs} k{k}", kb.bcsr_spmm,
-                        ref.bcsr_apply_ref,
+                        f"bcsr_spmm L{l} bs{bs} k{k}",
+                        lambda a, v, x, r=rows: kb.bcsr_spmm(a, v, x, rows=r),
+                        lambda a, v, x, r=rows: ref.bcsr_apply_ref(a, v, x, r),
                         lambda: torch.sparse.mm(bcsr, xbf), (bcols, bvals, xb),
                         # every block id; stored blocks only (the kernel
-                        # skips padded slots); x and y once
+                        # skips padded slots); x and the true rows of y once
                         D * mb * Kb * 4 + nblk * bs * bs * s
-                        + D * (ml + mb * bs) * k * s,
+                        + D * (ml + rows) * k * s,
                         2 * nblk * bs * bs * k)
-                    row.update(level=l, bs=bs, k=k,
+                    row.update(level=l, bs=bs, k=k, rows=rows,
                                main_path=bs == dl.A.block_size, stored_nnz=bnnz)
                     out["bcsr_spmm"].append(row)
     check(out["bcsr_spmm"], "no level of the main path lowered to BCSR")
-    return out
+    shapes = [r for r in out["ell_spmv"] if r["launches_per_solve"]]   # f64
+    excess = sum(r["launches_per_solve"] * (r["ms"] - r["bound_ms"]) for r in shapes)
+    log(f"  ell_spmv f64 over the solve's {len(shapes)} operands, "
+        f"{sum(r['launches_per_solve'] for r in shapes)} launches per solve: "
+        f"sum of launches x (ms - bound ms) = {excess:.4f} ms per solve")
+    return out, excess
+
+
+def bcsr_apply_kernels(dh, reps: int) -> dict[int, dict[str, int]]:
+    """``reps`` BCSR applies (the on-process product) of each BCSR level,
+    profiled alone: the device kernels they ran, by name, by level."""
+    found = {}
+    for l, (dl, a) in enumerate(zip(dh.levels, dh._arrs)):
+        if dl.A.local_kernel != "bcsr":
+            continue
+        x = torch.ones((dl.A.n_devices, dl.A.plan.local_n), dtype=dh.dtype,
+                       device=dh.device)
+
+        def applies(op=dl.A, arrs=a["A"], x=x):
+            for _ in range(reps):
+                op._on_product(arrs, x, True)
+
+        found[l] = {name: count for name, (_, count) in device_profile(applies).items()}
+    return found
 
 
 def launch_counters() -> dict:
@@ -546,13 +656,32 @@ def main() -> int:
     log(f"  lowering f32 {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels
+    per_solve, tally_iters = operand_launches(bound64, b)
+    log(f"ell_spmv launches of one f64 solve ({tally_iters} iterations) by "
+        f"operand, per solve / per iteration ({tally_iters + 1} cycles with "
+        f"their A.p): " + ", ".join(f"{k} {v} / {v / (tally_iters + 1):g}"
+                                   for k, v in per_solve.items()))
     log(f"kernels (device time per call: CUDA events, median of {SAMPLES} "
         f"bursts of {BURST} queued behind a GPU spin):")
-    rows = kernel_phase(dh64, dh32)
+    rows, ell_excess = kernel_phase(dh64, dh32, per_solve)
+
+    # a BCSR apply is one launch: no pad of x before it, no slice after
+    # (profiled before the warm solve's large profile below)
+    bcsr_apply = bcsr_apply_kernels(dh64, APPLY_REPS)
+    for l, names in bcsr_apply.items():
+        check(len(names) == 1 and "bcsr_spmm_kernel" in next(iter(names))
+              and sum(names.values()) == APPLY_REPS,
+              f"{APPLY_REPS} BCSR applies of level {l} ran {names}, want as "
+              f"many bcsr_spmm launches and nothing else")
+    log(f"{APPLY_REPS} BCSR applies per BCSR level, profiled alone: device kernels "
+        f"{ {l: {n[:50]: c for n, c in v.items()} for l, v in bcsr_apply.items()} }")
 
     # 4. main path, f64
     res, c_single = counted(lambda: bound64.pcg(b))
     check(res.converged, f"f64 PCG did not converge: {res.residuals[-3:]}")
+    check(c_single["ell_spmv"] == sum(per_solve.values()),
+          f"the f64 solve launched ell_spmv {c_single['ell_spmv']} times, its "
+          f"tally by operand {sum(per_solve.values())}")
     host = AMGSolver(dataclasses.replace(cfg64, backend="host")).setup(A)
     res_h = host.pcg(b)
     hd = history_diff(res_h.residuals, res.residuals)
@@ -577,6 +706,8 @@ def main() -> int:
         + (f"{dev_ms:.3f} ms = {dev_ms / max(warm.iterations, 1):.3f} "
            f"ms/iteration, busy share {busy:.3f} of the unprofiled wall time"
            if prof else "not measured (no device events)"))
+    n_dev = sum(v[1] for v in prof.values())
+    log(f"  {n_dev} device kernels in the warm solve")
     for kname, (kms, kcount) in top_dev:
         log(f"    {kms:9.3f} ms {kcount:6d}x  {kname[:100]}")
 
@@ -655,6 +786,10 @@ def main() -> int:
                                "pcg_f64_ms_per_iteration": ms_iter,
                                "pcg_f64_device_ms": dev_ms if prof else None,
                                "pcg_f64_device_busy_share": busy,
+                               "pcg_f64_device_kernels": n_dev,
+                               "bcsr_apply_device_kernels": bcsr_apply,
+                               "ell_spmv_launches_per_solve": per_solve,
+                               "ell_spmv_excess_ms_per_solve": ell_excess,
                                "pcg_f64_top_device": [
                                    [kn[:100], km, kc]
                                    for kn, (km, kc) in top_dev],

@@ -229,8 +229,10 @@ class DistOperator:
         return fn(cols, vals, src, use_kernel=use_kernel)
 
     def _bcsr_product(self, bcols, bvals, src, use_kernel: bool):
-        y = bcsr(bcols, bvals, src, use_kernel=use_kernel)
-        return y[:, : self.rows_local].contiguous()
+        """Block-ELL contraction against ``src``: the true rows only, in one
+        launch on the card (no pad of ``src``, no slice of the result)."""
+        return bcsr(bcols, bvals, src, rows=self.rows_local,
+                    use_kernel=use_kernel)
 
     def _on_product(self, arrs, x, use_kernel: bool):
         """``A_on · x`` — the halo-free product."""

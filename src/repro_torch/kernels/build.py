@@ -31,8 +31,9 @@ KERNELS = {
                  [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P]),
     "ell_spmm": ("spmv/csrc/ell_spmm.cu", "ell_spmm_launch",
                  [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _P]),
+    # bcols, bvals, x, y; D, mb, Kb, m, bs, k, rows; f64, stream
     "bcsr_spmm": ("spmv/csrc/bcsr_spmm.cu", "bcsr_spmm_launch",
-                  [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _INT, _P]),
+                  [_P, _P, _P, _P] + [_I64] * 7 + [_INT, _P]),
     # q, k, v, o; B, Hq, Hkv, Sq, Skv, D; (b, h, s) strides of q, k, v, o;
     # causal, window (-1: none), bf16, stream
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",

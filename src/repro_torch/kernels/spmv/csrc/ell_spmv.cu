@@ -12,72 +12,241 @@
 // Two flops per slot is far below the card's float32/float64 rates, so the
 // bytes bound it.
 //
-// Design against that bound: G lanes (4, 8, 16 or 32, the power of two at or
-// above K, capped at a warp) share one row, so a row's cols/vals are read as
-// one contiguous, coalesced segment rather than one strided load per thread.
-// The x gathers go through the read-only cache (__ldg), where neighbouring
-// rows' columns overlap.  The lanes' partial sums meet through warp shuffles:
-// no shared memory, no atomics, no second pass.
+// Design against that bound: rows are short (K = 1..66 on the AMG path, fill
+// 0.04..0.97), so a row is no unit of work for a group of lanes -- lanes
+// would idle on short rows and on padding.  Instead a block takes a run of R
+// consecutive rows (R a multiple of 4, R*K up to one round of 4*THREADS*UNROLL
+// slots), which in the row-major layout are R*K contiguous slots, and
+// streams them as one flat array: consecutive lanes take consecutive chunks
+// of 4 slots, every lane is busy and every sector is read once.
+//   - Each thread carries UNROLL chunks: their column ids come in 16-byte
+//     loads, then every value and x load of those 4*UNROLL slots is issued
+//     before the first product, so many independent loads are in flight.
+//     Small blocks (128 threads; 1 chunk a thread in float64, 4 in float32)
+//     keep the registers low and many blocks on each SM, so one block's sums
+//     overlap the others' loads.
+//   - A 16-byte group of values is loaded only where one of its column ids is
+//     >= 0: the card moves 32-byte sectors, so padding that fills a group (the
+//     lowering packs it at the row's end) costs no value bytes.
+//   - x is gathered through the read-only path (__ldg); at the solve's sizes
+//     it stays in the 50 MB L2.
+//   - Products land in shared memory (rows at an odd stride), and one thread
+//     per row then sums its products in slot order (no shuffles, no atomics;
+//     the order is fixed, so results repeat bit for bit).
+//   - Rows longer than a quarter of a round (K > 128 in float64, 512 in
+//     float32; never on the AMG path) take R = 4 and several rounds: each
+//     round sums its part of a row, and the row that runs on into the next
+//     round leaves its partial sum in shared memory for it.  Shared memory
+//     is one round's products whatever K is.  The launch picks the
+//     kernel's instance with rounds only for such K.
+//   - On the small levels a launch is one wave of blocks and its time is
+//     latency: the first column ids go out before anything else, and the
+//     rank lookup (32-bit divisions) runs while they are in flight.
+// One kernel serves every K and fill: there is no width switch.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-template <typename T, int G>
-__global__ void ell_spmv_kernel(const int* __restrict__ cols,
-                                const T* __restrict__ vals,
-                                const T* __restrict__ x, T* __restrict__ y,
-                                int64_t rows, int64_t n, int64_t K, int64_t m) {
-  const int64_t tid = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  const int64_t row = tid / G;
-  const int lane = static_cast<int>(threadIdx.x % G);
-  T acc = T(0);
-  if (row < rows) {
-    const int64_t d = row / n;
-    const int* c = cols + row * K;
-    const T* v = vals + row * K;
-    const T* xd = x + d * m;
-    for (int64_t k = lane; k < K; k += G) {
-      const int j = __ldg(c + k);
-      if (j >= 0) acc += __ldg(v + k) * __ldg(xd + j);
+constexpr int THREADS = 128;
+constexpr int MAX_ROWS = 1024;                     // rows a block takes at most
+constexpr int64_t MAX_K = int64_t{1} << 28;        // a block's slots fit an int
+
+// chunks of 4 slots a thread carries a round (the fastest at the AMG path's
+// level-0 A_on on an H100; PERF.md)
+template <typename T>
+__host__ __device__ constexpr int unroll() { return sizeof(T) == 8 ? 1 : 4; }
+
+template <typename T>
+__host__ __device__ constexpr int span() { return 4 * THREADS * unroll<T>(); }
+
+// Rows per block for row length K: as many as fit one round's slots, a
+// multiple of 4 (so that every block starts 16-byte aligned), at least 4.
+template <typename T>
+int rows_per_block(int64_t K) {
+  const int64_t r = (span<T>() / K) / 4 * 4;
+  return static_cast<int>(r < 4 ? 4 : r > MAX_ROWS ? MAX_ROWS : r);
+}
+
+// The values of one chunk of 4 slots, a 16-byte load for each group that
+// holds a stored entry (c < 0 marks padding; c0 & c1 < 0 iff both are).
+__device__ __forceinline__ void load_vals4(const float* p, const int* c, float* v) {
+  float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+  if ((c[0] & c[1] & c[2] & c[3]) >= 0) t = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ __forceinline__ void load_vals4(const double* p, const int* c, double* v) {
+  double2 a = make_double2(0.0, 0.0), b = make_double2(0.0, 0.0);
+  if ((c[0] & c[1]) >= 0) a = __ldg(reinterpret_cast<const double2*>(p));
+  if ((c[2] & c[3]) >= 0) b = __ldg(reinterpret_cast<const double2*>(p + 2));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// Shared memory: xoff int64[R] (d * m of each row, when a block spans
+// ranks), prod T[min(R*K, SPAN) + R] (a round's products; row r - rf of the
+// round at offset (r - rf) * pad, pad = 1 for even K: an odd row stride),
+// carry T[2] (a row's partial sum across rounds, by the round's parity).
+// (prod right after xoff, 16-byte aligned, was 5% faster in float32 on an
+// H100 than behind the carry; PERF.md.)
+// ROUNDS is false where a block's slots fit one round (every K up to a
+// quarter of a round, all of the AMG path): that instance is compiled
+// without the rounds' bookkeeping, which costs the short rows registers
+// and so blocks on each SM.
+template <typename T, bool ROUNDS>
+__global__ void __launch_bounds__(THREADS)
+ell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
+                const T* __restrict__ x, T* __restrict__ y, int64_t rows,
+                int64_t n, int K, int pad, int R, int64_t m, bool vec) {
+  constexpr int UNROLL = unroll<T>();
+  constexpr int SPAN = span<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* xoff = reinterpret_cast<int64_t*>(smem);
+  T* prod = reinterpret_cast<T*>(smem + R * sizeof(int64_t));
+  T* carry = prod + (R * K < SPAN ? R * K : SPAN) + R;
+
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * R;
+  const int nr = static_cast<int>(rows - row0 < R ? rows - row0 : R);
+  const int ns = nr * K;                  // this block's slots
+  const int64_t s0 = row0 * K;            // its first slot
+  // column ids of a round's chunks (jr: the round's first slot)
+  int c[UNROLL][4];
+  auto load_cols = [&](int jr) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int j = jr + (static_cast<int>(threadIdx.x) + u * THREADS) * 4;
+      if (vec && j + 4 <= ns) {
+        const int4 t = __ldg(reinterpret_cast<const int4*>(cols + s0 + j));
+        c[u][0] = t.x; c[u][1] = t.y; c[u][2] = t.z; c[u][3] = t.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) c[u][q] = j + q < ns ? __ldg(cols + s0 + j + q) : -1;
+      }
+    }
+  };
+  // the first round's column ids go out before the rank lookup below
+  load_cols(0);
+  // row ids fit 32 bits wherever a card's memory could hold the operand;
+  // a 32-bit division is a few instructions, a 64-bit one a long call
+  const bool narrow = rows <= 0x7fffffff;
+  auto rank_of = [&](int64_t row) -> int64_t {
+    return narrow ? static_cast<int64_t>(static_cast<unsigned>(row) / static_cast<unsigned>(n))
+                  : row / n;
+  };
+  const int64_t d0 = rank_of(row0);
+  const bool one_rank = rank_of(row0 + nr - 1) == d0;
+  if (!one_rank) {
+    for (int r = threadIdx.x; r < nr; r += THREADS) xoff[r] = rank_of(row0 + r) * m;
+    __syncthreads();
+  }
+  const T* xd = x + d0 * m;
+  // j / K through a float reciprocal: exact while j < 2^22, as (j + 0.5) / K
+  // keeps 0.5 / K away from every integer; longer blocks divide
+  const bool by_recip = !ROUNDS || ns <= (1 << 22);
+  const float inv_k = 1.0f / static_cast<float>(K);
+
+  // one round's products into prod (jr: its first slot, rf: its first row)
+  auto products = [&](int jr, int rf) {
+    if (jr + static_cast<int>(threadIdx.x) * 4 >= ns) return;   // no slot here
+    T v[UNROLL][4];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int j = jr + (static_cast<int>(threadIdx.x) + u * THREADS) * 4;
+      if (vec && j + 4 <= ns) {
+        load_vals4(vals + s0 + j, c[u], v[u]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[u][q] = c[u][q] >= 0 ? __ldg(vals + s0 + j + q) : T(0);
+      }
+    }
+    T xv[UNROLL][4];
+    int at[UNROLL][4];                    // where each product goes in prod
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = jr + (static_cast<int>(threadIdx.x) + u * THREADS) * 4 + q;
+        const int r = by_recip ? static_cast<int>((static_cast<float>(j) + 0.5f) * inv_k)
+                               : j / K;
+        at[u][q] = j < ns ? (j - jr) + (r - rf) * pad : -1;
+        const int cj = c[u][q];
+        xv[u][q] = T(0);
+        if (cj >= 0) xv[u][q] = __ldg((one_rank ? xd : x + xoff[r]) + cj);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (at[u][q] >= 0) prod[at[u][q]] = c[u][q] >= 0 ? v[u][q] * xv[u][q] : T(0);
+    }
+  };
+
+  if constexpr (!ROUNDS) {                // ns <= SPAN: one round
+    products(0, 0);
+    __syncthreads();
+    for (int r = threadIdx.x; r < nr; r += THREADS) {
+      const T* p = prod + r * (K + pad);
+      T acc = T(0);
+      for (int k = 0; k < K; ++k) acc += p[k];
+      y[row0 + r] = acc;
+    }
+  } else {
+    for (int jr = 0, pass = 0; jr < ns; jr += SPAN, ++pass) {
+      if (jr > 0) {
+        __syncthreads();                  // the last round's sums are read
+        load_cols(jr);
+      }
+      const int rf = jr / K;              // the round's first row
+      products(jr, rf);
+      __syncthreads();
+      // each row of the round sums its part; a row begun in an earlier
+      // round adds the carried sum, one that runs on leaves its sum for
+      // the next
+      const int je = ns - jr < SPAN ? ns : jr + SPAN;
+      const int re = (je + K - 1) / K;
+      for (int r = rf + static_cast<int>(threadIdx.x); r < re; r += THREADS) {
+        const int a = r * K > jr ? r * K : jr;
+        const int e = r * K + K < je ? r * K + K : je;
+        const T* p = prod + (a - jr) + (r - rf) * pad;
+        T acc = T(0);
+        for (int k = 0; k < e - a; ++k) acc += p[k];
+        if (r * K < jr) acc = carry[(pass + 1) & 1] + acc;
+        if (r * K + K > je) carry[pass & 1] = acc;
+        else y[row0 + r] = acc;
+      }
     }
   }
-  // every lane of the warp reaches the shuffles (no early return above)
-  for (int off = G / 2; off > 0; off /= 2)
-    acc += __shfl_down_sync(0xffffffffu, acc, off, G);
-  if (row < rows && lane == 0) y[row] = acc;
 }
 
 template <typename T>
 int launch(const int* cols, const T* vals, const T* x, T* y, int64_t D,
            int64_t n, int64_t K, int64_t m, cudaStream_t stream) {
+  if (K > MAX_K) return static_cast<int>(cudaErrorInvalidValue);
+  const int R = rows_per_block<T>(K);
+  const int64_t slots = R * K < span<T>() ? R * K : span<T>();   // a round's
+  const int64_t smem = R * static_cast<int64_t>(sizeof(int64_t)) + (2 + slots + R) * sizeof(T);
   const int64_t rows = D * n;
-  const int threads = 256;
-  const int G = K <= 4 ? 4 : K <= 8 ? 8 : K <= 16 ? 16 : 32;
-  const int64_t blocks = (rows * G + threads - 1) / threads;
-  switch (G) {
-    case 4:
-      ell_spmv_kernel<T, 4><<<blocks, threads, 0, stream>>>(cols, vals, x, y, rows, n, K, m);
-      break;
-    case 8:
-      ell_spmv_kernel<T, 8><<<blocks, threads, 0, stream>>>(cols, vals, x, y, rows, n, K, m);
-      break;
-    case 16:
-      ell_spmv_kernel<T, 16><<<blocks, threads, 0, stream>>>(cols, vals, x, y, rows, n, K, m);
-      break;
-    default:
-      ell_spmv_kernel<T, 32><<<blocks, threads, 0, stream>>>(cols, vals, x, y, rows, n, K, m);
-      break;
-  }
+  const int64_t blocks = (rows + R - 1) / R;
+  const bool vec =
+      (reinterpret_cast<uintptr_t>(cols) | reinterpret_cast<uintptr_t>(vals)) % 16 == 0;
+  const int k = static_cast<int>(K), pad = K % 2 == 0;
+  if (R * K > span<T>())
+    ell_spmv_kernel<T, true><<<blocks, THREADS, smem, stream>>>(
+        cols, vals, x, y, rows, n, k, pad, R, m, vec);
+  else
+    ell_spmv_kernel<T, false><<<blocks, THREADS, smem, stream>>>(
+        cols, vals, x, y, rows, n, k, pad, R, m, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success).  The caller
-// guarantees D, n, K, m > 0, contiguous operands on one device, and
-// 0 <= cols < m wherever cols != -1.
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for K above 2^28 (a row of 1 GiB of column ids).
+// The caller guarantees D, n, K, m > 0, contiguous operands on one device,
+// and 0 <= cols < m wherever cols != -1.
 extern "C" int ell_spmv_launch(const void* cols, const void* vals, const void* x,
                                void* y, int64_t D, int64_t n, int64_t K,
                                int64_t m, int is_f64, void* stream) {

@@ -31,12 +31,13 @@ def spmm(cols, vals, x, *, use_kernel: bool | None = None):
     return ell_spmm(cols, vals, x)
 
 
-def bcsr(bcols, bvals, x, *, use_kernel: bool | None = None):
-    """Block-ELL product, ``x`` ``[D, m]`` or ``[D, m, k]`` → ``[D, mb·bs]``
-    or ``[D, mb·bs, k]`` (callers slice back to the true row count)."""
+def bcsr(bcols, bvals, x, *, rows: int | None = None,
+         use_kernel: bool | None = None):
+    """Block-ELL product, ``x`` ``[D, m]`` or ``[D, m, k]`` → its first
+    ``rows`` rows (default all ``mb·bs``), ``[D, rows]`` or ``[D, rows, k]``."""
     if use_kernel is False:
-        return bcsr_apply_ref(bcols, bvals, x)
-    return (bcsr_spmm if x.ndim == 3 else bcsr_spmv)(bcols, bvals, x)
+        return bcsr_apply_ref(bcols, bvals, x, rows)
+    return (bcsr_spmm if x.ndim == 3 else bcsr_spmv)(bcols, bvals, x, rows)
 
 
 def launch_counts() -> dict[str, int]:

@@ -59,20 +59,32 @@ def block_x(x: torch.Tensor, bs: int) -> torch.Tensor:
     return x.reshape(D, -1, bs, k)
 
 
+def block_rows(rows: int | None, mb: int, bs: int) -> int:
+    """The output row count of a block-ELL product: ``rows`` (default all
+    ``mb·bs``), checked to lie in ``0..mb·bs``."""
+    rows = mb * bs if rows is None else int(rows)
+    if not 0 <= rows <= mb * bs:
+        raise ValueError(f"bcsr: rows = {rows} outside 0..{mb * bs}")
+    return rows
+
+
 def bcsr_apply_ref(bcols: torch.Tensor, bvals: torch.Tensor,
-                   x: torch.Tensor) -> torch.Tensor:
+                   x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
     """Block-ELL product: block row r = ``Σ_s bvals[d, r, s] @
     Xb[d, bcols[d, r, s]]``.  bcols ``[D, mb, Kb]`` (-1 pad), bvals
-    ``[D, mb, Kb, bs, bs]``, x ``[D, m]`` or ``[D, m, k]`` → ``[D, mb·bs]``
-    or ``[D, mb·bs, k]`` (callers slice back to the true row count)."""
+    ``[D, mb, Kb, bs, bs]``, x ``[D, m]`` or ``[D, m, k]`` → the first
+    ``rows`` rows (default all ``mb·bs``): ``[D, rows]`` or
+    ``[D, rows, k]``."""
     single = x.ndim == 2
     D, mb, Kb = bcols.shape
     bs = bvals.shape[-1]
+    rows = block_rows(rows, mb, bs)
     k = 1 if single else x.shape[2]
     if mb == 0 or Kb == 0 or x.shape[1] == 0 or k == 0:
-        y = torch.zeros((D, mb * bs, k), dtype=bvals.dtype, device=bvals.device)
+        y = torch.zeros((D, rows, k), dtype=bvals.dtype, device=bvals.device)
     else:
         g = _gather_rows(block_x(x, bs), bcols)           # [D, mb, Kb, bs, k]
         g = torch.where((bcols >= 0)[..., None, None], g, 0.0)
         y = torch.matmul(bvals, g).sum(dim=2).reshape(D, mb * bs, k)
+        y = y[:, :rows].contiguous()
     return y[..., 0] if single else y

@@ -1,7 +1,10 @@
 """The CUDA kernels on the card (marker ``cuda``; skipped where there is no
-card): each kernel against its plain version over ragged shapes — every
-lane-group width of the ELL SpMV, rows that do not fill a block, sources
-that are not a multiple of the BCSR block size, degenerate shapes; flash
+card): each kernel against its plain version over ragged shapes — the ELL
+SpMV at every row length and fill the AMG path has, padding packed at the
+row's end and scattered, row counts that fill no whole block, ranks shorter
+than a block, operands that are not 16-byte aligned, rows of up to 20,001
+slots; BCSR sources that are not a multiple of the block size and results
+cut to the true rows, one launch per BCSR apply; degenerate shapes; flash
 attention over ragged lengths, windows, decode alignment, both head dims,
 float32 and bfloat16, strided time-major views and a failed launch — a
 small distributed PCG on the card against the same solve on the CPU, and a
@@ -48,16 +51,80 @@ def _ell(rng, n, m, K, dtype, dev):
             torch.as_tensor(vals, dtype=dtype, device=dev))
 
 
+def _ell_path(rng, n, m, K, fill, packed, dtype, dev):
+    """ELL operands at a given fill; ``packed`` puts the padding at each
+    row's end as the lowering does, else it is scattered.  Padded slots
+    hold NaN values: a kernel that counted one would show it."""
+    cols = rng.integers(0, m, size=(D, n, K)).astype(np.int32)
+    keep = rng.random((D, n, K)) < fill
+    if packed:
+        keep = np.sort(keep, axis=2)[..., ::-1]
+    cols[~keep] = -1
+    vals = rng.standard_normal((D, n, K))
+    vals[~keep] = np.nan
+    return (torch.as_tensor(cols, device=dev),
+            torch.as_tensor(vals, dtype=dtype, device=dev))
+
+
+# the row lengths of the AMG path's ELL operands (laplace_3d(64) on 2x4
+# ranks: level 0 A_on 27, A_off 9, P_on 8, P_off 4, R_on 27, R_off 18;
+# levels 1-2 up to 36 and 33; the small levels up to 66)
+PATH_K = [1, 2, 4, 8, 9, 18, 27, 33, 36, 46, 66]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("K", [1, 4, 5, 8, 9, 16, 17, 27, 33, 70])
-def test_ell_spmv_every_group_width(dev, K, dtype):
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("fill", [0.04, 0.25, 0.9, 0.97])
+@pytest.mark.parametrize("K", PATH_K)
+def test_ell_spmv_path_widths_and_fills(dev, K, fill, packed, dtype):
+    """Every row length and fill the path has; ranks of 37 rows (shorter
+    than a block's run of rows, so blocks span ranks) and of 1000 + K rows
+    (no whole number of blocks)."""
     rng = np.random.default_rng(K)
-    n, m = 1000 + K, 777
-    cols, vals = _ell(rng, n, m, K, dtype, dev)
-    x = torch.as_tensor(rng.standard_normal((D, m)), dtype=dtype, device=dev)
-    before = spmv.ell_spmv.launches
-    _close(spmv.ell_spmv(cols, vals, x), ref.ell_spmv_ref(cols, vals, x))
-    assert spmv.ell_spmv.launches == before + 1
+    m = 777
+    for n in (37, 1000 + K):
+        cols, vals = _ell_path(rng, n, m, K, fill, packed, dtype, dev)
+        x = torch.as_tensor(rng.standard_normal((D, m)), dtype=dtype, device=dev)
+        before = spmv.ell_spmv.launches
+        got = spmv.ell_spmv(cols, vals, x)
+        assert spmv.ell_spmv.launches == before + 1
+        _close(got, ref.ell_spmv_ref(cols, vals, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_spmv_unaligned_operands(dev, dtype):
+    """Contiguous operands that start one element into their storage (not
+    16-byte aligned) take the kernel's scalar loads, also where rows run
+    over several of a block's rounds of slots (K = 3000)."""
+    rng = np.random.default_rng(5)
+    for n, K in ((1001, 27), (9, 3000)):
+        cols0, vals0 = _ell_path(rng, n, 50, K, 0.9, True, dtype, dev)
+        cbuf = torch.empty(cols0.numel() + 1, dtype=cols0.dtype, device=dev)
+        vbuf = torch.empty(vals0.numel() + 1, dtype=vals0.dtype, device=dev)
+        cbuf[1:] = cols0.reshape(-1)
+        vbuf[1:] = vals0.reshape(-1)
+        cols, vals = cbuf[1:].view(D, n, K), vbuf[1:].view(D, n, K)
+        assert cols.is_contiguous() and cols.data_ptr() % 16 != 0
+        x = torch.as_tensor(rng.standard_normal((D, 50)), dtype=dtype, device=dev)
+        _close(spmv.ell_spmv(cols, vals, x), ref.ell_spmv_ref(cols0, vals0, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", [129, 513, 2049, 20000, 20001])
+def test_ell_spmv_long_rows(dev, K, dtype):
+    """Rows longer than a quarter of the kernel's round of slots (K > 128 in
+    float64, 512 in float32) take several rounds, a row's partial sum
+    carried from one to the next; K = 20,000 is past what shared memory
+    could hold of whole rows.  Ranks of 9 rows: blocks span ranks."""
+    rng = np.random.default_rng(K)
+    m = 5000
+    for fill, packed in ((0.9, True), (0.04, False)):
+        cols, vals = _ell_path(rng, 9, m, K, fill, packed, dtype, dev)
+        x = torch.as_tensor(rng.standard_normal((D, m)), dtype=dtype, device=dev)
+        before = spmv.ell_spmv.launches
+        got = spmv.ell_spmv(cols, vals, x)
+        assert spmv.ell_spmv.launches == before + 1
+        _close(got, ref.ell_spmv_ref(cols, vals, x))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -72,10 +139,18 @@ def test_ell_spmm(dev, K, k, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("bs", bcsr.BLOCK_SIZES)
-@pytest.mark.parametrize("k", [None, 1, 5, 8])
-def test_bcsr(dev, bs, k, dtype):
+@pytest.mark.parametrize("k", [None, 1, 5, 8, 40])
+@pytest.mark.parametrize("shape", ["wide", "level3", "level4"])
+@pytest.mark.parametrize("cut", [None, 7])
+def test_bcsr(dev, bs, k, shape, cut, dtype):
+    """Sources that are not a multiple of bs (read unpadded), results cut
+    to ``rows`` = mb·bs − 7 or whole; the AMG path's level-3 and level-4
+    shapes (57 and 13 rows a rank) and a wide one (Kb 40 over 37 block
+    rows); k = 40 spans several column tiles."""
     rng = np.random.default_rng(bs + (k or 0))
-    mb, Kb, m = 37, 5, 29 * bs - 5
+    mb, Kb, m = {"wide": (37, 40, 29 * bs - 5), "level3": (-(-57 // bs), 8, 57),
+                 "level4": (-(-13 // bs), 2, 13)}[shape]
+    rows = None if cut is None else max(mb * bs - cut, m)
     nb = -(-m // bs)
     bcols = rng.integers(0, nb, size=(D, mb, Kb)).astype(np.int32)
     bcols[rng.random((D, mb, Kb)) < 0.25] = -1
@@ -85,7 +160,73 @@ def test_bcsr(dev, bs, k, dtype):
     x = torch.as_tensor(rng.standard_normal((D, m) + (() if k is None else (k,))),
                         dtype=dtype, device=dev)
     fn = bcsr.bcsr_spmv if k is None else bcsr.bcsr_spmm
-    _close(fn(bcols, bvals, x), ref.bcsr_apply_ref(bcols, bvals, x))
+    before = bcsr.bcsr_spmm.launches
+    got = fn(bcols, bvals, x, rows=rows)
+    assert bcsr.bcsr_spmm.launches == before + 1
+    want = ref.bcsr_apply_ref(bcols, bvals, x, rows)
+    assert want.shape[1] == (mb * bs if rows is None else rows)
+    _close(got, want)
+
+
+def _device_kernels(fn):
+    """``fn()`` and the names of the device kernels it ran (profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("k", [None, 3])
+def test_bcsr_apply_is_one_launch(dev, k):
+    """One BCSR apply on the card is one ``bcsr_spmm`` launch and nothing
+    else (no pad of x, no slice of y), returning ``[D, rows_local(, k)]``:
+    the whole apply of an operator whose halo is empty, and the on-process
+    product of one whose halo is not; both against the CPU's apply."""
+    import copy
+
+    from repro_torch.amg.csr import CSR
+    from repro_torch.amg.dist_spmv import build_dist_operator
+    from repro_torch.amg.problems import laplace_3d
+    from repro_torch.core.topology import Partition, Topology
+
+    rng = np.random.default_rng(0)
+    n = 100                                   # 8 ranks of 13 rows: 2 blocks of 8
+    part = Partition.balanced(n, Topology(n_nodes=8, ppn=1))
+    dense = np.zeros((n, n))
+    for d in range(8):
+        lo, hi = part.local_range(d)
+        dense[lo:hi, lo:hi] = rng.normal(size=(hi - lo, hi - lo))
+    r, c = np.nonzero(dense)
+    empty = build_dist_operator(CSR.from_coo(r, c, dense[r, c], (n, n)), 8, 1,
+                                "standard", dtype=np.float64)
+    halo = build_dist_operator(laplace_3d(7), 2, 4, "standard", dtype=np.float64)
+    for op, full in ((empty, True), (halo, False)):
+        op = copy.copy(op)
+        op.lower_bcsr(8)
+        assert op.rows_local % 8 != 0
+        xg = rng.standard_normal((op.col_part.n,) + (() if k is None else (k,)))
+        xs = op.scatter_x(xg, dtype=np.float64)
+        outs = {}
+        for where in ("cpu", "cuda"):
+            arrs = op.to_device(torch.device(where), torch.float64)
+            x = torch.as_tensor(xs, device=where)
+            fn = ((lambda: op.apply(arrs, x)) if full else
+                  (lambda: op._on_product(arrs, x, True)))
+            if where == "cuda":
+                fn()                          # the kernel's build and load
+                before = bcsr.bcsr_spmm.launches
+                y, names = _device_kernels(fn)
+                assert bcsr.bcsr_spmm.launches == before + 1
+                assert len(names) == 1 and "bcsr_spmm_kernel" in names[0], names
+            else:
+                y = fn()
+            assert y.shape == (8, op.rows_local) + (() if k is None else (k,))
+            outs[where] = y
+        _close(outs["cuda"], outs["cpu"].to("cuda"))
 
 
 def test_degenerate_and_bad_operands(dev):

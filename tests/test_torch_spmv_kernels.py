@@ -106,6 +106,34 @@ def test_bcsr_plain_matches_pallas(bs, k, dtype):
     _close(ops.bcsr(*t, use_kernel=False), want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("bs", bcsr.BLOCK_SIZES)
+@pytest.mark.parametrize("k", [None, 1, 3])
+@pytest.mark.parametrize("cut", [0, 1, 5])
+def test_bcsr_rows_match_pallas_sliced(bs, k, cut, dtype):
+    """``rows=`` keeps the first rows of the product: the plain path (what
+    the wrappers run for CPU tensors, and what ``DistOperator`` asks for
+    with its true row count) against the Pallas kernel's result sliced to
+    the same rows."""
+    rng = np.random.default_rng(bs * 100 + (k or 0) * 10 + cut)
+    mb, Kb = 7, 3
+    m = mb * bs - 4                          # a partial last block, as on the path
+    rows = mb * bs - cut
+    bcols, bvals = _random_bcsr(rng, mb, Kb, -(-m // bs), bs, dtype)
+    x = rng.standard_normal((D, m) + (() if k is None else (k,))).astype(dtype)
+    fn = jbcsr.bcsr_spmv if k is None else jbcsr.bcsr_spmm
+    want = _pallas(fn, dtype, bcols, bvals, x)[:, :rows]
+    t = [torch.as_tensor(a) for a in (bcols, bvals, x)]
+    wrapper = bcsr.bcsr_spmv if k is None else bcsr.bcsr_spmm
+    for got in (ref.bcsr_apply_ref(*t, rows), wrapper(*t, rows=rows),
+                ops.bcsr(*t, rows=rows), ops.bcsr(*t, rows=rows, use_kernel=False)):
+        assert got.shape == (D, rows) + (() if k is None else (k,))
+        assert got.is_contiguous()
+        _close(got, want, dtype)
+    with pytest.raises(ValueError, match="rows"):
+        wrapper(*t, rows=mb * bs + 1)
+
+
 @pytest.mark.parametrize("case", ["n0", "K0", "m0", "k0"])
 def test_degenerate_shapes_give_exact_zeros(case):
     n, K, m, k = {"n0": (0, 3, 5, 2), "K0": (4, 0, 5, 2),
