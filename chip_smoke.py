@@ -9,15 +9,18 @@ version at the shapes its path gives it:
   rows, 8 stacked ranks of 32,768 rows), through ``ell_spmv``, ``ell_spmm``
   and ``bcsr_spmm``;
 - LM serving, ``Engine(cfg, init_lm(qwen3-1.7b)).run()`` at full width (28
-  layers, d_model 2048, 16/8 heads of 128, vocab 151,936; float32 random
-  weights from a seeded generator), 8 requests of 512-2048 prompt tokens and
-  32 greedy new tokens in batches of 4, prefill attention through
-  ``flash_attention``.
+  layers, d_model 2048, 16/8 heads of 128, vocab 151,936; random weights
+  from a seeded generator): in float32, 8 requests of 512-2048 prompt
+  tokens and 32 greedy new tokens in batches of 4; then in bfloat16
+  (weights, caches and the engine), the first 4 of those requests again;
+  prefill attention through ``flash_attention``.
 
 Phases (any failure exits non-zero):
 
 1. device: card name and power limit (``nvidia-smi``), CUDA capability;
-2. build: ``nvcc`` for every kernel source, all at once;
+2. build: ``nvcc`` for every kernel source, all at once; ``ptxas -v``'s
+   registers, stack and spills of every ``flash_attention`` and
+   ``ell_spmm`` instance;
 3. kernels: each kernel in float32 and float64 (BCSR at bs 8 and 16, cut
    to the true rows) on the lowered hierarchy's own operands, against its
    plain version (error normalized by the plain result's max magnitude:
@@ -25,11 +28,12 @@ Phases (any failure exits non-zero):
    bursts of 10 calls queued behind a GPU spin, median of 25) of the
    kernel, the plain version and ``torch.sparse.mm`` on the same operator in
    CSR, the wrapper's host cost per call, and the bytes-over-bandwidth
-   bound; ``ell_spmv`` in float64 at every ELL operand the f64 solve
-   launches (levels, A/P/R, on/off parts), with its launches per solve
-   (tallied by operand in a counted solve of its own; the tally must equal
-   the launch counter there and in phase 4's counted run) and the sum of
-   launches × (time − bound) over them;
+   bound; ``ell_spmv`` and ``ell_spmm`` (k = 8) in float64 at every ELL
+   operand the f64 single-RHS and k = 8 solves launch (levels, A/P/R,
+   on/off parts), with launches per solve (tallied by operand in a counted
+   solve of its own; the tally must equal the launch counter there and in
+   phase 4's / 5's counted run) and the sums of launches × (time − bound)
+   and of launches × time over them;
 4. f64 PCG to 1e-8, residual history against the numpy host backend
    (≤ 1e-7 of r0), true residual in numpy, setup / lowering / per-iteration
    times, and the device time of a warm solve by kernel
@@ -39,19 +43,24 @@ Phases (any failure exits non-zero):
 6. f32 PCG to 1e-5;
 7. launch counts of the solve runs (each counter set to 0 just before a
    run and read just after): every sparse kernel launched;
-8. flash attention at the serving run's prefill shape (f32 and bf16), with
-   a 256-key window, with fewer queries than keys, and at head dim 64,
-   against its plain version (error over max|plain|: float32 2e-5, bfloat16
-   1e-2), with device times of the kernel, the plain version and
-   ``scaled_dot_product_attention``, and the flop / byte bound;
-9. LM serving: one warm-up request, then the 8 requests with the counters
-   set to 0 just before and read just after (28 ``flash_attention``
-   launches per prefill batch); prefill seconds, decode tokens/s, and the
-   device busy share of one decode step (``torch.profiler``);
+8. flash attention at the serving runs' prefill shape, with a 256-key
+   window, with fewer queries than keys, and at head dim 64, each in f32
+   and bf16, against its plain version (each row's error over the row's
+   max|plain|: float32 2e-5, bfloat16 1e-2), with device times of the kernel, the plain
+   version and ``scaled_dot_product_attention``, and the flop / byte bound
+   (float32 at 67 TFLOP/s, bfloat16 at the tensor cores' 989);
+9. LM serving in f32: one warm-up request, then the 8 requests with the
+   counters set to 0 just before and read just after (28
+   ``flash_attention`` launches per prefill batch); prefill seconds, decode
+   tokens/s, and the device busy share of one decode step
+   (``torch.profiler``);
 10. kernel vs plain on the served batches, teacher-forced with the served
    tokens: prefill logits and every decode step's logits through the
    kernel and through the plain attention agree to 1e-4 of max|logits|;
    greedy-token agreement is printed, not asserted;
+9-10 again in bf16 on 4 requests (one prefill batch: 28 launches; logits
+   to 3e-2 of max|logits|, the reason at ``LOGITS_RTOL``), then bf16's
+   prefill s, decode tok/s and ms a step beside f32's;
 11. one JSON line with every kernel's numbers;
 12. last line: ``{"ok": true, "device": {...}}``.
 
@@ -86,10 +95,19 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12,
               torch.bfloat16: 989e12}
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# flash attention: each output row's error over the row's own max|plain|
+# (``rel_err_rows``: late causal rows are far smaller than the first ones);
+# bfloat16 rounds the output (8-bit mantissa, 4e-3 relative) and P
 FLASH_RTOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 HIST_TOL = 1e-7
 APPLY_REPS = 10               # BCSR applies profiled alone, per BCSR level
-LOGITS_RTOL = 1e-4
+# kernel vs plain logits, teacher-forced, over max|logits|: float32 at 1e-4
+# (two summation orders over 28 layers); bfloat16 at 3e-2: the kernel rounds
+# the probabilities to bfloat16 before P.V where the plain version keeps
+# them in float32, each layer's output is rounded to bfloat16 (8-bit
+# mantissa, 4e-3 relative) on both sides, and 28 layers carry a difference
+# of one rounding forward
+LOGITS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 SPMV_KERNELS = ("ell_spmv", "ell_spmm", "bcsr_spmm")
 # the Pallas kernel each replaces (the sources: repro_torch.kernels.build)
 REPLACES = {
@@ -101,6 +119,7 @@ REPLACES = {
 # LM serving: qwen3-1.7b at full width, 8 requests, prompts of 512-2048
 LM_ARCH, LM_REQUESTS, LM_BATCH, LM_NEW = "qwen3-1.7b", 8, 4, 32
 LM_PROMPT = (512, 2048)
+LM_BF16_REQUESTS = 4          # the bf16 run: the first prefill batch again
 
 
 def log(msg: str) -> None:
@@ -170,23 +189,25 @@ def bcsr_to_csr(bcols: torch.Tensor, bvals: torch.Tensor, m: int,
 
 
 def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
-                library_name="torch.sparse.mm"):
-    """Run one kernel against its plain version; time all three."""
+                library_name="torch.sparse.mm", rel_err=None):
+    """Run one kernel against its plain version; time all three.  The error
+    is max|kernel - plain| over max|plain|, or ``rel_err(kernel, plain)``
+    where given."""
     y = fn(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
     err = float((y.double() - ref.double()).abs().max())
-    scale = float(ref.double().abs().max()) or 1.0
+    rel = (rel_err(y, ref) if rel_err else
+           err / (float(ref.double().abs().max()) or 1.0))
     dtype = ref.dtype
     rtol = RTOL[dtype] if rtol is None else rtol
-    check(err <= rtol * scale,
-          f"{name} {dtype}: max |kernel - plain| = {err:.3e} exceeds "
-          f"{rtol:g} x max|plain| = {rtol * scale:.3e}")
+    check(rel <= rtol, f"{name} {dtype}: kernel - plain is {rel:.3e} of "
+          f"plain, above {rtol:g} (max |kernel - plain| = {err:.3e})")
     bound_s = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
     ms, host_ms = time_ms(lambda: fn(*args))
     row = {"dtype": str(dtype).replace("torch.", ""),
            "shape": [list(a.shape) for a in args],
-           "max_abs_err": err, "rel_err": err / scale,
+           "max_abs_err": err, "rel_err": rel,
            "ms": ms, "host_ms": host_ms,
            "plain_ms": time_ms(lambda: plain(*args))[0],
            "library_ms": time_ms(library)[0],
@@ -194,7 +215,7 @@ def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                         >= flops / PEAK_FLOPS[dtype] else "operations")}
     log(f"  {name:9s} {row['dtype']:7s} {row['shape']}: err {err:.2e} "
-        f"(rel {err / scale:.1e}) kernel {row['ms']:.4f} ms (host "
+        f"(rel {rel:.1e}) kernel {row['ms']:.4f} ms (host "
         f"{host_ms:.4f} ms/call), plain "
         f"{row['plain_ms']:.4f} ms, {library_name} {row['library_ms']:.4f} ms, "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -218,41 +239,43 @@ def ell_operands(dh) -> dict[str, tuple]:
     return out
 
 
-def operand_launches(bound, b) -> tuple[dict[str, int], int]:
-    """``ell_spmv`` launches of one solve by operand (the column-id tensor
-    each launch reads), from a counted solve of its own, and its iteration
-    count.  A call is tallied only where the wrapper's launch counter moved;
-    the tally must add up to the counter, every launch on a named operand."""
+def operand_launches(bound, b, kernel: str = "ell_spmv") -> tuple[dict[str, int], int]:
+    """``kernel`` (``ell_spmv``, or ``ell_spmm`` for ``b`` ``[n, k]``)
+    launches of one solve of ``b`` by operand (the column-id tensor each
+    launch reads), from a counted solve of its own, and its iteration count.
+    A call is tallied only where the wrapper's launch counter moved; the
+    tally must add up to the counter, every launch on a named operand."""
     from repro_torch.kernels.spmv import ops
-    from repro_torch.kernels.spmv import spmv as ks
 
+    wrapper = launch_counters()[kernel]
     names = {cols.data_ptr(): name for name, (cols, _, _)
              in ell_operands(bound.dist_hierarchy).items()}
     seen: collections.Counter = collections.Counter()
-    real = ops.ell_spmv
+    real = getattr(ops, kernel)
 
     def recorded(cols, vals, x):
-        before = ks.ell_spmv.launches
+        before = wrapper.launches
         y = real(cols, vals, x)
-        seen[names.get(cols.data_ptr(), "other")] += ks.ell_spmv.launches - before
+        seen[names.get(cols.data_ptr(), "other")] += wrapper.launches - before
         return y
 
-    ops.ell_spmv = recorded
+    setattr(ops, kernel, recorded)
     try:
         res, counts = counted(lambda: bound.pcg(b))
     finally:
-        ops.ell_spmv = real
+        setattr(ops, kernel, real)
     per_solve = {k: v for k, v in seen.items() if v}
     check("other" not in per_solve,
-          f"{per_solve.get('other')} ell_spmv launches on no named operand")
-    check(sum(per_solve.values()) == counts["ell_spmv"],
-          f"ell_spmv launches by operand add up to {sum(per_solve.values())}, "
-          f"the counter says {counts['ell_spmv']}")
+          f"{per_solve.get('other')} {kernel} launches on no named operand")
+    check(sum(per_solve.values()) == counts[kernel],
+          f"{kernel} launches by operand add up to {sum(per_solve.values())}, "
+          f"the counter says {counts[kernel]}")
     return per_solve, res.iterations
 
 
-def ell_case(label, cols, vals, m, rng, launches=None):
-    """``ell_spmv`` at one operand, with ``torch.sparse.mm`` on its CSR."""
+def ell_case(label, cols, vals, m, rng, launches=None, k=None):
+    """``ell_spmv`` (``k`` None) or ``ell_spmm`` with ``k`` right-hand sides
+    at one operand, with ``torch.sparse.mm`` on its CSR."""
     from repro_torch.kernels.spmv import ref
     from repro_torch.kernels.spmv import spmv as ks
 
@@ -260,27 +283,31 @@ def ell_case(label, cols, vals, m, rng, launches=None):
     s = torch.finfo(dt).bits // 8
     D, n, K = cols.shape
     nnz = int((cols >= 0).sum())
-    x = torch.as_tensor(rng.standard_normal((D, m)), dtype=dt, device=dev)
+    x = torch.as_tensor(rng.standard_normal((D, m) + ((k,) if k else ())),
+                        dtype=dt, device=dev)
     csr = ell_to_csr(cols, vals, m)
-    xf = x.reshape(-1, 1)
+    xf = x.reshape(D * m, -1)
+    kk = k or 1
+    name = "ell_spmm" if k else "ell_spmv"
     # bytes: every slot's column id, the values of stored entries only
     # (the kernels never load a padded slot's value), x and y once
-    row = kernel_case(f"ell_spmv {label}", ks.ell_spmv, ref.ell_spmv_ref,
+    row = kernel_case(f"{name} {label}" + (f" k{k}" if k else ""),
+                      getattr(ks, name), getattr(ref, f"{name}_ref"),
                       lambda: torch.sparse.mm(csr, xf), (cols, vals, x),
-                      D * n * K * 4 + nnz * s + D * (m + n) * s, 2 * nnz)
-    row.update(k=1, operand=label, main_path=label == "L0 A_on",
+                      D * n * K * 4 + nnz * s + D * (m + n) * kk * s, 2 * nnz * kk)
+    row.update(k=kk, operand=label, main_path=label == "L0 A_on",
                fill=nnz / max(D * n * K, 1), launches_per_solve=launches)
     return row
 
 
-def kernel_phase(dh64, dh32, per_solve: dict[str, int]) -> tuple[dict, float]:
-    """Every kernel at the main path's shapes, f32 and f64; ``ell_spmv`` in
-    f64 at every operand the f64 solve launches (``per_solve``).  Returns
-    the rows by kernel and the sum of launches × (ms − bound ms) of
-    ``ell_spmv`` over one f64 solve."""
+def kernel_phase(dh64, dh32, per_solve: dict[str, dict[str, int]]) -> tuple[dict, dict]:
+    """Every kernel at the main path's shapes, f32 and f64; ``ell_spmv`` and
+    ``ell_spmm`` in f64 at every operand the f64 single-RHS and k = K_RHS
+    solves launch (``per_solve``, by kernel).  Returns the rows by kernel
+    and, for those two, the sums over one solve of launches × (ms − bound
+    ms) and of launches × ms."""
     from repro_torch.kernels.spmv import bcsr as kb
     from repro_torch.kernels.spmv import ref
-    from repro_torch.kernels.spmv import spmv as ks
 
     rng = np.random.default_rng(SEED)
     out: dict[str, list] = {n: [] for n in SPMV_KERNELS}
@@ -290,24 +317,13 @@ def kernel_phase(dh64, dh32, per_solve: dict[str, int]) -> tuple[dict, float]:
         # level 0's on-process ELL block: what every level-0 apply launches
         # (the first row, the kernels line's top-level number), then in f64
         # every other ELL operand the solve launches
-        operands = ell_operands(dh)
-        for name, (cols, vals, m) in operands.items():
-            if name == "L0 A_on" or (dt == torch.float64 and per_solve.get(name)):
-                out["ell_spmv"].append(ell_case(
-                    name, cols, vals, m, rng,
-                    per_solve.get(name) if dt == torch.float64 else None))
-        cols, vals, m = operands["L0 A_on"]
-        D, n, K = cols.shape
-        nnz = int((cols >= 0).sum())
-        X = torch.as_tensor(rng.standard_normal((D, m, K_RHS)), dtype=dt,
-                            device=dev)
-        csr = ell_to_csr(cols, vals, m)
-        Xf = X.reshape(-1, K_RHS)
-        out["ell_spmm"].append(dict(kernel_case(
-            "ell_spmm", ks.ell_spmm, ref.ell_spmm_ref,
-            lambda: torch.sparse.mm(csr, Xf), (cols, vals, X),
-            D * n * K * 4 + nnz * s + D * (m + n) * K_RHS * s,
-            2 * nnz * K_RHS), k=K_RHS))
+        f64 = dt == torch.float64
+        for name, (cols, vals, m) in ell_operands(dh).items():
+            for kname, k in (("ell_spmv", None), ("ell_spmm", K_RHS)):
+                launches = per_solve[kname].get(name) if f64 else None
+                if name == "L0 A_on" or launches:
+                    out[kname].append(ell_case(name, cols, vals, m, rng,
+                                               launches, k))
         # the BCSR levels' on-process blocks, lowered at both block sizes;
         # x unpadded, the product cut to the true rows, as an apply asks
         for l, dl in enumerate(dh.levels):
@@ -318,7 +334,7 @@ def kernel_phase(dh64, dh32, per_solve: dict[str, int]) -> tuple[dict, float]:
                 op.lower_bcsr(bs)
                 bcols = torch.as_tensor(op.bcsr_on_bcols, device=dev)
                 bvals = torch.as_tensor(op.bcsr_on_bvals, dtype=dt, device=dev)
-                _, mb, Kb = bcols.shape
+                D, mb, Kb = bcols.shape
                 ml, rows = op.plan.local_n, op.rows_local
                 nblk = int((bcols >= 0).sum())     # stored blocks
                 bnnz = int((bvals != 0).sum())
@@ -341,12 +357,19 @@ def kernel_phase(dh64, dh32, per_solve: dict[str, int]) -> tuple[dict, float]:
                                main_path=bs == dl.A.block_size, stored_nnz=bnnz)
                     out["bcsr_spmm"].append(row)
     check(out["bcsr_spmm"], "no level of the main path lowered to BCSR")
-    shapes = [r for r in out["ell_spmv"] if r["launches_per_solve"]]   # f64
-    excess = sum(r["launches_per_solve"] * (r["ms"] - r["bound_ms"]) for r in shapes)
-    log(f"  ell_spmv f64 over the solve's {len(shapes)} operands, "
-        f"{sum(r['launches_per_solve'] for r in shapes)} launches per solve: "
-        f"sum of launches x (ms - bound ms) = {excess:.4f} ms per solve")
-    return out, excess
+    sums = {}
+    for kname, solve in (("ell_spmv", "f64"), ("ell_spmm", f"f64 k = {K_RHS}")):
+        shapes = [r for r in out[kname] if r["launches_per_solve"]]    # f64
+        sums[kname] = {
+            "excess_ms_per_solve": sum(r["launches_per_solve"] * (r["ms"] - r["bound_ms"])
+                                       for r in shapes),
+            "launch_ms_per_solve": sum(r["launches_per_solve"] * r["ms"] for r in shapes)}
+        log(f"  {kname} over the {solve} solve's {len(shapes)} operands, "
+            f"{sum(r['launches_per_solve'] for r in shapes)} launches per solve: "
+            f"sum of launches x (ms - bound ms) = "
+            f"{sums[kname]['excess_ms_per_solve']:.4f} ms, of launches x ms = "
+            f"{sums[kname]['launch_ms_per_solve']:.4f} ms per solve")
+    return out, sums
 
 
 def bcsr_apply_kernels(dh, reps: int) -> dict[int, dict[str, int]]:
@@ -416,23 +439,24 @@ def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
 
 
 def flash_phase(S: int) -> list[dict]:
-    """flash_attention at the serving run's prefill shape (f32, bf16), with
-    a window, with Sq < Skv and at head dim 64, against its plain version;
-    ``scaled_dot_product_attention`` timed as the yardstick."""
+    """flash_attention at the serving runs' prefill shape, with a window,
+    with Sq < Skv and at head dim 64, each in f32 and bf16, against its
+    plain version; ``scaled_dot_product_attention`` timed as the
+    yardstick."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref, rel_err_rows
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # label, dtype, B, Hq, Hkv, Sq, Skv, D, window
-        ("prefill", f32, LM_BATCH, 16, 8, S, S, 128, None),
-        ("prefill", bf16, LM_BATCH, 16, 8, S, S, 128, None),
-        ("window 256", f32, LM_BATCH, 16, 8, S, S, 128, 256),
-        ("Sq < Skv", f32, LM_BATCH, 16, 8, 128, 1024, 128, None),
-        ("head dim 64", f32, LM_BATCH, 14, 2, S, S, 64, None),
-    ]
+        (label, dt, *shape) for label, *shape in (
+            ("prefill", LM_BATCH, 16, 8, S, S, 128, None),
+            ("window 256", LM_BATCH, 16, 8, S, S, 128, 256),
+            ("Sq < Skv", LM_BATCH, 16, 8, 128, 1024, 128, None),
+            ("head dim 64", LM_BATCH, 14, 2, S, S, 64, None))
+        for dt in (f32, bf16)]
     rows = []
     for label, dt, B, Hq, Hkv, Sq, Skv, D, window in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dt)
@@ -458,7 +482,8 @@ def flash_phase(S: int) -> list[dict]:
             # q, k, v read once, o written once; 4 flops per visible pair
             # and head dim (q.k and p.v)
             (2 * q.numel() + 2 * k.numel()) * q.element_size(),
-            4 * B * Hq * D * pairs, rtol=FLASH_RTOL[dt], library_name="sdpa")
+            4 * B * Hq * D * pairs, rtol=FLASH_RTOL[dt], library_name="sdpa",
+            rel_err=rel_err_rows)
         row.update(case=label, window=window, visible_pairs=pairs,
                    main_path=label == "prefill")
         rows.append(row)
@@ -472,21 +497,24 @@ def lm_workload(vocab: int) -> list[np.ndarray]:
     return [rng.integers(0, vocab, n, dtype=np.int32) for n in lengths]
 
 
-def lm_serve(cfg, prompts) -> dict:
-    """The serving path: init, a warm-up request, then the counted run."""
+def lm_serve(cfg, prompts, dtype) -> dict:
+    """The serving path in ``dtype`` (weights and caches): init, a warm-up
+    request, then the counted run."""
     from repro_torch.models import init_lm
     from repro_torch.serve import Engine, Request
 
     t0 = time.perf_counter()
-    model = init_lm(cfg, seed=SEED, dtype=torch.float32, device=DEVICE)
+    model = init_lm(cfg, seed=SEED, dtype=dtype, device=DEVICE)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     ctx_len = max(len(p) for p in prompts) + LM_NEW + 8     # as run_lm sizes it
     # warm-up (cuBLAS handles, the kernel library's load), not counted
-    warm = Engine(cfg, model, max_batch=LM_BATCH, ctx_len=ctx_len, device=DEVICE)
+    warm = Engine(cfg, model, max_batch=LM_BATCH, ctx_len=ctx_len, dtype=dtype,
+                  device=DEVICE)
     warm.submit(Request(rid=0, prompt=prompts[0][:64], max_new_tokens=2))
     warm.run()
-    eng = Engine(cfg, model, max_batch=LM_BATCH, ctx_len=ctx_len, device=DEVICE)
+    eng = Engine(cfg, model, max_batch=LM_BATCH, ctx_len=ctx_len, dtype=dtype,
+                 device=DEVICE)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW)
             for i, p in enumerate(prompts)]
     for r in reqs:
@@ -504,16 +532,20 @@ def lm_serve(cfg, prompts) -> dict:
           f"flash_attention launched {counts['flash_attention']} times, want "
           f"{cfg.n_layers} layers x {n_batches} prefill batches")
     s = eng.stats
-    info = {"arch": cfg.name, "params": sum(p.numel() for p in model.parameters()),
+    name = str(dtype).replace("torch.", "")
+    info = {"arch": cfg.name, "dtype": name,
+            "params": sum(p.numel() for p in model.parameters()),
             "requests": len(reqs), "batches": s["batches"],
             "prompt_lengths": [len(p) for p in prompts], "new_tokens": LM_NEW,
             "ctx_len": ctx_len, "init_s": t_init, "wall_s": wall,
-            "prefill_s": s["prefill_s"], "decode_s": s["decode_s"],
+            "prefill_s": s["prefill_s"],
+            "prefill_s_per_batch": s["prefill_s"] / n_batches,
+            "decode_s": s["decode_s"],
             "decode_tok_s": s["tokens"] / s["decode_s"],
             "decode_step_ms": s["decode_s"] * 1e3 / (n_batches * (LM_NEW - 1)),
             "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
             "launches": counts}
-    log(f"serve {cfg.name} f32 ({info['params'] / 1e9:.3f}B params, init "
+    log(f"serve {cfg.name} {name} ({info['params'] / 1e9:.3f}B params, init "
         f"{t_init:.2f} s): {len(out)} requests (prompts {info['prompt_lengths']},"
         f" {LM_NEW} new tokens, batches of {LM_BATCH}) in {wall:.2f} s; "
         f"prefill {s['prefill_s']:.3f} s, decode {info['decode_tok_s']:.1f} "
@@ -523,9 +555,10 @@ def lm_serve(cfg, prompts) -> dict:
             "info": info}
 
 
-def lm_check(cfg, run) -> dict:
+def lm_check(cfg, run, dtype) -> dict:
     """Kernel vs plain on the served batches, teacher-forced with the served
-    tokens, plus the device busy share of one decode step."""
+    tokens (logits to ``LOGITS_RTOL[dtype]`` of max|logits|), plus the
+    device busy share of one decode step."""
     from repro_torch.serve.engine import pad_prompts, prefill_to_decode_cache
 
     model, reqs, out = run["model"], run["reqs"], run["out"]
@@ -543,7 +576,7 @@ def lm_check(cfg, run) -> dict:
             for use_kernel in (True, False):
                 lg, c = model(prompts, return_cache=True, use_kernel=use_kernel)
                 caches[use_kernel] = prefill_to_decode_cache(
-                    cfg, c, run["ctx_len"], S)
+                    cfg, c, run["ctx_len"], S, dtype)
                 del c
                 logits[use_kernel] = lg
             lk, lp = logits[True], logits[False]
@@ -581,11 +614,13 @@ def lm_check(cfg, run) -> dict:
                     / float(last[True].abs().max())
                 worst["decode"] = max(worst["decode"], err)
             del caches, last
-    check(worst["prefill"] <= LOGITS_RTOL and worst["decode"] <= LOGITS_RTOL,
-          f"kernel vs plain logits: {worst} exceed {LOGITS_RTOL:g} x max|logits|")
+    tol = LOGITS_RTOL[dtype]
+    check(worst["prefill"] <= tol and worst["decode"] <= tol,
+          f"kernel vs plain logits ({dtype}): {worst} exceed {tol:g} x max|logits|")
     res = {"logits_rel_err": worst, "greedy_agreement": agree,
            "decode_step": step}
-    log(f"kernel vs plain (teacher-forced): prefill logits {worst['prefill']:.2e}, "
+    log(f"kernel vs plain ({str(dtype).replace('torch.', '')}, teacher-forced): "
+        f"prefill logits {worst['prefill']:.2e}, "
         f"decode logits {worst['decode']:.2e} of max|logits|; greedy tokens as "
         f"served: kernel {agree['kernel']}/{agree['total']}, plain "
         f"{agree['plain']}/{agree['total']}")
@@ -612,7 +647,7 @@ def main() -> int:
     from repro_torch.amg import AMGConfig, AMGSolver
     from repro_torch.amg.problems import laplace_3d
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.build import build, source_path
+    from repro_torch.kernels.build import build, build_report, source_path
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -631,6 +666,10 @@ def main() -> int:
     per = build()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in per.items()) or 'cached'})")
+    ptxas = {k: build_report(k) for k in ("flash_attention", "ell_spmm")}
+    for k, insts in ptxas.items():
+        for inst, used in insts:
+            log(f"  ptxas {inst}: {used}")
 
     # the main path's problem and sessions (host setup + lowering)
     A = laplace_3d(SIZE)
@@ -656,14 +695,19 @@ def main() -> int:
     log(f"  lowering f32 {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels
-    per_solve, tally_iters = operand_launches(bound64, b)
-    log(f"ell_spmv launches of one f64 solve ({tally_iters} iterations) by "
-        f"operand, per solve / per iteration ({tally_iters + 1} cycles with "
-        f"their A.p): " + ", ".join(f"{k} {v} / {v / (tally_iters + 1):g}"
-                                   for k, v in per_solve.items()))
+    B = np.stack([b] + [rng.standard_normal(A.nrows)
+                        for _ in range(K_RHS - 1)], axis=1)
+    per_solve = {}
+    for kname, rhs in (("ell_spmv", b), ("ell_spmm", B)):
+        per_solve[kname], tally_iters = operand_launches(bound64, rhs, kname)
+        log(f"{kname} launches of one f64 solve of {list(rhs.shape)} "
+            f"({tally_iters} iterations) by operand, per solve / per iteration "
+            f"({tally_iters + 1} cycles with their A.p): "
+            + ", ".join(f"{k} {v} / {v / (tally_iters + 1):g}"
+                        for k, v in per_solve[kname].items()))
     log(f"kernels (device time per call: CUDA events, median of {SAMPLES} "
         f"bursts of {BURST} queued behind a GPU spin):")
-    rows, ell_excess = kernel_phase(dh64, dh32, per_solve)
+    rows, ell_sums = kernel_phase(dh64, dh32, per_solve)
 
     # a BCSR apply is one launch: no pad of x before it, no slice after
     # (profiled before the warm solve's large profile below)
@@ -679,9 +723,9 @@ def main() -> int:
     # 4. main path, f64
     res, c_single = counted(lambda: bound64.pcg(b))
     check(res.converged, f"f64 PCG did not converge: {res.residuals[-3:]}")
-    check(c_single["ell_spmv"] == sum(per_solve.values()),
+    check(c_single["ell_spmv"] == sum(per_solve["ell_spmv"].values()),
           f"the f64 solve launched ell_spmv {c_single['ell_spmv']} times, its "
-          f"tally by operand {sum(per_solve.values())}")
+          f"tally by operand {sum(per_solve['ell_spmv'].values())}")
     host = AMGSolver(dataclasses.replace(cfg64, backend="host")).setup(A)
     res_h = host.pcg(b)
     hd = history_diff(res_h.residuals, res.residuals)
@@ -712,10 +756,11 @@ def main() -> int:
         log(f"    {kms:9.3f} ms {kcount:6d}x  {kname[:100]}")
 
     # 5. multi-RHS
-    B = np.stack([b] + [rng.standard_normal(A.nrows)
-                        for _ in range(K_RHS - 1)], axis=1)
     resm, c_multi = counted(lambda: bound64.pcg(B))
     check(resm.converged, "multi-RHS PCG did not converge")
+    check(c_multi["ell_spmm"] == sum(per_solve["ell_spmm"].values()),
+          f"the k = {K_RHS} solve launched ell_spmm {c_multi['ell_spmm']} "
+          f"times, its tally by operand {sum(per_solve['ell_spmm'].values())}")
     worst = 0.0
     for j in range(K_RHS):
         rj = res if j == 0 else bound64.pcg(B[:, j])
@@ -749,18 +794,30 @@ def main() -> int:
     rows["flash_attention"] = flash_phase(S)
     torch.cuda.empty_cache()
 
-    # 9. LM serving
-    run = lm_serve(cfg, prompts)
-    launches["flash_attention"] = run["info"]["launches"]["flash_attention"]
-
-    # 10. kernel vs plain, teacher-forced
-    lm = lm_check(cfg, run)
-    del run["model"]
+    # 9-10. LM serving in f32, then the first batch again in bf16; each
+    # held against the plain attention, teacher-forced
+    lm = {}
+    for dtype, batch in ((torch.float32, prompts),
+                         (torch.bfloat16, prompts[:LM_BF16_REQUESTS])):
+        run = lm_serve(cfg, batch, dtype)
+        lm[dtype] = {**run["info"], **lm_check(cfg, run, dtype)}
+        del run
+        torch.cuda.empty_cache()
+    f32, bf16 = lm[torch.float32], lm[torch.bfloat16]
+    log(f"serve bf16 vs f32 (one prefill batch of {LM_BATCH}): prefill "
+        f"{bf16['prefill_s_per_batch']:.3f} vs {f32['prefill_s_per_batch']:.3f} s "
+        f"a batch, decode {bf16['decode_tok_s']:.1f} vs {f32['decode_tok_s']:.1f} "
+        f"tok/s, {bf16['decode_step_ms']:.2f} vs {f32['decode_step_ms']:.2f} "
+        f"ms a step")
+    flash_runs = {str(d).replace("torch.", ""): v["launches"]["flash_attention"]
+                  for d, v in lm.items()}
+    launches["flash_attention"] = sum(flash_runs.values())
 
     # 11. the kernels line: top-level numbers are the main path's case
     # (sparse kernels: the first float64 case on its operands, BCSR at its
     # block size with one RHS; flash: float32 at the prefill shape); every
-    # dtype / shape case is under "variants"
+    # dtype / shape case is under "variants"; flash's launches are the f32
+    # and bf16 serving runs' together
     kernels = []
     for k, replaces in REPLACES.items():
         if k == "flash_attention":
@@ -779,6 +836,8 @@ def main() -> int:
             "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "card": smi,
+            **({"launches_per_run": flash_runs} if k == "flash_attention" else {}),
+            **({"ptxas": ptxas[k]} if k in ptxas else {}),
             "variants": rows[k]})
     print(json.dumps({"kernels": kernels,
                       "path": {"setup_s": t_setup, "lowering_f64_s": t_lower64,
@@ -788,8 +847,16 @@ def main() -> int:
                                "pcg_f64_device_busy_share": busy,
                                "pcg_f64_device_kernels": n_dev,
                                "bcsr_apply_device_kernels": bcsr_apply,
-                               "ell_spmv_launches_per_solve": per_solve,
-                               "ell_spmv_excess_ms_per_solve": ell_excess,
+                               "ell_spmv_launches_per_solve": per_solve["ell_spmv"],
+                               "ell_spmv_excess_ms_per_solve":
+                                   ell_sums["ell_spmv"]["excess_ms_per_solve"],
+                               "ell_spmv_launch_ms_per_solve":
+                                   ell_sums["ell_spmv"]["launch_ms_per_solve"],
+                               "ell_spmm_launches_per_solve": per_solve["ell_spmm"],
+                               "ell_spmm_excess_ms_per_solve":
+                                   ell_sums["ell_spmm"]["excess_ms_per_solve"],
+                               "ell_spmm_launch_ms_per_solve":
+                                   ell_sums["ell_spmm"]["launch_ms_per_solve"],
                                "pcg_f64_top_device": [
                                    [kn[:100], km, kc]
                                    for kn, (km, kc) in top_dev],
@@ -800,7 +867,7 @@ def main() -> int:
                                "launches_per_run": {"f64": c_single,
                                                     "f64_multi": c_multi,
                                                     "f32": c_f32}},
-                      "lm": {**run["info"], **lm}}),
+                      "lm": f32, "lm_bf16": bf16}),
           flush=True)
     log(smi)
     # 12. result

@@ -1,0 +1,275 @@
+"""Hold one of the port's kernels against other versions of its source on
+one card.
+
+Builds the kernel's source (``--kernel ell_spmv``, the default,
+``ell_spmm`` or ``flash_attention``; ``repro_torch.kernels.build``) and each
+source SRC given (same C interface, e.g. an earlier commit's source or an
+edited copy; named by its file stem) into ``build/tune_<kernel>/``, one
+``nvcc -Xptxas -v`` each, all at once, and prints each build's register and
+spill counts and, from ``cuobjdump -sass``, the count of tensor-core
+(``HMMA``) and float32 FMA (``FFMA``) instructions of each kernel instance.
+Then at each case it checks every version against the plain version
+(``chip_smoke.py``'s bars) and times it beside the library call and the
+bound (CUDA events around bursts of 10 calls queued behind a GPU spin,
+median of 25, as ``chip_smoke.py`` times), in the order SRC..., kernel,
+kernel, ...SRC; each version reports the mean of its two times.  The cases:
+
+- ``ell_spmv``: on the AMG path of ``laplace_3d(SIZE)`` over 2 x 4 ranks,
+  every operand the f64 solve launches, with its launches per solve counted
+  by operand, and level 0's A_on in float32; ``torch.sparse.mm`` and the
+  byte bound;
+- ``ell_spmm``: the same at the f64 solve of ``[n, 8]`` (8 right-hand
+  sides);
+- ``flash_attention``: the serving run's prefill shape (qwen3-1.7b: B 4,
+  16 query / 8 KV heads of 128, S 1819, causal) in float32 and bfloat16;
+  ``scaled_dot_product_attention`` and the flop bound.
+
+Run from the root of a checkout, on a machine with a card::
+
+    python3 scripts/tune_kernel.py SRC [SRC ...] [--kernel ell_spmm]
+        [--size 64] [--out results.json]
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FLASH_SHAPE = (4, 16, 8, 1819, 128)          # B, Hq, Hkv, S, D
+
+
+def build_variants(kernel: str, variants: dict[str, Path], out_dir: Path) -> dict:
+    """name -> source of ``kernel``; builds all at once, prints each
+    instance's registers and SASS counts, returns the C entry point of
+    each."""
+    from repro_torch.kernels.build import KERNELS, NVCC_FLAGS, nvcc_path, ptxas_report
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in variants.items():
+        lib = out_dir / f"{kernel}_{name}.so"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(lib), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), lib)
+    fns = {}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        for inst, used in ptxas_report(log):
+            print(f"{name} {inst}: {used}", flush=True)
+        for fn_name, counts in sass_counts(lib).items():
+            print(f"{name} SASS {fn_name[:90]}: {counts}", flush=True)
+        fn = getattr(ctypes.CDLL(str(lib)), KERNELS[kernel][1])
+        fn.argtypes = KERNELS[kernel][2]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
+    """Per kernel function of ``lib``: its HMMA and FFMA instruction counts."""
+    from repro_torch.kernels.build import nvcc_path
+
+    sass = subprocess.run([str(Path(nvcc_path()).with_name("cuobjdump")), "-sass",
+                           str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"HMMA": 0, "FFMA": 0}
+        elif name:
+            for op in out[name]:
+                if re.search(rf"\b{op}\b", line):
+                    out[name][op] += 1
+    return out
+
+
+def hold(cs, fns, order, row, call, error, bar) -> None:
+    """Check each version once (``error(fn)``: its error over the plain
+    version, at most ``bar``), time it at each of its places in ``order``
+    and put the mean into ``row``."""
+    times: dict[str, list] = {}
+    for v in order:
+        if v not in times:
+            err = error(fns[v])
+            cs.check(err <= bar, f"{v} {row.get('operand', '')} {row['dtype']}: "
+                     f"error {err:.2e} of plain, above {bar:g}")
+            row[f"{v}_rel_err"] = err
+        times.setdefault(v, []).append(cs.time_ms(lambda: call(fns[v]))[0])
+    for v, ts in times.items():
+        row[f"{v}_ms"] = float(np.mean(ts))
+
+
+def ell_case(cs, fns, order, name, cols, vals, m, rng, k) -> dict:
+    """One ELL operand (``k``: None for ``ell_spmv``, else the right-hand
+    sides of ``ell_spmm``)."""
+    from repro_torch.kernels.spmv import ref
+
+    D, n, K = cols.shape
+    dt = vals.dtype
+    s = vals.element_size()
+    nnz = int((cols >= 0).sum())
+    ext = (k,) if k else ()
+    x = torch.as_tensor(rng.standard_normal((D, m) + ext), dtype=dt, device="cuda")
+    want = (ref.ell_spmm_ref if k else ref.ell_spmv_ref)(cols, vals, x)
+    scale = float(want.abs().max()) or 1.0
+    csr = cs.ell_to_csr(cols, vals, m)
+    xf = x.reshape(D * m, -1)
+    row = {"operand": name, "dtype": str(dt).replace("torch.", ""),
+           "shape": [D, n, K], "m": m, "k": k or 1, "fill": nnz / (D * n * K),
+           "bound_ms": (D * n * K * 4 + nnz * s + D * (m + n) * (k or 1) * s)
+           / cs.HBM_BYTES_PER_S * 1e3,
+           "library_ms": cs.time_ms(lambda: torch.sparse.mm(csr, xf))[0]}
+    stream = torch.cuda.current_stream().cuda_stream
+    y = torch.empty((D, n) + ext, dtype=dt, device="cuda")
+
+    def call(fn):
+        rc = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
+                D, n, K, m, *ext, int(dt == torch.float64), stream)
+        assert rc == 0, rc
+
+    def error(fn):
+        y.fill_(float("nan"))
+        call(fn)
+        torch.cuda.synchronize()
+        return float((y - want).abs().max()) / scale
+
+    hold(cs, fns, order, row, call, error, cs.RTOL[dt])
+    print(f"{name} {row['dtype']} [{D}, {n}, {K}] k {k or 1} fill {row['fill']:.2f}: bound "
+          f"{row['bound_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms; "
+          + ", ".join(f"{v} {row[f'{v}_ms']:.4f}" for v in dict.fromkeys(order)),
+          flush=True)
+    return row
+
+
+def ell_cases(cs, fns, order, kernel: str, size: int) -> tuple[list, dict]:
+    """Every operand of the f64 solve, then level 0's A_on in float32; and
+    launches x ms per f64 solve of each version."""
+    from repro_torch.amg import AMGConfig, AMGSolver
+    from repro_torch.amg.problems import laplace_3d
+
+    k = cs.K_RHS if kernel == "ell_spmm" else None
+    A = laplace_3d(size)
+    rng = np.random.default_rng(0)
+    rows, sums = [], {}
+    for dtype in ("float64", "float32"):
+        bound = AMGSolver(AMGConfig(backend="torch", n_pods=2, lanes=4, dtype=dtype,
+                                    tol=1e-8, device="cuda")).setup(A)
+        ops = cs.ell_operands(bound.dist_hierarchy)
+        per_solve = {}
+        if dtype == "float64":
+            rhs = rng.standard_normal((A.nrows,) + ((k,) if k else ()))
+            per_solve, _ = cs.operand_launches(bound, rhs, kernel)
+        for name in per_solve or ["L0 A_on"]:
+            row = ell_case(cs, fns, order, name, *ops[name], rng, k)
+            row["launches_per_solve"] = per_solve.get(name)
+            rows.append(row)
+            for v in fns:
+                if row["launches_per_solve"]:
+                    sums[v] = sums.get(v, 0.0) + row["launches_per_solve"] * row[f"{v}_ms"]
+        del bound
+        torch.cuda.empty_cache()
+    print("f64 solve, sum of launches x ms over its operands: "
+          + ", ".join(f"{v} {t:.4f} ms" for v, t in sums.items()))
+    return rows, sums
+
+
+def flash_cases(cs, fns, order) -> list:
+    """The prefill shape, causal, in float32 and bfloat16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref, rel_err_rows
+
+    B, Hq, Hkv, S, D = FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pairs = cs.visible_pairs(S, S, True, None)
+    flops = 4 * B * Hq * D * pairs
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
+                   for s in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+        o = torch.empty_like(q)
+        want = attention_ref(q, k, v)
+        strides = [st for t in (q, k, v, o) for st in t.stride()[:3]]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call(fn):
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    B, Hq, Hkv, S, S, D, *strides, 1, -1,
+                    int(dt == torch.bfloat16), stream)
+            assert rc == 0, rc
+
+        def error(fn):
+            o.fill_(float("nan"))
+            call(fn)
+            torch.cuda.synchronize()
+            return rel_err_rows(o, want)
+
+        row = {"dtype": str(dt).replace("torch.", ""), "shape": list(FLASH_SHAPE),
+               "bound_ms": flops / cs.PEAK_FLOPS[dt] * 1e3,
+               "library_ms": cs.time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True))[0]}
+        hold(cs, fns, order, row, call, error, cs.FLASH_RTOL[dt])
+        for name in fns:
+            row[f"{name}_tflops"] = flops / (row[f"{name}_ms"] * 1e-3) / 1e12
+        print(f"prefill {row['dtype']} {list(FLASH_SHAPE)}: bound {row['bound_ms']:.4f} ms, "
+              f"sdpa {row['library_ms']:.4f} ms; " + ", ".join(
+                  f"{n} {row[f'{n}_ms']:.4f} ms ({row[f'{n}_tflops']:.0f} TFLOP/s, "
+                  f"error {row[f'{n}_rel_err']:.2e})" for n in dict.fromkeys(order)),
+              flush=True)
+        rows.append(row)
+        del q, k, v, o, want
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--size", type=int, default=64)
+    ap.add_argument("--kernel", choices=("ell_spmv", "ell_spmm", "flash_attention"),
+                    default="ell_spmv")
+    ap.add_argument("sources", nargs="+", metavar="SRC",
+                    help="other sources of the kernel to hold it against")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("tune_kernel: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels.build import source_path
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    others = {Path(b).stem: Path(b) for b in args.sources}
+    variants = {**others, "kernel": source_path(args.kernel)}
+    order = [*others, "kernel", "kernel", *reversed(others)]
+    fns = build_variants(args.kernel, variants, ROOT / "build" / f"tune_{args.kernel}")
+    sums = {}
+    if args.kernel == "flash_attention":
+        rows = flash_cases(cs, fns, order)
+    else:
+        rows, sums = ell_cases(cs, fns, order, args.kernel, args.size)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps({"card": smi, "rows": rows,
+                                              "launch_ms_per_solve": sums}, indent=1))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

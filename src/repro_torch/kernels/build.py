@@ -6,8 +6,9 @@ shared library with a plain C interface, which is loaded with :mod:`ctypes`.
 Builds happen at first use (or through :func:`build`), into
 ``build/repro_torch/`` at the root of the checkout; a library's file name
 carries a hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is reused.  Several sources build concurrently, one ``nvcc``
-process each.
+unchanged one is reused; the compiler's output (``ptxas -v``: registers,
+stack and spills of every kernel instance) is kept beside it.  Several
+sources build concurrently, one ``nvcc`` process each.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from pathlib import Path
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # kernel name -> (source relative to this package, C entry point, argtypes)
@@ -96,9 +97,40 @@ def build(names=None) -> dict[str, float]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            out.with_suffix(".log").write_text(log)
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds
+
+
+def ptxas_report(log: str) -> list[tuple[str, str]]:
+    """(kernel instance, its "Used N registers, ..." line and its stack and
+    spill line) for every entry function in an ``nvcc -Xptxas -v`` log;
+    names demangled, without their parameter lists, where the toolkit's
+    ``cu++filt`` is found."""
+    rows, name, frame = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, frame = line.split("'")[1], ""
+        elif "stack frame" in line and name:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            rows.append((name, f"{line.split(':', 1)[1].strip()}; {frame}"))
+            name = None
+    try:
+        filt = Path(nvcc_path()).with_name("cu++filt")
+    except RuntimeError:                  # no toolkit here: names stay mangled
+        filt = None
+    if rows and filt is not None and filt.exists():
+        out = subprocess.run([str(filt)], input="\n".join(n for n, _ in rows),
+                             capture_output=True, text=True, check=True).stdout
+        rows = [(d[:d.find(">(") + 1] or d, r) for d, (_, r) in zip(out.splitlines(), rows)]
+    return rows
+
+
+def build_report(name: str) -> list[tuple[str, str]]:
+    """:func:`ptxas_report` of kernel ``name``'s last build."""
+    return ptxas_report(library_path(name).with_suffix(".log").read_text())
 
 
 def kernel(name: str):

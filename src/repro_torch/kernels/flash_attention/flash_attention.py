@@ -60,13 +60,16 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernel takes head dims "
                          f"{HEAD_DIMS}, got {D}")
+    # rows are read in 16-byte pieces (float32 loads, bfloat16 cp.async
+    # copies), so every row must start 16-byte aligned
+    vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        # rows are read as 16-byte (float32) / 8-byte (bfloat16) vectors
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
+        if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
                 or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must have a contiguous, "
                              f"16-byte aligned D dim and strides that are "
-                             f"multiples of 4, got strides {t.stride()}")
+                             f"multiples of {vec} ({q.dtype}), got strides "
+                             f"{t.stride()}")
     if B * Hq > 65535:
         raise ValueError(f"flash_attention: B * Hq = {B * Hq} > 65535")
     return True

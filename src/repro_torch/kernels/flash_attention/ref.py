@@ -35,3 +35,18 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)
+
+
+def rel_err_rows(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The error the kernel is held to: the largest over rows (the last dim)
+    of max|got - want| over the row's own max|want|.  A causal prefill's
+    first rows average a few keys and hold the largest values; a row that
+    averages n random keys is about sqrt(1/n) of them, so a scale taken over
+    the whole output would let most rows be wrong by as much as they are
+    large.  A row whose max|want| is 0 must match exactly."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs().amax(dim=-1)
+    scale = want.abs().amax(dim=-1)
+    rel = torch.where(scale > 0, err / torch.where(scale > 0, scale, 1.0),
+                      torch.where(err > 0, float("inf"), 0.0))
+    return float(rel.max()) if rel.numel() else 0.0

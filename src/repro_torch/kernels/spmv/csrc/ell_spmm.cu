@@ -11,54 +11,197 @@
 // Two flops per slot and column stay far below the card's float32/float64
 // rates, so the bytes bound it.
 //
-// Design against that bound: one thread per output element with the RHS
-// column fastest, so the k threads of one row read the same cols/vals word
-// (one broadcast load serves all k columns: A streams once, as in the Pallas
-// kernel) and gather the k contiguous values of each X row in one coalesced
-// segment.  No shared memory and no atomics: each thread owns its output.
+// What stands between the kernel and that bound on the path (K = 27, k = 8,
+// float64) is the SM's load/store data path (128 bytes a clock for L1 and
+// shared memory together), not device memory: every slot gathers a 64-byte
+// X row, so each shared or L1 access a slot makes costs about as much as
+// its share of the bytes.  The design spends about one such access a slot:
+//   - A block takes R consecutive rows (R a multiple of 4, so it starts
+//     16-byte aligned), which in the row-major layout are R*K contiguous
+//     slots, and streams them into shared memory as one flat run: column
+//     ids in 16-byte loads, issued before any other index arithmetic, then
+//     the values of each 16-byte group that holds a stored entry (padding,
+//     which the lowering packs at the row's end, costs no value bytes).
+//   - Then one thread per (row, vector of W right-hand-side columns), the
+//     vector fastest (W = 2 in float64, 4 in float32, 16 bytes, where k and
+//     the alignment of X and Y allow; else W = 1), walks its row's slots in
+//     order, summing in registers: a fixed order, so results repeat bit for
+//     bit.  The lanes of a warp take consecutive rows at the same slot,
+//     which on a stencil gather neighbouring X rows: 16-byte pieces of a
+//     few cache lines.  A slot's column id and value are broadcast reads.
+//   - Columns are tiled by 32 (grid.y); the path's k = 8 is one tile.
+//   - Rows longer than one round of the shared run (ROUND slots) take the
+//     run in rounds; a thread's sum stays in its registers from round to
+//     round, so rows of any length take the same code.
+// One kernel serves every K, k and fill: there is no width switch.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-template <typename T>
-__global__ void ell_spmm_kernel(const int* __restrict__ cols,
-                                const T* __restrict__ vals,
-                                const T* __restrict__ X, T* __restrict__ Y,
-                                int64_t rows, int64_t n, int64_t K, int64_t m,
-                                int64_t k) {
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (t >= rows * k) return;
-  const int64_t row = t / k;
-  const int64_t j = t % k;
-  const int64_t d = row / n;
-  const int* c = cols + row * K;
-  const T* v = vals + row * K;
-  const T* xd = X + d * m * k + j;
-  T acc = T(0);
-  for (int64_t s = 0; s < K; ++s) {
-    const int col = __ldg(c + s);
-    if (col >= 0) acc += __ldg(v + s) * __ldg(xd + static_cast<int64_t>(col) * k);
+constexpr int THREADS = 128;
+constexpr int KT = 32;                             // RHS columns a block takes at most
+constexpr int ROUND = 2048;                        // slots of A in shared memory at once
+constexpr int64_t MAX_K = 0x7fffffff;              // K is an int in the kernel
+
+template <typename T, int W>
+struct alignas(sizeof(T) * W) Vec {
+  T v[W];
+};
+
+template <typename T, int W>
+__device__ __forceinline__ Vec<T, W> load_vec(const T* p) {
+  Vec<T, W> r;
+  if constexpr (W == 1) {
+    r.v[0] = __ldg(p);
+  } else if constexpr (sizeof(T) == 8) {
+    const double2 t = __ldg(reinterpret_cast<const double2*>(p));
+    r.v[0] = t.x;
+    r.v[1] = t.y;
+  } else {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    r.v[0] = t.x;
+    r.v[1] = t.y;
+    r.v[2] = t.z;
+    r.v[3] = t.w;
   }
-  Y[t] = acc;
+  return r;
+}
+
+// The values of one chunk of 4 slots into shared memory, a 16-byte load for
+// each group that holds a stored entry (c < 0 marks padding; c0 & c1 < 0
+// iff both are); a group of padding is left unwritten and never read.
+__device__ __forceinline__ void stage_vals4(const float* p, const int4 c, float* s) {
+  if ((c.x & c.y & c.z & c.w) >= 0)
+    *reinterpret_cast<float4*>(s) = __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ void stage_vals4(const double* p, const int4 c, double* s) {
+  if ((c.x & c.y) >= 0)
+    *reinterpret_cast<double2*>(s) = __ldg(reinterpret_cast<const double2*>(p));
+  if ((c.z & c.w) >= 0)
+    *reinterpret_cast<double2*>(s + 2) = __ldg(reinterpret_cast<const double2*>(p + 2));
+}
+
+// Shared memory: scol int[min(R*K, ROUND)], sval T[min(R*K, ROUND)] (one
+// round of the block's slots).
+template <typename T, int W>
+__global__ void __launch_bounds__(THREADS)
+ell_spmm_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
+                const T* __restrict__ X, T* __restrict__ Y, int64_t rows,
+                int64_t n, int K, int R, int Vf, int64_t m, int64_t k, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // slot counts of a block are int64 (R * K passes 2^31 for K above
+  // 2^31 / R); offsets within one round are ints
+  const int span = static_cast<int64_t>(R) * K < ROUND ? R * K : ROUND;
+  T* sval = reinterpret_cast<T*>(smem);
+  int* scol = reinterpret_cast<int*>(sval + span);
+
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * R;
+  const int nr = static_cast<int>(rows - row0 < R ? rows - row0 : R);
+  const int64_t ns = static_cast<int64_t>(nr) * K;   // this block's slots
+  const int64_t s0 = row0 * K;                        // its first slot
+
+  // the len slots of a round from the block's slot jr on into shared
+  // memory, 4 a thread
+  auto stage = [&](int64_t jr, int len) {
+    const int* cb = cols + s0 + jr;
+    const T* vb = vals + s0 + jr;
+    for (int j = 4 * static_cast<int>(threadIdx.x); j < len; j += 4 * THREADS) {
+      if (vec && j + 4 <= len) {
+        const int4 c = __ldg(reinterpret_cast<const int4*>(cb + j));
+        *reinterpret_cast<int4*>(scol + j) = c;
+        stage_vals4(vb + j, c, sval + j);
+      } else {
+        for (int q = 0; q < 4 && j + q < len; ++q) {
+          const int c = __ldg(cb + j + q);
+          scol[j + q] = c;
+          if (c >= 0) sval[j + q] = __ldg(vb + j + q);
+        }
+      }
+    }
+  };
+  stage(0, ns < span ? static_cast<int>(ns) : span);   // the first column ids go out first
+
+  // this thread's row and vector of columns
+  const int r = static_cast<int>(threadIdx.x) / Vf;
+  const int jv = static_cast<int>(threadIdx.x) - r * Vf;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.y) * KT + jv * W;
+  const bool active = r < nr && col0 < k;
+  const int64_t row = row0 + r;
+  // row ids fit 32 bits wherever a card's memory could hold the operand;
+  // a 32-bit division is a few instructions, a 64-bit one a long call
+  const int64_t d = rows <= 0x7fffffff
+      ? static_cast<int64_t>(static_cast<unsigned>(row) / static_cast<unsigned>(n))
+      : row / n;
+  const T* xd = X + d * m * k + col0;
+
+  Vec<T, W> acc;
+#pragma unroll
+  for (int w = 0; w < W; ++w) acc.v[w] = T(0);
+  for (int64_t jr = 0; jr < ns; jr += span) {
+    const int len = ns - jr < span ? static_cast<int>(ns - jr) : span;
+    if (jr > 0) {
+      __syncthreads();                    // the last round is read
+      stage(jr, len);
+    }
+    __syncthreads();
+    if (active) {
+      // this row's slots in the round, [a, e) of it, in order
+      const int64_t ra = static_cast<int64_t>(r) * K - jr;
+      const int a = ra <= 0 ? 0 : ra < len ? static_cast<int>(ra) : len;
+      const int e = ra + K <= 0 ? 0 : ra + K < len ? static_cast<int>(ra + K) : len;
+#pragma unroll 4
+      for (int j = a; j < e; ++j) {
+        const int c = scol[j];
+        if (c >= 0) {
+          const T v = sval[j];
+          const Vec<T, W> x = load_vec<T, W>(xd + static_cast<int64_t>(c) * k);
+#pragma unroll
+          for (int w = 0; w < W; ++w) acc.v[w] += v * x.v[w];
+        }
+      }
+    }
+  }
+  if (active) *reinterpret_cast<Vec<T, W>*>(Y + row * k + col0) = acc;
+}
+
+template <typename T, int W>
+int launch_w(const int* cols, const T* vals, const T* X, T* Y, int64_t D,
+             int64_t n, int64_t K, int64_t m, int64_t k, cudaStream_t stream) {
+  const int Vf = static_cast<int>((k < KT ? k : KT) / W);   // vectors of a tile
+  const int R = THREADS / Vf / 4 * 4;                       // >= 4: Vf <= 32
+  const int64_t span = R * K < ROUND ? R * K : ROUND;
+  const int64_t smem = span * static_cast<int64_t>(sizeof(T) + sizeof(int));
+  const int64_t rows = D * n;
+  const dim3 grid(static_cast<unsigned>((rows + R - 1) / R),
+                  static_cast<unsigned>((k + KT - 1) / KT));
+  const bool vec =
+      (reinterpret_cast<uintptr_t>(cols) | reinterpret_cast<uintptr_t>(vals)) % 16 == 0;
+  ell_spmm_kernel<T, W><<<grid, THREADS, smem, stream>>>(
+      cols, vals, X, Y, rows, n, static_cast<int>(K), R, Vf, m, k, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const int* cols, const T* vals, const T* X, T* Y, int64_t D,
            int64_t n, int64_t K, int64_t m, int64_t k, cudaStream_t stream) {
-  const int64_t rows = D * n;
-  const int threads = 256;
-  const int64_t blocks = (rows * k + threads - 1) / threads;
-  ell_spmm_kernel<T><<<blocks, threads, 0, stream>>>(cols, vals, X, Y, rows, n, K, m, k);
-  return static_cast<int>(cudaGetLastError());
+  if (K > MAX_K || (k + KT - 1) / KT > 65535 || (D * n + 3) / 4 > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int WV = 16 / sizeof(T);
+  const bool wide =
+      k % WV == 0 && (reinterpret_cast<uintptr_t>(X) | reinterpret_cast<uintptr_t>(Y)) % 16 == 0;
+  if (wide) return launch_w<T, WV>(cols, vals, X, Y, D, n, K, m, k, stream);
+  return launch_w<T, 1>(cols, vals, X, Y, D, n, K, m, k, stream);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success).  The caller
-// guarantees D, n, K, m, k > 0, contiguous operands on one device, and
-// 0 <= cols < m wherever cols != -1.
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for K above 2^31 - 1 or a grid the card cannot
+// take.  The caller guarantees D, n, K, m, k > 0,
+// contiguous operands on one device, and 0 <= cols < m wherever cols != -1.
 extern "C" int ell_spmm_launch(const void* cols, const void* vals, const void* X,
                                void* Y, int64_t D, int64_t n, int64_t K,
                                int64_t m, int64_t k, int is_f64, void* stream) {

@@ -1,14 +1,17 @@
 """The CUDA kernels on the card (marker ``cuda``; skipped where there is no
 card): each kernel against its plain version over ragged shapes — the ELL
-SpMV at every row length and fill the AMG path has, padding packed at the
-row's end and scattered, row counts that fill no whole block, ranks shorter
-than a block, operands that are not 16-byte aligned, rows of up to 20,001
-slots; BCSR sources that are not a multiple of the block size and results
-cut to the true rows, one launch per BCSR apply; degenerate shapes; flash
-attention over ragged lengths, windows, decode alignment, both head dims,
-float32 and bfloat16, strided time-major views and a failed launch — a
-small distributed PCG on the card against the same solve on the CPU, and a
-small LM forward on the card against the CPU.
+SpMV and SpMM at every row length and fill the AMG path has (the SpMM at
+1-33 right-hand sides), padding packed at the row's end and scattered, row
+counts that fill no whole block, ranks shorter than a block, operands that
+are not 16-byte aligned, rows of up to 20,001 slots and of 2^24 + 1; BCSR
+sources that are not a multiple of the block size and results cut to the
+true rows, one launch per BCSR apply; degenerate shapes; flash attention
+(each output row's error over its own max) over ragged lengths, windows,
+decode alignment, both head dims, float32 and bfloat16, the served prefill
+shape, strided time-major views, bfloat16 strides the kernel cannot copy
+and a failed launch — a small distributed PCG on the
+card against the same solve on the CPU, and a small LM forward on the card
+against the CPU.
 
 Run on a machine with an NVIDIA card::
 
@@ -21,7 +24,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref, rel_err_rows  # noqa: E402
 from repro_torch.kernels.spmv import bcsr, ref, spmv  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -135,6 +138,93 @@ def test_ell_spmm(dev, K, k, dtype):
     cols, vals = _ell(rng, n, m, K, dtype, dev)
     X = torch.as_tensor(rng.standard_normal((D, m, k)), dtype=dtype, device=dev)
     _close(spmv.ell_spmm(cols, vals, X), ref.ell_spmm_ref(cols, vals, X))
+
+
+# RHS counts: 1 and odd ones take scalar X rows, 2 and 5 are not a multiple
+# of float32's 4-wide vectors, 33 spans two of the kernel's 32-column tiles
+SPMM_K = [1, 2, 3, 5, 8, 16, 33]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", SPMM_K)
+@pytest.mark.parametrize("fill", [0.04, 0.25, 0.9, 0.97])
+@pytest.mark.parametrize("K", PATH_K)
+def test_ell_spmm_path_widths_and_fills(dev, K, fill, k, dtype):
+    """Every row length and fill the path has, at RHS counts 1-33, padding
+    packed at the row's end and scattered (padded slots hold NaN); ranks of
+    37 rows (blocks span ranks) and of 1000 + K rows."""
+    rng = np.random.default_rng(K * 100 + k)
+    m = 777
+    for n, packed in ((37, True), (1000 + K, False)):
+        cols, vals = _ell_path(rng, n, m, K, fill, packed, dtype, dev)
+        X = torch.as_tensor(rng.standard_normal((D, m, k)), dtype=dtype, device=dev)
+        before = spmv.ell_spmm.launches
+        got = spmv.ell_spmm(cols, vals, X)
+        assert spmv.ell_spmm.launches == before + 1
+        _close(got, ref.ell_spmm_ref(cols, vals, X))
+
+
+def _offset(t):
+    """A contiguous copy of ``t`` that starts one element into its storage
+    (not 16-byte aligned)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    out = buf[1:].view(t.shape)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("which", ["A", "X", "both"])
+def test_ell_spmm_unaligned_operands(dev, which, dtype):
+    """Column ids and values, or X (and so Y's vector width), or all of them
+    not 16-byte aligned: the kernel's scalar loads, also where rows run over
+    several of a block's rounds (K = 3000)."""
+    rng = np.random.default_rng(6)
+    for n, K, k in ((1001, 27, 8), (9, 3000, 4)):
+        cols0, vals0 = _ell_path(rng, n, 50, K, 0.9, True, dtype, dev)
+        X0 = torch.as_tensor(rng.standard_normal((D, 50, k)), dtype=dtype, device=dev)
+        cols, vals = (_offset(cols0), _offset(vals0)) if which != "X" else (cols0, vals0)
+        X = _offset(X0) if which != "A" else X0
+        _close(spmv.ell_spmm(cols, vals, X), ref.ell_spmm_ref(cols0, vals0, X0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("K", [129, 513, 2049, 20000, 20001])
+def test_ell_spmm_long_rows(dev, K, k, dtype):
+    """Rows longer than a block's round of slots take several rounds, a
+    row's partial sums carried from one to the next; ranks of 9 rows."""
+    rng = np.random.default_rng(K + k)
+    m = 5000
+    for fill, packed in ((0.9, True), (0.04, False)):
+        cols, vals = _ell_path(rng, 9, m, K, fill, packed, dtype, dev)
+        X = torch.as_tensor(rng.standard_normal((D, m, k)), dtype=dtype, device=dev)
+        before = spmv.ell_spmm.launches
+        got = spmv.ell_spmm(cols, vals, X)
+        assert spmv.ell_spmm.launches == before + 1
+        _close(got, ref.ell_spmm_ref(cols, vals, X))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("n", [1, 2])
+def test_ell_spmm_rows_past_2_31_block_slots(dev, n, k, dtype):
+    """K = 2^24 + 1: a block's rows (40 at k = 3, 128 at k = 1) hold more
+    than 2^31 slots, so its slot counts need 64 bits; one rank of 1 or 2
+    rows, padding at the rows' ends.  Values and X are small integers, so
+    every partial sum is exact in float32 as well and any error is the
+    kernel's indexing, not its summation order over 2^24 slots."""
+    rng = np.random.default_rng(n * 10 + k)
+    K, m = 2**24 + 1, 5000
+    cols = torch.as_tensor(rng.integers(0, m, size=(1, n, K), dtype=np.int32), device=dev)
+    cols[:, :, K - 1000:] = -1
+    vals = torch.as_tensor(rng.integers(-2, 3, size=(1, n, K)), dtype=dtype, device=dev)
+    X = torch.as_tensor(rng.integers(-2, 3, size=(1, m, k)), dtype=dtype, device=dev)
+    before = spmv.ell_spmm.launches
+    got = spmv.ell_spmm(cols, vals, X)
+    assert spmv.ell_spmm.launches == before + 1
+    _close(got, ref.ell_spmm_ref(cols, vals, X))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -274,8 +364,9 @@ def test_dist_pcg_on_the_card_matches_the_cpu(dev, overlap):
     assert np.abs(m_gpu.x - m_cpu.x).max() <= 1e-7 * np.abs(m_cpu.x).max()
 
 
-# flash attention: error over max|plain|, float32 at the reference suite's
-# 2e-5, bfloat16 at 1e-2 (its 8-bit mantissa; both sides round the output)
+# flash attention: each output row's error over the row's own max|plain|
+# (``rel_err_rows``), float32 at the reference suite's 2e-5, bfloat16 at
+# 1e-2 (its 8-bit mantissa; both sides round the output)
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # (B, Hq, Hkv, Sq, Skv, D, window)
 FA_CASES = [
@@ -286,15 +377,15 @@ FA_CASES = [
     (2, 8, 2, 130, 130, 128, 64),        # window of exactly one tile
     (1, 14, 2, 13, 301, 64, None),       # Sq < Skv, right-aligned (decode)
     (1, 4, 2, 96, 1000, 128, 300),       # decode alignment with a window
+    (4, 16, 8, 1819, 1819, 128, None),   # served prefill: S no whole key tiles
 ]
 
 
 def _close_fa(got, want):
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == want.dtype
-    scale = float(want.float().abs().max()) or 1.0
-    err = float((got.float() - want.float()).abs().max())
-    assert err <= FA_TOL[want.dtype] * scale, (err, scale)
+    err = rel_err_rows(got, want)
+    assert err <= FA_TOL[want.dtype], err
 
 
 def _qkv(case, dtype, dev, seed=0):
@@ -313,6 +404,20 @@ def test_flash_attention(dev, case, causal, dtype):
     out = fa.flash_attention(q, k, v, causal=causal, window=case[-1])
     assert fa.flash_attention.launches == before + 1
     _close_fa(out, attention_ref(q, k, v, causal=causal, window=case[-1]))
+
+
+def test_flash_attention_bf16_strides_must_allow_16_byte_copies(dev):
+    """bfloat16 rows are copied in 16-byte pieces, so strides must be
+    multiples of 8 elements; a stride of 68 (a multiple of 4, which float32
+    takes) raises instead of reaching the kernel or the plain version."""
+    q = torch.zeros((1, 2, 8, 68), dtype=torch.bfloat16, device=dev)[..., :64]
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == before
+    q = torch.zeros((1, 2, 8, 68), device=dev)[..., :64]
+    out = fa.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == before + 1 and out.shape == q.shape
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -97,6 +97,29 @@ def test_plain_version_keeps_bfloat16():
     assert float((out.float() - want).abs().max()) <= 1e-2 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_err_rows_scales_each_row_by_its_own_max(dtype):
+    """The kernels' error measure: on a causal output whose first row is
+    far larger than the late ones, an error of 10% of a late row is 0.1 of
+    that row, where a scale over the whole output would call it 1e-3; a
+    row of zeros must match exactly."""
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _inputs((1, 2, 1, 300, 300, 64, None), 3, time_major=False))
+    want = ref.attention_ref(q, k, v)
+    assert ref.rel_err_rows(want, want) == 0.0
+    got = want.clone()
+    row = want[0, 0, -1].float()
+    got[0, 0, -1, 5] = (row[5] + 0.1 * row.abs().max()).to(dtype)
+    whole = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    assert whole < 1e-2
+    assert ref.rel_err_rows(got, want) == pytest.approx(0.1, rel=0.05)
+    want[0, 1, 0] = 0
+    got = want.clone()
+    assert ref.rel_err_rows(got, want) == 0.0
+    got[0, 1, 0, 3] = 1e-30
+    assert ref.rel_err_rows(got, want) == float("inf")
+
+
 def test_more_queries_than_keys_raises():
     """Sq > Skv: queries are right-aligned at Skv, so the first Sq - Skv rows
     see no key.  On those rows the Pallas kernel (l == 0 → 0) and
@@ -209,3 +232,28 @@ def test_cuda_operands_never_take_the_plain_version(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         fa.flash_attention(q, k, k)
     assert fa.flash_attention.launches == before
+
+
+def test_bfloat16_operands_need_strides_of_8(monkeypatch):
+    """For CUDA operands the kernel copies bfloat16 rows in 16-byte pieces:
+    a stride of 68 elements (a multiple of 4, which float32 takes) raises
+    for bfloat16 and never reaches the plain version; strides of 8 launch
+    the bfloat16 instance."""
+    _as_cuda(monkeypatch)
+    launched = []
+    monkeypatch.setattr(fa, "attention_ref", lambda *a, **k: pytest.fail("plain"))
+    monkeypatch.setattr(fa, "kernel", lambda name: lambda *a: launched.append(a) or 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: type("S", (), {"cuda_stream": 0})())
+    before = fa.flash_attention.launches
+    q = torch.zeros((1, 2, 8, 68), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.flash_attention(q, q, q)
+    assert not launched
+    qf = torch.zeros((1, 2, 8, 68))[..., :64]
+    fa.flash_attention(qf, qf, qf)
+    q = torch.zeros((1, 2, 8, 72), dtype=torch.bfloat16)[..., :64]
+    fa.flash_attention(q, q, q)
+    assert [a[24] for a in launched] == [0, 1]      # the bf16 flag
+    assert fa.flash_attention.launches == before + 2
+    fa.flash_attention.launches = before

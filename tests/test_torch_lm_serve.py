@@ -8,6 +8,8 @@ paths are not identities) go through both.
 - prefill logits and caches against the reference's
   ``forward(use_kernel=True)`` (Pallas in interpret mode) at rtol/atol 1e-4:
   two BLAS libraries summing in other orders;
+- the same forward in bfloat16 (plain attention) against the reference's
+  bfloat16 ``forward`` at 3e-2 of max|logits| (``BF16_TOL``);
 - ``prefill_to_decode_cache``: pure data movement, bit for bit;
 - prefill + 4 ``decode_step``s at 1e-4;
 - ``Engine.run`` greedy tokens equal to the reference engine's, and in a
@@ -108,6 +110,37 @@ def test_forward_matches_reference(arch):
     for name in ("k", "v"):
         assert caches[name].shape == jcaches[0][name].shape
         _close(caches[name], jcaches[0][name])
+
+
+# bfloat16 logits, error over max|logits|: both sides hold the same bfloat16
+# weights and round activations to bfloat16 (8-bit mantissa: an ulp of the
+# largest logit is 4e-3 to 6e-3 of it here), but at different places; either
+# side's bfloat16 logits sit 1e-2 to 2.5e-2 of max|logits| from its own
+# float32 ones at these sizes, so 3e-2 (some five ulps) bounds two such
+# rounding paths that disagree, and a wrong layer shows as O(1)
+BF16_TOL = 3e-2
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_bfloat16_forward_matches_reference(arch):
+    """The port in bfloat16 (plain attention) against the reference's
+    ``forward`` in bfloat16, on the same carried-over weights rounded to
+    bfloat16 on each side (bit-equal: both round to nearest even)."""
+    jcfg, cfg, jparams, _ = _setup(arch)
+    jp16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams)
+    model = init_lm(cfg, seed=1, dtype=torch.bfloat16, device="cpu")
+    model.load_state_dict(lm_params_from_arrays(cfg, jax.tree.map(np.asarray, jparams)),
+                          strict=True)
+    back = lm_params_to_arrays(cfg, {k: t.float() for k, t in model.state_dict().items()})
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp16)):
+        assert np.array_equal(a, np.asarray(b.astype(jnp.float32)))
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 37), dtype=np.int32)
+    want = np.asarray(jforward(jp16, jcfg, jnp.asarray(tokens)).astype(jnp.float32))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(tokens), use_kernel=False)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 37, cfg.vocab)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= BF16_TOL * np.abs(want).max(), err
 
 
 @pytest.mark.parametrize("ctx_len,window", [(64, None), (20, None), (64, 16)])
