@@ -7,7 +7,9 @@ version at the shapes its path gives it:
 - the distributed solve, ``AMGSolver(AMGConfig(backend="torch", n_pods=2,
   lanes=4)).setup(A).pcg(b)`` on the 27-point ``laplace_3d(64)`` (262,144
   rows, 8 stacked ranks of 32,768 rows), through ``ell_spmv``, ``ell_spmm``
-  and ``bcsr_spmm``;
+  and ``bcsr_spmm``, each program call one replay of a captured CUDA graph;
+  ``AMGService`` on the same session, and a streaming refresh beneath its
+  graphs;
 - LM serving, ``Engine(cfg, init_lm(qwen3-1.7b)).run()`` at full width (28
   layers, d_model 2048, 16/8 heads of 128, vocab 151,936; random weights
   from a seeded generator): in float32, 8 requests of 512-2048 prompt
@@ -30,19 +32,35 @@ Phases (any failure exits non-zero):
    CSR, the wrapper's host cost per call, and the bytes-over-bandwidth
    bound; ``ell_spmv`` and ``ell_spmm`` (k = 8) in float64 at every ELL
    operand the f64 single-RHS and k = 8 solves launch (levels, A/P/R,
-   on/off parts), with launches per solve (tallied by operand in a counted
-   solve of its own; the tally must equal the launch counter there and in
-   phase 4's / 5's counted run) and the sums of launches × (time − bound)
-   and of launches × time over them;
-4. f64 PCG to 1e-8, residual history against the numpy host backend
-   (≤ 1e-7 of r0), true residual in numpy, setup / lowering / per-iteration
-   times, and the device time of a warm solve by kernel
-   (``torch.profiler``); before it, 10 BCSR applies of each BCSR level
-   profiled alone: 10 device kernels, all ``bcsr_spmm``'s;
+   on/off parts), with launches per solve (tallied by operand at the
+   capture of the solve's graphs, times each graph's replays; the tally
+   must equal the launch counter there and in phase 4's / 5's counted run)
+   and the sums of launches × (time − bound) and of launches × time over
+   them;
+4. f64 PCG to 1e-8 through the captured graphs, residual history against
+   the numpy host backend (≤ 1e-7 of r0), true residual in numpy, setup /
+   lowering / per-iteration times, the device time of a warm solve by
+   kernel and the busy share (``torch.profiler``) beside the numbers of
+   the same solve run eagerly, and the host's CUDA runtime calls by name; two warm solves of 5
+   and 10 iterations: one ``cudaGraphLaunch`` per program call and the same
+   ``cudaLaunchKernel`` count; the history through the graphs against the
+   eager program bodies (bit-equal, else ≤ 1e-14 of r0); in the last of 5
+   ``pcg_step`` replays, the share of the level-0 exchange's kernel time
+   concurrent with the level-0 ``A_on`` (printed); the graphs' pool bytes;
+   before it, 10 BCSR applies of each BCSR level profiled alone: 10 device
+   kernels, all ``bcsr_spmm``'s;
 5. multi-RHS PCG on ``[n, 8]``, each column against its single-RHS run;
 6. f32 PCG to 1e-5;
 7. launch counts of the solve runs (each counter set to 0 just before a
-   run and read just after): every sparse kernel launched;
+   run and read just after; a graph's launches count once per replay):
+   every sparse kernel launched; then ``AMGService`` with its worker
+   thread on the f64 session, two rounds of 16 requests (one RHS and
+   ``[n, 2]``) in two bursts: coalesced chunks of at most 8 columns, each
+   result's true residual under 1e-7, solves/s and graph captures by
+   width; then ``update(delta=ΔA)`` (the reference suite's drift, scale
+   0.03, seed 1): a refresh, no graph captured again, history against the
+   host session refreshed the same way (≤ 1e-7 of r0), update seconds
+   against a fresh setup's;
 8. flash attention at the serving runs' prefill shape, with a 256-key
    window, with fewer queries than keys, and at head dim 64, each in f32
    and bf16, against its plain version (each row's error over the row's
@@ -75,6 +93,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -100,6 +119,15 @@ RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # bfloat16 rounds the output (8-bit mantissa, 4e-3 relative) and P
 FLASH_RTOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 HIST_TOL = 1e-7
+GRAPH_ITERS = (5, 10)         # two PCG lengths whose runtime calls compare
+OVERLAP_REPLAYS = 5           # pcg_step replays profiled; the last is read
+# the service phase: 16 requests a round in two bursts, 0.05 s apart,
+# inside one 0.25 s coalescing window
+SERVICE_REQUESTS, SERVICE_GAP, SERVICE_WINDOW = 16, 0.05, 0.25
+# the same f64 PCG with its programs run eagerly, one Python call per
+# operation (PERF.md, measured on an NVIDIA H100 80GB HBM3 at 700 W):
+# ms an iteration, device ms an iteration, busy share
+EAGER_MS_ITER, EAGER_DEVICE_MS_ITER, EAGER_BUSY = 12.197, 1.209, 0.099
 APPLY_REPS = 10               # BCSR applies profiled alone, per BCSR level
 # kernel vs plain logits, teacher-forced, over max|logits|: float32 at 1e-4
 # (two summation orders over 28 layers); bfloat16 at 3e-2: the kernel rounds
@@ -243,27 +271,46 @@ def operand_launches(bound, b, kernel: str = "ell_spmv") -> tuple[dict[str, int]
     """``kernel`` (``ell_spmv``, or ``ell_spmm`` for ``b`` ``[n, k]``)
     launches of one solve of ``b`` by operand (the column-id tensor each
     launch reads), from a counted solve of its own, and its iteration count.
-    A call is tallied only where the wrapper's launch counter moved; the
-    tally must add up to the counter, every launch on a named operand."""
+
+    The solve runs as captured CUDA graphs, which make no Python call when
+    replayed: its programs of ``b``'s width are captured afresh in this
+    solve, each launch a capture records is tallied by operand under that
+    capture's tally, and each graph's tally counts once per replay.  The
+    tally must add up to the launch counter, every launch on a named
+    operand."""
+    from repro_torch.kernels import launches
     from repro_torch.kernels.spmv import ops
 
+    dh = bound.dist_hierarchy
     wrapper = launch_counters()[kernel]
     names = {cols.data_ptr(): name for name, (cols, _, _)
-             in ell_operands(bound.dist_hierarchy).items()}
-    seen: collections.Counter = collections.Counter()
+             in ell_operands(dh).items()}
+    # id(recording tally) -> (the tally, kept alive so no id is reused;
+    # launches by operand)
+    by_tally: dict[int, tuple] = {}
     real = getattr(ops, kernel)
 
     def recorded(cols, vals, x):
-        before = wrapper.launches
+        tally = launches.recording_tally()
+        before = None if tally is None else tally[wrapper]
         y = real(cols, vals, x)
-        seen[names.get(cols.data_ptr(), "other")] += wrapper.launches - before
+        if tally is not None and tally[wrapper] > before:
+            seen = by_tally.setdefault(id(tally),
+                                       (tally, collections.Counter()))[1]
+            seen[names.get(cols.data_ptr(), "other")] += 1
         return y
 
+    width = None if b.ndim == 1 else b.shape[1]
+    dh.programs.drop(lambda key: key.k == width)
     setattr(ops, kernel, recorded)
     try:
         res, counts = counted(lambda: bound.pcg(b))
     finally:
         setattr(ops, kernel, real)
+    seen = collections.Counter()
+    for prog in dh.programs.values():
+        for name, n in by_tally.get(id(prog.launches), (None, {}))[1].items():
+            seen[name] += n * prog.replays
     per_solve = {k: v for k, v in seen.items() if v}
     check("other" not in per_solve,
           f"{per_solve.get('other')} {kernel} launches on no named operand")
@@ -410,10 +457,9 @@ def counted(fn):
     return res, {k: w.launches for k, w in wrappers.items()}
 
 
-def device_profile(fn) -> dict:
-    """Device time of ``fn()`` by kernel name, from ``torch.profiler``
-    (CUPTI).  Empty when the profiler saw no device activity."""
-    from torch.autograd import DeviceType
+def profiled(fn):
+    """``fn()`` under ``torch.profiler`` (CUPTI), synchronised; returns the
+    profile."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -421,13 +467,94 @@ def device_profile(fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def device_profile(fn, runtime: dict | None = None) -> dict:
+    """Device time of ``fn()`` by kernel name, from ``torch.profiler``
+    (CUPTI).  Empty when the profiler saw no device activity.  ``runtime``,
+    where given, receives the host's CUDA runtime calls by name (count)."""
+    from torch.autograd import DeviceType
+
+    prof = profiled(fn)
     by_name: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             row = by_name.setdefault(e.name, [0.0, 0])
             row[0] += e.time_range.elapsed_us() / 1e3
             row[1] += 1
+        elif runtime is not None and e.name.startswith("cu"):
+            runtime[e.name] = runtime.get(e.name, 0) + 1
     return by_name
+
+
+def last_graph_kernels(fn) -> list[dict]:
+    """The device kernels of the last CUDA graph ``fn()`` launches, from the
+    profiler's trace (a graph's kernels carry its ``cudaGraphLaunch``'s
+    correlation id): name, start and end (µs) and stream, in start order.
+    The first replays under the profiler also carry its start-up."""
+    prof = profiled(fn)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    launches = [e for e in events if e.get("name") == "cudaGraphLaunch"]
+    if not launches:
+        return []
+    last = max(launches, key=lambda e: float(e["ts"]))
+    corr = last.get("args", {}).get("correlation")
+    spans = [{"name": e["name"], "start": float(e["ts"]),
+              "end": float(e["ts"]) + float(e.get("dur", 0.0)),
+              "stream": e.get("args", {}).get("stream")}
+             for e in events if e.get("cat") == "kernel"
+             and e.get("args", {}).get("correlation") == corr]
+    return sorted(spans, key=lambda e: e["start"])
+
+
+def overlap_share(spans: list[dict]) -> dict:
+    """In one ``pcg_step`` replay (``spans`` its kernels): the share of the
+    level-0 halo exchange's kernel time that runs concurrently with the
+    level-0 ``A_on`` ``ell_spmv``.  ``A·p`` opens the step, so the first two
+    ``ell_spmv`` kernels are level 0's ``A_on`` (concurrent with the
+    exchange) and ``A_off`` (after the join), and the exchange's kernels are
+    the others that start before ``A_off``."""
+    spmv = [e for e in spans if "ell_spmv" in e["name"]]
+    if len(spmv) < 2:
+        return {"share": None, "kernels": len(spans)}
+    on, off = spmv[0], spmv[1]
+    exch = [e for e in spans if e["start"] < off["start"]
+            and "ell_spmv" not in e["name"]]
+    busy = sum(e["end"] - e["start"] for e in exch)
+    both = sum(max(0.0, min(e["end"], on["end"]) - max(e["start"], on["start"]))
+               for e in exch)
+    return {"share": both / busy if busy else None, "kernels": len(spans),
+            "exchange_kernels": len(exch), "exchange_us": busy,
+            "a_on_us": on["end"] - on["start"],
+            "streams": sorted({str(e["stream"]) for e in exch + [on]})}
+
+
+def eager_pcg(dh, b, opts, iters: int) -> list[float]:
+    """The f64 PCG history through the eager program bodies (called
+    directly, one Python call per operation)."""
+    x = dh.scatter(np.zeros_like(b))
+    r, p, rz, rn = dh.pcg_init(x, dh.scatter(b), opts)
+    hist = [float(rn[0])]
+    for _ in range(iters):
+        x, r, p, rz, rn = dh.pcg_step(x, r, p, rz, opts)
+        hist.append(float(rn[0]))
+    return hist
+
+
+def drift(A, scale=0.03, seed=1):
+    """A value-only drift on A's frozen pattern, symmetric (the reference
+    suite's ``tests/test_streaming.py:_drift``)."""
+    from repro_torch.amg.csr import CSR
+
+    rng = np.random.default_rng(seed)
+    data = A.data * (1.0 + scale * rng.random(A.nnz))
+    At = CSR(A.shape, A.indptr.copy(), A.indices.copy(), data).T
+    return CSR(A.shape, A.indptr.copy(), A.indices.copy(),
+               0.5 * (data + At.data))
 
 
 def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
@@ -632,6 +759,187 @@ def lm_check(cfg, run, dtype) -> dict:
     return res
 
 
+def graph_phase(bound, b, res) -> dict:
+    """The f64 PCG as captured CUDA graphs: the host's CUDA runtime calls of
+    two warm solves of different length (one ``cudaGraphLaunch`` per program
+    call, a ``cudaLaunchKernel`` count that does not grow with the
+    iterations), the history through the graphs against the eager program
+    bodies, and the exchange's overlap with ``A_on`` in one ``pcg_step``
+    replay."""
+    dh = bound.dist_hierarchy
+    opts = bound.opts
+    runtime = {}
+    for iters in GRAPH_ITERS:
+        calls: dict[str, int] = {}
+        device_profile(lambda: bound.pcg(b, tol=0.0, maxiter=iters), calls)
+        runtime[iters] = calls
+        check(calls.get("cudaGraphLaunch", 0) == iters + 1,
+              f"a PCG of {iters} iterations made "
+              f"{calls.get('cudaGraphLaunch', 0)} cudaGraphLaunch calls, "
+              f"want {iters + 1} (one per program call)")
+    kernels = [runtime[i].get("cudaLaunchKernel", 0) for i in GRAPH_ITERS]
+    check(kernels[0] == kernels[1],
+          f"cudaLaunchKernel grows with the iterations: {dict(zip(GRAPH_ITERS, kernels))}")
+    for iters, calls in runtime.items():
+        log(f"  host CUDA runtime calls of a warm {iters}-iteration PCG: "
+            + ", ".join(f"{k} {v}" for k, v in sorted(calls.items(),
+                                                       key=lambda kv: -kv[1])))
+    eager = eager_pcg(dh, b, opts, res.iterations)
+    graph = bound.pcg(b, tol=0.0, maxiter=res.iterations).residuals
+    diff = max(abs(x - y) for x, y in zip(eager, graph)) / eager[0]
+    bit_equal = eager == graph
+    check(len(eager) == len(graph) and diff <= 1e-14,
+          f"captured vs eager PCG histories differ by {diff:.2e} of r0")
+    log(f"  captured vs eager PCG, {res.iterations} iterations: residual "
+        f"histories {'bit-equal' if bit_equal else f'differ by {diff:.2e} of r0'}")
+    step = dh.programs.get("pcg_step", opts)
+
+    def replays():
+        for _ in range(OVERLAP_REPLAYS):
+            step.run()
+
+    ov = overlap_share(last_graph_kernels(replays))
+    log(f"  the last of {OVERLAP_REPLAYS} pcg_step replays ({ov['kernels']} "
+        f"kernels): level-0 exchange kernels {ov.get('exchange_kernels')} "
+        f"({ov.get('exchange_us', 0.0):.1f} us), A_on ell_spmv "
+        f"{ov.get('a_on_us', 0.0):.1f} us, share of the exchange's kernel time "
+        f"concurrent with A_on: "
+        + (f"{ov['share']:.3f}" if ov["share"] is not None else "not measured")
+        + f" (streams {ov.get('streams')})")
+    pool = dh.programs.pool_bytes()
+    captures = {f"{n}/k={k}": c for (n, k), c in dh.programs.captures.items()}
+    log(f"  graphs captured: {captures}; shared pool {pool} bytes "
+        f"({pool / 2**20:.1f} MiB)")
+    return {"runtime_calls": {str(i): c for i, c in runtime.items()},
+            "captured_vs_eager_bit_equal": bit_equal,
+            "captured_vs_eager_diff": diff, "overlap": ov,
+            "pool_bytes": pool, "captures": captures}
+
+
+def service_phase(cfg, A, rng) -> dict:
+    """``AMGService`` with its worker thread on the f64 session's matrix:
+    two rounds of 16 requests in two bursts each, one RHS and ``[n, 2]``;
+    chunks of at most K_RHS columns through the ``*_m`` graphs, each result's
+    true residual under 1e-7.  The first round captures the graphs of the
+    chunk widths that are new (on the worker thread), the second replays."""
+    from repro_torch.amg import AMGService
+
+    svc = AMGService(cfg, max_rhs=K_RHS, coalesce_window=SERVICE_WINDOW)
+    svc.register("m", A)
+    dh = svc.bound_for("m").dist_hierarchy     # the f64 session's lowering
+    rounds = []
+    for _ in range(2):
+        caps0 = collections.Counter(dh.programs.captures)
+        bursts = [[rng.standard_normal((A.nrows, 2) if i % 4 == 0 else A.nrows)
+                   for i in range(SERVICE_REQUESTS // 2)] for _ in range(2)]
+        t0 = time.perf_counter()
+        with svc:
+            tickets = []
+            for burst in bursts:
+                tickets += [(bb, svc.submit("m", bb, method="pcg"))
+                            for bb in burst]
+                time.sleep(SERVICE_GAP)
+            xs = [(bb, t.result(timeout=600), t) for bb, t in tickets]
+        wall = time.perf_counter() - t0
+        chunks: dict[int, int] = {}
+        worst = 0.0
+        for bb, x, t in xs:
+            d = t.diagnostics
+            chunks[d["batch"]] = d["batch_cols"]
+            check(d["converged"], f"service request {t.rid} did not converge")
+            r = (bb - (A.matvec(x) if bb.ndim == 1 else
+                       np.stack([A.matvec(x[:, j]) for j in range(x.shape[1])], 1)))
+            worst = max(worst, float(np.linalg.norm(r) / np.linalg.norm(bb)))
+        cols = sum(bb.shape[1] if bb.ndim == 2 else 1 for bb, _, _ in xs)
+        check(all(w <= K_RHS for w in chunks.values())
+              and sum(chunks.values()) == cols and len(chunks) < len(xs),
+              f"service chunks {chunks} for {cols} columns, want coalesced "
+              f"chunks of at most {K_RHS}")
+        check(worst < 1e-7, f"service true residual {worst:.2e}")
+        new = collections.Counter(dh.programs.captures) - caps0
+        by_width = collections.Counter()
+        for (_, k), c in new.items():
+            by_width[str(k)] += c
+        rounds.append({"requests": len(xs), "columns": cols,
+                       "chunk_widths": sorted(chunks.values(), reverse=True),
+                       "wall_s": wall, "solves_per_s": len(xs) / wall,
+                       "worst_true_residual": worst,
+                       "captures_by_width": dict(by_width)})
+        log(f"service round {len(rounds)}: {len(xs)} requests ({cols} columns, "
+            f"two bursts) in {wall:.3f} s = {len(xs) / wall:.2f} solves/s; "
+            f"chunk widths {rounds[-1]['chunk_widths']}, worst true residual "
+            f"{worst:.2e}, graphs captured by width {dict(by_width)}")
+    total = collections.Counter()
+    for (_, k), c in dh.programs.captures.items():
+        total[str(k)] += c
+    pool = dh.programs.pool_bytes()
+    log(f"  graphs of the f64 lowering by width (None = single RHS): {dict(total)}, "
+        f"shared pool {pool} bytes ({pool / 2**20:.1f} MiB); service stats {svc.stats}")
+    return {"rounds": rounds, "captures_by_width": dict(total),
+            "pool_bytes": pool, "stats": dict(svc.stats)}
+
+
+def refresh_phase(bound, host, A, b, t_lower) -> dict:
+    """``bound.update(delta=ΔA)`` beneath the captured graphs: a refresh, no
+    graph captured again, the device tensors the same ones, the solve's
+    history against the host session refreshed the same way (≤ 1e-7 of r0)
+    and its true residual against A + ΔA; a fresh host setup on A + ΔA for
+    time and solution (its history differs: it re-derives P)."""
+    from repro_torch.amg import AMGSolver
+    from repro_torch.amg.api import SessionStore
+
+    dh = bound.dist_hierarchy
+    ptrs = [t.data_ptr() for a in dh._arrs for v in a.values()
+            for t in (v.values() if isinstance(v, dict) else (v,))]
+    caps0 = collections.Counter(dh.programs.captures)
+    delta = drift(A).data - A.data
+    t0 = time.perf_counter()
+    action = bound.update(delta=delta)
+    t_update = time.perf_counter() - t0
+    check(action == "refresh", f"update took {action!r}, want 'refresh'")
+    A_new = bound._fine
+    res = bound.pcg(b)
+    check(res.converged, "PCG after the refresh did not converge")
+    check(collections.Counter(dh.programs.captures) == caps0
+          and bound.dist_hierarchy is dh,
+          f"graphs captured again after the refresh: "
+          f"{collections.Counter(dh.programs.captures) - caps0}")
+    check(ptrs == [t.data_ptr() for a in dh._arrs for v in a.values()
+                   for t in (v.values() if isinstance(v, dict) else (v,))],
+          "the refresh rebound a device tensor")
+    true_rel = float(np.linalg.norm(b - A_new.matvec(res.x)) / np.linalg.norm(b))
+    check(true_rel < 1e-7, f"true residual after the refresh {true_rel:.2e}")
+    # the host session was set up on A under the same setup knobs, so it
+    # shares the (now refreshed) hierarchy: its PCG is the host backend's
+    # solve after the same refresh
+    check(host.hierarchy is bound.hierarchy,
+          "the host session does not share the refreshed hierarchy")
+    res_h = host.pcg(b)
+    hd = history_diff(res_h.residuals, res.residuals)
+    check(abs(res_h.iterations - res.iterations) <= 1 and hd <= HIST_TOL,
+          f"refreshed PCG history vs the refreshed host session: {hd:.2e}")
+    t0 = time.perf_counter()
+    fresh = AMGSolver(host.config, store=SessionStore(),
+                      setup_store=SessionStore()).setup(A_new)
+    t_fresh = time.perf_counter() - t0
+    res_f = fresh.pcg(b)
+    hd_fresh = history_diff(res_f.residuals, res.residuals)
+    xd = float(np.abs(res.x - res_f.x).max() / np.abs(res_f.x).max())
+    info = {"update_s": t_update, "fresh_setup_s": t_fresh,
+            "lowering_s": t_lower, "iterations": res.iterations,
+            "history_vs_refreshed_host": hd, "true_residual": true_rel,
+            "fresh_iterations": res_f.iterations,
+            "history_vs_fresh_setup": hd_fresh, "x_vs_fresh_setup": xd,
+            "lowerings_refreshed": len(bound.hierarchy.dist_cache)}
+    log(f"refresh: update(delta=) {t_update:.2f} s ({info['lowerings_refreshed']} "
+        f"lowerings) against fresh setup {t_fresh:.2f} s + lowering "
+        f"{t_lower:.2f} s; PCG {res.iterations} iterations, history vs the "
+        f"refreshed host session {hd:.2e}, true residual {true_rel:.2e}, no "
+        f"graph captured again; fresh setup {res_f.iterations} iterations, "
+        f"history vs it {hd_fresh:.2e}, x vs it {xd:.2e}")
+    return info
+
+
 def history_diff(a, b) -> float:
     n = min(len(a), len(b))
     r0 = a[0] or 1.0
@@ -739,21 +1047,25 @@ def main() -> int:
     warm = bound64.pcg(b)
     ms_iter = (time.perf_counter() - t0) * 1e3 / max(warm.iterations, 1)
     log(f"pcg f64: {res.iterations} iterations, converged, history vs host "
-        f"{hd:.2e}, true residual {true_rel:.2e}, {ms_iter:.3f} ms/iteration "
-        f"(warm, whole call / iterations), launches {c_single}")
+        f"{hd:.2e}, true residual {true_rel:.2e}, launches {c_single}")
     # where the time of that warm solve goes on the device
-    prof = device_profile(lambda: bound64.pcg(b))
+    runtime: dict[str, int] = {}
+    prof = device_profile(lambda: bound64.pcg(b), runtime)
     dev_ms = sum(v[0] for v in prof.values())
     busy = dev_ms / (ms_iter * max(warm.iterations, 1)) if prof else None
     top_dev = sorted(prof.items(), key=lambda kv: -kv[1][0])[:8]
-    log(f"  device time (torch.profiler) of the warm solve: "
-        + (f"{dev_ms:.3f} ms = {dev_ms / max(warm.iterations, 1):.3f} "
-           f"ms/iteration, busy share {busy:.3f} of the unprofiled wall time"
-           if prof else "not measured (no device events)"))
+    dev_iter = dev_ms / max(warm.iterations, 1)
+    log(f"  captured graphs: {ms_iter:.3f} ms/iteration (warm, whole call / "
+        f"iterations; eager {EAGER_MS_ITER}), device "
+        + (f"{dev_iter:.3f} ms/iteration (eager {EAGER_DEVICE_MS_ITER}), busy "
+           f"share {busy:.3f} (eager {EAGER_BUSY}) of the unprofiled wall time"
+           if prof else "time not measured (no device events)"))
     n_dev = sum(v[1] for v in prof.values())
-    log(f"  {n_dev} device kernels in the warm solve")
+    log(f"  {n_dev} device kernels in the warm solve; host CUDA runtime calls "
+        f"{dict(sorted(runtime.items(), key=lambda kv: -kv[1]))}")
     for kname, (kms, kcount) in top_dev:
         log(f"    {kms:9.3f} ms {kcount:6d}x  {kname[:100]}")
+    graphs = graph_phase(bound64, b, res)
 
     # 5. multi-RHS
     resm, c_multi = counted(lambda: bound64.pcg(B))
@@ -783,6 +1095,11 @@ def main() -> int:
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the main path")
     log(f"launches on the solve path: {launches}")
+
+    # the service on the f64 session's lowering, then a streaming refresh
+    # beneath its graphs (both after the counted runs)
+    service = service_phase(cfg64, A, rng)
+    refresh = refresh_phase(bound64, host, A, b, t_lower64)
     del bound64, bound32, host, dh64, dh32
     torch.cuda.empty_cache()
 
@@ -846,6 +1163,9 @@ def main() -> int:
                                "pcg_f64_device_ms": dev_ms if prof else None,
                                "pcg_f64_device_busy_share": busy,
                                "pcg_f64_device_kernels": n_dev,
+                               "pcg_f64_runtime_calls": runtime,
+                               "graphs": graphs, "service": service,
+                               "refresh": refresh,
                                "bcsr_apply_device_kernels": bcsr_apply,
                                "ell_spmv_launches_per_solve": per_solve["ell_spmv"],
                                "ell_spmv_excess_ms_per_solve":

@@ -8,9 +8,15 @@ rank-stacked tensors through the CUDA kernels::
 
     cfg = AMGConfig(backend="torch", n_pods=2, lanes=4, dtype="float64")
     res = AMGSolver(cfg).setup(A).pcg(b)
+
+On the card each solve program runs as a captured CUDA graph; ``update``
+streams value-only changes beneath those graphs, and :class:`AMGService`
+coalesces requests into the multi-RHS programs.
 """
-from .api import (AMGConfig, AMGSolver, BoundSolver, RequestOptions,
-                  SessionStore, available_backends, register_backend)
+from .api import (AMGConfig, AMGService, AMGSolver, BoundSolver,
+                  PatternMismatch, RefreshPolicy, RequestOptions,
+                  ServiceReport, SessionStore, Ticket, available_backends,
+                  register_backend)
 from .csr import CSR
 from .dist_solve import DistHierarchy
 from .hierarchy import Hierarchy, Level, setup
@@ -19,5 +25,7 @@ from .solve import (MultiSolveResult, SolveOptions, SolveResult, pcg, solve,
 
 __all__ = ["CSR", "Hierarchy", "Level", "setup", "SolveOptions", "SolveResult",
            "MultiSolveResult", "pcg", "solve", "vcycle", "AMGConfig",
-           "AMGSolver", "BoundSolver", "RequestOptions", "SessionStore",
+           "AMGService", "AMGSolver", "BoundSolver", "PatternMismatch",
+           "RefreshPolicy", "RequestOptions", "ServiceReport",
+           "SessionStore", "Ticket",
            "available_backends", "register_backend", "DistHierarchy"]

@@ -6,10 +6,15 @@ and, for ``backend="torch"``, the lowered
 :class:`~repro_torch.amg.dist_solve.DistHierarchy` with its device-resident
 level tensors.  :class:`AMGSolver` is the entry point
 (``AMGSolver(cfg).setup(A)``); sessions live in a :class:`SessionStore` with
-an :class:`LRUPolicy` and per-entry setup-cost / hit accounting.
+a pluggable :class:`EvictionPolicy` (:class:`LRUPolicy`, :class:`TTLPolicy`,
+:class:`BytesBudgetPolicy`) and per-entry setup-cost / hit / streaming-update
+accounting; :class:`~repro_torch.amg.api.service.AMGService` instantiates
+its own store so its budget and counters are service-scoped.
 
-Not ported yet: streaming ``update`` (value-only refresh), the TTL and
-bytes-budget policies, and the partitioned ``setup_backend="dist"`` path.
+``BoundSolver.update`` streams ``A + ΔA``: on the frozen pattern a
+value-only refresh (the torch backend copies the new values beneath its
+captured CUDA graphs), escalating to a full re-setup on a convergence
+regression.  Not ported: the partitioned ``setup_backend="dist"`` path.
 """
 from __future__ import annotations
 
@@ -22,15 +27,17 @@ import numpy as np
 import torch
 
 from ..csr import CSR
-from ..hierarchy import Hierarchy, setup as _hierarchy_setup
+from ..hierarchy import (Hierarchy, refresh_values as _hierarchy_refresh,
+                         setup as _hierarchy_setup)
 from ..solve import (MultiSolveResult, SolveOptions, host_pcg, host_solve,
                      host_vcycle)
-from .config import AMGConfig, RequestOptions, matrix_fingerprint
+from .config import (AMGConfig, PatternMismatch, RequestOptions, apply_update,
+                     matrix_fingerprint, pattern_fingerprint)
 from .registry import backend_class, register_backend
 
 
 # --------------------------------------------------------------------------
-# Session store + eviction policy
+# Session store + eviction policies
 # --------------------------------------------------------------------------
 
 
@@ -81,9 +88,64 @@ class LRUPolicy(EvictionPolicy):
         return list(entries)[:n_over] if n_over > 0 else []
 
 
+class TTLPolicy(EvictionPolicy):
+    """Idle-time-to-live: an entry not touched for ``ttl`` seconds is
+    expired on its next access (plus an optional LRU entry bound)."""
+
+    name = "ttl"
+
+    def __init__(self, ttl: float, max_entries: int | None = None):
+        self.ttl = float(ttl)
+        self.max_entries = max_entries
+
+    def expired(self, entry, now):
+        return now - entry.last_used > self.ttl
+
+    def victims(self, entries, now):
+        if self.max_entries is None:
+            return []
+        n_over = len(entries) - self.max_entries
+        return list(entries)[:n_over] if n_over > 0 else []
+
+
+class BytesBudgetPolicy(EvictionPolicy):
+    """Cost-aware bytes budget: while the resident total exceeds
+    ``max_bytes``, evict the entry with the lowest *retention value*
+    ``setup_cost * (1 + hits) / max(nbytes, 1)`` — sessions that are cheap
+    to rebuild, rarely hit or disproportionately large go first (ties
+    least-recently-used)."""
+
+    name = "bytes_budget"
+
+    def __init__(self, max_bytes: int, max_entries: int | None = None):
+        self.max_bytes = int(max_bytes)
+        self.max_entries = max_entries
+
+    @staticmethod
+    def retention_value(entry: CacheEntry) -> float:
+        return entry.setup_cost * (1 + entry.hits) / max(entry.nbytes, 1)
+
+    def victims(self, entries, now):
+        out = []
+        if self.max_entries is not None:
+            n_over = len(entries) - self.max_entries
+            if n_over > 0:
+                out.extend(list(entries)[:n_over])
+        # recency-ordered iteration makes the min() tie-break LRU
+        live = [(k, e) for k, e in entries.items() if k not in out]
+        total = sum(e.nbytes for _, e in live)
+        while total > self.max_bytes and live:
+            k, e = min(live, key=lambda ke: self.retention_value(ke[1]))
+            out.append(k)
+            live.remove((k, e))
+            total -= e.nbytes
+        return out
+
+
 class SessionStore:
     """Keyed session cache with pluggable eviction and accounting.
-    Thread-safe; ``clock`` is injectable for deterministic tests."""
+    Thread-safe (a service's worker and foreground callers may touch it
+    concurrently); ``clock`` is injectable for deterministic tests."""
 
     def __init__(self, policy: EvictionPolicy | None = None,
                  clock=time.monotonic):
@@ -92,7 +154,11 @@ class SessionStore:
         self._entries: "OrderedDict[object, CacheEntry]" = OrderedDict()
         self._lock = threading.RLock()
         self._counters = {"hits": 0, "misses": 0, "puts": 0, "evictions": 0,
-                          "expirations": 0, "setup_cost_evicted": 0.0}
+                          "expirations": 0, "setup_cost_evicted": 0.0,
+                          "refreshes": 0, "resetups": 0}
+        # streaming-update trigger reasons ("drift", "regression",
+        # "pattern", "evicted") -> count
+        self._triggers: dict[str, int] = {}
 
     def __len__(self) -> int:
         with self._lock:
@@ -149,12 +215,34 @@ class SessionStore:
         with self._lock:
             self._entries.clear()
 
+    def rekey(self, old_key, new_key) -> None:
+        """Move an entry to a new key without touching its accounting: a
+        streamed update changed the value fingerprint, but the session (and
+        its setup cost / hit history) is the same."""
+        with self._lock:
+            entry = self._entries.pop(old_key, None)
+            if entry is not None:
+                self._entries[new_key] = entry
+                self._entries.move_to_end(new_key)
+
+    def note_update(self, action: str, reason: str) -> None:
+        """Record a streaming update: ``action`` is ``"refresh"`` (value-only
+        hierarchy reuse) or ``"resetup"`` (full re-setup), ``reason`` the
+        trigger ("drift", "regression", "pattern", "evicted")."""
+        if action not in ("refresh", "resetup"):
+            raise ValueError(f"unknown update action {action!r}")
+        with self._lock:
+            self._counters["refreshes" if action == "refresh"
+                           else "resetups"] += 1
+            self._triggers[reason] = self._triggers.get(reason, 0) + 1
+
     def stats(self) -> dict:
         """Counters + resident totals (hit/evict/setup-cost accounting)."""
         with self._lock:
             for e in self._entries.values():
                 e.refresh_nbytes()
             return {**self._counters, "policy": self.policy.name,
+                    "triggers": dict(self._triggers),
                     "entries": len(self._entries),
                     "bytes": sum(e.nbytes for e in self._entries.values()),
                     "setup_cost_total": sum(e.setup_cost for e in
@@ -190,6 +278,18 @@ class BoundSolver:
     :class:`~repro_torch.amg.solve.MultiSolveResult`."""
 
     backend_name = "?"
+    # ---- streaming-session state, set by AMGSolver.setup.  A solver made
+    # through bind_hierarchy has none of it and cannot stream updates.
+    _fine: CSR | None = None          # canonical fine-grid CSR of the session
+    pattern_fp: str | None = None     # frozen sparsity-pattern fingerprint
+    _fingerprint: str | None = None   # full (values) fingerprint = store key
+    _store = None                     # SessionStore holding this session
+    _store_key = None
+    # convergence tracking for RefreshPolicy: baseline is the first solve
+    # after the most recent (re-)setup, last the most recent solve
+    baseline_iterations: int | None = None
+    last_iterations: int | None = None
+    last_update_reason: str | None = None   # trigger of the latest update()
 
     def __init__(self, config: AMGConfig, hierarchy: Hierarchy):
         self.config = config
@@ -229,6 +329,20 @@ class BoundSolver:
         return np.asarray(b, dtype=self.staging_dtype())
 
     # -------------------------------------------------------------- methods
+    def solve(self, b, *, tol: float | None = None,
+              maxiter: int | None = None, x0=None):
+        """Stationary AMG iteration (``config.tol``/``maxiter`` defaults)."""
+        res = self._solve(b, tol=tol, maxiter=maxiter, x0=x0)
+        self._observe(res)
+        return res
+
+    def pcg(self, b, *, tol: float | None = None,
+            maxiter: int | None = None, x0=None):
+        """AMG-preconditioned CG (``config.tol``/``pcg_maxiter`` defaults)."""
+        res = self._pcg(b, tol=tol, maxiter=maxiter, x0=x0)
+        self._observe(res)
+        return res
+
     def run(self, b, options: RequestOptions | None = None):
         """One request through the unified knob set (``None`` knobs resolve
         to the session config's defaults)."""
@@ -236,24 +350,93 @@ class BoundSolver:
         fn = self.pcg if o.method == "pcg" else self.solve
         return fn(b, tol=o.tol, maxiter=o.maxiter, x0=o.x0)
 
-    def solve(self, b, *, tol: float | None = None,
-              maxiter: int | None = None, x0=None):
-        """Stationary AMG iteration (``config.tol``/``maxiter`` defaults)."""
+    def _solve(self, b, *, tol=None, maxiter=None, x0=None):
         raise NotImplementedError
 
-    def pcg(self, b, *, tol: float | None = None,
-            maxiter: int | None = None, x0=None):
-        """AMG-preconditioned CG (``config.tol``/``pcg_maxiter`` defaults)."""
+    def _pcg(self, b, *, tol=None, maxiter=None, x0=None):
         raise NotImplementedError
 
     def vcycle(self, b, x0=None):
         raise NotImplementedError
 
-    def update(self, A_new: CSR | None = None, *, data=None, delta=None):
-        raise NotImplementedError(
-            "streaming updates (value-only hierarchy refresh) are not ported "
-            "yet (ROADMAP queue 1, streaming refresh); run "
-            "AMGSolver(config).setup(A_new) instead")
+    def _observe(self, result) -> None:
+        """Track iteration counts for the adaptive re-setup policy."""
+        it = getattr(result, "iterations", None)
+        if it is None:
+            return
+        self.last_iterations = int(it)
+        if self.baseline_iterations is None:
+            self.baseline_iterations = int(it)
+
+    # ---------------------------------------------------- streaming updates
+    def update(self, A_new: CSR | None = None, *, data=None,
+               delta=None) -> str:
+        """Streaming matrix update on the session's frozen pattern.
+
+        Exactly one of ``A_new`` (full replacement CSR), ``data`` (new
+        values in CSR order) or ``delta`` (additive ΔA values).  On a
+        pattern match the session performs a **value-only refresh**: the
+        Galerkin products re-run numerically onto the frozen levels and the
+        new values are lowered onto the frozen layouts, so compiled
+        programs (captured graphs on the card) are reused.  When the
+        config's :class:`~repro_torch.amg.api.config.RefreshPolicy` says
+        convergence has regressed past the post-setup baseline, the update
+        escalates to a full re-setup.  Returns the action taken
+        (``"refresh"`` | ``"resetup"``).  A changed sparsity pattern raises
+        :class:`~repro_torch.amg.api.config.PatternMismatch`."""
+        if self._fine is None:
+            raise ValueError(
+                "streaming updates need a session created by "
+                "AMGSolver.setup; this solver wraps a bare hierarchy")
+        if A_new is None:
+            A_new = apply_update(self._fine, data=data, delta=delta)
+        elif data is not None or delta is not None:
+            raise ValueError("pass A_new or data=/delta=, not both")
+        fp_pat = pattern_fingerprint(A_new)
+        if fp_pat != self.pattern_fp:
+            raise PatternMismatch(
+                f"update pattern {fp_pat[:12]} does not match the session's "
+                f"frozen pattern {self.pattern_fp[:12]}; a value-only "
+                f"refresh is impossible — re-run setup(A_new) for "
+                f"structural changes")
+        regressed = (self.last_iterations is not None and
+                     self.config.refresh.regressed(self.baseline_iterations,
+                                                   self.last_iterations))
+        if regressed or not self._can_refresh():
+            action = "resetup"
+            reason = "regression" if regressed else "evicted"
+            self._resetup(A_new)
+            self.baseline_iterations = None
+            self.last_iterations = None
+        else:
+            action, reason = "refresh", "drift"
+            self._refresh(A_new)
+        self.last_update_reason = reason
+        if self._store is not None:
+            self._store.note_update(action, reason)
+            self._rekey(A_new)
+        return action
+
+    def _rekey(self, A_new: CSR) -> None:
+        """Move the store entry onto the updated value fingerprint, so a
+        later ``setup(A_new)`` under the same config hits this session."""
+        fp = matrix_fingerprint(A_new)
+        new_key = (fp,) + tuple(self._store_key[1:])
+        self._store.rekey(self._store_key, new_key)
+        self._store_key = new_key
+        self._fingerprint = fp
+
+    def _can_refresh(self) -> bool:
+        return True
+
+    def _refresh(self, A_new: CSR) -> None:
+        _hierarchy_refresh(self.hierarchy, A_new)
+        self._fine = self.hierarchy.levels[0].A    # re-pointed by refresh
+
+    def _resetup(self, A_new: CSR) -> None:
+        self.hierarchy = _hierarchy_setup(A_new,
+                                          **self.config.setup_kwargs())
+        self._fine = self.hierarchy.levels[0].A
 
 
 @register_backend("host")
@@ -272,7 +455,7 @@ class HostBoundSolver(BoundSolver):
             xs.append(r.x)
         return MultiSolveResult(np.stack(xs, axis=1), cols)
 
-    def solve(self, b, *, tol=None, maxiter=None, x0=None):
+    def _solve(self, b, *, tol=None, maxiter=None, x0=None):
         b = self._check_b(b)
         tol = self.config.tol if tol is None else tol
         maxiter = self.config.maxiter if maxiter is None else maxiter
@@ -283,7 +466,7 @@ class HostBoundSolver(BoundSolver):
             return self._per_column(run, b, x0)
         return run(b, x0)
 
-    def pcg(self, b, *, tol=None, maxiter=None, x0=None):
+    def _pcg(self, b, *, tol=None, maxiter=None, x0=None):
         b = self._check_b(b)
         tol = self.config.tol if tol is None else tol
         maxiter = self.config.pcg_maxiter if maxiter is None else maxiter
@@ -340,7 +523,7 @@ class TorchBoundSolver(BoundSolver):
                                       self.config.dist_build_kwargs())
         return self._dist
 
-    def solve(self, b, *, tol=None, maxiter=None, x0=None):
+    def _solve(self, b, *, tol=None, maxiter=None, x0=None):
         from ..dist_solve import dist_solve
         b = self._check_b(b)
         tol = self.config.tol if tol is None else tol
@@ -348,7 +531,7 @@ class TorchBoundSolver(BoundSolver):
         return dist_solve(self.dist_hierarchy, b, tol=tol, maxiter=maxiter,
                           opts=self.opts, x0=x0)
 
-    def pcg(self, b, *, tol=None, maxiter=None, x0=None):
+    def _pcg(self, b, *, tol=None, maxiter=None, x0=None):
         from ..dist_solve import dist_pcg
         b = self._check_b(b)
         tol = self.config.tol if tol is None else tol
@@ -362,6 +545,27 @@ class TorchBoundSolver(BoundSolver):
             raise ValueError("the torch backend's vcycle starts from x=0; "
                              "x0= is not supported")
         return dist_vcycle(self.dist_hierarchy, self._check_b(b), self.opts)
+
+    # ---------------------------------------------------- streaming updates
+    def _refresh(self, A_new: CSR) -> None:
+        """The reference's ``DistBoundSolver._refresh`` (host-setup branch):
+        the hierarchy refresh re-lowers every DistHierarchy in its
+        ``dist_cache`` in place; a prebuilt lowering that bypassed the
+        cache is refreshed explicitly."""
+        if self.hierarchy is None:
+            raise NotImplementedError(
+                "a partitioned (setup_backend='dist') session cannot be "
+                "refreshed: that setup path is not ported")
+        _hierarchy_refresh(self.hierarchy, A_new)
+        self._fine = self.hierarchy.levels[0].A
+        cached = self.hierarchy.dist_cache.values()
+        if self._dist is not None and \
+                all(dh is not self._dist for dh in cached):
+            self._dist.refresh_values(self.hierarchy.levels)
+
+    def _resetup(self, A_new: CSR) -> None:
+        super()._resetup(A_new)
+        self._dist = None            # lowered again lazily on next solve
 
 
 # --------------------------------------------------------------------------
@@ -424,6 +628,14 @@ class AMGSolver:
             self.setup_store.put(skey, h, nbytes=session_nbytes(h),
                                  setup_cost=time.perf_counter() - t1)
         bound = backend_class(self.config.backend)(self.config, h)
+        # streaming-session state: the canonical fine CSR (the hierarchy's
+        # own level-0 object, so delta updates compose), the frozen pattern
+        # fingerprint and the store linkage update() re-keys
+        bound._fine = h.levels[0].A
+        bound._fingerprint = fp
+        bound.pattern_fp = pattern_fingerprint(A)
+        bound._store = self.store
+        bound._store_key = key
         # nbytes_fn: a torch session's device tensors are lowered lazily on
         # first solve, so resident bytes are re-measured at eviction time
         self.store.put(key, bound, nbytes=session_nbytes(bound),

@@ -13,17 +13,24 @@ Execution runs all D = ``n_pods × lanes`` ranks in one process with the rank
 as the leading tensor dim (pod-major, the reference's device order).  The
 reference's ten fused ``shard_map`` programs (``cycle``, ``vcycle``,
 ``pcg_init``, ``pcg_step``, ``resid_norm`` and their ``*_m`` multi-RHS twins)
-are plain methods here: every SpMV is one
-:meth:`~repro_torch.amg.dist_spmv.DistOperator.apply` (halo exchange + one
-kernel launch for all ranks), dots and norms go through
+have their eager bodies here as methods: every SpMV is one
+:meth:`~repro_torch.amg.dist_spmv.DistOperator.apply` (halo exchange on a
+side stream + one kernel launch for all ranks), dots and norms go through
 :func:`~repro_torch.core.nap_collectives.hier_psum`, and the coarsest level
 gathers its residual with ``hier_all_gather`` and applies the dense
-pseudo-inverse with ``torch.matmul``.  Only the convergence check touches
-the host: one residual norm per outer iteration.
+pseudo-inverse with ``torch.matmul``.  The drivers run them through
+:attr:`DistHierarchy.programs` (:mod:`.programs`): on the card each program
+call is one replay of a captured CUDA graph over static buffers.  Only the
+convergence check touches the host: one residual norm per outer iteration.
+
+:meth:`DistHierarchy.refresh_values` takes a value-only update beneath the
+captured graphs: every value plane is copied into the tensor already in
+place, and only the Chebyshev programs, which bake ρ in, are captured anew.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -36,9 +43,10 @@ from ..core.topology import Partition, Topology
 from ..device import resolve_device
 from ..kernels.spmv.ops import select_dist_kernel
 from .dist import rect_vector_graph, schedule_comm_stats
-from .dist_spmv import DistOperator, build_dist_operator
+from .dist_spmv import DistOperator, build_dist_operator, copy_into
 from .hierarchy import Hierarchy
 from .interpolation import estimate_rho_DinvA
+from .programs import ProgramCache
 from .smoothers import chebyshev_coeffs, chebyshev_recurrence
 from .solve import (CYCLE_CHILDREN, MultiSolveResult, SolveOptions,
                     SolveResult, level_visits)
@@ -68,6 +76,32 @@ class DistLevel:
     onoff: dict = dataclasses.field(default_factory=dict)
 
 
+def _rank_dinv(A, part: Partition, D: int) -> np.ndarray:
+    """``1 / diag(A)`` (1 where the diagonal is 0) as ``[D, rows_local]``,
+    0 on padded rows."""
+    d = A.diagonal()
+    dinv = 1.0 / np.where(d == 0, 1.0, d)
+    out = np.zeros((D, part.max_local_size), dtype=np.float64)
+    for q in range(D):
+        lo, hi = part.local_range(q)
+        out[q, : hi - lo] = dinv[lo:hi]
+    return out
+
+
+def _rank_pinv(A, part: Partition, D: int) -> np.ndarray:
+    """The coarsest level's dense pseudo-inverse, each rank's rows against
+    the rank-stacked gathered vector: ``[D, rows_local, D * rows_local]``."""
+    pinv = np.linalg.pinv(A.to_dense())
+    m = part.max_local_size
+    cinv = np.zeros((D, m, D * m), dtype=np.float64)
+    for q in range(D):
+        lo, hi = part.local_range(q)
+        for e in range(D):
+            elo, ehi = part.local_range(e)
+            cinv[q, : hi - lo, e * m: e * m + ehi - elo] = pinv[lo:hi, elo:ehi]
+    return cinv
+
+
 class DistHierarchy:
     """An AMG hierarchy lowered onto a (pods × lanes) rank grid, its arrays
     resident on one device.  Built once per hierarchy and reusable across
@@ -76,6 +110,10 @@ class DistHierarchy:
     ``comm_log``: set it to a list to record, in order, the canonical name
     of every collective step the programs run (``None``, the default,
     records nothing).
+
+    ``programs`` holds the compiled form of the ten programs
+    (:class:`~repro_torch.amg.programs.ProgramCache`); ``lock`` serialises
+    the solves on this hierarchy, whose programs share static buffers.
     """
 
     def __init__(self, h: Hierarchy, n_pods: int, lanes: int,
@@ -93,8 +131,14 @@ class DistHierarchy:
         # form A·[x | halo]
         self.overlap = overlap
         self.comm_log: list | None = None
-        # level arrays, moved to the device once at build time
+        # level arrays, moved to the device once at build time; a refresh
+        # copies into these tensors, never rebinds them
         self._arrs = [self._level_arrays(lv) for lv in levels]
+        # the stream each split apply's halo exchange runs on (card only)
+        self._side = (torch.cuda.Stream(device) if device.type == "cuda"
+                      else None)
+        self.programs = ProgramCache(self)
+        self.lock = threading.RLock()
 
     # ------------------------------------------------------------------ build
     @classmethod
@@ -176,13 +220,7 @@ class DistHierarchy:
                 Aop.lower_bcsr(sel["block_size"])
             else:
                 sel = dict(sel, kernel="ell", block_size=0)
-            d = lv.A.diagonal()
-            dinv = 1.0 / np.where(d == 0, 1.0, d)
-            dinv_dev = np.zeros((D, part.max_local_size), dtype=np.float64)
-            for q in range(D):
-                lo, hi = part.local_range(q)
-                dinv_dev[q, : hi - lo] = dinv[lo:hi]
-            dl = DistLevel(A=Aop, dinv=dinv_dev,
+            dl = DistLevel(A=Aop, dinv=_rank_dinv(lv.A, part, D),
                            strategies={"spmv_A": sA},
                            modeled={"spmv_A": tA},
                            local_kernel=sel)
@@ -216,16 +254,7 @@ class DistHierarchy:
                         f"stalled); refusing the dense coarse solve at "
                         f"n={lv.A.nrows}")
                 # coarsest: distributed dense pseudo-inverse solve
-                pinv = np.linalg.pinv(lv.A.to_dense())
-                m = part.max_local_size
-                cinv = np.zeros((D, m, D * m), dtype=np.float64)
-                for q in range(D):
-                    lo, hi = part.local_range(q)
-                    for e in range(D):
-                        elo, ehi = part.local_range(e)
-                        cinv[q, : hi - lo, e * m: e * m + ehi - elo] = \
-                            pinv[lo:hi, elo:ehi]
-                dl.coarse_inv = cinv
+                dl.coarse_inv = _rank_pinv(lv.A, part, D)
             levels.append(dl)
         return levels
 
@@ -254,6 +283,43 @@ class DistHierarchy:
                        for a in self._arrs for v in a.values()
                        for t in (v.values() if isinstance(v, dict) else (v,))))
 
+    # ----------------------------------------------------- streaming refresh
+    def refresh_values(self, src_levels) -> None:
+        """Value-only refresh onto the frozen lowered layouts (port of the
+        reference's, dist_solve.py:437-501).
+
+        ``src_levels`` are the refreshed host levels, whose sparsity
+        patterns must match what this hierarchy was lowered from.  Every
+        structural artifact — comm graphs, strategies, halo plans, ELL/BCSR
+        column maps — is reused; value planes, diagonals, Chebyshev bounds
+        and the coarse pseudo-inverse are recomputed on the host and copied
+        into the device tensors already in place, so captured graphs read
+        the new values on their next replay.  The Chebyshev programs bake
+        ``chebyshev_coeffs(rho)`` in as constants and are dropped, as the
+        reference drops its Chebyshev programs; the Jacobi ones stay.
+        """
+        D = self.n_pods * self.lanes
+        with self.lock:
+            for lv, dl in zip(src_levels, self.levels):
+                part = dl.A.row_part
+                dl.A.refresh_values(lambda d, M=lv.A: M)
+                dl.dinv = _rank_dinv(lv.A, part, D)
+                if dl.P is not None:
+                    dl.P.refresh_values(lambda d, M=lv.P: M)
+                    dl.R.refresh_values(lambda d, M=lv.R: M)
+                    dl.rho = estimate_rho_DinvA(lv.A)
+                else:
+                    dl.coarse_inv = _rank_pinv(lv.A, part, D)
+            for dl, a in zip(self.levels, self._arrs):
+                dl.A.copy_values(a["A"], self.dtype)
+                copy_into(a["dinv"], dl.dinv, self.dtype, "dinv")
+                if dl.P is not None:
+                    dl.P.copy_values(a["P"], self.dtype)
+                    dl.R.copy_values(a["R"], self.dtype)
+                if dl.coarse_inv is not None:
+                    copy_into(a["cinv"], dl.coarse_inv, self.dtype, "cinv")
+            self.programs.drop(lambda key: key.smoother == "chebyshev")
+
     # ----------------------------------------------------------- host layout
     def scatter(self, x: np.ndarray, level: int = 0) -> torch.Tensor:
         """Global ``[n(, k)]`` → rank-stacked ``[D, local(, k)]`` on device."""
@@ -263,6 +329,12 @@ class DistHierarchy:
 
     def gather(self, x_dev: torch.Tensor, level: int = 0) -> np.ndarray:
         return self.levels[level].A.gather_y(x_dev.cpu().numpy())
+
+    def load(self, buf: torch.Tensor, x: np.ndarray) -> None:
+        """Global ``[n(, k)]`` → the rank-stacked buffer ``buf`` in place
+        (one host-to-device copy)."""
+        buf.copy_(torch.from_numpy(self.levels[0].A.scatter_x(
+            np.asarray(x), dtype=DTYPES[self.dtype])))
 
     # --------------------------------------------------------- device pieces
     def _level_arrays(self, dl: DistLevel) -> dict:
@@ -278,7 +350,8 @@ class DistHierarchy:
 
     def _spmv(self, op: DistOperator, arrs: dict, x: torch.Tensor):
         return op.apply(arrs, x, use_kernel=self.use_kernel,
-                        overlap=self.overlap, log=self.comm_log)
+                        overlap=self.overlap, log=self.comm_log,
+                        side=self._side)
 
     def _pdot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Per-rank replicated dot: ``[D]`` for ``[D, n]`` operands, per
@@ -340,10 +413,11 @@ class DistHierarchy:
         return x
 
     # ------------------------------------------------------------- programs
-    # The reference's ten fused programs.  Vectors are [D, local] (single
-    # RHS) or [D, local, k] (the *_m twins: every SpMV a native SpMM, one
-    # halo exchange for all k columns); norms and dots come back per rank,
-    # [D] or [D, k], every rank holding the same value.
+    # The bodies of the reference's ten fused programs, run eagerly when
+    # called directly and through .programs by the drivers.  Vectors are
+    # [D, local] (single RHS) or [D, local, k] (the *_m twins: every SpMV a
+    # native SpMM, one halo exchange for all k columns); norms and dots come
+    # back per rank, [D] or [D, k], every rank holding the same value.
 
     def _spmv0(self, x):
         return self._spmv(self.levels[0].A, self._arrs[0]["A"], x)
@@ -500,18 +574,35 @@ def cycle_comm_stats(dh: DistHierarchy, opts=None) -> dict:
             "per_level": per_level, **totals, **coarse}
 
 
+def _start(dh: DistHierarchy, b: np.ndarray, x0) -> tuple:
+    """Copy ``b`` and ``x0`` (zeros when ``None``) into the state buffers of
+    ``b``'s width; returns (width k, program suffix, buffers).  The caller
+    holds ``dh.lock``."""
+    k = None if b.ndim == 1 else b.shape[1]
+    st = dh.programs.state(k)
+    dh.load(st["b"], b)
+    if x0 is None:
+        st["x"].zero_()
+    else:
+        dh.load(st["x"], np.asarray(x0))
+    return k, ("" if k is None else "_m"), st
+
+
 def dist_vcycle(dh: DistHierarchy, b: np.ndarray, opts=None) -> np.ndarray:
     """One device-resident cycle (``opts.cycle`` shape) from a zero initial
     guess (``b``: [n] or [n, k])."""
     opts = opts or SolveOptions()
-    return dh.gather(dh.vcycle(dh.scatter(np.asarray(b)), opts))
+    b = np.asarray(b)
+    with dh.lock:
+        k, m, st = _start(dh, b, None)
+        dh.programs.run("vcycle" + m, opts, k)
+        return dh.gather(st["x"])
 
 
-def _column_results(dh, x, res, nb, tol):
+def _column_results(X, res, nb, tol):
     """Slice a batched solve into per-column SolveResults: each column
     reports the iteration at which IT first converged and a residual
     history truncated there, as the host backend does."""
-    X = dh.gather(x)
     k = X.shape[1]
     cols = []
     for j in range(k):
@@ -525,6 +616,35 @@ def _column_results(dh, x, res, nb, tol):
     return MultiSolveResult(X, cols)
 
 
+def _iterate(dh, first: str, step: str, opts, b, x0, tol, maxiter):
+    """The host loop of both drivers: one ``first`` program, then one
+    ``step`` program per iteration until the norms in ``rnorm`` reach
+    ``tol`` (every column, for ``b`` ``[n, k]``); each program call reads
+    ``rnorm`` back once.  Holds ``dh.lock`` from the copy-in to the
+    gather of ``x``."""
+    b = np.asarray(b)
+    with dh.lock:
+        k, m, st = _start(dh, b, x0)
+        dh.programs.run(first + m, opts, k)
+        res = [_host(st["rnorm"])]
+        if k is not None:
+            nb = _norms(b)
+            for _ in range(maxiter):
+                if (res[-1] / nb < tol).all():
+                    break
+                dh.programs.run(step + m, opts, k)
+                res.append(_host(st["rnorm"]))
+            return _column_results(dh.gather(st["x"]), res, nb, tol)
+        nb = float(np.linalg.norm(b)) or 1.0
+        for it in range(maxiter):
+            if res[-1] / nb < tol:
+                return SolveResult(dh.gather(st["x"]), res, it, True)
+            dh.programs.run(step, opts, k)
+            res.append(_host(st["rnorm"]))
+        return SolveResult(dh.gather(st["x"]), res, maxiter,
+                           res[-1] / nb < tol)
+
+
 def dist_solve(dh: DistHierarchy, b: np.ndarray, tol: float = 1e-8,
                maxiter: int = 100, opts=None, x0: np.ndarray | None = None):
     """Stationary AMG iteration x ← x + cycle(b − Ax) on the device.
@@ -532,27 +652,8 @@ def dist_solve(dh: DistHierarchy, b: np.ndarray, tol: float = 1e-8,
     ``b`` may be ``[n]`` or ``[n, k]``; the multi-RHS form batches all k
     systems and iterates until every column converges.
     """
-    opts = opts or SolveOptions()
-    b = np.asarray(b)
-    bd = dh.scatter(b)
-    x = dh.scatter(np.zeros_like(b) if x0 is None else np.asarray(x0))
-    if b.ndim == 2:
-        nb = _norms(b)
-        res = [_host(dh.resid_norm_m(x, bd, opts))]
-        for _ in range(maxiter):
-            if (res[-1] / nb < tol).all():
-                break
-            x, rn = dh.cycle_m(x, bd, opts)
-            res.append(_host(rn))
-        return _column_results(dh, x, res, nb, tol)
-    nb = float(np.linalg.norm(b)) or 1.0
-    res = [_host(dh.resid_norm(x, bd, opts))]
-    for it in range(maxiter):
-        if res[-1] / nb < tol:
-            return SolveResult(dh.gather(x), res, it, True)
-        x, rn = dh.cycle(x, bd, opts)
-        res.append(_host(rn))
-    return SolveResult(dh.gather(x), res, maxiter, res[-1] / nb < tol)
+    return _iterate(dh, "resid_norm", "cycle", opts or SolveOptions(), b, x0,
+                    tol, maxiter)
 
 
 def dist_pcg(dh: DistHierarchy, b: np.ndarray, tol: float = 1e-8,
@@ -561,29 +662,5 @@ def dist_pcg(dh: DistHierarchy, b: np.ndarray, tol: float = 1e-8,
 
     Supports ``x0=`` warm starts and multi-RHS ``b`` of shape ``[n, k]``.
     """
-    opts = opts or SolveOptions()
-    b = np.asarray(b)
-    multi = b.ndim == 2
-    bd = dh.scatter(b)
-    x = dh.scatter(np.zeros_like(b) if x0 is None else np.asarray(x0))
-    init, step = ((dh.pcg_init_m, dh.pcg_step_m) if multi
-                  else (dh.pcg_init, dh.pcg_step))
-    r, z, rz, rnorm = init(x, bd, opts)
-    p = z
-    if multi:
-        nb = _norms(b)
-        res = [_host(rnorm)]
-        for _ in range(maxiter):
-            if (res[-1] / nb < tol).all():
-                break
-            x, r, p, rz, rnorm = step(x, r, p, rz, opts)
-            res.append(_host(rnorm))
-        return _column_results(dh, x, res, nb, tol)
-    nb = float(np.linalg.norm(b)) or 1.0
-    res = [_host(rnorm)]
-    for it in range(maxiter):
-        if res[-1] / nb < tol:
-            return SolveResult(dh.gather(x), res, it, True)
-        x, r, p, rz, rnorm = step(x, r, p, rz, opts)
-        res.append(_host(rnorm))
-    return SolveResult(dh.gather(x), res, maxiter, res[-1] / nb < tol)
+    return _iterate(dh, "pcg_init", "pcg_step", opts or SolveOptions(), b, x0,
+                    tol, maxiter)

@@ -15,7 +15,14 @@ Operators may be rectangular (restriction R and interpolation P).
 
 Execute (device, every smoother sweep / residual / restrict / interpolate):
 :meth:`DistOperator.apply` = halo exchange on the stacked ranks → one local
-kernel launch for all ranks (ELL SpMV/SpMM, or BCSR).
+kernel launch for all ranks (ELL SpMV/SpMM, or BCSR).  In the split form on
+the card the exchange runs on a side stream while ``A_on·x`` runs on the
+current one; captured into a CUDA graph, the two become parallel branches.
+
+Refresh (streaming updates): :meth:`DistOperator.refresh_values` re-lowers
+new values onto the frozen layouts (numpy copy of the reference) and
+:meth:`DistOperator.copy_values` writes the value planes into the device
+tensors already in place, which captured graphs keep reading.
 """
 from __future__ import annotations
 
@@ -88,6 +95,20 @@ def _split_ell_stacked(cols: np.ndarray, vals: np.ndarray, x_local: int):
 # become int64 (torch's gather index type), values take the compute dtype
 INDEX32 = ("cols", "on_cols", "off_cols", "bcols", "on_bcols")
 INDEX64 = ("send", "recv", "psel")
+VALUE_PLANES = ("vals", "on_vals", "off_vals", "bvals", "on_bvals")
+
+
+def copy_into(dst: torch.Tensor, src: np.ndarray, dtype: torch.dtype,
+              what: str) -> None:
+    """Write the host array ``src`` into the device tensor ``dst`` in place
+    (converted as :meth:`DistOperator.to_device` converts), after checking
+    that ``dst`` has ``src``'s shape and the compute ``dtype``: a captured
+    graph holds ``dst``'s address, so it must never be rebound."""
+    if tuple(dst.shape) != src.shape or dst.dtype != dtype:
+        raise ValueError(f"refresh of {what}: the device tensor is "
+                         f"{dst.dtype}{tuple(dst.shape)}, the new values "
+                         f"{dtype}{src.shape}")
+    dst.copy_(torch.as_tensor(np.ascontiguousarray(src)).to(dtype))
 
 
 @dataclasses.dataclass
@@ -221,6 +242,45 @@ class DistOperator:
             self.on_cols, self.on_vals, self.plan.local_n)
         self.block_size = int(block_size)
 
+    def refresh_values(self, block_of) -> None:
+        """Value-only re-lowering onto the frozen layouts (numpy copy of the
+        reference's).
+
+        ``block_of(d)`` returns the CSR device ``d`` reads its rows from —
+        same contract as the build — whose sparsity pattern must match the
+        one this operator was lowered from.  The ELL fill order is a pure
+        function of ``indptr``/``indices`` (see :func:`_ell_block`), so with
+        a frozen pattern the column maps, halo plan and on/off split
+        layouts are all reproduced exactly; only the value planes change.
+        BCSR lowerings are re-tiled at the same ``block_size``.
+        """
+        vals = np.zeros(self.ell_cols.shape, dtype=np.float64)
+        for d in range(self.n_devices):
+            rlo, rhi = self.row_part.local_range(d)
+            sub = block_of(d).submatrix_rows(rlo, rhi)
+            if sub.nnz:
+                lens = np.diff(sub.indptr)
+                rows = np.repeat(np.arange(sub.nrows, dtype=np.int64), lens)
+                k = np.arange(sub.nnz, dtype=np.int64) \
+                    - np.repeat(sub.indptr[:-1], lens)
+                vals[d][rows, k] = sub.data
+        self.ell_vals = vals.astype(self.ell_vals.dtype)
+        (on_cols, on_vals), (off_cols, off_vals) = _split_ell_stacked(
+            self.ell_cols, self.ell_vals, self.plan.local_n)
+        # the split is deterministic given cols: layouts come back identical
+        self.on_cols, self.on_vals = on_cols, on_vals
+        self.off_cols, self.off_vals = off_cols, off_vals
+        if self.block_size:
+            self.lower_bcsr(self.block_size)
+
+    def copy_values(self, arrs: dict[str, torch.Tensor],
+                    dtype: torch.dtype) -> None:
+        """Copy the value planes into :meth:`to_device`'s tensors ``arrs``
+        in place (the index arrays are the build's and stay)."""
+        for name, a in self.device_arrays().items():
+            if name in VALUE_PLANES:
+                copy_into(arrs[name], a, dtype, name)
+
     # ------------------------------------------------------------ execution
     @staticmethod
     def _ell_product(cols, vals, src, use_kernel: bool):
@@ -244,7 +304,8 @@ class DistOperator:
 
     def apply(self, arrs: dict[str, torch.Tensor], x: torch.Tensor,
               use_kernel: bool = True, overlap: bool = True,
-              log: list | None = None) -> torch.Tensor:
+              log: list | None = None,
+              side: torch.cuda.Stream | None = None) -> torch.Tensor:
         """Halo exchange + local SpMV/SpMM for all ranks at once.
 
         ``arrs`` holds :meth:`to_device`'s tensors; ``x`` is ``[D, local]``
@@ -258,16 +319,37 @@ class DistOperator:
         ``overlap=False`` keeps the fused serial form ``A·[x | halo]``.  A plan
         that moves zero entries runs no exchange at all in either mode.
         ``log`` collects the exchange's collective names.
+
+        ``side`` (a stream on ``x``'s card) runs the split form's exchange
+        concurrently with ``A_on·x``: it forks from the current stream, the
+        exchange runs on it while the current stream computes ``A_on·x``,
+        and the two join before ``A_off·halo``.  The sum is the same in the
+        same order, so the result is bit-equal to the one-stream form.
         """
         if self.halo_empty:
             return self._on_product(arrs, x, use_kernel)
         psel = None if self.plan.pool_sel is None else arrs["psel"]
-        halo = halo_exchange(x, self.plan, arrs["send"], arrs["recv"], psel,
-                             log=log)
+
+        def exchange():
+            return halo_exchange(x, self.plan, arrs["send"], arrs["recv"],
+                                 psel, log=log)
+
         if overlap:
-            y = self._on_product(arrs, x, use_kernel)
+            if side is None:
+                halo = exchange()
+                y = self._on_product(arrs, x, use_kernel)
+            else:
+                main = torch.cuda.current_stream(x.device)
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    halo = exchange()
+                y = self._on_product(arrs, x, use_kernel)
+                main.wait_stream(side)
+                # halo was made on the side stream and is read on this one
+                halo.record_stream(main)
             return y + self._ell_product(arrs["off_cols"], arrs["off_vals"],
                                          halo, use_kernel)
+        halo = exchange()
         xfull = torch.cat([x, halo], dim=1)     # one buffer for all RHS
         if "bcols" in arrs:
             return self._bcsr_product(arrs["bcols"], arrs["bvals"], xfull,

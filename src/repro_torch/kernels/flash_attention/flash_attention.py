@@ -10,13 +10,14 @@ as long as the D dim is contiguous; the output has q's strides.
 
 The wrapper takes the plain version (:mod:`.ref`) only for tensors that lie
 on the CPU; for CUDA tensors it launches the kernel on the current stream or
-raises.  ``flash_attention.launches`` counts the kernel launches it made.
+raises.  ``flash_attention.launches`` counts the launches the device ran.
 """
 from __future__ import annotations
 
 import torch
 
 from ..build import kernel
+from ..launches import note
 from .ref import attention_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -94,7 +95,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {rc}")
-    flash_attention.launches += 1
+    note(flash_attention)
     return out
 
 

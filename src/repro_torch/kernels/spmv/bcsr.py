@@ -11,13 +11,15 @@ of the ``mb·bs``-row product (all of them by default), so a caller with
 fewer true rows than whole blocks asks for those and needs no slice.
 
 The wrapper takes the plain version only for CPU tensors; for CUDA tensors
-it launches the kernel or raises.  ``bcsr_spmm.launches`` counts launches.
+it launches the kernel or raises.  ``bcsr_spmm.launches`` counts the launches
+the device ran, replays of a captured CUDA graph included.
 """
 from __future__ import annotations
 
 import torch
 
 from ..build import kernel
+from ..launches import note
 from .ref import bcsr_apply_ref, block_rows
 from .spmv import check_operands, raise_on_error
 
@@ -45,7 +47,7 @@ def bcsr_spmm(bcols: torch.Tensor, bvals: torch.Tensor, x: torch.Tensor,
                              int(bvals.dtype == torch.float64),
                              torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error("bcsr_spmm", rc)
-    bcsr_spmm.launches += 1
+    note(bcsr_spmm)
     return y
 
 

@@ -41,7 +41,9 @@ def bcsr(bcols, bvals, x, *, rows: int | None = None,
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches made so far by each kernel wrapper."""
+    """Launches of each kernel the device ran so far: eager launches and,
+    for a captured CUDA graph, its capture's launches once per replay
+    (:mod:`..launches`)."""
     return {"ell_spmv": ell_spmv.launches, "ell_spmm": ell_spmm.launches,
             "bcsr_spmm": bcsr_spmm.launches}
 

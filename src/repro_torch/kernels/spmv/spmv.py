@@ -9,13 +9,15 @@ dim in front, so one launch serves every rank: ``cols``/``vals``
 
 A wrapper takes the plain version (:mod:`.ref`) only for tensors that lie on
 the CPU; for CUDA tensors it launches its kernel on the current stream or
-raises.  ``<wrapper>.launches`` counts the kernel launches it made.
+raises.  ``<wrapper>.launches`` counts the launches of its kernel that the
+device ran, replays of a captured CUDA graph included (:mod:`..launches`).
 """
 from __future__ import annotations
 
 import torch
 
 from ..build import kernel
+from ..launches import note
 from .ref import ell_spmm_ref, ell_spmv_ref
 
 FLOAT_DTYPES = (torch.float32, torch.float64)
@@ -68,7 +70,7 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor,
                             int(vals.dtype == torch.float64),
                             torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error("ell_spmv", rc)
-    ell_spmv.launches += 1
+    note(ell_spmv)
     return y
 
 
@@ -88,7 +90,7 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
                             int(vals.dtype == torch.float64),
                             torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error("ell_spmm", rc)
-    ell_spmm.launches += 1
+    note(ell_spmm)
     return y
 
 

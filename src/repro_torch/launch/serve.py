@@ -5,7 +5,8 @@ the LM engine on a synthetic workload.
         --arch qwen3-1.7b --reduced --device cpu
 
 runs on the CPU; without ``--device`` it runs on the card.  ``--solver amg``
-(the reference's ``AMGService`` front-end) is not ported yet.
+(the reference's harness around ``AMGService`` and its AMGWire socket server)
+is not ported yet; :class:`repro_torch.amg.AMGService` itself is.
 """
 from __future__ import annotations
 
@@ -60,8 +61,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.solver == "amg":
         raise NotImplementedError(
-            "--solver amg: the AMGService front-end is not ported yet "
-            "(ROADMAP queue 1 item 6)")
+            "--solver amg: the launcher's AMGService harness and the AMGWire "
+            "server are not ported yet (ROADMAP queue 1 item 6); "
+            "repro_torch.amg.AMGService serves in-process")
     if not args.arch:
         raise SystemExit("--solver lm requires --arch")
     return run_lm(args)

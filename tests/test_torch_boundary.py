@@ -99,8 +99,7 @@ def test_unported_parts_raise():
     cfg = AMGConfig(backend="torch", n_pods=2, lanes=4, device="cpu",
                     max_coarse=30)
     bound = AMGSolver(cfg).setup(A)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        bound.update(A)
+    assert bound.update(A) == "refresh"          # streaming updates: ported
     b = np.ones(A.nrows)
     for sm in ("block_jacobi", "hybrid_gs", "hybrid_gs_sym"):
         with pytest.raises(NotImplementedError, match="block smoothers"):

@@ -3,7 +3,10 @@ reference's JAX ``backend="dist"`` path on a 2×4 mesh of 8 host devices,
 both in float64 and fed the identical hierarchy through
 :mod:`repro_torch.convert`.  Residual histories (and solutions) must agree
 to ≤ 1e-7 of r0 across PCG and stationary solve, V/W/F cycles, Jacobi and
-Chebyshev, one RHS and k = 3, both overlap modes, and strategy auto / nap3.
+Chebyshev, one RHS and k = 3, both overlap modes, and strategy auto / nap3;
+and again after both sides refresh their lowered hierarchy in place with the
+same drifted values (``DistHierarchy.refresh_values``, A + ΔA with the
+reference suite's ``_drift``).
 
 The JAX side needs 8 host devices set before jax is imported, so it runs
 once per module as a subprocess of this very file::
@@ -34,6 +37,12 @@ CASES = [
     ("solve", "F", "jacobi", 3, True, "nap3"),
 ]
 CYCLES = ("V", "W", "F")
+# after the refresh (strategy auto, overlap on): both smoothers, both widths
+REFRESH_CASES = [
+    ("pcg", "V", "jacobi", 1, True, "auto"),
+    ("pcg", "W", "chebyshev", 3, True, "auto"),
+    ("solve", "F", "jacobi", 3, True, "auto"),
+]
 
 
 def _case_id(case):
@@ -47,12 +56,30 @@ def _inputs():
     from repro_torch.amg.problems import laplace_3d
     from repro_torch.convert import hierarchy_to_arrays
 
+    from repro_torch.amg.csr import CSR
+    from repro_torch.amg.hierarchy import refresh_values
+
     A = laplace_3d(8)
     h = setup(A, solver="rs", max_coarse=30)      # 3 levels: W/F differ
     rng = np.random.default_rng(11)
     B = np.stack([A.matvec(np.ones(A.nrows))]
                  + [rng.standard_normal(A.nrows) for _ in range(2)], axis=1)
-    return {**hierarchy_to_arrays(h), "B": B}
+    # the refreshed levels both sides lower their values from: the drift of
+    # the reference suite's tests/test_streaming.py:_drift, scale 0.03,
+    # seed 1, Galerkin products re-run on the frozen P/R
+    drift = np.random.default_rng(1)
+    data = A.data * (1.0 + 0.03 * drift.random(A.nnz))
+    At = CSR(A.shape, A.indptr.copy(), A.indices.copy(), data).T
+    h_new = setup(A, solver="rs", max_coarse=30)
+    refresh_values(h_new, CSR(A.shape, A.indptr.copy(), A.indices.copy(),
+                              0.5 * (data + At.data)))
+    return {**hierarchy_to_arrays(h), "B": B,
+            **{"new_" + k: v for k, v in hierarchy_to_arrays(h_new).items()}}
+
+
+def _refreshed(d):
+    """The refreshed levels' arrays out of :func:`_inputs`' dict."""
+    return {k[4:]: d[k] for k in d if k.startswith("new_")}
 
 
 def _run(dh, solve_fns, opts_cls, case, B):
@@ -81,18 +108,22 @@ def _jax_reference(out_path, in_path):
     from repro.amg.hierarchy import Hierarchy, Level
     from repro.amg.solve import SolveOptions
 
-    d = np.load(in_path)
-    levels = []
-    for l in range(int(d["n_levels"])):
-        ops = {}
-        for op in ("A", "P", "R"):
-            key = f"L{l}_{op}_"
-            ops[op] = (CSR(tuple(int(s) for s in d[key + "shape"]),
-                           d[key + "indptr"], d[key + "indices"],
-                           d[key + "data"]) if key + "shape" in d else None)
-        levels.append(Level(**ops))
-    h = Hierarchy(solver=str(d["solver"]), levels=levels,
-                  theta=float(d["theta"]))
+    def hierarchy(d):
+        levels = []
+        for l in range(int(d["n_levels"])):
+            ops = {}
+            for op in ("A", "P", "R"):
+                key = f"L{l}_{op}_"
+                ops[op] = (CSR(tuple(int(s) for s in d[key + "shape"]),
+                               d[key + "indptr"], d[key + "indices"],
+                               d[key + "data"]) if key + "shape" in d
+                           else None)
+            levels.append(Level(**ops))
+        return Hierarchy(solver=str(d["solver"]), levels=levels,
+                         theta=float(d["theta"]))
+
+    d = dict(np.load(in_path))
+    h = hierarchy(d)
     B = d["B"]
     out = {}
     built = {}
@@ -113,6 +144,14 @@ def _jax_reference(out_path, in_path):
         for j, hist in enumerate(hists):
             out[f"case{i}_col{j}"] = hist
         out[f"case{i}_x"] = x
+    dh = built["auto"]
+    dh.overlap = True
+    dh.refresh_values(hierarchy(_refreshed(d)).levels)
+    for i, case in enumerate(REFRESH_CASES):
+        hists, _ = _run(dh, {"pcg": dist_pcg, "solve": dist_solve},
+                        SolveOptions, case, B)
+        for j, hist in enumerate(hists):
+            out[f"refresh{i}_col{j}"] = hist
     np.savez(out_path, **out)
 
 
@@ -180,6 +219,34 @@ def test_cycle_comm_stats_match_jax_dist(shared, port_hierarchies, strategy):
         st = cycle_comm_stats(port_hierarchies[strategy], SolveOptions(cycle=c))
         got = [st[k] for k in ("inter_msgs", "intra_msgs", "coarse_inter_msgs")]
         assert got == list(ref[f"stats_{strategy}_{c}"]), c
+
+
+def test_refreshed_histories_match_jax_dist(shared):
+    """The port's refresh beneath its cached programs (Chebyshev ones
+    dropped, Jacobi ones kept) against the reference's refreshed dist
+    solve."""
+    from repro_torch.amg.dist_solve import (DistHierarchy, dist_pcg,
+                                            dist_solve)
+    from repro_torch.amg.solve import SolveOptions
+    from repro_torch.convert import hierarchy_from_arrays
+
+    inputs, ref = shared
+    dh = DistHierarchy.build(hierarchy_from_arrays(inputs), N_PODS, LANES,
+                             strategy="auto", dtype=torch.float64,
+                             device="cpu")
+    fns = {"pcg": dist_pcg, "solve": dist_solve}
+    for case in REFRESH_CASES:                  # programs cached before
+        _run(dh, fns, SolveOptions, case, inputs["B"])
+    n_programs = len(dh.programs)
+    dh.refresh_values(hierarchy_from_arrays(_refreshed(inputs)).levels)
+    assert len(dh.programs) == n_programs - 2     # the two Chebyshev ones
+    assert {k.smoother for k in dh.programs.keys()} == {"jacobi"}
+    for i, case in enumerate(REFRESH_CASES):
+        hists, _ = _run(dh, fns, SolveOptions, case, inputs["B"])
+        for j, hist in enumerate(hists):
+            want = ref[f"refresh{i}_col{j}"]
+            assert hist.shape == want.shape == (ITERS + 1,)
+            assert np.abs(hist - want).max() / want[0] <= TOL, (i, j)
 
 
 def test_session_api_matches_host_backend(shared):
