@@ -9,7 +9,8 @@ version at the shapes its path gives it:
   rows, 8 stacked ranks of 32,768 rows), through ``ell_spmv``, ``ell_spmm``
   and ``bcsr_spmm``, each program call one replay of a captured CUDA graph;
   ``AMGService`` on the same session, and a streaming refresh beneath its
-  graphs;
+  graphs; the communication audit over the replayed graphs; AMGWire, the
+  socket server, with two tenants on the card serving ``laplace_3d(48)``;
 - LM serving, ``Engine(cfg, init_lm(qwen3-1.7b)).run()`` at full width (28
   layers, d_model 2048, 16/8 heads of 128, vocab 151,936; random weights
   from a seeded generator): in float32, 8 requests of 512-2048 prompt
@@ -60,7 +61,19 @@ Phases (any failure exits non-zero):
    width; then ``update(delta=ΔA)`` (the reference suite's drift, scale
    0.03, seed 1): a refresh, no graph captured again, history against the
    host session refreshed the same way (≤ 1e-7 of r0), update seconds
-   against a fresh setup's;
+   against a fresh setup's; then the communication audit
+   (``repro_torch.analysis``): every program the f64 session captured
+   (widths 1, 8 and the service's) read from the log each replay adds,
+   against the count model; a replayed PCG's log against the sum of its
+   program calls; the poisoned-halo overlap check on level 0's ``A``; the
+   whole V/W/F × Jacobi/Chebyshev grid over all ten programs, captured, on
+   ``laplace_3d(24)``: zero violations; then AMGWire: a ``ServerThread``
+   with two f64 tenants, ``laplace_3d(48)`` registered over the socket
+   (62 MB frame, limit 64 MiB), 16 solves in two bursts, an ``update``,
+   8 more (and three lone solves), launch counters set to 0 just before
+   and read just after; each answer's residual ≤ 100·tol and against the
+   in-process service's answer for the same b; solves/s over the wire,
+   p50/p99 latency, the session's bytes as the store counts them;
 8. flash attention at the serving runs' prefill shape, with a 256-key
    window, with fewer queries than keys, and at head dim 64, each in f32
    and bf16, against its plain version (each row's error over the row's
@@ -129,6 +142,16 @@ SERVICE_REQUESTS, SERVICE_GAP, SERVICE_WINDOW = 16, 0.05, 0.25
 # ms an iteration, device ms an iteration, busy share
 EAGER_MS_ITER, EAGER_DEVICE_MS_ITER, EAGER_BUSY = 12.197, 1.209, 0.099
 APPLY_REPS = 10               # BCSR applies profiled alone, per BCSR level
+# the audit's grid of V/W/F × Jacobi/Chebyshev over all ten programs, at a
+# smaller depth than the main path so its 60 captures stay cheap
+AUDIT_SIZE = 24
+# the wire phase: the largest Laplacian whose register frame fits the wire's
+# 64 MiB frame limit (laplace_3d(48): a 62,263,466-byte frame), and a small
+# one for the second tenant; wire answers against the in-process service's
+# for the same b: each within 1e3 · tol of max|x| (their coalesced chunks
+# may differ, and a column in a wider chunk runs on past its convergence)
+WIRE_SIZE, WIRE_SMALL = 48, 16
+WIRE_X_RTOL = 1e-5
 # kernel vs plain logits, teacher-forced, over max|logits|: float32 at 1e-4
 # (two summation orders over 28 layers); bfloat16 at 3e-2: the kernel rounds
 # the probabilities to bfloat16 before P.V where the plain version keeps
@@ -940,6 +963,239 @@ def refresh_phase(bound, host, A, b, t_lower) -> dict:
     return info
 
 
+def audit_phase(bound, b) -> dict:
+    """The communication audit over replayed graphs.  At full width, every
+    program the f64 session captured (widths 1, 8 and the service's): the
+    log its capture recorded, which each replay adds, against
+    ``expected_collectives``; a replayed PCG's ``comm_log`` against the sum
+    of its program calls; level 0's ``A`` apply with the poisoned-halo
+    overlap check.  Then the whole V/W/F × Jacobi/Chebyshev grid over all ten
+    programs on ``laplace_3d(AUDIT_SIZE)``, each program captured and read
+    from its replay.  Any violation fails the run."""
+    from repro_torch.amg.dist_solve import DistHierarchy
+    from repro_torch.amg.hierarchy import setup
+    from repro_torch.amg.problems import laplace_3d
+    from repro_torch.analysis import (audit_apply, audit_captured,
+                                      audit_hierarchy, audit_solve)
+
+    dh = bound.dist_hierarchy
+    progs = dh.programs.values()
+    check(bool(progs) and all(p.graph is not None for p in progs),
+          "the f64 session's programs are not all captured graphs")
+    full = audit_captured(dh)
+    widths = sorted({1 if p.key.k is None else p.key.k for p in progs})
+    opts = bound.opts
+    init = dh.programs.get("pcg_init", opts)
+    step = dh.programs.get("pcg_step", opts)
+    before = (init.replays, step.replays)
+    saved, dh.comm_log = dh.comm_log, []
+    try:
+        res = bound.pcg(b)
+        solve_log = dh.comm_log
+    finally:
+        dh.comm_log = saved
+    calls = {"pcg_init": init.replays - before[0],
+             "pcg_step": step.replays - before[1]}
+    check(calls == {"pcg_init": 1, "pcg_step": len(res.residuals) - 1},
+          f"a PCG of {res.iterations} iterations replayed {calls}")
+    check(solve_log == init.comm + step.comm * calls["pcg_step"],
+          "the replayed PCG's comm_log is not its program calls' logs")
+    solve = audit_solve(dh, solve_log, calls, opts, label="pcg[replayed]")
+    apply0 = audit_apply(dh, 0, "A")
+    t0 = time.perf_counter()
+    h = setup(laplace_3d(AUDIT_SIZE), solver="rs")
+    dh_grid = DistHierarchy.build(h, N_PODS, LANES, dtype=torch.float64,
+                                  device=DEVICE)
+    grid, grid_violations = audit_hierarchy(dh_grid)
+    t_grid = time.perf_counter() - t0
+    captured = sum(dh_grid.programs.captures.values())
+    check(all(p.graph is not None for p in dh_grid.programs.values()),
+          "the grid's programs are not all captured graphs")
+    violations = ([v for a in full + [solve, apply0] for v in a.violations]
+                  + grid_violations)
+    for v in violations:
+        log(f"  AUDIT {v}")
+    log(f"audit: laplace_3d({SIZE}) f64: {len(full)} captured programs at "
+        f"widths {widths}, {sum(a.n_collectives for a in full)} collective "
+        f"steps a replay; replayed PCG ({calls['pcg_step']} steps) logs "
+        f"{solve.n_collectives} = its calls'; level-0 A overlap check "
+        f"{'clean' if apply0.ok else 'FAILED'}; grid laplace_3d({AUDIT_SIZE}) "
+        f"({len(dh_grid.levels)} levels): {len(grid)} audits, {captured} graphs "
+        f"captured, {t_grid:.1f} s; violations {len(violations)}")
+    check(not violations, f"{len(violations)} communication audit violations")
+    return {"programs_full_width": len(full), "widths": widths,
+            "replayed_pcg_collectives": solve.n_collectives,
+            "grid_size": AUDIT_SIZE, "grid_audits": len(grid),
+            "grid_graphs_captured": captured, "grid_s": t_grid,
+            "violations": len(violations)}
+
+
+def wire_phase(cfg) -> dict:
+    """AMGWire over a loopback socket on the card: a ``ServerThread`` with two
+    f64 torch tenants; ``alpha`` registers ``laplace_3d(WIRE_SIZE)`` (its
+    frame under the 64 MiB limit), takes one lone solve (setup, lowering,
+    captures), 16 solves (one RHS and ``[n, 2]``) in two bursts and one
+    lone solve, one ``update`` with the smoke's drift, then 8 more and one
+    lone; ``beta`` serves ``laplace_3d(WIRE_SMALL)`` alongside.  Every
+    answer's relative residual must be ≤ 100·tol, and match the in-process
+    service's answer for the same b.  The launch counters are set to 0
+    just before the server starts and read when the traffic ends."""
+    from repro_torch.amg import AMGService, AMGSolver
+    from repro_torch.amg.api import (SessionStore, array_from_wire,
+                                     csr_to_wire, solve_request_to_wire,
+                                     update_request_to_wire)
+    from repro_torch.amg.problems import laplace_3d
+    from repro_torch.serve import (MAX_FRAME_BYTES, AMGWireClient,
+                                   ServerThread, TenantSpec, encode_frame)
+    from repro_torch.serve.workload import rel_residual, summarize_latencies
+
+    A, A_small = laplace_3d(WIRE_SIZE), laplace_3d(WIRE_SMALL)
+    rng = np.random.default_rng(SEED + 1)
+    payload = csr_to_wire(A)
+    frame_bytes = len(encode_frame({"schema": 2, "kind": "register",
+                                    "tenant": "alpha", "seq": 0,
+                                    "payload": payload}))
+    check(frame_bytes <= MAX_FRAME_BYTES,
+          f"register frame {frame_bytes} bytes over {MAX_FRAME_BYTES}")
+    tol = cfg.tol
+    tenants = {"alpha": TenantSpec(config=cfg, max_inflight=64,
+                                   max_rhs=K_RHS,
+                                   coalesce_window=SERVICE_WINDOW),
+               "beta": TenantSpec(config=cfg, max_inflight=8, max_rhs=K_RHS)}
+    delta = drift(A).data - A.data
+    A_new = drift(A)
+    wrappers = launch_counters()
+    for w in wrappers.values():
+        w.launches = 0
+    with ServerThread(tenants) as srv, \
+            AMGWireClient.connect(srv.host, srv.port) as c:
+        t0 = time.perf_counter()
+        mid = c.register("alpha", payload, timeout=600)["matrix"]
+        t_register = time.perf_counter() - t0
+        mid_small = c.register("beta", csr_to_wire(A_small))["matrix"]
+
+        def lone(M):
+            bb = rng.standard_normal(M.nrows)
+            t0 = time.perf_counter()
+            x, d = c.solve("alpha", solve_request_to_wire(mid, bb,
+                                                          method="pcg"),
+                           timeout=600)
+            return {"b": bb, "x": x, "s": time.perf_counter() - t0,
+                    "diag": d}
+
+        def burst_round(M, n):
+            sent, small = [], []
+            for _ in range(2):
+                for i in range(n // 2):
+                    bb = rng.standard_normal((M.nrows, 2) if i % 4 == 0
+                                             else M.nrows)
+                    t = time.perf_counter()
+                    seq = c.send("solve", tenant="alpha",
+                                 payload=solve_request_to_wire(
+                                     mid, bb, method="pcg"))
+                    sent.append((bb, seq, t))
+                bs = rng.standard_normal(A_small.nrows)
+                small.append((bs, c.send("solve", tenant="beta",
+                                         payload=solve_request_to_wire(
+                                             mid_small, bs, method="pcg"))))
+                time.sleep(SERVICE_GAP)
+            out, lat, t_end = [], [], 0.0
+            for bb, seq, t in sent:
+                frame, t_recv = c.recv_timed(seq, timeout=600)
+                check(frame["kind"] == "solution",
+                      f"wire solve answered {frame}")
+                x = array_from_wire(frame["x"])
+                check(frame["diagnostics"]["converged"],
+                      f"wire solve {seq} did not converge")
+                out.append({"b": bb, "x": x, "diag": frame["diagnostics"]})
+                lat.append(t_recv - t)
+                t_end = max(t_end, t_recv)
+            for bs, seq in small:
+                frame = c.recv(seq, timeout=600)
+                check(frame["kind"] == "solution",
+                      f"beta's wire solve answered {frame}")
+                rr = rel_residual(A_small, array_from_wire(frame["x"]), bs)
+                check(rr <= 100 * tol, f"beta's wire residual {rr:.2e}")
+            return out, {"requests": n, "wall_s": t_end - sent[0][2],
+                         "solves_per_s": n / (t_end - sent[0][2]),
+                         **summarize_latencies(lat)}
+
+        first = lone(A)
+        round1, stats1 = burst_round(A, SERVICE_REQUESTS)
+        lone1 = lone(A)
+        upd = c.update("alpha", update_request_to_wire(mid, delta=delta),
+                       timeout=600)
+        check(upd["action"] == "refresh", f"wire update answered {upd}")
+        round2, stats2 = burst_round(A_new, SERVICE_REQUESTS // 2)
+        lone2 = lone(A_new)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        server_stats = c.stats()
+        svc = srv.server.tenants["alpha"].service
+        dh = svc.bound_for(mid).dist_hierarchy
+        store_bytes = svc.store.stats()["bytes"]
+        pool, state = dh.programs.pool_bytes(), dh.programs.state_bytes()
+        uses_bcsr = any(dl.A.block_size for dl in dh.levels)
+    check(server_stats["dropped_connections"] == 0,
+          "the wire server dropped a connection")
+    for k in SPMV_KERNELS:
+        if k != "bcsr_spmm" or uses_bcsr:
+            check(counts[k] > 0, f"{k} was never launched on the wire path")
+    check(store_bytes >= dh.nbytes >= pool + state > 0,
+          f"store bytes {store_bytes} miss the lowering's {dh.nbytes} "
+          f"(pool {pool}, state {state})")
+    # every answer against the matrix it was solved on, and against the
+    # in-process service's answer for the same b (its own setup store: the
+    # wire tenant's hierarchy was refreshed in place)
+    worst, worst_x, equal = 0.0, 0.0, 0
+    for M, reqs in ((A, [first] + round1 + [lone1]),
+                    (A_new, round2 + [lone2])):
+        ref = AMGService(cfg, max_rhs=K_RHS)
+        ref.solver = AMGSolver(cfg, store=ref.store,
+                               setup_store=SessionStore())
+        ref.register("m", M)
+        for group in (reqs[:1], reqs[1:-1], reqs[-1:]):
+            tickets = [ref.submit("m", r["b"], method="pcg") for r in group]
+            ref.drain()
+            for r, t in zip(group, tickets):
+                xs = t.result(timeout=0)
+                rr = rel_residual(M, r["x"], r["b"]) if r["b"].ndim == 1 \
+                    else max(rel_residual(M, r["x"][:, j], r["b"][:, j])
+                             for j in range(r["b"].shape[1]))
+                worst = max(worst, rr)
+                d = float(np.abs(r["x"] - xs).max() / np.abs(xs).max())
+                worst_x = max(worst_x, d)
+                equal += bool(np.array_equal(r["x"], xs))
+    n_answers = len(round1) + len(round2) + 3
+    check(worst <= 100 * tol, f"wire relative residual {worst:.2e}")
+    check(worst_x <= WIRE_X_RTOL,
+          f"wire answers vs the in-process service's: {worst_x:.2e} of max|x|")
+    info = {"size": WIRE_SIZE, "rows": A.nrows, "nnz": A.nnz,
+            "register_frame_bytes": frame_bytes,
+            "max_frame_bytes": MAX_FRAME_BYTES, "register_s": t_register,
+            "first_solve_s": first["s"], "lone_solve_s": lone1["s"],
+            "round1": stats1, "round2": stats2, "update": upd,
+            "answers": n_answers, "worst_rel_residual": worst,
+            "worst_x_vs_in_process": worst_x, "bit_equal_answers": equal,
+            "launches": counts, "session_store_bytes": store_bytes,
+            "lowering_bytes": dh.nbytes, "pool_bytes": pool,
+            "state_bytes": state}
+    log(f"wire: laplace_3d({WIRE_SIZE}) ({A.nrows} rows, {A.nnz} nnz), "
+        f"register frame {frame_bytes} bytes (limit {MAX_FRAME_BYTES}) in "
+        f"{t_register:.2f} s; first solve {first['s']:.2f} s (setup, lowering, "
+        f"captures), a lone solve {lone1['s'] * 1e3:.1f} ms")
+    for name, st in (("round 1", stats1), ("after the update", stats2)):
+        log(f"  {name}: {st['requests']} solves in {st['wall_s']:.3f} s = "
+            f"{st['solves_per_s']:.2f} solves/s over the wire, latency p50 "
+            f"{st['p50_ms']:.1f} ms, p99 {st['p99_ms']:.1f} ms")
+    log(f"  update: {upd}; {n_answers} answers, worst relative residual "
+        f"{worst:.2e}, vs the in-process service {worst_x:.2e} of max|x| "
+        f"({equal} bit-equal); launches {counts}")
+    log(f"  session bytes as the store counts them: {store_bytes} "
+        f"({store_bytes / 2**20:.1f} MiB; lowering {dh.nbytes}, of which graph "
+        f"pool {pool} and state buffers {state})")
+    return info
+
+
 def history_diff(a, b) -> float:
     n = min(len(a), len(b))
     r0 = a[0] or 1.0
@@ -1100,7 +1356,10 @@ def main() -> int:
     # beneath its graphs (both after the counted runs)
     service = service_phase(cfg64, A, rng)
     refresh = refresh_phase(bound64, host, A, b, t_lower64)
+    audit = audit_phase(bound64, b)
     del bound64, bound32, host, dh64, dh32
+    torch.cuda.empty_cache()
+    wire = wire_phase(cfg64)
     torch.cuda.empty_cache()
 
     # 8. flash attention at the serving run's shapes
@@ -1165,7 +1424,8 @@ def main() -> int:
                                "pcg_f64_device_kernels": n_dev,
                                "pcg_f64_runtime_calls": runtime,
                                "graphs": graphs, "service": service,
-                               "refresh": refresh,
+                               "refresh": refresh, "audit": audit,
+                               "wire": wire,
                                "bcsr_apply_device_kernels": bcsr_apply,
                                "ell_spmv_launches_per_solve": per_solve["ell_spmv"],
                                "ell_spmv_excess_ms_per_solve":

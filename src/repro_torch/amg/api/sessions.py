@@ -248,6 +248,17 @@ class SessionStore:
                     "setup_cost_total": sum(e.setup_cost for e in
                                             self._entries.values())}
 
+    def entry_table(self) -> list[dict]:
+        """Per-entry accounting rows (for reports)."""
+        now = self._clock()
+        with self._lock:
+            for e in self._entries.values():
+                e.refresh_nbytes()
+            return [{"key": k, "nbytes": e.nbytes,
+                     "setup_cost": e.setup_cost, "hits": e.hits,
+                     "idle_s": now - e.last_used}
+                    for k, e in self._entries.items()]
+
 
 def _csr_nbytes(M) -> int:
     return int(M.indptr.nbytes + M.indices.nbytes + M.data.nbytes)
@@ -255,7 +266,10 @@ def _csr_nbytes(M) -> int:
 
 def session_nbytes(value) -> int:
     """Resident-bytes estimate for store accounting: CSR bytes of a host
-    hierarchy, device-tensor bytes of a lowered DistHierarchy."""
+    hierarchy; for a lowered DistHierarchy its device bytes (level tensors,
+    state buffers and graph pool, ``DistHierarchy.nbytes``).  A torch
+    session counts the one lowering it solves on, not every lowering its
+    hierarchy's ``dist_cache`` holds."""
     if value is None:
         return 0
     if isinstance(value, Hierarchy):

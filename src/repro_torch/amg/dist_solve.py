@@ -31,11 +31,14 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+from collections import Counter
 
 import numpy as np
 import torch
 
-from ..core.nap_collectives import hier_all_gather, hier_psum
+from ..core.nap_collectives import (gather_signature, halo_signature,
+                                    hier_all_gather, hier_psum,
+                                    reduce_signature)
 from ..core.perf_model import (TPU_V5E, MachineParams, overlap_efficiency,
                                spmv_compute_times)
 from ..core.selector import select
@@ -278,10 +281,13 @@ class DistHierarchy:
 
     @property
     def nbytes(self) -> int:
-        """Bytes of the level tensors resident on the device."""
-        return int(sum(t.numel() * t.element_size()
-                       for a in self._arrs for v in a.values()
-                       for t in (v.values() if isinstance(v, dict) else (v,))))
+        """Device bytes this lowering holds: its level tensors, the
+        programs' state buffers and the captured graphs' memory pool."""
+        levels = sum(t.numel() * t.element_size()
+                     for a in self._arrs for v in a.values()
+                     for t in (v.values() if isinstance(v, dict) else (v,)))
+        return int(levels + self.programs.state_bytes()
+                   + self.programs.pool_bytes())
 
     # ----------------------------------------------------- streaming refresh
     def refresh_values(self, src_levels) -> None:
@@ -469,6 +475,99 @@ class DistHierarchy:
         rz_new = self._pdot(r, z)
         p = z + (rz_new / torch.where(rz == 0, 1.0, rz)).unsqueeze(1) * p
         return x, r, p, rz_new, rnorm
+
+    # ------------------------------------------------------- the count model
+    # What repro_torch.analysis audits: the collective log of one apply or
+    # one program call, and the log the selected strategies predict for it
+    # (the reference's static-analysis hooks, dist_solve.py:804-899, with a
+    # collective log in place of a traced jaxpr).
+
+    def expected_apply_signature(self, level: int,
+                                 op: str = "A") -> tuple[str, ...]:
+        """Ordered collectives ONE apply of ``levels[level].<op>`` logs (the
+        operator's selected halo-exchange strategy; empty on an empty-halo
+        level)."""
+        return getattr(self.levels[level], op).expected_signature
+
+    def trace_apply(self, level: int, op: str = "A", *,
+                    overlap: bool | None = None,
+                    k: int | None = None) -> list[str]:
+        """The collective log of one apply of ``levels[level].<op>`` on zero
+        operands (``k`` adds a trailing multi-RHS axis)."""
+        overlap = self.overlap if overlap is None else overlap
+        dop = getattr(self.levels[level], op)
+        D = self.n_pods * self.lanes
+        shape = (D, dop.plan.local_n) + (() if k is None else (k,))
+        x = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        log: list[str] = []
+        with self.lock:
+            dop.apply(self._arrs[level][op], x, use_kernel=self.use_kernel,
+                      overlap=overlap, log=log, side=self._side)
+        return log
+
+    def trace_program(self, name: str, opts=None, k: int = 2) -> list[str]:
+        """The collective log of one call of the program ``name`` for
+        ``opts`` through :attr:`programs`, on zeroed state buffers (``k`` is
+        the width of the ``*_m`` programs).  On the card the call is a
+        replay, which logs what the capture recorded."""
+        opts = opts or SolveOptions()
+        width = k if name.endswith("_m") else None
+        with self.lock:
+            for t in self.programs.state(width).values():
+                t.zero_()
+            saved, self.comm_log = self.comm_log, []
+            try:
+                self.programs.run(name, opts, width)
+                return self.comm_log
+            finally:
+                self.comm_log = saved
+
+    def _cycle_collectives(self, opts) -> Counter:
+        """Per-primitive collective counts ONE cycle of ``opts`` predicts:
+        the same visits × (sweeps + residual + restrict + interpolate)
+        arithmetic as :func:`cycle_comm_stats`, counting each selected
+        strategy's primitives instead of modeled messages."""
+        visits = level_visits(len(self.levels), opts.cycle)
+        sweep_spmvs = opts.spmvs_per_sweep() * (opts.presweeps
+                                                + opts.postsweeps)
+        cnt: Counter = Counter()
+
+        def add(sig, times=1):
+            for p in sig:
+                cnt[p] += times
+
+        for l, dl in enumerate(self.levels):
+            if dl.coarse_inv is not None:
+                # coarsest: hier_all_gather of the residual (NAP-3 lowering)
+                add(gather_signature("nap3"), visits[l])
+            else:
+                add(halo_signature(dl.A.plan), (sweep_spmvs + 1) * visits[l])
+                add(halo_signature(dl.R.plan), visits[l])
+                add(halo_signature(dl.P.plan), visits[l])
+        return cnt
+
+    def expected_collectives(self, opts=None,
+                             name: str = "cycle") -> dict[str, int]:
+        """Per-primitive collective counts one call of the program ``name``
+        must log: the cycle structure plus the program's own top-level
+        SpMV and all-reduce calls.  The ``*_m`` twins log the same: one
+        exchange carries all k columns."""
+        opts = opts or SolveOptions()
+        base = name[:-2] if name.endswith("_m") else name
+        total: Counter = Counter()
+
+        def add(sig, times=1):
+            for p in sig:
+                total[p] += times
+
+        if base in ("cycle", "vcycle", "pcg_init", "pcg_step"):
+            total += self._cycle_collectives(opts)
+        if base in ("resid_norm", "cycle", "pcg_init", "pcg_step"):
+            add(halo_signature(self.levels[0].A.plan))   # top-level residual
+        add(reduce_signature(self.reduce_strategy),
+            {"resid_norm": 1, "cycle": 1, "vcycle": 0,
+             "pcg_init": 2, "pcg_step": 3}[base])
+        return {p: c for p, c in total.items() if c}
 
 
 # --------------------------------------------------------------------------

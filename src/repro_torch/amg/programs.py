@@ -232,6 +232,11 @@ class ProgramCache:
             self._pool = None
         return len(gone)
 
+    def state_bytes(self) -> int:
+        """Bytes of the state buffers of every width allocated so far."""
+        return sum(t.numel() * t.element_size()
+                   for st in self._state.values() for t in st.values())
+
     def pool_bytes(self) -> int:
         """Device bytes reserved in the graphs' shared memory pool (0 before
         the first capture or off the card)."""

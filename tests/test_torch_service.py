@@ -445,6 +445,55 @@ def test_bytes_accounting_sees_lazy_torch_lowering(problem):
     assert store.stats()["bytes"] > before
 
 
+def _store_session(cfg, A):
+    """A session in a store of its own, its host setup in another (so the
+    store's bytes are this session's alone), lowered."""
+    from repro_torch.amg import AMGSolver
+    store = SessionStore()
+    bound = AMGSolver(cfg, store=store, setup_store=SessionStore()).setup(A)
+    dh = bound.dist_hierarchy
+    return store, bound, dh
+
+
+def test_store_bytes_count_the_programs_state_buffers(problem):
+    """A torch session's store bytes grow by the state buffers its program
+    runs allocate, per width, and count its own lowering once: a float32
+    session on the same host hierarchy holds a lowering of its own."""
+    from repro_torch.amg import AMGSolver
+    from repro_torch.amg.api import session_nbytes
+    A, b = problem
+    store, bound, dh = _store_session(_cfg(), A)
+    before = store.stats()["bytes"]
+    assert dh.programs.state_bytes() == 0
+    bound.pcg(b)
+    single = dh.programs.state_bytes()
+    assert single > 0 and store.stats()["bytes"] == before + single
+    bound.pcg(np.stack([b, 2 * b, 3 * b], axis=1))
+    assert dh.programs.state_bytes() == 4 * single     # widths 1 and 3
+    assert store.stats()["bytes"] == before + 4 * single
+    assert dh.programs.pool_bytes() == 0               # no graph off the card
+    b32 = AMGSolver(_cfg(dtype="float32"), store=store,
+                    setup_store=SessionStore()).setup(A)
+    b32.pcg(b)
+    dh32 = b32.dist_hierarchy
+    assert dh32 is not dh
+    assert session_nbytes(b32) == session_nbytes(b32.hierarchy) + dh32.nbytes
+    assert store.stats()["bytes"] == session_nbytes(bound) + session_nbytes(b32)
+
+
+@pytest.mark.cuda
+def test_store_bytes_include_the_graph_pool_on_the_card(problem):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    A, b = problem
+    store, bound, dh = _store_session(_cfg(device="cuda"), A)
+    levels = store.stats()["bytes"]
+    bound.pcg(b)                                # captures pcg_init/pcg_step
+    pool, state = dh.programs.pool_bytes(), dh.programs.state_bytes()
+    assert pool > 0 and state > 0
+    assert store.stats()["bytes"] == levels + state + pool
+
+
 def test_error_lands_on_ticket(problem, monkeypatch):
     A, b = problem
     svc = _service()
