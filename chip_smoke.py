@@ -9,8 +9,12 @@ version at the shapes its path gives it:
   rows, 8 stacked ranks of 32,768 rows), through ``ell_spmv``, ``ell_spmm``
   and ``bcsr_spmm``, each program call one replay of a captured CUDA graph;
   ``AMGService`` on the same session, and a streaming refresh beneath its
-  graphs; the communication audit over the replayed graphs; AMGWire, the
-  socket server, with two tenants on the card serving ``laplace_3d(48)``;
+  graphs; the paper's setup phase, ``AMGConfig(setup_backend="dist")``: the
+  partitioned node-aware setup of the same matrix (host numpy, its Galerkin
+  row exchanges under the selected NAP schedules) lowered straight onto the
+  card and solved through the same kernels; the communication audit over
+  the replayed graphs; AMGWire, the socket server, with two tenants on the
+  card serving ``laplace_3d(48)``;
 - LM serving, ``Engine(cfg, init_lm(qwen3-1.7b)).run()`` at full width (28
   layers, d_model 2048, 16/8 heads of 128, vocab 151,936; random weights
   from a seeded generator): in float32, 8 requests of 512-2048 prompt
@@ -54,14 +58,29 @@ Phases (any failure exits non-zero):
 6. f32 PCG to 1e-5;
 7. launch counts of the solve runs (each counter set to 0 just before a
    run and read just after; a graph's launches count once per replay):
-   every sparse kernel launched; then ``AMGService`` with its worker
+   every sparse kernel launched; then the partitioned setup
+   (``setup_backend="dist"``, f64, 2×4, the ``tpu_v5e`` constants): setup
+   and lowering seconds, ``bound.hierarchy is None``, each SpGEMM
+   exchange's record (strategy, modeled times, inter / intra messages and
+   bytes, halo rows, seconds), ``audit_setup`` with 0 violations over ≥ 10
+   exchanges running all three strategies, every lowered operator against
+   the host-setup f64 session (ELL column maps bit-equal, values, ``dinv``
+   and ``coarse_inv`` within 1e-12, the same kernel table), PCG through its
+   graphs (the same iterations, history ≤ 1e-7 of r0, launch tallies by
+   operand and launch counts equal to the host-setup session's, ms an
+   iteration warm) and ``[n, 8]``; then ``AMGService`` with its worker
    thread on the f64 session, two rounds of 16 requests (one RHS and
    ``[n, 2]``) in two bursts: coalesced chunks of at most 8 columns, each
    result's true residual under 1e-7, solves/s and graph captures by
    width; then ``update(delta=ΔA)`` (the reference suite's drift, scale
    0.03, seed 1): a refresh, no graph captured again, history against the
    host session refreshed the same way (≤ 1e-7 of r0), update seconds
-   against a fresh setup's; then the communication audit
+   against a fresh setup's; the dist-born session's ``update`` with the
+   same drift (a refresh, no graph captured again, its history against the
+   refreshed host-setup session ≤ 1e-7 of r0) and an aggressive
+   partitioned setup of ``laplace_3d(32)`` (its ``spgemm_S2`` exchange
+   audited clean, PCG against the host aggressive setup's history ≤ 1e-7
+   of r0); then the communication audit
    (``repro_torch.analysis``): every program the f64 session captured
    (widths 1, 8 and the service's) read from the log each replay adds,
    against the count model; a replayed PCG's log against the sum of its
@@ -142,6 +161,9 @@ SERVICE_REQUESTS, SERVICE_GAP, SERVICE_WINDOW = 16, 0.05, 0.25
 # ms an iteration, device ms an iteration, busy share
 EAGER_MS_ITER, EAGER_DEVICE_MS_ITER, EAGER_BUSY = 12.197, 1.209, 0.099
 APPLY_REPS = 10               # BCSR applies profiled alone, per BCSR level
+# the partitioned setup phase's aggressive (distance-2) setup: its
+# spgemm_S2 exchange, at a size whose aggressive hierarchy has 3 levels
+AGGRESSIVE_SIZE = 32
 # the audit's grid of V/W/F × Jacobi/Chebyshev over all ten programs, at a
 # smaller depth than the main path so its 60 captures stay cheap
 AUDIT_SIZE = 24
@@ -963,6 +985,297 @@ def refresh_phase(bound, host, A, b, t_lower) -> dict:
     return info
 
 
+def born_reference(plevels):
+    """The born-partitioned levels assembled into one host ``Hierarchy``
+    (each operator the sum of its rank blocks): the smoke's numpy reference
+    for a dist-born session, built beside its path, never on it."""
+    from repro_torch.amg.hierarchy import Hierarchy, Level
+
+    def assembled(M):
+        if M is None:
+            return None
+        acc = M.blocks[0]
+        for blk in M.blocks[1:]:
+            acc = acc.add(blk)
+        return acc
+
+    return Hierarchy(solver="rs", theta=0.25, levels=[
+        Level(A=assembled(lv.A), P=assembled(lv.P), R=assembled(lv.R),
+              AP=assembled(lv.AP)) for lv in plevels])
+
+
+def same_operators(h, h_ref) -> list[tuple[int, str]]:
+    """The (level, operator) pairs two host hierarchies share: the same
+    shape and sparsity pattern."""
+    out = []
+    for l, (lv, lr) in enumerate(zip(h.levels, h_ref.levels)):
+        for op in ("A", "P", "R"):
+            M, R = getattr(lv, op), getattr(lr, op)
+            if (M is not None and R is not None and M.shape == R.shape
+                    and np.array_equal(M.indptr, R.indptr)
+                    and np.array_equal(M.indices, R.indices)):
+                out.append((l, op))
+    return out
+
+
+def same_lowering(levels, ref_levels, pairs=None) -> dict:
+    """Lowered operators against a reference lowering at the (level, op)
+    ``pairs`` (default: every operator, then also every level's ``dinv``
+    and ``coarse_inv`` and the kernel layout): the same strategy, ELL column
+    maps bit-equal, value planes within 1e-12."""
+    def layout(lv):
+        return [(dl.A.local_kernel, dl.A.block_size, dl.A.rows_local,
+                 dl.A.halo_empty) for dl in lv]
+
+    whole = pairs is None
+    if whole:
+        check(layout(levels) == layout(ref_levels),
+              f"kernel layouts differ: {layout(levels)} vs {layout(ref_levels)}")
+        pairs = [(l, op) for l, dl in enumerate(levels) for op in ("A", "P", "R")
+                 if getattr(dl, op) is not None]
+    worst = 0.0
+    for l, op in pairs:
+        x, y = getattr(levels[l], op), getattr(ref_levels[l], op)
+        check(y is not None and x.strategy == y.strategy,
+              f"L{l} {op}: strategy {x.strategy} vs "
+              f"{None if y is None else y.strategy}")
+        check(np.array_equal(x.ell_cols, y.ell_cols),
+              f"L{l} {op}: ELL column maps differ")
+        worst = max(worst, float(np.abs(x.ell_vals - y.ell_vals).max()))
+    if whole:
+        for a, c in zip(levels, ref_levels):
+            worst = max(worst, float(np.abs(a.dinv - c.dinv).max()))
+            if a.coarse_inv is not None or c.coarse_inv is not None:
+                worst = max(worst, float(np.abs(a.coarse_inv
+                                                - c.coarse_inv).max()))
+    check(worst <= 1e-12, f"lowered values differ by {worst:.2e} (bar 1e-12)")
+    return {"operators": len(pairs), "max_value_diff": worst}
+
+
+def partitioned_phase(cfg, A, b, B, bound_ref, res_ref, per_solve, c_ref) -> tuple[dict, object]:
+    """The paper's setup phase on the main path's problem:
+    ``AMGSolver(AMGConfig(setup_backend="dist", ...)).setup(A)`` runs the
+    partitioned node-aware setup (host numpy) and lowers its born-partitioned
+    levels straight onto the card.  Its SpGEMM exchange records; the setup
+    audit (0 violations over ≥ 10 exchanges, all three strategies); the
+    lowering against the host path's lowering of the same levels
+    (``born_reference``: every operand, ``dinv``, ``coarse_inv``, the kernel
+    layout) and against the host-setup session ``bound_ref`` on every
+    operator the two setups share (level 0's A, P and R at least); PCG
+    through the captured graphs: the history within HIST_TOL of r0 of the
+    numpy host PCG on the same levels, the iterations, launch tallies by
+    operand and launch counts of ``bound_ref``'s solve, and each kernel's
+    launch count in a counted run."""
+    from repro_torch.amg import AMGSolver
+    from repro_torch.amg.api import SessionStore
+    from repro_torch.amg.dist_solve import DistHierarchy
+    from repro_torch.amg.solve import host_pcg
+    from repro_torch.analysis import audit_setup
+    from repro_torch.core import MACHINES
+
+    setups = SessionStore()
+    t0 = time.perf_counter()
+    bound = AMGSolver(dataclasses.replace(cfg, setup_backend="dist"),
+                      store=SessionStore(), setup_store=setups).setup(A)
+    t_total = time.perf_counter() - t0
+    # the two tiers of the setup store: the partitioned levels (the setup
+    # loop's seconds) and the lowering built from them
+    cost = {("dist_partitioned" if "dist_partitioned" in e["key"]
+             else "dist_lowered"): e["setup_cost"]
+            for e in setups.entry_table()}
+    t_setup, t_lower = cost["dist_partitioned"], cost["dist_lowered"]
+    check(bound.hierarchy is None, "the dist-born session holds a host hierarchy")
+    dh = bound.dist_hierarchy
+    check(dh.h is None and dh.device.type == "cuda",
+          f"the dist-born lowering: h {type(dh.h).__name__}, device {dh.device}")
+    recs = dh.setup_records
+    sizes = [lv.A.nrows for lv in bound._plevels]
+    ref_sizes = [lv.A.nrows for lv in bound_ref.hierarchy.levels]
+    log(f"partitioned setup: laplace_3d({SIZE}) on {N_PODS}x{LANES}, "
+        f"{len(dh.levels)} levels {sizes} (host setup {ref_sizes}), "
+        f"{len(recs)} SpGEMM row exchanges; setup {t_setup:.2f} s, lowering "
+        f"{t_lower:.2f} s ({t_total:.2f} s in all); no host hierarchy")
+    for r in recs:
+        modeled = " ".join(f"{k}={v * 1e6:.1f}us" for k, v in r.modeled.items())
+        log(f"  L{r.level} {r.op:<11s} {r.strategy:<8s} {modeled}; inter "
+            f"{r.inter_msgs} msgs {r.inter_bytes:.0f} B, intra {r.intra_msgs} "
+            f"msgs {r.intra_bytes:.0f} B; halo rows {r.n_halo_rows}, exchange "
+            f"{r.seconds:.4f} s, C_on {r.on_seconds:.4f} s, C_off "
+            f"{r.off_seconds:.4f} s")
+    rows, violations = audit_setup(bound._plevels, recs)
+    for v in violations:
+        log(f"  AUDIT {v}")
+    strategies = sorted({r["strategy"] for r in rows})
+    check(not violations, f"{len(violations)} setup-audit violations")
+    check(len(rows) >= 10, f"the setup audit read {len(rows)} exchanges, want >= 10")
+    check(strategies == ["nap2", "nap3", "standard"],
+          f"setup exchanges ran {strategies}, want all three strategies")
+    log(f"  setup audit: {len(rows)} exchanges, strategies {strategies}, "
+        f"0 violations (measured counters = the cached schedules' counts)")
+    # the host path's lowering of the same levels, and the operators the
+    # partitioned setup shares with the host setup (its coarse grids part
+    # from level 1's splitting on: A_1's values differ by round-off)
+    h_born = born_reference(bound._plevels)
+    t0 = time.perf_counter()
+    ref_levels = DistHierarchy._lower_levels(
+        h_born.levels, N_PODS, LANES, params=MACHINES[cfg.machine],
+        strategy=cfg.strategy,
+        strategies=("standard", "nap2", "nap3"), dtype=np.float64)
+    t_ref_lower = time.perf_counter() - t0
+    low = same_lowering(dh.levels, ref_levels)
+    shared = same_operators(h_born, bound_ref.hierarchy)
+    check({(0, "A"), (0, "P"), (0, "R")} <= set(shared),
+          f"level 0 differs from the host setup's: shared {shared}")
+    low_host = same_lowering(dh.levels, bound_ref.dist_hierarchy.levels, shared)
+    log(f"  lowering vs the host path's lowering of the same levels "
+        f"({t_ref_lower:.2f} s): {low['operators']} operators, column maps "
+        f"bit-equal, values / dinv / coarse_inv within "
+        f"{low['max_value_diff']:.2e}, kernel layout equal; vs the host-setup "
+        f"session on the operators both setups share "
+        f"{['L%d %s' % p for p in shared]}: column maps bit-equal, values within "
+        f"{low_host['max_value_diff']:.2e}")
+    tallies = {}
+    for kname, rhs in (("ell_spmv", b), ("ell_spmm", B)):
+        tallies[kname], iters = operand_launches(bound, rhs, kname)
+        check(tallies[kname] == per_solve[kname],
+              f"{kname} launches by operand differ from the host-setup "
+              f"session's: {tallies[kname]} vs {per_solve[kname]}")
+    res, counts = counted(lambda: bound.pcg(b))
+    res_born = host_pcg(h_born, b, tol=cfg.tol, maxiter=cfg.pcg_maxiter,
+                        opts=cfg.opts)
+    hd = history_diff(res_born.residuals, res.residuals)
+    hd_ref = history_diff(res_ref.residuals, res.residuals)
+    check(res.converged and res.iterations == res_born.iterations
+          and hd <= HIST_TOL,
+          f"dist-born PCG: {res.iterations} iterations (converged "
+          f"{res.converged}), numpy on the same levels {res_born.iterations}, "
+          f"history diff {hd:.2e}")
+    check(res.iterations == res_ref.iterations,
+          f"dist-born PCG {res.iterations} iterations, the host-setup session "
+          f"{res_ref.iterations}")
+    check(counts == c_ref, f"dist-born launches {counts}, host-setup {c_ref}")
+    resm, counts_m = counted(lambda: bound.pcg(B))
+    check(resm.converged, "dist-born multi-RHS PCG did not converge")
+    for k in SPMV_KERNELS:
+        check(counts[k] + counts_m[k] > 0,
+              f"{k} was never launched on the dist-born path")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = bound.pcg(b)
+    ms_iter = (time.perf_counter() - t0) * 1e3 / max(warm.iterations, 1)
+    log(f"  pcg f64 through the dist-born graphs: {res.iterations} iterations "
+        f"(host-setup session {res_ref.iterations}), history vs numpy PCG on "
+        f"the same levels {hd:.2e} (vs the host-setup session, other coarse "
+        f"grids: {hd_ref:.2e}), {ms_iter:.3f} ms/iteration warm; launches "
+        f"{counts}, [n, {K_RHS}] {counts_m}; tallies by operand equal to the "
+        f"host-setup session's")
+    info = {"setup_s": t_setup, "lowering_s": t_lower, "session_s": t_total,
+            "levels": sizes, "host_setup_levels": ref_sizes,
+            "exchanges": len(rows), "strategies": strategies,
+            "audit_violations": len(violations),
+            "records": [r.as_dict() for r in recs],
+            "lowering_vs_same_levels": low,
+            "lowering_vs_host_setup": {**low_host,
+                                       "shared": ["L%d %s" % p for p in shared]},
+            "iterations": res.iterations,
+            "history_vs_same_levels": hd, "history_vs_host_setup": hd_ref,
+            "ms_per_iteration": ms_iter, "launches": counts,
+            "launches_multi": counts_m, "launches_by_operand": tallies}
+    return info, (bound, h_born)
+
+
+def partitioned_update_phase(born, bound_ref, A, b, info) -> dict:
+    """``update(delta=ΔA)`` on the dist-born session (the smoke's drift): a
+    refresh through the cached NAP schedules beneath its graphs, no graph
+    captured again; its history against the numpy PCG on the same levels
+    refreshed by the host Galerkin products (≤ HIST_TOL of r0), its
+    iterations against the host-setup session ``bound_ref`` refreshed with
+    the same drift (±1)."""
+    from repro_torch.amg.hierarchy import refresh_values
+    from repro_torch.amg.solve import host_pcg
+
+    bound, h_born = born
+    A_new = drift(A)
+    dh = bound.dist_hierarchy
+    caps0 = collections.Counter(dh.programs.captures)
+    t0 = time.perf_counter()
+    action = bound.update(delta=A_new.data - A.data)
+    t_update = time.perf_counter() - t0
+    check(action == "refresh", f"dist-born update took {action!r}, want 'refresh'")
+    res = bound.pcg(b)
+    refresh_values(h_born, A_new)
+    cfg = bound.config
+    res_born = host_pcg(h_born, b, tol=cfg.tol, maxiter=cfg.pcg_maxiter,
+                        opts=cfg.opts)
+    hd = history_diff(res_born.residuals, res.residuals)
+    res_ref = bound_ref.pcg(b)
+    check(res.converged and res.iterations == res_born.iterations
+          and hd <= HIST_TOL,
+          f"refreshed dist-born PCG: {res.iterations} iterations, numpy on the "
+          f"same refreshed levels {res_born.iterations}, history diff {hd:.2e}")
+    check(abs(res.iterations - res_ref.iterations) <= 1,
+          f"refreshed dist-born PCG {res.iterations} iterations, the refreshed "
+          f"host-setup session {res_ref.iterations}")
+    recaptured = collections.Counter(dh.programs.captures) - caps0
+    check(not recaptured, f"graphs captured again after the update: {recaptured}")
+    log(f"  update(delta=) on the dist-born session: {action} in "
+        f"{t_update:.2f} s (partitioned setup {info['setup_s']:.2f} s + "
+        f"lowering {info['lowering_s']:.2f} s); PCG {res.iterations} "
+        f"iterations (refreshed host-setup session {res_ref.iterations}), "
+        f"history vs numpy on the same levels refreshed by the host Galerkin "
+        f"products {hd:.2e}; no graph captured again")
+    return {"update_s": t_update, "update_action": action,
+            "update_iterations": res.iterations,
+            "update_host_setup_iterations": res_ref.iterations,
+            "update_history_vs_same_levels": hd}
+
+
+def aggressive_phase(cfg) -> dict:
+    """An aggressive (distance-2) partitioned setup of
+    ``laplace_3d(AGGRESSIVE_SIZE)``: its audit covers the ``spgemm_S2``
+    exchange with 0 violations, and its PCG on the card converges with the
+    history of the host aggressive setup's (numpy host backend) within
+    HIST_TOL of r0."""
+    from repro_torch.amg import AMGSolver
+    from repro_torch.amg.api import SessionStore
+    from repro_torch.amg.problems import laplace_3d
+    from repro_torch.analysis import audit_setup
+
+    A = laplace_3d(AGGRESSIVE_SIZE)
+    b = np.random.default_rng(SEED).standard_normal(A.nrows)
+    cfga = dataclasses.replace(cfg, setup_backend="dist", aggressive=True)
+    t0 = time.perf_counter()
+    bound = AMGSolver(cfga, store=SessionStore(),
+                      setup_store=SessionStore()).setup(A)
+    t_setup = time.perf_counter() - t0
+    dh = bound.dist_hierarchy
+    rows, violations = audit_setup(bound._plevels, dh.setup_records)
+    s2 = [r for r in rows if r["op"] == "spgemm_S2"]
+    check(s2 and not violations,
+          f"aggressive setup audit: {len(s2)} spgemm_S2 rows, "
+          f"{len(violations)} violations")
+    res = bound.pcg(b)
+    host = AMGSolver(dataclasses.replace(cfga, backend="host",
+                                         setup_backend="host"),
+                     store=SessionStore(), setup_store=SessionStore()).setup(A)
+    res_h = host.pcg(b)
+    hd = history_diff(res_h.residuals, res.residuals)
+    check(res.converged and abs(res.iterations - res_h.iterations) <= 1
+          and hd <= HIST_TOL,
+          f"aggressive dist-born PCG: {res.iterations} iterations vs host "
+          f"{res_h.iterations}, history diff {hd:.2e}")
+    log(f"  aggressive partitioned setup, laplace_3d({AGGRESSIVE_SIZE}): "
+        f"{len(dh.levels)} levels, setup + lowering {t_setup:.2f} s, "
+        f"{len(rows)} exchanges audited ({len(s2)} spgemm_S2: "
+        + ", ".join(f"L{r['level']} {r['strategy']}" for r in s2)
+        + f"), 0 violations; PCG {res.iterations} iterations (host "
+        f"{res_h.iterations}), history vs host {hd:.2e}")
+    return {"size": AGGRESSIVE_SIZE, "levels": len(dh.levels),
+            "session_s": t_setup, "exchanges": len(rows),
+            "s2_exchanges": len(s2), "audit_violations": len(violations),
+            "iterations": res.iterations, "history_vs_host": hd}
+
+
 def audit_phase(bound, b) -> dict:
     """The communication audit over replayed graphs.  At full width, every
     program the f64 session captured (widths 1, 8 and the service's): the
@@ -1352,10 +1665,26 @@ def main() -> int:
         check(v > 0, f"{k} was never launched on the main path")
     log(f"launches on the solve path: {launches}")
 
+    # the partitioned setup (setup_backend="dist") on the same problem,
+    # against the host-setup f64 session before its refresh
+    t0 = time.perf_counter()
+    partitioned, born = partitioned_phase(cfg64, A, b, B, bound64, res,
+                                          per_solve, c_single)
+    t_part = time.perf_counter() - t0
+
     # the service on the f64 session's lowering, then a streaming refresh
-    # beneath its graphs (both after the counted runs)
+    # beneath its graphs (both after the counted runs); the dist-born
+    # session takes the same drift and is held against the refreshed one
     service = service_phase(cfg64, A, rng)
     refresh = refresh_phase(bound64, host, A, b, t_lower64)
+    t0 = time.perf_counter()
+    partitioned.update(partitioned_update_phase(born, bound64, A, b,
+                                                partitioned))
+    del born
+    torch.cuda.empty_cache()
+    partitioned["aggressive"] = aggressive_phase(cfg64)
+    partitioned["phase_s"] = t_part + time.perf_counter() - t0
+    log(f"partitioned setup phase: {partitioned['phase_s']:.1f} s in all")
     audit = audit_phase(bound64, b)
     del bound64, bound32, host, dh64, dh32
     torch.cuda.empty_cache()
@@ -1393,7 +1722,8 @@ def main() -> int:
     # (sparse kernels: the first float64 case on its operands, BCSR at its
     # block size with one RHS; flash: float32 at the prefill shape); every
     # dtype / shape case is under "variants"; flash's launches are the f32
-    # and bf16 serving runs' together
+    # and bf16 serving runs' together; a sparse kernel's are the solve
+    # path's, with the dist-born session's counted runs beside them
     kernels = []
     for k, replaces in REPLACES.items():
         if k == "flash_attention":
@@ -1412,7 +1742,11 @@ def main() -> int:
             "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "card": smi,
-            **({"launches_per_run": flash_runs} if k == "flash_attention" else {}),
+            **({"launches_per_run": flash_runs} if k == "flash_attention" else
+               {"launches_per_path": {
+                   "solve": launches[k],
+                   "partitioned_setup": partitioned["launches"][k]
+                   + partitioned["launches_multi"][k]}}),
             **({"ptxas": ptxas[k]} if k in ptxas else {}),
             "variants": rows[k]})
     print(json.dumps({"kernels": kernels,
@@ -1425,6 +1759,7 @@ def main() -> int:
                                "pcg_f64_runtime_calls": runtime,
                                "graphs": graphs, "service": service,
                                "refresh": refresh, "audit": audit,
+                               "partitioned": partitioned,
                                "wire": wire,
                                "bcsr_apply_device_kernels": bcsr_apply,
                                "ell_spmv_launches_per_solve": per_solve["ell_spmv"],

@@ -12,6 +12,12 @@ rank-stacked tensors through the CUDA kernels::
 On the card each solve program runs as a captured CUDA graph; ``update``
 streams value-only changes beneath those graphs, and :class:`AMGService`
 coalesces requests into the multi-RHS programs.
+
+``AMGConfig(setup_backend="dist", backend="torch")`` additionally runs the
+**setup phase** partitioned (:mod:`repro_torch.amg.dist_setup`, host
+numpy): the Galerkin SpGEMMs A·P and Pᵀ·(AP) exchange off-process CSR rows
+under model-selected standard/NAP-2/NAP-3 schedules and every level is born
+partitioned, lowered straight onto the card with no host ``Hierarchy``.
 """
 from .api import (AMGConfig, AMGService, AMGSolver, BoundSolver,
                   PatternMismatch, RefreshPolicy, RequestOptions,
@@ -29,3 +35,9 @@ __all__ = ["CSR", "Hierarchy", "Level", "setup", "SolveOptions", "SolveResult",
            "RefreshPolicy", "RequestOptions", "ServiceReport",
            "SessionStore", "Ticket",
            "available_backends", "register_backend", "DistHierarchy"]
+
+# NOTE: the partitioned setup's entry point is deliberately NOT re-exported
+# here — a ``dist_setup`` attribute would collide with the
+# ``repro_torch.amg.dist_setup`` submodule name and get rebound to the module
+# by the import system.  Import it as ``from repro_torch.amg.dist_setup
+# import dist_setup`` (or go through ``AMGConfig(setup_backend="dist")``).

@@ -7,6 +7,11 @@ Surface::
     res = bound.pcg(b)                   # b: [n] or [n, k] (multi-RHS)
     bound.update(delta=dA)               # A + ΔA on the frozen pattern
 
+    # the partitioned setup: levels born per rank, lowered straight onto the
+    # card (no host Hierarchy; bound.hierarchy is None)
+    cfg = AMGConfig(backend="torch", setup_backend="dist", n_pods=2,
+                    lanes=4, dtype="float64")
+
     with AMGService(cfg) as svc:         # coalesces requests into the
         svc.register("m", A)             # multi-RHS programs
         x = svc.submit("m", b, method="pcg").result()

@@ -1,5 +1,5 @@
 # Copy of repro/amg/api/config.py: adds AMGConfig.device, resolves torch dtypes,
-# and refuses what this port does not run yet (bfloat16, setup_backend='dist').
+# and refuses what this port does not run yet (bfloat16).
 """Solver-session configuration and the versioned wire codec.
 
 :class:`AMGConfig` is the frozen, hashable description of a full solver
@@ -165,8 +165,9 @@ class AMGConfig:
     aggressive: bool = False
     prolongation_sweeps: int = 1
     seed: int = 42
-    # "host": serial numpy setup (the only one ported; the partitioned
-    # node-aware setup "dist" is refused)
+    # "host": serial numpy setup; "dist": the partitioned node-aware setup
+    # (repro_torch.amg.dist_setup) — levels are born partitioned and only the
+    # "torch" solve backend can consume them
     setup_backend: str = "host"
     # -- solve phase (Algorithm 2): cycle shape, smoother, sweep counts
     # (pure solve knobs — sessions differing only here share setup+lowering)
@@ -201,13 +202,17 @@ class AMGConfig:
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {_DTYPES}, "
                              f"got {self.dtype!r}")
-        if self.setup_backend == "dist":
-            raise NotImplementedError(
-                "setup_backend='dist' (the partitioned node-aware setup) is "
-                "not ported yet; use setup_backend='host'")
-        if self.setup_backend != "host":
-            raise ValueError(f"setup_backend must be 'host', "
+        if self.setup_backend not in ("host", "dist"):
+            raise ValueError(f"setup_backend must be 'host' or 'dist', "
                              f"got {self.setup_backend!r}")
+        if self.setup_backend == "dist" and self.backend != "torch":
+            raise ValueError(
+                "setup_backend='dist' births partitioned levels that only "
+                f"backend='torch' can consume (got backend={self.backend!r})")
+        if self.setup_backend == "dist" and self.solver != "rs":
+            raise ValueError(
+                "setup_backend='dist' supports solver='rs' only "
+                f"(got solver={self.solver!r})")
         from ...core import MACHINES
         if self.machine not in MACHINES:
             raise ValueError(f"unknown machine {self.machine!r}; "

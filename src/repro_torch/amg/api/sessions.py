@@ -4,8 +4,11 @@ A **session** is one (matrix fingerprint, :class:`AMGConfig`) pair bound to a
 backend: the object that owns the expensive state — the host ``Hierarchy``
 and, for ``backend="torch"``, the lowered
 :class:`~repro_torch.amg.dist_solve.DistHierarchy` with its device-resident
-level tensors.  :class:`AMGSolver` is the entry point
-(``AMGSolver(cfg).setup(A)``); sessions live in a :class:`SessionStore` with
+level tensors.  With ``setup_backend="dist"`` there is no host
+``Hierarchy``: the partitioned setup (:mod:`repro_torch.amg.dist_setup`)
+births per-rank levels that are lowered straight onto the card.
+:class:`AMGSolver` is the entry point (``AMGSolver(cfg).setup(A)``);
+sessions live in a :class:`SessionStore` with
 a pluggable :class:`EvictionPolicy` (:class:`LRUPolicy`, :class:`TTLPolicy`,
 :class:`BytesBudgetPolicy`) and per-entry setup-cost / hit / streaming-update
 accounting; :class:`~repro_torch.amg.api.service.AMGService` instantiates
@@ -14,7 +17,8 @@ its own store so its budget and counters are service-scoped.
 ``BoundSolver.update`` streams ``A + ΔA``: on the frozen pattern a
 value-only refresh (the torch backend copies the new values beneath its
 captured CUDA graphs), escalating to a full re-setup on a convergence
-regression.  Not ported: the partitioned ``setup_backend="dist"`` path.
+regression.  A dist-born session refreshes its partitioned levels through
+the cached NAP schedules of their Galerkin row exchanges.
 """
 from __future__ import annotations
 
@@ -269,7 +273,8 @@ def session_nbytes(value) -> int:
     hierarchy; for a lowered DistHierarchy its device bytes (level tensors,
     state buffers and graph pool, ``DistHierarchy.nbytes``).  A torch
     session counts the one lowering it solves on, not every lowering its
-    hierarchy's ``dist_cache`` holds."""
+    hierarchy's ``dist_cache`` holds; a dist-born session (no host
+    hierarchy) counts its lowering alone."""
     if value is None:
         return 0
     if isinstance(value, Hierarchy):
@@ -299,13 +304,16 @@ class BoundSolver:
     _fingerprint: str | None = None   # full (values) fingerprint = store key
     _store = None                     # SessionStore holding this session
     _store_key = None
+    _plevels = None                   # partitioned levels (dist-born setup)
     # convergence tracking for RefreshPolicy: baseline is the first solve
     # after the most recent (re-)setup, last the most recent solve
     baseline_iterations: int | None = None
     last_iterations: int | None = None
     last_update_reason: str | None = None   # trigger of the latest update()
 
-    def __init__(self, config: AMGConfig, hierarchy: Hierarchy):
+    def __init__(self, config: AMGConfig, hierarchy: Hierarchy | None):
+        # ``hierarchy`` is None on the setup_backend="dist" path: the levels
+        # were born partitioned and no host Hierarchy ever existed
         self.config = config
         self.hierarchy = hierarchy
 
@@ -318,6 +326,11 @@ class BoundSolver:
     # ------------------------------------------------------------ properties
     @property
     def A(self) -> CSR:
+        if self.hierarchy is None:
+            raise ValueError(
+                "this solver was set up with setup_backend='dist': levels "
+                "are partitioned across the ranks and no global fine-grid "
+                "CSR exists")
         return self.hierarchy.levels[0].A
 
     @property
@@ -504,9 +517,11 @@ class HostBoundSolver(BoundSolver):
 class TorchBoundSolver(BoundSolver):
     """Device-resident backend (mirrors the reference's ``DistBoundSolver``):
     lowers the hierarchy onto the rank grid ONCE, on first use, and reuses
-    the :class:`~repro_torch.amg.dist_solve.DistHierarchy` for every call."""
+    the :class:`~repro_torch.amg.dist_solve.DistHierarchy` for every call.
+    A dist-born session (:meth:`from_dist_setup`) has its lowering from the
+    start and no host hierarchy."""
 
-    def __init__(self, config: AMGConfig, hierarchy: Hierarchy):
+    def __init__(self, config: AMGConfig, hierarchy: Hierarchy | None):
         super().__init__(config, hierarchy)
         self._dist = None
 
@@ -518,6 +533,21 @@ class TorchBoundSolver(BoundSolver):
                              opts=opts or SolveOptions()), h)
         self._dist = dh
         return self
+
+    @classmethod
+    def from_dist_setup(cls, config: AMGConfig, dh) -> "TorchBoundSolver":
+        """Bind a hierarchy that was **born partitioned** (the
+        ``setup_backend="dist"`` path): there is no host ``Hierarchy``, only
+        the already-lowered ``DistHierarchy``."""
+        self = cls(config, None)
+        self._dist = dh
+        return self
+
+    @property
+    def n(self) -> int:
+        if self.hierarchy is None:
+            return self._dist.levels[0].A.row_part.n
+        return self.A.nrows
 
     def staging_dtype(self) -> np.dtype:
         # an already-lowered hierarchy is the source of truth
@@ -561,25 +591,54 @@ class TorchBoundSolver(BoundSolver):
         return dist_vcycle(self.dist_hierarchy, self._check_b(b), self.opts)
 
     # ---------------------------------------------------- streaming updates
+    def _can_refresh(self) -> bool:
+        # a dist-born session refreshes through its partitioned levels; if
+        # they were evicted from the setup store, only a full re-setup can
+        # honor the update
+        return self.hierarchy is not None or self._plevels is not None
+
     def _refresh(self, A_new: CSR) -> None:
-        """The reference's ``DistBoundSolver._refresh`` (host-setup branch):
-        the hierarchy refresh re-lowers every DistHierarchy in its
-        ``dist_cache`` in place; a prebuilt lowering that bypassed the
-        cache is refreshed explicitly."""
-        if self.hierarchy is None:
-            raise NotImplementedError(
-                "a partitioned (setup_backend='dist') session cannot be "
-                "refreshed: that setup path is not ported")
-        _hierarchy_refresh(self.hierarchy, A_new)
-        self._fine = self.hierarchy.levels[0].A
-        cached = self.hierarchy.dist_cache.values()
-        if self._dist is not None and \
-                all(dh is not self._dist for dh in cached):
-            self._dist.refresh_values(self.hierarchy.levels)
+        """The reference's ``DistBoundSolver._refresh``.  Host-setup
+        sessions: the hierarchy refresh re-lowers every DistHierarchy in its
+        ``dist_cache`` in place; a prebuilt lowering that bypassed the cache
+        is refreshed explicitly.  Dist-born sessions: the Galerkin products
+        replay through the cached NAP schedules onto the partitioned levels,
+        whose values are then copied beneath the lowering's graphs."""
+        if self.hierarchy is not None:
+            _hierarchy_refresh(self.hierarchy, A_new)
+            self._fine = self.hierarchy.levels[0].A
+            cached = self.hierarchy.dist_cache.values()
+            if self._dist is not None and \
+                    all(dh is not self._dist for dh in cached):
+                self._dist.refresh_values(self.hierarchy.levels)
+            return
+        from ..dist_setup import refresh_partitioned_values
+        refresh_partitioned_values(self._plevels, A_new)
+        if self._dist is not None:
+            self._dist.refresh_values(self._plevels)
+        # copy-on-write, as on the host path: never mutate the caller's A
+        self._fine = CSR(self._fine.shape, self._fine.indptr,
+                         self._fine.indices,
+                         np.array(A_new.data, dtype=np.float64))
 
     def _resetup(self, A_new: CSR) -> None:
-        super()._resetup(A_new)
-        self._dist = None            # lowered again lazily on next solve
+        if self.hierarchy is not None:
+            super()._resetup(A_new)
+            self._dist = None            # lowered again lazily on next solve
+            return
+        from ...core import MACHINES
+        from ..dist_setup import dist_setup_partitioned
+        from ..dist_solve import DistHierarchy
+        c = self.config
+        plevels, records = dist_setup_partitioned(
+            A_new, c.n_pods, c.lanes, params=MACHINES[c.machine],
+            strategy=c.strategy, **c.setup_kwargs())
+        bk = c.dist_build_kwargs()
+        self._dist = DistHierarchy.from_partitioned(
+            plevels, bk.pop("n_pods"), bk.pop("lanes"),
+            setup_records=records, **bk)
+        self._plevels = plevels
+        self._fine = A_new
 
 
 # --------------------------------------------------------------------------
@@ -591,7 +650,10 @@ SESSION_CACHE_SIZE = 16
 _SESSIONS = SessionStore(LRUPolicy(SESSION_CACHE_SIZE))
 # hierarchies keyed by (matrix fingerprint, setup kwargs) only, so configs
 # that differ in solve/backend knobs share one setup (and, through the
-# hierarchy's dist_cache, one lowering)
+# hierarchy's dist_cache, one lowering).  setup_backend="dist" entries hold
+# the partitioned levels and a born-partitioned DistHierarchy instead of a
+# host Hierarchy (keyed with the rank-grid/strategy/lowering knobs they
+# depend on).
 _SETUPS = SessionStore(LRUPolicy(SESSION_CACHE_SIZE))
 
 
@@ -633,19 +695,24 @@ class AMGSolver:
         if bound is not None:
             return bound
         t0 = time.perf_counter()
-        skw = self.config.setup_kwargs()
-        skey = (fp, tuple(sorted(skw.items())))
-        h = self.setup_store.get(skey)
-        if h is None:
-            t1 = time.perf_counter()
-            h = _hierarchy_setup(A, **skw)
-            self.setup_store.put(skey, h, nbytes=session_nbytes(h),
-                                 setup_cost=time.perf_counter() - t1)
-        bound = backend_class(self.config.backend)(self.config, h)
+        if self.config.setup_backend == "dist":
+            bound = self._setup_dist(A, fp)
+        else:
+            skw = self.config.setup_kwargs()
+            skey = (fp, tuple(sorted(skw.items())))
+            h = self.setup_store.get(skey)
+            if h is None:
+                t1 = time.perf_counter()
+                h = _hierarchy_setup(A, **skw)
+                self.setup_store.put(skey, h, nbytes=session_nbytes(h),
+                                     setup_cost=time.perf_counter() - t1)
+            bound = backend_class(self.config.backend)(self.config, h)
         # streaming-session state: the canonical fine CSR (the hierarchy's
-        # own level-0 object, so delta updates compose), the frozen pattern
-        # fingerprint and the store linkage update() re-keys
-        bound._fine = h.levels[0].A
+        # own level-0 object on host-setup sessions, so delta updates
+        # compose), the frozen pattern fingerprint and the store linkage
+        # update() re-keys
+        bound._fine = (bound.hierarchy.levels[0].A
+                       if bound.hierarchy is not None else A)
         bound._fingerprint = fp
         bound.pattern_fp = pattern_fingerprint(A)
         bound._store = self.store
@@ -655,4 +722,51 @@ class AMGSolver:
         self.store.put(key, bound, nbytes=session_nbytes(bound),
                        setup_cost=time.perf_counter() - t0,
                        nbytes_fn=lambda: session_nbytes(bound))
+        return bound
+
+    def _setup_dist(self, A: CSR, fp: str) -> BoundSolver:
+        """The setup_backend="dist" path: run the partitioned node-aware
+        setup (NAP SpGEMM Galerkin products) and bind the resulting
+        DistHierarchy.  Two cache tiers mirror the host path's setup/lower
+        split: the partitioned blocks are keyed by the knobs the setup loop
+        depends on (setup kwargs + rank grid + strategy + machine), the
+        lowered DistHierarchy additionally by the pure lowering knobs — so
+        configs differing only in dtype/device/kernel/reduce knobs re-lower
+        but never re-run the setup loop, and solve-knob-only changes share
+        both."""
+        c = self.config
+        base = (fp, tuple(sorted(c.setup_kwargs().items())),
+                c.n_pods, c.lanes, c.strategy, c.machine)
+        pkey = base + ("dist_partitioned",)
+        skey = base + ("dist_lowered", c.dtype, c.device, c.use_kernel,
+                       c.reduce_strategy, c.overlap)
+        dh = self.setup_store.get(skey)
+        if dh is None:
+            cached = self.setup_store.get(pkey)
+            if cached is None:
+                from ...core import MACHINES
+                from ..dist_setup import dist_setup_partitioned
+                t0 = time.perf_counter()
+                plevels, records = dist_setup_partitioned(
+                    A, c.n_pods, c.lanes, params=MACHINES[c.machine],
+                    strategy=c.strategy, **c.setup_kwargs())
+                self.setup_store.put(pkey, (plevels, records),
+                                     setup_cost=time.perf_counter() - t0)
+            else:
+                plevels, records = cached
+            from ..dist_solve import DistHierarchy
+            bk = c.dist_build_kwargs()
+            t0 = time.perf_counter()
+            dh = DistHierarchy.from_partitioned(
+                plevels, bk.pop("n_pods"), bk.pop("lanes"),
+                setup_records=records, **bk)
+            self.setup_store.put(skey, dh, nbytes=session_nbytes(dh),
+                                 setup_cost=time.perf_counter() - t0)
+        bound = backend_class(c.backend).from_dist_setup(c, dh)
+        # partitioned blocks are the refresh target for streamed updates;
+        # when they were evicted between setup and update, update()
+        # escalates to a full re-setup instead
+        part_cached = self.setup_store.get(pkey)
+        if part_cached is not None:
+            bound._plevels = part_cached[0]
         return bound

@@ -7,7 +7,9 @@ operator — ``A_ℓ`` (smoother sweeps + residual), ``P_ℓ`` (interpolation) a
 ``_lower_levels``) builds the operator's communication graph, picks
 standard / NAP-2 / NAP-3 from the max-rate models of Eqs. (4)–(6), and builds
 a :class:`~repro_torch.amg.dist_spmv.DistOperator` for the winner.  The level
-arrays then move to the device once.
+arrays then move to the device once.  :meth:`DistHierarchy.from_partitioned`
+lowers the born-partitioned levels of :mod:`repro_torch.amg.dist_setup` the
+same way, straight from each rank's row block, with no host ``Hierarchy``.
 
 Execution runs all D = ``n_pods × lanes`` ranks in one process with the rank
 as the leading tensor dim (pod-major, the reference's device order).  The
@@ -46,7 +48,8 @@ from ..core.topology import Partition, Topology
 from ..device import resolve_device
 from ..kernels.spmv.ops import select_dist_kernel
 from .dist import rect_vector_graph, schedule_comm_stats
-from .dist_spmv import DistOperator, build_dist_operator, copy_into
+from .dist_spmv import (DistOperator, build_dist_operator,
+                        build_dist_operator_from_blocks, copy_into)
 from .hierarchy import Hierarchy
 from .interpolation import estimate_rho_DinvA
 from .programs import ProgramCache
@@ -81,7 +84,8 @@ class DistLevel:
 
 def _rank_dinv(A, part: Partition, D: int) -> np.ndarray:
     """``1 / diag(A)`` (1 where the diagonal is 0) as ``[D, rows_local]``,
-    0 on padded rows."""
+    0 on padded rows.  ``A`` is a global CSR or a born-partitioned
+    :class:`~repro_torch.amg.dist_setup.BlockMatrix`."""
     d = A.diagonal()
     dinv = 1.0 / np.where(d == 0, 1.0, d)
     out = np.zeros((D, part.max_local_size), dtype=np.float64)
@@ -119,11 +123,15 @@ class DistHierarchy:
     the solves on this hierarchy, whose programs share static buffers.
     """
 
-    def __init__(self, h: Hierarchy, n_pods: int, lanes: int,
+    def __init__(self, h: Hierarchy | None, n_pods: int, lanes: int,
                  levels: list[DistLevel], dtype: torch.dtype,
                  device: torch.device, use_kernel: bool,
                  reduce_strategy: str, overlap: bool):
+        # ``h`` is None when the hierarchy was born partitioned
+        # (:mod:`repro_torch.amg.dist_setup`): no host Hierarchy ever existed
         self.h = h
+        # the partitioned setup's SpGEMM exchange records (from_partitioned)
+        self.setup_records: list = []
         self.n_pods, self.lanes = n_pods, lanes
         self.levels = levels
         self.dtype = dtype
@@ -162,12 +170,55 @@ class DistHierarchy:
         kernel wrappers (the CUDA kernels on a CUDA device, their plain
         versions on the CPU); ``False`` takes the plain versions explicitly.
         """
+        return cls._lowered(h, h.levels, n_pods, lanes, params=params,
+                            strategy=strategy, strategies=strategies,
+                            dtype=dtype, device=device, use_kernel=use_kernel,
+                            reduce_strategy=reduce_strategy, overlap=overlap)
+
+    @classmethod
+    def from_partitioned(cls, plevels, n_pods: int, lanes: int, *,
+                         setup_records=None,
+                         params: MachineParams = TPU_V5E,
+                         strategy: str = "auto",
+                         strategies: tuple[str, ...] = SOLVE_STRATEGIES,
+                         dtype: torch.dtype = torch.float32,
+                         device: str | torch.device = "cuda",
+                         use_kernel: bool | None = None,
+                         reduce_strategy: str = "nap3",
+                         overlap: bool = True) -> "DistHierarchy":
+        """Lower levels that are **already partitioned** (born on the rank
+        grid; port of the reference's).
+
+        ``plevels`` mirror :class:`~repro_torch.amg.hierarchy.Level` but each
+        operator is a :class:`~repro_torch.amg.dist_setup.BlockMatrix`
+        (per-rank global-shape row blocks), the output of the partitioned
+        setup.  No host gather/re-scatter happens between setup and solve;
+        ``setup_records`` (per-level SpGEMM strategy selections and measured
+        exchange counters) are merged into the selection table and kept as
+        :attr:`setup_records`.
+        """
+        self = cls._lowered(None, plevels, n_pods, lanes, params=params,
+                            strategy=strategy, strategies=strategies,
+                            dtype=dtype, device=device, use_kernel=use_kernel,
+                            reduce_strategy=reduce_strategy, overlap=overlap)
+        for rec in setup_records or ():
+            self.levels[rec.level].strategies[rec.op] = rec.strategy
+            self.levels[rec.level].modeled[rec.op] = dict(rec.modeled)
+        self.setup_records = list(setup_records or ())
+        return self
+
+    @classmethod
+    def _lowered(cls, h, src_levels, n_pods: int, lanes: int, *, params,
+                 strategy, strategies, dtype, device, use_kernel,
+                 reduce_strategy, overlap) -> "DistHierarchy":
+        """:meth:`build` and :meth:`from_partitioned`'s shared tail: lower
+        ``src_levels`` and place them on ``device``."""
         if dtype not in DTYPES:
             raise NotImplementedError(
                 f"dtype {dtype} is not ported yet; the kernels take "
                 f"torch.float32 and torch.float64")
         device = resolve_device(device)
-        levels = cls._lower_levels(h.levels, n_pods, lanes, params=params,
+        levels = cls._lower_levels(src_levels, n_pods, lanes, params=params,
                                    strategy=strategy, strategies=strategies,
                                    dtype=DTYPES[dtype])
         return cls(h, n_pods, lanes, levels, dtype, device,
@@ -177,7 +228,9 @@ class DistHierarchy:
     @classmethod
     def _lower_levels(cls, src_levels, n_pods: int, lanes: int, *, params,
                       strategy, strategies, dtype) -> list[DistLevel]:
-        """Per-level lowering (numpy copy of the reference's): comm graphs,
+        """Per-level lowering (numpy copy of the reference's), shared by
+        :meth:`build` (host ``Level`` s with global CSRs) and
+        :meth:`from_partitioned` (``BlockMatrix`` levels): comm graphs,
         strategy selection, halo plans, ELL blocks, optional BCSR."""
         topo = Topology(n_nodes=n_pods, ppn=lanes)
         D = topo.n_procs
@@ -192,9 +245,23 @@ class DistHierarchy:
             return sel.strategy, dict(sel.times), dict(sel.comm_times)
 
         def make_op(M, strat, row_part, col_part, graph):
+            blocks = getattr(M, "blocks", None)
+            if blocks is not None:
+                return build_dist_operator_from_blocks(
+                    blocks, n_pods, lanes, strat, row_part=row_part,
+                    col_part=col_part, graph=graph, dtype=dtype)
             return build_dist_operator(M, n_pods, lanes, strat,
                                        row_part=row_part, col_part=col_part,
                                        graph=graph, dtype=dtype)
+
+        def part_of(lv):
+            # a BlockMatrix level carries the partition its blocks were
+            # built on — reuse it rather than assuming balanced rows
+            p = getattr(lv.A, "part", None)
+            if p is not None:
+                assert p.topo == topo, (p.topo, topo)
+                return p
+            return Partition.balanced(lv.A.nrows, topo)
 
         def onoff_compute(M, row_part, col_part):
             """Per-device max on/off nnz → modeled (t_on, t_off) split."""
@@ -208,7 +275,7 @@ class DistHierarchy:
                 off_max = max(off_max, sub.nnz - on)
             return spmv_compute_times(params, on_max, off_max)
 
-        parts = [Partition.balanced(lv.A.nrows, topo) for lv in src_levels]
+        parts = [part_of(lv) for lv in src_levels]
         levels: list[DistLevel] = []
         for l, lv in enumerate(src_levels):
             part = parts[l]
@@ -294,8 +361,10 @@ class DistHierarchy:
         """Value-only refresh onto the frozen lowered layouts (port of the
         reference's, dist_solve.py:437-501).
 
-        ``src_levels`` are the refreshed host levels, whose sparsity
-        patterns must match what this hierarchy was lowered from.  Every
+        ``src_levels`` are the refreshed source levels — host ``Level`` s or
+        partitioned ``BlockMatrix`` levels, the two shapes
+        :meth:`_lower_levels` takes — whose sparsity patterns must match what
+        this hierarchy was lowered from.  Every
         structural artifact — comm graphs, strategies, halo plans, ELL/BCSR
         column maps — is reused; value planes, diagonals, Chebyshev bounds
         and the coarse pseudo-inverse are recomputed on the host and copied
@@ -304,15 +373,21 @@ class DistHierarchy:
         ``chebyshev_coeffs(rho)`` in as constants and are dropped, as the
         reference drops its Chebyshev programs; the Jacobi ones stay.
         """
+        def block_of(M):
+            blocks = getattr(M, "blocks", None)
+            if blocks is not None:
+                return lambda d: blocks[d]
+            return lambda d: M
+
         D = self.n_pods * self.lanes
         with self.lock:
             for lv, dl in zip(src_levels, self.levels):
                 part = dl.A.row_part
-                dl.A.refresh_values(lambda d, M=lv.A: M)
+                dl.A.refresh_values(block_of(lv.A))
                 dl.dinv = _rank_dinv(lv.A, part, D)
                 if dl.P is not None:
-                    dl.P.refresh_values(lambda d, M=lv.P: M)
-                    dl.R.refresh_values(lambda d, M=lv.R: M)
+                    dl.P.refresh_values(block_of(lv.P))
+                    dl.R.refresh_values(block_of(lv.R))
                     dl.rho = estimate_rho_DinvA(lv.A)
                 else:
                     dl.coarse_inv = _rank_pinv(lv.A, part, D)

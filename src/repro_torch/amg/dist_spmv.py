@@ -11,6 +11,9 @@ so the lowered arrays are bit-identical):
     selected strategy (standard / nap2 / nap3),
   * optionally re-tile the blocks into dense bs×bs BCSR blocks.
 
+An operator born partitioned (per-rank row blocks, no global CSR) lowers
+through :func:`build_dist_operator_from_blocks` to the same arrays.
+
 Operators may be rectangular (restriction R and interpolation P).
 
 Execute (device, every smoother sweep / residual / restrict / interpolate):
@@ -402,8 +405,9 @@ def _assemble_operator(block_of, K: int, n_pods: int, lanes: int,
                        dtype) -> DistOperator:
     """Shared tail: halo plan + per-device ELL lowering.
 
-    ``block_of(d)`` returns the CSR each device reads its rows from (the
-    whole matrix here).  ``K`` is the global max row length.
+    ``block_of(d)`` returns the CSR each device reads its rows from — the
+    whole matrix on the from-global path, device d's own row block on the
+    from-blocks path.  ``K`` is the global max row length.
     """
     D = n_pods * lanes
     plan = build_halo_plan(graph, n_pods, lanes, strategy)
@@ -444,4 +448,32 @@ def build_dist_operator(M: CSR, n_pods: int, lanes: int, strategy: str,
         graph = rect_vector_graph(M, row_part, col_part)
     K = int(np.diff(M.indptr).max(initial=1)) or 1
     return _assemble_operator(lambda d: M, K, n_pods, lanes, strategy,
+                              row_part, col_part, graph, dtype)
+
+
+def build_dist_operator_from_blocks(blocks: list[CSR], n_pods: int,
+                                    lanes: int, strategy: str, *,
+                                    row_part: Partition,
+                                    col_part: Partition,
+                                    graph: CommGraph | None = None,
+                                    dtype=np.float32) -> DistOperator:
+    """Rank-stacked form of an operator that exists only as per-rank row
+    blocks (numpy copy of the reference's).
+
+    ``blocks[d]`` is a *global-shape* CSR holding exactly rank d's rows
+    (rows outside ``row_part.local_range(d)`` empty, global column ids) —
+    the :mod:`repro_torch.amg.dist_setup` representation, where each level
+    is born partitioned and no global CSR is ever assembled.
+    """
+    D = n_pods * lanes
+    assert len(blocks) == D, (len(blocks), D)
+    if graph is None:
+        offp = []
+        for p in range(D):
+            rlo, rhi = row_part.local_range(p)
+            clo, chi = col_part.local_range(p)
+            offp.append(blocks[p].offproc_columns(clo, chi, rlo, rhi))
+        graph = CommGraph.from_offproc_columns(col_part, offp)
+    K = max(int(np.diff(b.indptr).max(initial=0)) for b in blocks) or 1
+    return _assemble_operator(lambda d: blocks[d], K, n_pods, lanes, strategy,
                               row_part, col_part, graph, dtype)

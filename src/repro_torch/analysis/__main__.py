@@ -6,9 +6,11 @@ The audit lowers a small Laplace hierarchy onto a (pods × lanes) rank grid
 on the card and audits every solve program — V/W/F × Jacobi/Chebyshev, the
 single-RHS programs and their ``*_m`` twins, each captured as a CUDA graph
 and read from its replay — plus every per-level operator apply with the
-poisoned-halo overlap check.  ``--device cpu`` runs the same audit on the
-CPU, where each program call runs its body.  The lint covers
-``src/repro_torch``.
+poisoned-halo overlap check, and the setup-phase SpGEMM exchanges of two
+partitioned setups (a plain one and an aggressive-coarsening one, the
+latter exercising the distance-2 ``S²`` exchange; host numpy).
+``--device cpu`` runs the same audit on the CPU, where each program call
+runs its body.  The lint covers ``src/repro_torch``.
 
 ``--json report.json`` writes the machine-readable report; ``--lint-only``
 skips the audit.
@@ -21,25 +23,41 @@ from pathlib import Path
 
 
 def run_comm_audit(n: int, pods: int, lanes: int, device: str):
-    """Build + audit; returns (audits, violations, meta)."""
+    """Build + audit; returns (audits, violations, setup_rows, meta)."""
     import torch
 
+    from ..amg.dist_setup import dist_setup_partitioned
     from ..amg.dist_solve import DistHierarchy
     from ..amg.hierarchy import setup
     from ..amg.problems import laplace_3d
-    from .comm_audit import audit_hierarchy
+    from .comm_audit import audit_hierarchy, audit_setup
+    from .records import AuditViolation
 
-    h = setup(laplace_3d(n), solver="rs", max_coarse=30)   # >= 3 levels
+    A = laplace_3d(n)
+    h = setup(A, solver="rs", max_coarse=30)   # >= 3 levels: W/F revisit
     dh = DistHierarchy.build(h, pods, lanes, dtype=torch.float64,
                              device=device)
     audits, violations = audit_hierarchy(dh)
+
+    setup_rows = []
+    for plv, recs in (dist_setup_partitioned(A, pods, lanes, max_coarse=30),
+                      dist_setup_partitioned(laplace_3d(6), pods, lanes,
+                                             aggressive=True)):
+        rows, svio = audit_setup(plv, recs)
+        setup_rows += rows
+        violations += svio
+    if not any(r["op"] == "spgemm_S2" for r in setup_rows):
+        violations.append(AuditViolation(
+            "missing-record", "aggressive setup ran but no spgemm_S2 "
+            "exchange was audited", program="dist_setup"))
     meta = {"n": n, "pods": pods, "lanes": lanes, "levels": len(dh.levels),
             "torch": torch.__version__, "device": str(dh.device),
             "device_name": (torch.cuda.get_device_name(dh.device)
                             if dh.device.type == "cuda" else "cpu"),
             "graphs_captured": sum(dh.programs.captures.values()),
-            "overlap": dh.overlap, "reduce_strategy": dh.reduce_strategy}
-    return audits, violations, meta
+            "overlap": dh.overlap, "reduce_strategy": dh.reduce_strategy,
+            "setup_exchanges_audited": len(setup_rows)}
+    return audits, violations, setup_rows, meta
 
 
 def main(argv=None) -> int:
@@ -62,12 +80,13 @@ def main(argv=None) -> int:
     from .report import build_report, format_summary, write_report
 
     lint_violations = lint_paths(Path(__file__).resolve().parents[1])
-    audits, violations, meta = [], [], {}
+    audits, violations, setup_rows, meta = [], [], [], {}
     if not args.lint_only:
-        audits, violations, meta = run_comm_audit(args.n, args.pods,
-                                                  args.lanes, args.device)
+        audits, violations, setup_rows, meta = run_comm_audit(
+            args.n, args.pods, args.lanes, args.device)
     report = build_report(audits=audits, audit_violations=violations,
-                          lint_violations=lint_violations, meta=meta)
+                          lint_violations=lint_violations,
+                          setup_rows=setup_rows, meta=meta)
     if args.json:
         write_report(report, args.json)
     print(format_summary(report))

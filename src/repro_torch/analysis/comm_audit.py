@@ -1,4 +1,4 @@
-# Port of repro/analysis/comm_audit.py: it audits collective logs; audit_setup waits for the partitioned setup.
+# Port of repro/analysis/comm_audit.py: it audits collective logs; audit_setup is a numpy copy.
 """The communication audit.
 
 Reads the collective log of every program a
@@ -17,13 +17,18 @@ every per-level operator apply, and cross-checks them against:
   :func:`~repro_torch.analysis.log_walk.check_overlap_independence`);
 * :func:`~repro_torch.amg.dist_solve.cycle_comm_stats`' modeled counters — a
   level/op the model says communicates must have a non-empty plan, and vice
-  versa.
+  versa;
+* the setup-phase SpGEMM exchanges (:func:`audit_setup`) — the *measured*
+  message/byte counters each
+  :class:`~repro_torch.amg.dist_setup.SetupCommRecord` carries must equal
+  the static :class:`~repro_torch.core.schedules.ScheduleStats` of the
+  schedule that was selected and cached for replay.
 
 On the CPU a program call runs its body and logs each step.  On the card it
 is a replay of the program's captured CUDA graph, which logs what the
 capture recorded, so the audit reads exactly what every replay adds.  The
-setup-phase audit of the reference (``audit_setup``) needs the partitioned
-setup, which is not ported.
+setup exchanges run on the host, so their audit reads the counters the
+exchange measured.
 
 Any mismatch is a typed :class:`~repro_torch.analysis.records.AuditViolation`
 with the offending step and level/op attribution.
@@ -209,6 +214,76 @@ def audit_cycle_stats(dh, opts=None) -> list[AuditViolation]:
                     f"model prices zero messages",
                     program="cycle_comm_stats", level=l, op=attr))
     return out
+
+
+def audit_setup(plevels, records) -> tuple[list[dict], list[AuditViolation]]:
+    """Setup-phase SpGEMM audit: for every exchange whose schedule was
+    cached for replay (:attr:`PartitionedLevel.plans`), the *measured*
+    message/byte counters of the executed
+    :func:`~repro_torch.core.nap_collectives.matrix_halo_exchange` must equal the
+    counts statically derivable from the selected schedule.  Inter-node
+    counts come from :class:`~repro_torch.core.schedules.ScheduleStats`; the
+    intra count is re-derived with the exchange's own semantics (EVERY
+    same-node message — ``ScheduleStats`` deliberately excludes the
+    direct on-node messages common to all strategies, paper §3.3).
+    Returns (summary rows, violations)."""
+    from ..core.schedules import ScheduleStats
+
+    def static_intra(schedule):
+        g, topo = schedule.graph, schedule.graph.topo
+        cnt = 0
+        for _kind, msg in schedule.all_messages():
+            if topo.on_same_node(msg.src, msg.dst):
+                cnt += 1
+        return cnt
+
+    rows: list[dict] = []
+    violations: list[AuditViolation] = []
+    by_key = {}
+    for rec in records:                     # refresh replays: last one wins
+        by_key[(rec.level, rec.op)] = rec
+    for l, plv in enumerate(plevels):
+        for op, (strat, plan) in sorted(plv.plans.items()):
+            rec = by_key.get((l, op))
+            if rec is None:
+                violations.append(AuditViolation(
+                    "missing-record",
+                    f"schedule cached for {op} but no SetupCommRecord was "
+                    f"measured", program="dist_setup", level=l, op=op))
+                continue
+            st = ScheduleStats.of(plan.schedule)
+            row = {"level": l, "op": op, "strategy": strat,
+                   "static_inter_msgs": st.inter_msg_count,
+                   "runtime_inter_msgs": rec.inter_msgs,
+                   "static_intra_msgs": static_intra(plan.schedule),
+                   "runtime_intra_msgs": rec.intra_msgs,
+                   "static_inter_bytes": st.inter_bytes_total,
+                   "runtime_inter_bytes": rec.inter_bytes}
+            rows.append(row)
+            if rec.strategy != strat:
+                violations.append(AuditViolation(
+                    "strategy-mismatch",
+                    f"record ran {rec.strategy!r} but the cached schedule "
+                    f"is {strat!r}", program="dist_setup", level=l, op=op))
+            for static, runtime in (("static_inter_msgs",
+                                     "runtime_inter_msgs"),
+                                    ("static_intra_msgs",
+                                     "runtime_intra_msgs")):
+                if row[static] != row[runtime]:
+                    violations.append(AuditViolation(
+                        "setup-count-mismatch",
+                        f"{runtime}={row[runtime]} != {static}={row[static]}"
+                        f" for the selected {strat} schedule",
+                        program="dist_setup", level=l, op=op))
+            if not math.isclose(row["static_inter_bytes"],
+                                row["runtime_inter_bytes"],
+                                rel_tol=1e-9, abs_tol=1e-6):
+                violations.append(AuditViolation(
+                    "setup-bytes-mismatch",
+                    f"measured inter bytes {row['runtime_inter_bytes']} != "
+                    f"modeled {row['static_inter_bytes']}",
+                    program="dist_setup", level=l, op=op))
+    return rows, violations
 
 
 def audit_hierarchy(dh, *, pairs=None, programs=PROGRAM_NAMES, k: int = 2,

@@ -1,9 +1,9 @@
-# Port of repro/analysis/report.py: no setup-audit rows and no byte column.
+# Port of repro/analysis/report.py: no byte column (the port's logs carry no payload bytes).
 """Machine-readable report assembly for ``python -m repro_torch.analysis``.
 
 One JSON document per run: the comm-audit records (per-program collective
-counts vs the model's predicted counts), every violation from both passes,
-and a pass/fail verdict.
+counts vs the model's predicted counts), the setup-phase static-vs-measured
+rows, every violation from both passes, and a pass/fail verdict.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from pathlib import Path
 
 
 def build_report(*, audits=(), audit_violations=(), lint_violations=(),
-                 meta: dict | None = None) -> dict:
+                 setup_rows=(), meta: dict | None = None) -> dict:
     audits = list(audits)
     audit_violations = list(audit_violations)
     lint_violations = list(lint_violations)
@@ -26,6 +26,7 @@ def build_report(*, audits=(), audit_violations=(), lint_violations=(),
             "ok": not audit_violations and not lint_violations,
         },
         "comm_audit": [a.to_dict() for a in audits],
+        "setup_audit": list(setup_rows),
         "audit_violations": [v.to_dict() for v in audit_violations],
         "lint": [v.to_dict() for v in lint_violations],
     }
@@ -54,6 +55,11 @@ def format_summary(report: dict) -> str:
             out.append(f"{a['program']:<36s} {where:<8s} "
                        f"{a['n_collectives']:>11d}  "
                        f"{counts or 'none'} | {exp}{mark}")
+    for r in report["setup_audit"]:
+        out.append(f"setup L{r['level']} {r['op']:<12s} {r['strategy']:<9s} "
+                   f"inter {r['runtime_inter_msgs']}/{r['static_inter_msgs']} "
+                   f"intra {r['runtime_intra_msgs']}/{r['static_intra_msgs']} "
+                   f"msgs (measured/static)")
     for v in report["audit_violations"]:
         out.append(f"AUDIT  [{v['kind']}] {v['program']}: {v['message']}")
     for v in report["lint"]:

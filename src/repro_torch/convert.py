@@ -1,4 +1,5 @@
-"""Carry an AMG hierarchy or LM parameters across as plain numpy arrays.
+"""Carry an AMG hierarchy, born-partitioned levels or LM parameters across
+as plain numpy arrays.
 
 :func:`hierarchy_to_arrays` flattens a hierarchy (any object with the
 reference's ``solver``/``theta``/``levels`` shape, each level holding CSR
@@ -6,6 +7,16 @@ reference's ``solver``/``theta``/``levels`` shape, each level holding CSR
 of numpy arrays that ``np.savez`` can store; :func:`hierarchy_from_arrays`
 rebuilds it as this package's :class:`~repro_torch.amg.hierarchy.Hierarchy`.
 Two implementations fed the same arrays solve the identical system.
+
+:func:`partitioned_to_arrays` does the same for the levels of the
+partitioned setup (any list of levels with the reference's
+``PartitionedLevel`` shape: ``A``/``P``/``R``/``AP`` each a block matrix
+with per-rank global-shape CSR ``blocks`` and a row ``part``):
+each rank's block, each level's row partition and the level count.
+:func:`partitioned_from_arrays` rebuilds them as this package's
+:class:`~repro_torch.amg.dist_setup.PartitionedLevel` s, ready for
+:meth:`~repro_torch.amg.dist_solve.DistHierarchy.from_partitioned`.  No
+level is ever assembled into one global CSR on the way.
 
 :func:`lm_params_from_arrays` turns the reference's LM parameter pytree (as
 nested dicts/tuples of numpy arrays, layer groups stacked on axis 0) into
@@ -18,10 +29,15 @@ import numpy as np
 import torch
 
 from .amg.csr import CSR
+from .amg.dist_setup import BlockMatrix, PartitionedLevel
 from .amg.hierarchy import Hierarchy, Level
+from .core.topology import Partition, Topology
 
 OPS = ("A", "P", "R")
 FIELDS = ("shape", "indptr", "indices", "data")
+# the operators of a partitioned level, each with the level whose row
+# partition its rows follow (R's rows are the next level's)
+PART_OPS = {"A": 0, "P": 0, "R": 1, "AP": 0}
 
 
 def hierarchy_to_arrays(h) -> dict[str, np.ndarray]:
@@ -57,6 +73,59 @@ def hierarchy_from_arrays(d) -> Hierarchy:
         levels.append(Level(**ops))
     return Hierarchy(solver=str(d["solver"]), levels=levels,
                      theta=float(d["theta"]))
+
+
+def partitioned_to_arrays(plevels) -> dict[str, np.ndarray]:
+    """``{"n_pods", "lanes", "n_levels", "L<l>_offsets",
+    "L<l>_<op>_r<d>_<field>"...}``: the rank grid, each level's row
+    partition offsets, and per level and rank the ``A``/``P``/``R``/``AP``
+    blocks (absent on the coarsest level but for ``A``) as
+    ``(shape, indptr, indices, data)``."""
+    topo = plevels[0].A.part.topo
+    out = {"n_pods": np.array(topo.n_nodes), "lanes": np.array(topo.ppn),
+           "n_levels": np.array(len(plevels))}
+    for l, lv in enumerate(plevels):
+        out[f"L{l}_offsets"] = np.asarray(lv.A.part.offsets)
+        for op in PART_OPS:
+            M = getattr(lv, op)
+            if M is None:
+                continue
+            for d, blk in enumerate(M.blocks):
+                key = f"L{l}_{op}_r{d}_"
+                out[key + "shape"] = np.asarray(blk.shape, dtype=np.int64)
+                out[key + "indptr"] = np.asarray(blk.indptr)
+                out[key + "indices"] = np.asarray(blk.indices)
+                out[key + "data"] = np.asarray(blk.data)
+    return out
+
+
+def partitioned_from_arrays(d) -> list[PartitionedLevel]:
+    """Inverse of :func:`partitioned_to_arrays` (``d`` may be an
+    ``NpzFile``): this package's ``PartitionedLevel`` list, each operator a
+    ``BlockMatrix`` on its level's partition.  The cached NAP schedules are
+    not carried: a refresh of the result selects them anew."""
+    topo = Topology(n_nodes=int(d["n_pods"]), ppn=int(d["lanes"]))
+    n_levels = int(d["n_levels"])
+    parts = []
+    for l in range(n_levels):
+        offsets = np.array(d[f"L{l}_offsets"], dtype=np.int64)
+        parts.append(Partition(n=int(offsets[-1]), topo=topo, offsets=offsets))
+    levels = []
+    for l in range(n_levels):
+        ops = {}
+        for op, shift in PART_OPS.items():
+            if f"L{l}_{op}_r0_shape" not in d:
+                ops[op] = None
+                continue
+            blocks = []
+            for r in range(topo.n_procs):
+                key = f"L{l}_{op}_r{r}_"
+                shape = tuple(int(s) for s in d[key + "shape"])
+                blocks.append(CSR(shape, *(np.array(d[key + f])
+                                           for f in FIELDS[1:])))
+            ops[op] = BlockMatrix(blocks, parts[l + shift])
+        levels.append(PartitionedLevel(**ops))
+    return levels
 
 
 def _flatten(prefix: str, tree: dict, out: dict, index=None) -> None:

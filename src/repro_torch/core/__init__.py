@@ -6,8 +6,9 @@
 - :mod:`repro_torch.core.schedules`       — standard / NAP-2 / NAP-3 schedules (§3)
 - :mod:`repro_torch.core.perf_model`      — max-rate models, Eqs. (1)–(6) (§3.3)
 - :mod:`repro_torch.core.selector`        — per-operation strategy selection (§4)
+- :mod:`repro_torch.core.simulator`       — rank-faithful host execution (tests)
 - :mod:`repro_torch.core.nap_collectives` — halo exchange / NAP reductions on
-  rank-stacked tensors
+  rank-stacked tensors; the setup phase's host matrix-row exchange
 """
 from .comm_graph import CommGraph, VECTOR_BYTES
 from .perf_model import BLUE_WATERS, MACHINES, QUARTZ, TPU_V5E, MachineParams

@@ -17,18 +17,26 @@ friends.
 * :func:`hier_psum`       — flat or NAP-3 all-reduce (RS(fast) → AR(slow) →
   AG(fast)).
 * :func:`hier_all_gather` — flat or pod-then-global all-gather.
+* :class:`MatrixHaloPlan` / :func:`matrix_halo_exchange` — the setup
+  phase's matrix communication: whole CSR rows of B move under the same §3
+  schedules, executed on the host rank-faithfully (phase by phase, message
+  by message), with measured message and byte counters.
 
-The plan builder (:class:`HaloPlan` / :func:`build_halo_plan`) and the
-signature tables are verbatim numpy copies of the reference.
+The plan builders (:class:`HaloPlan` / :func:`build_halo_plan`,
+:class:`MatrixHaloPlan` / :func:`build_matrix_halo_plan`), the matrix-row
+exchange and the signature tables are verbatim numpy copies of the
+reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from .comm_graph import CommGraph
+from .schedules import Schedule, build as build_schedule
 
 # --------------------------------------------------------------------------
 # Expected-primitive signatures (copied from repro.core.nap_collectives)
@@ -160,6 +168,113 @@ def hier_all_gather(x: torch.Tensor, n_pods: int, lanes: int,
     full = pod.transpose(0, 1).reshape((1, lanes, n_pods * lanes * m) + ext)
     full = full.expand((n_pods, lanes, D * m) + ext)
     return full.reshape((D, D * m) + ext)
+
+
+# --------------------------------------------------------------------------
+# Matrix-row halo exchange for distributed SpGEMM (copied from the reference,
+# host numpy; the paper's matrix communication: "retains the same
+# communication pattern as vectors, but requires entire rows")
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class MatrixHaloPlan:
+    """Host-side plan for exchanging off-process CSR **rows**.
+
+    Built from a :class:`~repro.core.comm_graph.CommGraph` whose indices are
+    rows of B and whose weights are per-row byte sizes (see
+    :func:`repro.amg.dist.matrix_comm_graph`: header + entries).  The
+    ``schedule`` is the §3 message list for the chosen strategy — the same
+    object the max-rate models price, so what :func:`repro.core.selector.
+    select` selects is exactly what executes.
+    """
+
+    strategy: str
+    graph: CommGraph
+    schedule: Schedule
+
+    @property
+    def n_ranks(self) -> int:
+        return self.graph.topo.n_procs
+
+
+def build_matrix_halo_plan(graph: CommGraph, strategy: str) -> MatrixHaloPlan:
+    return MatrixHaloPlan(strategy, graph, build_schedule(strategy, graph))
+
+
+@dataclasses.dataclass
+class MatrixExchangeResult:
+    """Measured outcome of one matrix-row exchange.
+
+    ``halo[q]`` maps each global B-row index rank ``q`` needed to the payload
+    the provider returned for it; the message/byte counters are the measured
+    counterparts of the modeled :class:`~repro.core.schedules.ScheduleStats`.
+    """
+
+    halo: list[dict[int, object]]
+    inter_msgs: int
+    inter_bytes: float
+    intra_msgs: int
+    intra_bytes: float
+    seconds: float
+
+
+def matrix_halo_exchange(plan: MatrixHaloPlan, get_row) -> MatrixExchangeResult:
+    """Execute the plan rank-faithfully on the host.
+
+    ``get_row(owner_rank, global_row) -> payload`` supplies an owned row
+    (payload is opaque — e.g. a ``(cols, vals)`` pair).  Intermediate ranks
+    (NAP gather/redist hops) forward rows they do not themselves need, as in
+    :mod:`repro.core.simulator`; messages within a phase are concurrent and
+    read from pre-phase stores.
+    """
+    t0 = time.perf_counter()
+    g = plan.graph
+    topo = g.topo
+    part = g.partition
+    D = topo.n_procs
+    owner_lo = [part.local_range(p)[0] for p in range(D)]
+    owner_hi = [part.local_range(p)[1] for p in range(D)]
+    store: list[dict[int, object]] = [dict() for _ in range(D)]
+    inter_msgs = intra_msgs = 0
+    inter_bytes = intra_bytes = 0.0
+
+    def serve(src: int, i: int):
+        if owner_lo[src] <= i < owner_hi[src]:
+            return get_row(src, i)
+        try:
+            return store[src][i]
+        except KeyError:
+            raise AssertionError(
+                f"rank {src} asked to send row {i} it does not hold "
+                f"(strategy {plan.strategy})") from None
+
+    for phase in plan.schedule.phases:
+        staged: list[tuple[int, dict[int, object]]] = []
+        for m in phase.messages:
+            payload = {int(i): serve(m.src, int(i)) for i in m.indices}
+            staged.append((m.dst, payload))
+            b = g.bytes_of(m.indices)
+            if topo.on_same_node(m.src, m.dst):
+                intra_msgs += 1
+                intra_bytes += b
+            else:
+                inter_msgs += 1
+                inter_bytes += b
+        for dst, payload in staged:
+            store[dst].update(payload)
+
+    halo: list[dict[int, object]] = []
+    for q in range(D):
+        rows = {}
+        for i in map(int, g.need[q]):
+            if i not in store[q]:
+                raise AssertionError(
+                    f"{plan.strategy}: rank {q} never received row {i}")
+            rows[i] = store[q][i]
+        halo.append(rows)
+    return MatrixExchangeResult(halo, inter_msgs, inter_bytes, intra_msgs,
+                                intra_bytes, time.perf_counter() - t0)
 
 
 # --------------------------------------------------------------------------

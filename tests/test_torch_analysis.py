@@ -296,6 +296,10 @@ def test_analysis_cli_on_the_cpu(tmp_path):
     rep = json.loads(out.read_text())
     assert rep["summary"]["ok"] and rep["meta"]["device"] == "cpu"
     assert rep["summary"]["programs_audited"] >= len(PAIRS) * len(PROGRAMS)
+    # the setup exchanges of a plain and an aggressive partitioned setup
+    ops = {r["op"] for r in rep["setup_audit"]}
+    assert {"spgemm_AP", "spgemm_PtAP", "spgemm_S2"} <= ops
+    assert rep["meta"]["setup_exchanges_audited"] == len(rep["setup_audit"])
 
 
 # ------------------------------------------------------------- the lint

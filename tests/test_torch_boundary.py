@@ -34,7 +34,7 @@ def test_imports_without_jax_or_the_reference():
     """Every port module and chip_smoke.py's own imports load with ``jax``
     and ``repro`` made unimportable."""
     mods = _modules()
-    assert len(mods) >= 71, mods
+    assert len(mods) >= 73, mods
     code = "\n".join([
         "import sys",
         "for name in ('jax', 'jaxlib', 'repro'):",
@@ -91,8 +91,15 @@ def test_torch_backend_refuses_cuda_without_a_card(monkeypatch):
 def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="bfloat16"):
         AMGConfig(backend="torch", dtype="bfloat16", device="cpu")
-    with pytest.raises(NotImplementedError, match="setup_backend"):
-        AMGConfig(backend="torch", setup_backend="dist", device="cpu")
+    # the partitioned setup is ported: accepted on the torch backend, and
+    # refused, as the reference refuses it, on another backend or for SA
+    assert AMGConfig(backend="torch", setup_backend="dist",
+                     device="cpu").setup_backend == "dist"
+    with pytest.raises(ValueError, match="backend='torch'"):
+        AMGConfig(backend="host", setup_backend="dist")
+    with pytest.raises(ValueError, match="solver='rs'"):
+        AMGConfig(backend="torch", setup_backend="dist", solver="sa",
+                  device="cpu")
     with pytest.raises(ValueError):
         AMGConfig(backend="torch", device="meta")
     A = laplace_3d(6)
