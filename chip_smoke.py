@@ -98,7 +98,9 @@ Phases (any failure exits non-zero):
    and bf16, against its plain version (each row's error over the row's
    max|plain|: float32 2e-5, bfloat16 1e-2), with device times of the kernel, the plain
    version and ``scaled_dot_product_attention``, and the flop / byte bound
-   (float32 at 67 TFLOP/s, bfloat16 at the tensor cores' 989);
+   (float32 as 3xTF32 at a third of the tensor cores' 495 TFLOP/s, with the
+   FMA units' 67 TFLOP/s bound beside it; bfloat16 at the tensor cores'
+   989);
 9. LM serving in f32: one warm-up request, then the 8 requests with the
    counters set to 0 just before and read just after (28
    ``flash_attention`` launches per prefill batch); prefill seconds, decode
@@ -145,6 +147,13 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 # outside the tensor cores, float64 and bfloat16 on them
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12,
               torch.bfloat16: 989e12}
+# flash attention in float32 runs as three TF32 passes on the tensor cores
+# (3xTF32, 495 TFLOP/s dense TF32 on the data sheet), so its flop bound is
+# taken at a third of that rate; the FMA units' bound (PEAK_FLOPS) stays
+# beside it in each row as bound_fma_ms
+TF32X3_FLOPS = 495e12 / 3
+FLASH_DESIGN = {torch.float32: "3xTF32 on the tensor cores (mma.sync m16n8k8)",
+                torch.bfloat16: "bf16 on the tensor cores (mma.sync m16n8k16)"}
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # flash attention: each output row's error over the row's own max|plain|
 # (``rel_err_rows``: late causal rows are far smaller than the first ones);
@@ -262,10 +271,11 @@ def bcsr_to_csr(bcols: torch.Tensor, bvals: torch.Tensor, m: int,
 
 
 def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
-                library_name="torch.sparse.mm", rel_err=None):
+                library_name="torch.sparse.mm", rel_err=None, peak=None):
     """Run one kernel against its plain version; time all three.  The error
     is max|kernel - plain| over max|plain|, or ``rel_err(kernel, plain)``
-    where given."""
+    where given; the flop bound is taken at ``peak`` FLOP/s, by default the
+    card's highest dense rate for the type."""
     y = fn(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
@@ -276,7 +286,8 @@ def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
     rtol = RTOL[dtype] if rtol is None else rtol
     check(rel <= rtol, f"{name} {dtype}: kernel - plain is {rel:.3e} of "
           f"plain, above {rtol:g} (max |kernel - plain| = {err:.3e})")
-    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
+    peak = PEAK_FLOPS[dtype] if peak is None else peak
+    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / peak)
     ms, host_ms = time_ms(lambda: fn(*args))
     row = {"dtype": str(dtype).replace("torch.", ""),
            "shape": [list(a.shape) for a in args],
@@ -286,7 +297,7 @@ def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
            "library_ms": time_ms(library)[0],
            "bound_ms": bound_s * 1e3,
            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                        >= flops / PEAK_FLOPS[dtype] else "operations")}
+                        >= flops / peak else "operations")}
     log(f"  {name:9s} {row['dtype']:7s} {row['shape']}: err {err:.2e} "
         f"(rel {rel:.1e}) kernel {row['ms']:.4f} ms (host "
         f"{host_ms:.4f} ms/call), plain "
@@ -610,56 +621,86 @@ def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
+def flash_shapes(S: int) -> list[tuple]:
+    """The flash cases at prompt length S: label, B, Hq, Hkv, Sq, Skv, D,
+    window (all causal)."""
+    return [("prefill", LM_BATCH, 16, 8, S, S, 128, None),
+            ("window 256", LM_BATCH, 16, 8, S, S, 128, 256),
+            ("Sq < Skv", LM_BATCH, 16, 8, 128, 1024, 128, None),
+            ("head dim 64", LM_BATCH, 14, 2, S, S, 64, None)]
+
+
+def flash_peak(dtype) -> float:
+    """The flash kernel's peak rate in ``dtype``: float32 as 3xTF32."""
+    return TF32X3_FLOPS if dtype == torch.float32 else PEAK_FLOPS[dtype]
+
+
+def flash_bounds(dtype, B, Hq, D, pairs, nbytes) -> dict:
+    """The flop / byte bound of one flash case (4 flops per visible pair
+    and head dim: q.k and p.v), in ms: at the design's rate
+    (``flash_peak``) and, for float32, at the FMA units' as
+    ``bound_fma_ms``."""
+    flops = 4 * B * Hq * D * pairs
+    out = {"flops": flops,
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / flash_peak(dtype)) * 1e3}
+    if dtype == torch.float32:
+        out["bound_fma_ms"] = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
+    return out
+
+
+def sdpa_call(q, k, v, window):
+    """``scaled_dot_product_attention`` on the same causal (windowed)
+    problem, queries right-aligned: the yardstick, used nowhere in the
+    port."""
+    import torch.nn.functional as F
+
+    Sq, Skv = q.shape[2], k.shape[2]
+    if window is None and Sq == Skv:
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = (qpos >= kpos) & ((qpos - kpos) < (window or Skv + 1))
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
 def flash_phase(S: int) -> list[dict]:
     """flash_attention at the serving runs' prefill shape, with a window,
     with Sq < Skv and at head dim 64, each in f32 and bf16, against its
     plain version; ``scaled_dot_product_attention`` timed as the
     yardstick."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref, rel_err_rows
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [  # label, dtype, B, Hq, Hkv, Sq, Skv, D, window
-        (label, dt, *shape) for label, *shape in (
-            ("prefill", LM_BATCH, 16, 8, S, S, 128, None),
-            ("window 256", LM_BATCH, 16, 8, S, S, 128, 256),
-            ("Sq < Skv", LM_BATCH, 16, 8, 128, 1024, 128, None),
-            ("head dim 64", LM_BATCH, 14, 2, S, S, 64, None))
-        for dt in (f32, bf16)]
+    cases = [(label, dt, *shape) for label, *shape in flash_shapes(S)
+             for dt in (torch.float32, torch.bfloat16)]
     rows = []
     for label, dt, B, Hq, Hkv, Sq, Skv, D, window in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dt)
                    for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
                                  (B, Hkv, Skv, D)))
-        qpos = torch.arange(Sq, device=DEVICE)[:, None] + (Skv - Sq)
-        kpos = torch.arange(Skv, device=DEVICE)[None, :]
-        mask = (qpos >= kpos) & ((qpos - kpos) < (window or Skv + 1))
-        if window is None and Sq == Skv:
-            def library(q=q, k=k, v=v):
-                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                      enable_gqa=True)
-        else:
-            def library(q=q, k=k, v=v, mask=mask):
-                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                      enable_gqa=True)
         pairs = visible_pairs(Sq, Skv, True, window)
+        # q, k, v read once, o written once
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        bounds = flash_bounds(dt, B, Hq, D, pairs, nbytes)
         row = kernel_case(
             f"flash_attention {label}",
             lambda q, k, v, w=window: flash_attention(q, k, v, True, w),
             lambda q, k, v, w=window: attention_ref(q, k, v, True, w),
-            library, (q, k, v),
-            # q, k, v read once, o written once; 4 flops per visible pair
-            # and head dim (q.k and p.v)
-            (2 * q.numel() + 2 * k.numel()) * q.element_size(),
-            4 * B * Hq * D * pairs, rtol=FLASH_RTOL[dt], library_name="sdpa",
-            rel_err=rel_err_rows)
+            sdpa_call(q, k, v, window), (q, k, v), nbytes, bounds["flops"],
+            rtol=FLASH_RTOL[dt], library_name="sdpa", rel_err=rel_err_rows,
+            peak=flash_peak(dt))
         row.update(case=label, window=window, visible_pairs=pairs,
-                   main_path=label == "prefill")
+                   design=FLASH_DESIGN[dt], main_path=label == "prefill",
+                   tflops=bounds["flops"] / row["ms"] / 1e9)
+        if "bound_fma_ms" in bounds:
+            row["bound_fma_ms"] = bounds["bound_fma_ms"]
+            log(f"    {row['tflops']:.1f} TFLOP/s; bound {row['bound_ms']:.4f} ms "
+                f"(3xTF32), {row['bound_fma_ms']:.4f} ms (FMA units)")
         rows.append(row)
-        del q, k, v, mask
+        del q, k, v
     return rows
 
 
@@ -1742,7 +1783,8 @@ def main() -> int:
             "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "card": smi,
-            **({"launches_per_run": flash_runs} if k == "flash_attention" else
+            **({"launches_per_run": flash_runs, "bound_fma_ms": top["bound_fma_ms"],
+                "design": top["design"]} if k == "flash_attention" else
                {"launches_per_path": {
                    "solve": launches[k],
                    "partitioned_setup": partitioned["launches"][k]

@@ -20,9 +20,13 @@ kernel, ...SRC; each version reports the mean of its two times.  The cases:
   byte bound;
 - ``ell_spmm``: the same at the f64 solve of ``[n, 8]`` (8 right-hand
   sides);
-- ``flash_attention``: the serving run's prefill shape (qwen3-1.7b: B 4,
-  16 query / 8 KV heads of 128, S 1819, causal) in float32 and bfloat16;
-  ``scaled_dot_product_attention`` and the flop bound.
+- ``flash_attention``: ``chip_smoke.py``'s four cases at the serving run's
+  longest prompt (qwen3-1.7b: B 4, 16 query / 8 KV heads of 128, S 1819,
+  causal; with a 256-key window; 128 queries over 1024 keys; head dim 64,
+  14 / 2 heads) in float32 and bfloat16; ``scaled_dot_product_attention``
+  and the flop bound (float32: 3xTF32 on the tensor cores, with the FMA
+  units' bound beside it); then float32 with large scores (q x 8, k + 50)
+  against a float64 truth, beside the float32 plain version's error.
 
 Run from the root of a checkout, on a machine with a card::
 
@@ -32,6 +36,7 @@ Run from the root of a checkout, on a machine with a card::
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import re
@@ -43,7 +48,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FLASH_SHAPE = (4, 16, 8, 1819, 128)          # B, Hq, Hkv, S, D
+FLASH_S = 1819      # the serving run's longest prompt (chip_smoke.lm_workload)
+UNCHECKED: set[str] = set()     # versions timed without holding their error
 
 
 def build_variants(kernel: str, variants: dict[str, Path], out_dir: Path) -> dict:
@@ -67,7 +73,9 @@ def build_variants(kernel: str, variants: dict[str, Path], out_dir: Path) -> dic
         for inst, used in ptxas_report(log):
             print(f"{name} {inst}: {used}", flush=True)
         for fn_name, counts in sass_counts(lib).items():
-            print(f"{name} SASS {fn_name[:90]}: {counts}", flush=True)
+            ops = counts.pop("ops")
+            print(f"{name} SASS {fn_name[:90]}: {counts}; {sum(ops.values())} "
+                  f"instructions, most common {ops.most_common(14)}", flush=True)
         fn = getattr(ctypes.CDLL(str(lib)), KERNELS[kernel][1])
         fn.argtypes = KERNELS[kernel][2]
         fn.restype = ctypes.c_int
@@ -76,7 +84,8 @@ def build_variants(kernel: str, variants: dict[str, Path], out_dir: Path) -> dic
 
 
 def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
-    """Per kernel function of ``lib``: its HMMA and FFMA instruction counts."""
+    """Per kernel function of ``lib``: its HMMA and FFMA instruction counts,
+    and under "ops" the count of every opcode (modifiers dropped)."""
     from repro_torch.kernels.build import nvcc_path
 
     sass = subprocess.run([str(Path(nvcc_path()).with_name("cuobjdump")), "-sass",
@@ -87,23 +96,28 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            out[name] = {"HMMA": 0, "FFMA": 0}
+            out[name] = {"HMMA": 0, "FFMA": 0, "ops": collections.Counter()}
         elif name:
-            for op in out[name]:
+            for op in ("HMMA", "FFMA"):
                 if re.search(rf"\b{op}\b", line):
                     out[name][op] += 1
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m:
+                out[name]["ops"][m.group(1)] += 1
     return out
 
 
 def hold(cs, fns, order, row, call, error, bar) -> None:
     """Check each version once (``error(fn)``: its error over the plain
-    version, at most ``bar``), time it at each of its places in ``order``
+    version, at most ``bar``, except for the versions in UNCHECKED, whose
+    error is only reported), time it at each of its places in ``order``
     and put the mean into ``row``."""
     times: dict[str, list] = {}
     for v in order:
         if v not in times:
             err = error(fns[v])
-            cs.check(err <= bar, f"{v} {row.get('operand', '')} {row['dtype']}: "
+            cs.check(err <= bar or v in UNCHECKED,
+                     f"{v} {row.get('operand', '')} {row['dtype']}: "
                      f"error {err:.2e} of plain, above {bar:g}")
             row[f"{v}_rel_err"] = err
         times.setdefault(v, []).append(cs.time_ms(lambda: call(fns[v]))[0])
@@ -186,50 +200,88 @@ def ell_cases(cs, fns, order, kernel: str, size: int) -> tuple[list, dict]:
 
 
 def flash_cases(cs, fns, order) -> list:
-    """The prefill shape, causal, in float32 and bfloat16."""
-    import torch.nn.functional as F
-
+    """``chip_smoke.py``'s four flash cases at the serving run's longest
+    prompt (prefill, a 256-key window, Sq < Skv, head dim 64), causal, in
+    float32 and bfloat16."""
     from repro_torch.kernels.flash_attention.ref import attention_ref, rel_err_rows
 
-    B, Hq, Hkv, S, D = FLASH_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(0)
-    pairs = cs.visible_pairs(S, S, True, None)
-    flops = 4 * B * Hq * D * pairs
     rows = []
-    for dt in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
+    for label, B, Hq, Hkv, Sq, Skv, D, window in cs.flash_shapes(FLASH_S):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
+                       for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+            o = torch.empty_like(q)
+            want = attention_ref(q, k, v, True, window)
+            strides = [st for t in (q, k, v, o) for st in t.stride()[:3]]
+            stream = torch.cuda.current_stream().cuda_stream
+            w = -1 if window is None else window
+
+            def call(fn):
+                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        B, Hq, Hkv, Sq, Skv, D, *strides, 1, w,
+                        int(dt == torch.bfloat16), stream)
+                assert rc == 0, rc
+
+            def error(fn):
+                o.fill_(float("nan"))
+                call(fn)
+                torch.cuda.synchronize()
+                return rel_err_rows(o, want)
+
+            bounds = cs.flash_bounds(dt, B, Hq, D, cs.visible_pairs(Sq, Skv, True, window),
+                                     (2 * q.numel() + 2 * k.numel()) * q.element_size())
+            row = {"case": label, "dtype": str(dt).replace("torch.", ""),
+                   "shape": [B, Hq, Hkv, Sq, Skv, D], "window": window, **bounds,
+                   "library_ms": cs.time_ms(cs.sdpa_call(q, k, v, window))[0]}
+            hold(cs, fns, order, row, call, error, cs.FLASH_RTOL[dt])
+            for name in fns:
+                row[f"{name}_tflops"] = bounds["flops"] / (row[f"{name}_ms"] * 1e-3) / 1e12
+            fma = (f", FMA bound {row['bound_fma_ms']:.4f} ms" if "bound_fma_ms" in row
+                   else "")
+            print(f"{label} {row['dtype']} {row['shape']} window {window}: bound "
+                  f"{row['bound_ms']:.4f} ms{fma}, sdpa {row['library_ms']:.4f} ms; "
+                  + ", ".join(f"{n} {row[f'{n}_ms']:.4f} ms ({row[f'{n}_tflops']:.0f} "
+                              f"TFLOP/s, error {row[f'{n}_rel_err']:.2e})"
+                              for n in dict.fromkeys(order)), flush=True)
+            rows.append(row)
+            del q, k, v, o, want
+    return rows
+
+
+def flash_large_scores(fns) -> list:
+    """float32 with q x 8 (one key dominates a row) and k + 50 (scores in
+    the hundreds), causal, at the card tests' shapes and the prefill shape:
+    each version's per-row error over the float64 truth, and the float32
+    plain version's."""
+    from repro_torch.kernels.flash_attention.ref import (attention_f64, attention_ref,
+                                                         rel_err_rows)
+
+    rows = []
+    for B, Hq, Hkv, S, D in ((2, 16, 8, 256, 128), (1, 14, 2, 301, 64),
+                             (4, 16, 8, FLASH_S, 128)):
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        q, k, v = (torch.randn(s, generator=gen, device="cuda")
                    for s in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
-        o = torch.empty_like(q)
-        want = attention_ref(q, k, v)
-        strides = [st for t in (q, k, v, o) for st in t.stride()[:3]]
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def call(fn):
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    B, Hq, Hkv, S, S, D, *strides, 1, -1,
-                    int(dt == torch.bfloat16), stream)
-            assert rc == 0, rc
-
-        def error(fn):
-            o.fill_(float("nan"))
-            call(fn)
-            torch.cuda.synchronize()
-            return rel_err_rows(o, want)
-
-        row = {"dtype": str(dt).replace("torch.", ""), "shape": list(FLASH_SHAPE),
-               "bound_ms": flops / cs.PEAK_FLOPS[dt] * 1e3,
-               "library_ms": cs.time_ms(lambda: F.scaled_dot_product_attention(
-                   q, k, v, is_causal=True, enable_gqa=True))[0]}
-        hold(cs, fns, order, row, call, error, cs.FLASH_RTOL[dt])
-        for name in fns:
-            row[f"{name}_tflops"] = flops / (row[f"{name}_ms"] * 1e-3) / 1e12
-        print(f"prefill {row['dtype']} {list(FLASH_SHAPE)}: bound {row['bound_ms']:.4f} ms, "
-              f"sdpa {row['library_ms']:.4f} ms; " + ", ".join(
-                  f"{n} {row[f'{n}_ms']:.4f} ms ({row[f'{n}_tflops']:.0f} TFLOP/s, "
-                  f"error {row[f'{n}_rel_err']:.2e})" for n in dict.fromkeys(order)),
-              flush=True)
-        rows.append(row)
-        del q, k, v, o, want
+        for kind, (qq, kk) in (("peaked", (q * 8, k)), ("offset", (q, k + 50))):
+            truth = attention_f64(qq, kk, v)
+            o = torch.empty_like(qq)
+            strides = [st for t in (qq, kk, v, o) for st in t.stride()[:3]]
+            row = {"shape": [B, Hq, Hkv, S, D], "kind": kind,
+                   "plain": rel_err_rows(attention_ref(qq, kk, v), truth)}
+            for name, fn in fns.items():
+                o.fill_(float("nan"))
+                assert fn(qq.data_ptr(), kk.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
+                          Hkv, S, S, D, *strides, 1, -1, 0,
+                          torch.cuda.current_stream().cuda_stream) == 0
+                torch.cuda.synchronize()
+                row[name] = rel_err_rows(o, truth)
+            print(f"{kind} f32 {row['shape']} over the float64 truth: "
+                  + ", ".join(f"{n} {row[n]:.3e}" for n in ("plain", *fns)), flush=True)
+            rows.append(row)
+            del truth, o
+        del q, k, v
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -241,7 +293,12 @@ def main() -> int:
     ap.add_argument("sources", nargs="+", metavar="SRC",
                     help="other sources of the kernel to hold it against")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--unchecked", action="append", default=[], metavar="NAME",
+                    help="a version (file stem) to time whose error is reported "
+                         "but not held to the bar: a variant that trades accuracy "
+                         "to show what a part of the kernel costs")
     args = ap.parse_args()
+    UNCHECKED.update(args.unchecked)
     if not torch.cuda.is_available():
         print("tune_kernel: needs a CUDA card", file=sys.stderr)
         return 2
@@ -260,7 +317,7 @@ def main() -> int:
     fns = build_variants(args.kernel, variants, ROOT / "build" / f"tune_{args.kernel}")
     sums = {}
     if args.kernel == "flash_attention":
-        rows = flash_cases(cs, fns, order)
+        rows = flash_cases(cs, fns, order) + flash_large_scores(fns)
     else:
         rows, sums = ell_cases(cs, fns, order, args.kernel, args.size)
     if args.out:

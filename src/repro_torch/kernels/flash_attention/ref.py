@@ -37,6 +37,27 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)
 
 
+def attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """``attention_ref``'s function in float64 throughout, returned in
+    float64: the truth a float32 result is measured against where float32
+    scores are themselves inexact (keys far from zero put the scores in the
+    hundreds, their differences between keys in the units)."""
+    group = q.shape[1] // k.shape[1]
+    q = q.double()
+    k, v = (t.double().repeat_interleave(group, dim=1) for t in (k, v))
+    sq, skv = q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(q.shape[-1])
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return torch.softmax(torch.where(mask, s, -torch.inf), dim=-1) @ v
+
+
 def rel_err_rows(got: torch.Tensor, want: torch.Tensor) -> float:
     """The error the kernel is held to: the largest over rows (the last dim)
     of max|got - want| over the row's own max|want|.  A causal prefill's

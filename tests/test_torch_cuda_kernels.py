@@ -9,7 +9,9 @@ true rows, one launch per BCSR apply; degenerate shapes; flash attention
 (each output row's error over its own max) over ragged lengths, windows,
 decode alignment, both head dims, float32 and bfloat16, the served prefill
 shape, strided time-major views, bfloat16 strides the kernel cannot copy
-and a failed launch — a small distributed PCG on the
+and a failed launch; float32 with large scores (q x 8, k + 50) against a
+float64 truth, and no register spills in the float32 instances — a small
+distributed PCG on the
 card against the same solve on the CPU, and a small LM forward on the card
 against the CPU.
 
@@ -24,7 +26,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref, rel_err_rows  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_f64, attention_ref, rel_err_rows)
 from repro_torch.kernels.spmv import bcsr, ref, spmv  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -404,6 +407,40 @@ def test_flash_attention(dev, case, causal, dtype):
     out = fa.flash_attention(q, k, v, causal=causal, window=case[-1])
     assert fa.flash_attention.launches == before + 1
     _close_fa(out, attention_ref(q, k, v, causal=causal, window=case[-1]))
+
+
+@pytest.mark.parametrize("kind", ["peaked", "offset"])
+@pytest.mark.parametrize("case", [FA_CASES[0], (1, 14, 2, 301, 301, 64, None)])
+def test_flash_attention_f32_large_scores(dev, case, kind):
+    """float32 with q scaled by 8 (one key dominates a row's softmax) and
+    with k + 50 (scores in the hundreds, where the TF32 low parts carry
+    the differences between keys), each row within 2e-5 of the float64
+    truth.  The truth, not the float32 plain version: with k + 50 that is
+    itself further than 2e-5 from the truth
+    (``tests/test_torch_flash_attention.py::
+    test_3xtf32_emulation_holds_large_scores``)."""
+    q, k, v = _qkv(case, torch.float32, dev, seed=2)
+    if kind == "peaked":
+        q = q * 8
+    else:
+        k = k + 50
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = rel_err_rows(out, attention_f64(q, k, v))
+    assert err <= FA_TOL[torch.float32], err
+
+
+def test_flash_attention_f32_instances_do_not_spill(dev):
+    """The ptxas report of both float32 instances (head dims 64 and 128):
+    no register spills."""
+    from repro_torch.kernels.build import build_report, kernel
+
+    kernel("flash_attention")
+    rows = [(name, used) for name, used in build_report("flash_attention")
+            if "<float," in name or "IfLi" in name]
+    assert len(rows) == 2, build_report("flash_attention")
+    for name, used in rows:
+        assert "0 bytes spill stores, 0 bytes spill loads" in used, (name, used)
 
 
 def test_flash_attention_bf16_strides_must_allow_16_byte_copies(dev):

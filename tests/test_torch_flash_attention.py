@@ -2,9 +2,14 @@
 ``[B, H, S, D]`` wrapper (both run the plain version for CPU tensors) against
 the reference's Pallas kernel in interpret mode, float32 at 2e-5 (the bar of
 ``tests/test_kernels.py``); plus the wrapper's contract: bad operands raise,
-Sq > Skv raises, and a CUDA operand never reaches the plain version."""
+Sq > Skv raises, and a CUDA operand never reaches the plain version; and
+the float32 kernel's 3xTF32 arithmetic (its TF32 split, fragment orders
+and rounding points) emulated in torch, held to the Pallas kernel and,
+with large scores, to a float64 truth."""
 import ast
 import inspect
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -257,3 +262,327 @@ def test_bfloat16_operands_need_strides_of_8(monkeypatch):
     assert [a[24] for a in launched] == [0, 1]      # the bf16 flag
     assert fa.flash_attention.launches == before + 2
     fa.flash_attention.launches = before
+
+
+# ---------------------------------------------------------------------------
+# The float32 kernel's arithmetic: 3xTF32 on mma.sync m16n8k8, emulated.
+# The kernel runs only on the card; its split, fragment orders and the order
+# of its roundings are written out here in torch and held against the
+# Pallas kernel, and against a float64 truth where the scores are large.
+# ---------------------------------------------------------------------------
+
+KERNEL_SRC = (Path(fa.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+# the float32 instance's key tile, as the kernel source sets it
+BK = int(re.search(r"struct Cfg<float, D> \{\s*static constexpr int WARPS = \d+, "
+                   r"MT = \d+, BK = (\d+)", KERNEL_SRC).group(1))
+LOG2E = np.float32(1.4426950408889634)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, to
+    nearest with ties away from zero, on the int32 view (add half a TF32
+    ulp to the magnitude bits, clear the 13 low bits); inf and NaN (the
+    all-ones exponent) pass through."""
+    bits = x.contiguous().view(torch.int32)
+    special = (bits & 0x7F800000) == 0x7F800000
+    return torch.where(special, bits, (bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+# m16n8k8 fragment layouts (PTX ISA, .tf32): register r / e of lane (g, t)
+def a_pos(g, t, r):
+    return g + 8 * (r & 1), t + 4 * (r >> 1)          # A (row, col)
+
+
+def b_pos(g, t, r):
+    return t + 4 * r, g                               # B (k, n)
+
+
+def c_pos(g, t, e):
+    return g + 8 * (e >> 1), 2 * t + (e & 1)          # C (row, col)
+
+
+LANES = [(g, t) for g in range(8) for t in range(4)]
+P_FROM_C = (0, 2, 1, 3)     # P's A fragment from the score registers
+
+
+def score_orders():
+    """Per k-step h of a 16-dim chunk, the dim each A column and each B row
+    stands for, as the kernel loads them: the lane's float4 of a Q row at
+    dims 4t.. gives A registers {x[2h], x[2h] (row g + 8), x[2h + 1],
+    x[2h + 1] (row g + 8)}, its float4 of K row g the B registers
+    {y[2h], y[2h + 1]}."""
+    a_dim, b_dim = {}, {}
+    for g, t in LANES:
+        for h in range(2):
+            for r in range(4):
+                a_dim[h, a_pos(g, t, r)[1]] = 4 * t + 2 * h + (r >> 1)
+            for r in range(2):
+                b_dim[h, b_pos(g, t, r)[0]] = 4 * t + 2 * h + r
+    return ([[a_dim[h, c] for c in range(8)] for h in range(2)],
+            [[b_dim[h, k] for k in range(8)] for h in range(2)])
+
+
+def pv_orders():
+    """Within an 8-key step, the key each A column (from the score
+    registers, a = {c0, c2, c1, c3}) and each B row (V rows 2t + r) stands
+    for; and for a 32-dim group, the dim of B column n of n-tile jj (V's
+    float4 at 32p + 4g) and of the output the store writes for it (float4
+    at 32p + 8t + 4h from C columns 2t + h)."""
+    a_key, b_key, v_dim, o_dim = {}, {}, {}, {}
+    for g, t in LANES:
+        for r in range(4):
+            row, col = a_pos(g, t, r)
+            crow, key = c_pos(g, t, P_FROM_C[r])
+            assert crow == row
+            a_key[col] = key
+        for r in range(2):
+            b_key[b_pos(g, t, r)[0]] = 2 * t + r
+        for jj in range(4):
+            v_dim[jj, g] = 4 * g + jj
+            for h in range(2):
+                o_dim[jj, c_pos(g, t, h)[1]] = 8 * t + 4 * h + jj
+    return ([a_key[c] for c in range(8)], [b_key[k] for k in range(8)],
+            [[v_dim[jj, n] for n in range(8)] for jj in range(4)],
+            [[o_dim[jj, n] for n in range(8)] for jj in range(4)])
+
+
+def _fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _fast_two_sum(s, err, x):
+    """The kernel's Fast2Sum in float32: s + x as s + err."""
+    t = s + x
+    return t, err + (x - (t - s))
+
+
+def emulate(q, k, v, causal, window, passes=3, bk=BK):
+    """The float32 kernel's arithmetic on [B, H, S, D] numpy operands: key
+    tiles of ``bk``; S = Q K^T per 16-dim chunk (two k-steps of the
+    fragment orders above, three TF32 products each, or one with
+    ``passes=1``) summed exactly, as in the tensor cores, rounded to
+    float32, added in pairs and the pairs to the scores by Fast2Sum with
+    the rounding errors kept aside; the mask, the online softmax in log2
+    units with the scale in the exp's FMA; each tile's P V through the
+    permuted contraction, summed exactly, rounded, then o = o * alpha + PV
+    in one rounding; o / l at the end."""
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    B, H, Sq, D = q.shape
+    Skv, group = k.shape[2], H // k.shape[1]
+    n_kt = -(-Skv // bk)
+    pad = n_kt * bk - Skv
+    k, v = (torch.nn.functional.pad(a.repeat_interleave(group, 1), (0, 0, 0, pad))
+            for a in (k, v))
+    scale_log2 = np.float32(np.float32(1.0 / np.sqrt(D)) * LOG2E)
+    a_dim, b_dim = score_orders()
+    a_key, b_key, v_dim, o_dim = pv_orders()
+    # the V columns n-tile jj's B column n reads, and where its output goes
+    groups = D // 32 if D % 32 == 0 else 0
+    v_cols = [32 * p + v_dim[jj][n] for p in range(groups) for jj in range(4) for n in range(8)]
+    o_cols = [32 * p + o_dim[jj][n] for p in range(groups) for jj in range(4) for n in range(8)]
+    if not groups:                       # head dims below the kernel's 32-dim groups
+        v_cols = o_cols = list(range(D))
+
+    def parts(x):
+        hi, lo = split(x)
+        return (hi.double(), lo.double()) if passes == 3 else (hi.double(), None)
+
+    def product(a, b):                    # sum of the TF32 products, exact
+        (ah, al), (bh, bl) = parts(a), parts(b)
+        out = ah @ bh
+        return out if al is None else out + al @ bh + ah @ bl
+
+    qpos = torch.arange(Sq)[:, None] + (Skv - Sq)
+    m = torch.full((B, H, Sq), -1e30, dtype=torch.float32)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32)
+    acc = torch.zeros((B, H, Sq, len(v_cols)), dtype=torch.float32)
+    for kt in range(n_kt):
+        ks, vs = k[:, :, kt * bk:(kt + 1) * bk], v[:, :, kt * bk:(kt + 1) * bk]
+        s = torch.zeros((B, H, Sq, bk), dtype=torch.float32)
+        err = even = torch.zeros_like(s)
+        for c in range(D // 16):
+            part = 0.0
+            for h in range(2):
+                qa = q[..., [16 * c + d for d in a_dim[h]]]
+                kb = ks[..., [16 * c + d for d in b_dim[h]]]
+                part = part + product(qa, kb.transpose(-1, -2))
+            if c % 2 == 0:
+                even = part.float()
+            else:
+                s, err = _fast_two_sum(s, err, even + part.float())
+        if D // 16 % 2:      # head dims below the kernel's: a last chunk alone
+            s, err = _fast_two_sum(s, err, even)
+        s = s + err
+        kpos = kt * bk + torch.arange(bk)[None, :]
+        ok = kpos < Skv
+        if causal:
+            ok = ok & (qpos >= kpos)
+        if window is not None:
+            ok = ok & (qpos - kpos < window)
+        x = torch.where(ok, s, -torch.inf)
+        m_new = torch.maximum(m, x.amax(-1) * scale_log2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(_fma(x, torch.tensor(scale_log2), -m_new[..., None]))
+        l = _fma(l, alpha, p.sum(-1))
+        m = m_new
+        pv = 0.0
+        for kk in range(bk // 8):
+            pa = p[..., [8 * kk + key for key in a_key]]
+            vb = vs[:, :, [8 * kk + key for key in b_key]][..., v_cols]
+            pv = pv + product(pa, vb)
+        acc = _fma(acc, alpha[..., None], pv.float())
+    out = torch.empty((B, H, Sq, D), dtype=torch.float32)
+    out[..., o_cols] = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """The emulated ``cvt.rna.tf32.f32``: ties (low 13 bits 0x1000) go away
+    from zero in both signs, below a tie down, above it up, with the carry
+    into the exponent; ±0, ±inf and NaN pass through, and a value at the top
+    of the exponent range keeps its exponent."""
+    def f(bits):
+        return torch.tensor(np.array(bits, dtype=np.uint32).view(np.float32))
+
+    def bits(x):
+        return x.numpy().view(np.uint32).tolist()
+
+    base = 0x3F800000                                  # 1.0
+    x = f([base | 0x1000, base | 0x0FFF, base | 0x1001, 0x3FFFF000,
+           0x80000000 | base | 0x1000, 0x80000000 | base | 0x0FFF])
+    assert bits(tf32(x)) == [base + 0x2000, base, base + 0x2000, 0x40000000,
+                             0x80000000 | (base + 0x2000), 0x80000000 | base]
+    special = f([0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00001])
+    got = bits(tf32(special))
+    assert got[:4] == [0x00000000, 0x80000000, 0x7F800000, 0xFF800000]
+    assert torch.isnan(tf32(special)[4])
+    huge = torch.tensor([3.0e38, -3.0e38, 1.0e-38, 1.0e-45], dtype=torch.float32)
+    r = tf32(huge)
+    assert torch.isfinite(r).all()
+    assert ((r.view(torch.int32) >> 23) & 0xFF).tolist() == \
+        ((huge.view(torch.int32) >> 23) & 0xFF).tolist()
+    assert (r.view(torch.int32) & 0x1FFF == 0).all()
+
+
+def test_split_rebuilds_x():
+    """hi + lo rebuilds x to 2^-21 of |x| over a wide range of exponents
+    (in fact 2^-22); both parts are TF32 values, and lo is within half a
+    TF32 ulp of x."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.standard_normal(100_000)
+                          * 10.0 ** rng.uniform(-30, 30, 100_000)).astype(np.float32))
+    hi, lo = split(x)
+    for part in (hi, lo):
+        assert (part.view(torch.int32) & 0x1FFF == 0).all()
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert (err <= 2.0 ** -21 * x.double().abs()).all()
+    assert (lo.double().abs() <= 2.0 ** -11 * x.double().abs()).all()
+
+
+def test_fragment_orders_pair_a_with_b():
+    """The kernel's fragment orders: in each k-step of S the dim an A
+    column stands for is the dim of the matching B row, and the two k-steps
+    of a 16-dim chunk cover its 16 dims once; in P V, the key of A column c
+    (taken from the score registers) is the key of B row c, and the
+    8 keys are covered once; V's column for B column n of n-tile jj is the
+    dim the store writes that output column to, and a 32-dim group's
+    four n-tiles cover its 32 dims once."""
+    a_dim, b_dim = score_orders()
+    assert a_dim == b_dim
+    assert sorted(a_dim[0] + a_dim[1]) == list(range(16))
+    a_key, b_key, v_dim, o_dim = pv_orders()
+    assert a_key == b_key and sorted(a_key) == list(range(8))
+    assert v_dim == o_dim
+    assert sorted(d for row in v_dim for d in row) == list(range(32))
+
+
+def test_a_fragment_from_score_registers_multiplies_like_p_v():
+    """One m16n8k8 step done register by register: the score registers of a
+    16 x 8 tile of P laid out as C, turned into A by {c0, c2, c1, c3}, and
+    B gathered from V rows 2t + r, multiplied as the instruction reads its
+    fragments, give P V exactly; the unpermuted {c0, c1, c2, c3} does not."""
+    rng = np.random.default_rng(6)
+    P = rng.standard_normal((16, 8))
+    V = rng.standard_normal((8, 8))
+
+    def mma(order):
+        A, Bm = np.zeros((16, 8)), np.zeros((8, 8))
+        for g, t in LANES:
+            c = [P[c_pos(g, t, e)] for e in range(4)]
+            for r in range(4):
+                A[a_pos(g, t, r)] = c[order[r]]
+            for r in range(2):
+                Bm[b_pos(g, t, r)] = V[2 * t + r, g]
+        return A @ Bm
+
+    np.testing.assert_allclose(mma(P_FROM_C), P @ V, rtol=1e-14, atol=1e-14)
+    assert not np.allclose(mma((0, 1, 2, 3)), P @ V)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_emulation_matches_pallas(case, causal):
+    """The float32 kernel's arithmetic against the reference's Pallas kernel
+    in interpret mode (32-row blocks), each row within 2e-5 of its max."""
+    window = case[-1]
+    q, k, v = _inputs(case, 7, time_major=False)
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                  window=window, block_q=32, block_k=32, interpret=True)
+    got = emulate(q, k, v, causal, window)
+    err = ref.rel_err_rows(got, torch.from_numpy(np.array(want)))
+    assert err <= TOL, err
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_one_pass_tf32_fails_the_bar(case):
+    """The same emulation with one TF32 product (hi x hi) is further than
+    2e-5 from the Pallas kernel: the bar tells 3xTF32 from plain TF32."""
+    window = case[-1]
+    q, k, v = _inputs(case, 7, time_major=False)
+    want = torch.from_numpy(np.asarray(
+        jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+               window=window, block_q=32, block_k=32, interpret=True)))
+    assert ref.rel_err_rows(emulate(q, k, v, True, window, passes=1), want) > TOL
+    assert ref.rel_err_rows(emulate(q, k, v, True, window), want) <= TOL
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_f64_is_the_plain_function(case, causal):
+    """The float64 truth computes the plain version's function: with
+    ordinary scores the two agree to the float32 bar, windows and decode
+    alignment included."""
+    tq, tk, tv = (torch.from_numpy(a) for a in _inputs(case, 9, time_major=False))
+    truth = ref.attention_f64(tq, tk, tv, causal=causal, window=case[-1])
+    assert truth.dtype == torch.float64
+    assert ref.rel_err_rows(ref.attention_ref(tq, tk, tv, causal, case[-1]), truth) <= TOL
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("kind", ["peaked", "offset"])
+def test_3xtf32_emulation_holds_large_scores(kind, D):
+    """At the kernel's head dims, with q scaled by 8 (one key dominates a
+    row's softmax) or k + 50 (scores in the hundreds, where the low parts
+    carry the differences between keys): the emulation is within 2e-5 of
+    the float64 truth and no further from it than the float32 plain
+    version, which in the offset case is itself further than 2e-5 from the
+    truth (so the card holds these cases to ``ref.attention_f64``).  One
+    TF32 pass fails the bar in both."""
+    q, k, v = _inputs((1, 4, 2, 256, 256, D, None), 8, time_major=False)
+    if kind == "peaked":
+        q = q * np.float32(8)
+    else:
+        k = k + np.float32(50)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    truth = ref.attention_f64(tq, tk, tv)
+    plain = ref.rel_err_rows(ref.attention_ref(tq, tk, tv), truth)
+    got = ref.rel_err_rows(emulate(q, k, v, True, None), truth)
+    assert got <= TOL and got <= plain, (got, plain)
+    if kind == "offset":
+        assert plain > TOL
+    assert ref.rel_err_rows(emulate(q, k, v, True, None, passes=1), truth) > TOL
