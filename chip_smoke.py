@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's two paths, after building the four hand-written CUDA
+Drives the port's two paths, after building the six hand-written CUDA
 kernels from this checkout and holding each against its plain PyTorch
 version at the shapes its path gives it:
 
@@ -8,6 +8,8 @@ version at the shapes its path gives it:
   lanes=4)).setup(A).pcg(b)`` on the 27-point ``laplace_3d(64)`` (262,144
   rows, 8 stacked ranks of 32,768 rows), through ``ell_spmv``, ``ell_spmm``
   and ``bcsr_spmm``, each program call one replay of a captured CUDA graph;
+  the block smoothers (``block_jacobi``, ``hybrid_gs``, ``hybrid_gs_sym``)
+  on the same lowering through ``block_diag_apply`` and ``tri_solve``;
   ``AMGService`` on the same session, and a streaming refresh beneath its
   graphs; the paper's setup phase, ``AMGConfig(setup_backend="dist")``: the
   partitioned node-aware setup of the same matrix (host numpy, its Galerkin
@@ -41,7 +43,11 @@ Phases (any failure exits non-zero):
    capture of the solve's graphs, times each graph's replays; the tally
    must equal the launch counter there and in phase 4's / 5's counted run)
    and the sums of launches × (time − bound) and of launches × time over
-   them;
+   them; ``block_diag_apply`` (bs 4) and ``tri_solve`` (both triangles),
+   k = 1 and 8, f32 and f64, at every non-coarsest level on the lowered
+   hierarchy's own factors, beside batched ``torch.matmul`` and
+   ``torch.triangular_solve`` on a sparse CSR operand (cuSPARSE; "none"
+   where the install has none), with each triangle's DAG depth;
 4. f64 PCG to 1e-8 through the captured graphs, residual history against
    the numpy host backend (≤ 1e-7 of r0), true residual in numpy, setup /
    lowering / per-iteration times, the device time of a warm solve by
@@ -55,7 +61,15 @@ Phases (any failure exits non-zero):
    before it, 10 BCSR applies of each BCSR level profiled alone: 10 device
    kernels, all ``bcsr_spmm``'s;
 5. multi-RHS PCG on ``[n, 8]``, each column against its single-RHS run;
-6. f32 PCG to 1e-5;
+6. f32 PCG to 1e-5; then the block smoothers, each session sharing the
+   f64 (f32) lowering: PCG to 1e-8 with ``block_jacobi`` and with
+   ``hybrid_gs_sym``, the stationary solve with ``hybrid_gs`` to 1e-8,
+   ``hybrid_gs_sym`` PCG on ``[n, 8]`` (each column against its single-RHS
+   run) and in f32 to 1e-5; each with its launches, its history against
+   the same session run eagerly through the plain versions (≤ 1e-7 of r0 in
+   f64, 1e-4 in f32), its true residual, ms an iteration, device time by
+   kernel and busy share, one ``cudaGraphLaunch`` a program call; the
+   factors' bytes beside the reference's dense factors';
 7. launch counts of the solve runs (each counter set to 0 just before a
    run and read just after; a graph's launches count once per replay):
    every sparse kernel launched; then the partitioned setup
@@ -75,9 +89,12 @@ Phases (any failure exits non-zero):
    width; then ``update(delta=ΔA)`` (the reference suite's drift, scale
    0.03, seed 1): a refresh, no graph captured again, history against the
    host session refreshed the same way (≤ 1e-7 of r0), update seconds
-   against a fresh setup's; the dist-born session's ``update`` with the
+   against a fresh setup's; ``hybrid_gs_sym`` PCG beneath the refreshed
+   graphs (none captured again) against a fresh lowering of the refreshed
+   hierarchy (≤ 1e-7 of r0); the dist-born session's ``update`` with the
    same drift (a refresh, no graph captured again, its history against the
-   refreshed host-setup session ≤ 1e-7 of r0) and an aggressive
+   refreshed host-setup session ≤ 1e-7 of r0), its ``hybrid_gs_sym`` PCG
+   against its eager plain run (≤ 1e-7 of r0), and an aggressive
    partitioned setup of ``laplace_3d(32)`` (its ``spgemm_S2`` exchange
    audited clean, PCG against the host aggressive setup's history ≤ 1e-7
    of r0); then the communication audit
@@ -85,7 +102,7 @@ Phases (any failure exits non-zero):
    (widths 1, 8 and the service's) read from the log each replay adds,
    against the count model; a replayed PCG's log against the sum of its
    program calls; the poisoned-halo overlap check on level 0's ``A``; the
-   whole V/W/F × Jacobi/Chebyshev grid over all ten programs, captured, on
+   whole V/W/F × five-smoother grid over all ten programs, captured, on
    ``laplace_3d(24)``: zero violations; then AMGWire: a ``ServerThread``
    with two f64 tenants, ``laplace_3d(48)`` registered over the socket
    (62 MB frame, limit 64 MiB), 16 solves in two bursts, an ``update``,
@@ -173,8 +190,8 @@ APPLY_REPS = 10               # BCSR applies profiled alone, per BCSR level
 # the partitioned setup phase's aggressive (distance-2) setup: its
 # spgemm_S2 exchange, at a size whose aggressive hierarchy has 3 levels
 AGGRESSIVE_SIZE = 32
-# the audit's grid of V/W/F × Jacobi/Chebyshev over all ten programs, at a
-# smaller depth than the main path so its 60 captures stay cheap
+# the audit's grid of V/W/F × the five smoothers over all ten programs, at
+# a smaller depth than the main path so its 150 captures stay cheap
 AUDIT_SIZE = 24
 # the wire phase: the largest Laplacian whose register frame fits the wire's
 # 64 MiB frame limit (laplace_3d(48): a 62,263,466-byte frame), and a small
@@ -191,13 +208,24 @@ WIRE_X_RTOL = 1e-5
 # of one rounding forward
 LOGITS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 SPMV_KERNELS = ("ell_spmv", "ell_spmm", "bcsr_spmm")
-# the Pallas kernel each replaces (the sources: repro_torch.kernels.build)
+# the block smoothers' kernels: port kernels with no Pallas counterpart
+SMOOTHER_KERNELS = ("block_diag_apply", "tri_solve")
+# the Pallas kernel each replaces (the sources: repro_torch.kernels.build);
+# the smoothers' kernels replace the reference's dense minv @ r
 REPLACES = {
     "ell_spmv": "src/repro/kernels/spmv/spmv.py:75",
     "ell_spmm": "src/repro/kernels/spmv/spmv.py:104",
     "bcsr_spmm": "src/repro/kernels/spmv/bcsr.py:65",
+    "block_diag_apply": "src/repro/amg/dist_solve.py:557-569",
+    "tri_solve": "src/repro/amg/dist_solve.py:557-569",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:86",
 }
+# the block-smoother phase: the stationary hybrid_gs solve's cycle limit;
+# a float32 run's history against its eager plain run (each operation
+# rounds at 6e-8 of its size in another order on each side, and PCG
+# carries that difference forward over its iterations)
+STATIONARY_MAXITER = 100
+F32_HIST_TOL = 1e-4
 # LM serving: qwen3-1.7b at full width, 8 requests, prompts of 512-2048
 LM_ARCH, LM_REQUESTS, LM_BATCH, LM_NEW = "qwen3-1.7b", 8, 4, 32
 LM_PROMPT = (512, 2048)
@@ -213,8 +241,8 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn) -> tuple[float, float]:
-    """(device ms, host ms) per call of ``fn()``, medians over SAMPLES
+def time_ms(fn, samples: int = SAMPLES) -> tuple[float, float]:
+    """(device ms, host ms) per call of ``fn()``, medians over ``samples``
     bursts of BURST calls (after a warm-up).  Each burst is queued behind a
     GPU spin, so the CUDA events around it time the calls back to back on
     the card rather than the host's enqueue rate; the host clock around the
@@ -222,7 +250,7 @@ def time_ms(fn) -> tuple[float, float]:
     fn()
     torch.cuda.synchronize()
     dev, host = [], []
-    for _ in range(SAMPLES):
+    for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SLEEP_CYCLES)
@@ -271,11 +299,14 @@ def bcsr_to_csr(bcols: torch.Tensor, bvals: torch.Tensor, m: int,
 
 
 def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
-                library_name="torch.sparse.mm", rel_err=None, peak=None):
-    """Run one kernel against its plain version; time all three.  The error
-    is max|kernel - plain| over max|plain|, or ``rel_err(kernel, plain)``
-    where given; the flop bound is taken at ``peak`` FLOP/s, by default the
-    card's highest dense rate for the type."""
+                library_name="torch.sparse.mm", rel_err=None, peak=None,
+                plain_samples=SAMPLES):
+    """Run one kernel against its plain version; time all three (the
+    library call only where ``library`` is given; the plain version over
+    ``plain_samples`` bursts).  The error is max|kernel - plain| over
+    max|plain|, or ``rel_err(kernel, plain)`` where given; the flop bound is
+    taken at ``peak`` FLOP/s, by default the card's highest dense rate for
+    the type."""
     y = fn(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
@@ -293,15 +324,16 @@ def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
            "shape": [list(a.shape) for a in args],
            "max_abs_err": err, "rel_err": rel,
            "ms": ms, "host_ms": host_ms,
-           "plain_ms": time_ms(lambda: plain(*args))[0],
-           "library_ms": time_ms(library)[0],
+           "plain_ms": time_ms(lambda: plain(*args), plain_samples)[0],
+           "library_ms": None if library is None else time_ms(library)[0],
            "bound_ms": bound_s * 1e3,
            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                         >= flops / peak else "operations")}
     log(f"  {name:9s} {row['dtype']:7s} {row['shape']}: err {err:.2e} "
         f"(rel {rel:.1e}) kernel {row['ms']:.4f} ms (host "
         f"{host_ms:.4f} ms/call), plain "
-        f"{row['plain_ms']:.4f} ms, {library_name} {row['library_ms']:.4f} ms, "
+        f"{row['plain_ms']:.4f} ms, {library_name} "
+        + ("none" if library is None else f"{row['library_ms']:.4f} ms") + ", "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
@@ -493,13 +525,333 @@ def bcsr_apply_kernels(dh, reps: int) -> dict[int, dict[str, int]]:
     return found
 
 
+def tri_to_csr(f) -> torch.Tensor:
+    """A triangle factor (strict part in ELL, diagonal apart) as one
+    block-diagonal CSR tensor ``[D·m, D·m]`` over the ranks, diagonal
+    included, for ``torch.triangular_solve``."""
+    D, m, K = f.cols.shape
+    dev = f.cols.device
+    keep = f.cols >= 0
+    rows = torch.arange(D * m, device=dev).reshape(D, m, 1).expand(D, m, K)
+    offs = (torch.arange(D, device=dev) * m).reshape(D, 1, 1)
+    diag_idx = torch.arange(D * m, device=dev)
+    ri = torch.cat([rows[keep], diag_idx])
+    ci = torch.cat([(f.cols.long() + offs)[keep], diag_idx])
+    vals = torch.cat([f.vals[keep], f.diag.reshape(-1)])
+    return torch.sparse_coo_tensor(torch.stack([ri, ci]), vals,
+                                   (D * m, D * m)).coalesce().to_sparse_csr()
+
+
+def tri_library(f, r):
+    """``torch.triangular_solve`` (cuSPARSE) on the factor as a sparse CSR
+    operand, or ``(None, reason)`` where this install has none."""
+    D, m = r.shape[:2]
+    try:
+        csr = tri_to_csr(f)
+        rf = r.reshape(D * m, -1).contiguous()
+        call = lambda: torch.triangular_solve(rf, csr, upper=f.upper)  # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        return call, "torch.triangular_solve (sparse CSR)"
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, f"none on this install ({type(e).__name__}: {str(e)[:80]})"
+
+
+def smoother_kernel_phase(dh64, dh32) -> tuple[dict, dict]:
+    """``block_diag_apply`` (bs 4, the main path's) and ``tri_solve`` (both
+    triangles) at every non-coarsest level, k = 1 and K_RHS, in f64 and
+    f32, on the lowered hierarchy's own factors, against their plain
+    versions; each timed beside its plain version, the library call where
+    this install has one (batched ``torch.matmul`` over the blocks;
+    ``torch.triangular_solve`` on a sparse CSR operand, cuSPARSE) and the
+    bytes bound.  Returns the rows by kernel and each triangle's DAG depth
+    by level ("L0 gs": levels)."""
+    from repro_torch.amg.solve import SolveOptions
+    from repro_torch.kernels.smoother import ref as sref
+    from repro_torch.kernels.smoother import smoother as ks
+    from repro_torch.kernels.spmv.ref import block_x
+
+    omega = SolveOptions().omega
+    bs = SolveOptions().block_size
+    rng = np.random.default_rng(SEED + 1)
+    out: dict[str, list] = {n: [] for n in SMOOTHER_KERNELS}
+    depth: dict[str, int] = {}
+    for dh in (dh64, dh32):
+        dev, dt = dh.device, dh.dtype
+        s = torch.finfo(dt).bits // 8
+        for l, dl in enumerate(dh.levels):
+            if dl.coarse_inv is not None:
+                continue
+            m = dl.A.rows_local
+            bj = dh._factor(l, "bj", bs)
+            D, nb = bj.binv.shape[:2]
+            for k in (1, K_RHS):
+                shape = (D, m) + ((k,) if k > 1 else ())
+                r, x = (torch.as_tensor(rng.standard_normal(shape), dtype=dt,
+                                        device=dev) for _ in range(2))
+                rb = block_x(r, bs)
+                row = kernel_case(
+                    f"block_diag_apply L{l} bs{bs} k{k}",
+                    lambda B, r, x: ks.block_diag_apply(B, r, x, omega),
+                    lambda B, r, x: sref.block_diag_apply_ref(B, r, x, omega),
+                    lambda B=bj.binv, rb=rb: torch.matmul(B, rb), (bj.binv, r, x),
+                    # the blocks, r and x read once, y written once
+                    (D * nb * bs * bs + 3 * D * m * k) * s, 2 * bs * D * m * k,
+                    library_name="torch.matmul (batched)")
+                row.update(level=l, bs=bs, k=k, main_path=l == 0)
+                out["block_diag_apply"].append(row)
+            for kind in ("gs", "gsu"):
+                f = dh._factor(l, kind, 0)
+                sched = f.schedule()
+                depth[f"L{l} {kind}"] = len(sched)
+                nnz = int((f.cols >= 0).sum())
+                for k in (1, K_RHS):
+                    shape = (D, m) + ((k,) if k > 1 else ())
+                    r, x = (torch.as_tensor(rng.standard_normal(shape),
+                                            dtype=dt, device=dev)
+                            for _ in range(2))
+                    library, lib_name = tri_library(f, r)
+                    row = kernel_case(
+                        f"tri_solve L{l} {'upper' if f.upper else 'lower'} k{k}",
+                        lambda c, v, d, r, x, f=f: ks.tri_solve(
+                            c, v, d, r, x, 1.0, upper=f.upper, order=f.order),
+                        lambda c, v, d, r, x, sc=sched: sref.tri_solve_ref(
+                            c, v, d, r, x, 1.0, sc),
+                        library, (f.cols, f.vals, f.diag, r, x),
+                        # the stored entries' column ids and values, diag, r
+                        # and x read once, y written once
+                        nnz * (4 + s) + D * m * s + 3 * D * m * k * s,
+                        2 * (nnz + D * m) * k, library_name=lib_name,
+                        plain_samples=3)
+                    row.update(level=l, triangle=kind, k=k, depth=len(sched),
+                               main_path=l == 0 and kind == "gs", library=lib_name)
+                    out["tri_solve"].append(row)
+    log(f"  tri_solve DAG depth (level sets) by level and triangle: {depth}")
+    return out, depth
+
+
+def eager_history(dh, rhs, opts, method: str, iters: int) -> list:
+    """The history of ``iters`` iterations of ``method`` ("pcg" or "solve")
+    through the eager program bodies with every local product on its plain
+    version (``use_kernel`` off): a float per iteration, or a ``[k]`` array
+    for ``rhs`` ``[n, k]``."""
+    from repro_torch.amg.dist_solve import _host
+
+    m = "" if rhs.ndim == 1 else "_m"
+    saved, dh.use_kernel = dh.use_kernel, False
+    try:
+        with dh.lock:
+            x = dh.scatter(np.zeros_like(rhs))
+            b = dh.scatter(rhs)
+            if method == "pcg":
+                r, p, rz, rn = getattr(dh, "pcg_init" + m)(x, b, opts)
+                hist = [_host(rn)]
+                for _ in range(iters):
+                    x, r, p, rz, rn = getattr(dh, "pcg_step" + m)(x, r, p, rz, opts)
+                    hist.append(_host(rn))
+            else:
+                hist = [_host(getattr(dh, "resid_norm" + m)(x, b, opts))]
+                for _ in range(iters):
+                    x, rn = getattr(dh, "cycle" + m)(x, b, opts)
+                    hist.append(_host(rn))
+    finally:
+        dh.use_kernel = saved
+    return hist
+
+
+def dense_factor_bytes(dh, keys) -> int:
+    """Bytes the reference's dense ``[D, m, m]`` factors would take for the
+    factor keys ``keys`` ((kind, block size)) on every non-coarsest level."""
+    per = sum(dh.n_pods * dh.lanes * dl.A.rows_local ** 2
+              for dl in dh.levels if dl.coarse_inv is None)
+    return per * len(keys) * (torch.finfo(dh.dtype).bits // 8)
+
+
+def block_smoother_phase(cfg64, A, b, B, dh64, dh32) -> dict:
+    """The block smoothers on the main path's problem through the captured
+    graphs, each session sharing the f64 (or f32) lowering: PCG to 1e-8
+    with ``block_jacobi`` and with ``hybrid_gs_sym``, the stationary solve
+    with ``hybrid_gs`` to 1e-8 (at most STATIONARY_MAXITER cycles), PCG on
+    ``[n, K_RHS]`` with ``hybrid_gs_sym`` (each column against its
+    single-RHS run), and PCG in f32 to 1e-5 with ``hybrid_gs_sym``.  Each
+    run's launches (counters set to 0 just before, read just after), its
+    history against the same session run eagerly through the plain
+    versions, its true residual in numpy, ms an iteration warm, the warm
+    solve's device time by kernel and busy share, one ``cudaGraphLaunch``
+    a program call, and the factors' bytes beside the reference's dense
+    factors'."""
+    from repro_torch.amg import AMGSolver
+    from repro_torch.amg.solve import SolveOptions
+
+    cfg32 = dataclasses.replace(cfg64, dtype="float32", tol=1e-5)
+    runs = [("block_jacobi", "pcg", b, cfg64, dh64),
+            ("hybrid_gs_sym", "pcg", b, cfg64, dh64),
+            ("hybrid_gs", "solve", b, cfg64, dh64),
+            ("hybrid_gs_sym", "pcg", B, cfg64, dh64),
+            ("hybrid_gs_sym", "pcg", b, cfg32, dh32)]
+    out = {"runs": [], "launches": collections.Counter()}
+    single = {}
+    for smoother, method, rhs, cfg, dh in runs:
+        opts = SolveOptions(smoother=smoother)
+        bound = AMGSolver(dataclasses.replace(cfg, opts=opts)).setup(A)
+        check(bound.dist_hierarchy is dh,
+              f"the {smoother} session does not share the {cfg.dtype} lowering")
+        kw = {"maxiter": STATIONARY_MAXITER} if method == "solve" else {}
+        f64 = cfg.dtype == "float64"
+        label = (f"{method} {cfg.dtype} {smoother}"
+                 + (f" [n, {rhs.shape[1]}]" if rhs.ndim == 2 else ""))
+        res, counts = counted(lambda: getattr(bound, method)(rhs, **kw))
+        check(res.converged, f"{label} did not converge in {res.iterations}")
+        out["launches"].update({k: v for k, v in counts.items()
+                                if k in SMOOTHER_KERNELS})
+        want = "block_diag_apply" if smoother == "block_jacobi" else "tri_solve"
+        check(counts[want] > 0, f"{label} never launched {want}")
+        steps = res.iterations
+        hist = eager_history(dh, rhs, opts, method, steps)
+        if rhs.ndim == 1:
+            hd = history_diff(hist, res.residuals)
+            X = res.x[:, None]
+        else:
+            hd = max(history_diff([h[j] for h in hist], c.residuals)
+                     for j, c in enumerate(res.columns))
+            X = res.x
+        tol_h = HIST_TOL if f64 else F32_HIST_TOL
+        check(hd <= tol_h, f"{label}: graphs vs eager plain history {hd:.2e} "
+              f"of r0 (bar {tol_h:g})")
+        R = rhs.reshape(len(rhs), -1)
+        true_rel = max(float(np.linalg.norm(R[:, j] - A.matvec(X[:, j]))
+                             / np.linalg.norm(R[:, j])) for j in range(R.shape[1]))
+        check(true_rel < (1e-7 if f64 else 1e-4),
+              f"{label}: true residual {true_rel:.2e}")
+        cols = None
+        if rhs.ndim == 2:
+            ref = single.get((smoother, method))
+            cols = 0.0
+            for j, c in enumerate(res.columns):
+                rj = ref if j == 0 and ref is not None else getattr(bound, method)(rhs[:, j])
+                check(abs(rj.iterations - c.iterations) <= 1,
+                      f"{label} column {j}: {c.iterations} vs {rj.iterations}")
+                cols = max(cols, history_diff(rj.residuals, c.residuals),
+                           float(np.abs(c.x - rj.x).max() / np.abs(rj.x).max()))
+            check(cols <= HIST_TOL, f"{label}: columns vs single runs {cols:.2e}")
+        elif f64:
+            single[(smoother, method)] = res
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = getattr(bound, method)(rhs, **kw)
+        wall = time.perf_counter() - t0
+        ms_iter = wall * 1e3 / max(warm.iterations, 1)
+        runtime: dict[str, int] = {}
+        prof = device_profile(lambda: getattr(bound, method)(rhs, **kw), runtime)
+        check(runtime.get("cudaGraphLaunch", 0) == warm.iterations + 1,
+              f"{label}: {runtime.get('cudaGraphLaunch', 0)} cudaGraphLaunch "
+              f"calls for {warm.iterations + 1} program calls")
+        dev_ms = sum(v[0] for v in prof.values())
+        busy = dev_ms / (wall * 1e3) if prof else None
+        top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:6]
+        row = {"run": label, "iterations": res.iterations,
+               "history_vs_eager_plain": hd, "true_residual": true_rel,
+               "columns_vs_single": cols, "ms_per_iteration": ms_iter,
+               "device_ms": dev_ms if prof else None, "busy_share": busy,
+               "graph_launches": runtime.get("cudaGraphLaunch", 0),
+               "launches": {k: counts[k] for k in SMOOTHER_KERNELS + SPMV_KERNELS},
+               "top_device": [[n[:80], ms, c] for n, (ms, c) in top]}
+        out["runs"].append(row)
+        log(f"{label}: {res.iterations} iterations, converged; vs eager plain "
+            f"{hd:.2e} of r0, true residual {true_rel:.2e}"
+            + ("" if cols is None else f", columns vs single runs {cols:.2e}")
+            + f"; {ms_iter:.3f} ms/iteration warm, device "
+            + (f"{dev_ms:.3f} ms, busy share {busy:.3f}" if prof else
+               "time not measured (no device events)")
+            + f"; {row['graph_launches']} cudaGraphLaunch; launches {row['launches']}")
+        for n, ms, c in row["top_device"]:
+            log(f"    {ms:9.3f} ms {c:6d}x  {n}")
+    for name, dh in (("f64", dh64), ("f32", dh32)):
+        keys = sorted({(kind, bs) for (_, kind, bs) in dh._factors})
+        out[f"factor_bytes_{name}"] = dh.factor_bytes()
+        out[f"dense_bytes_{name}"] = dense_factor_bytes(dh, keys)
+        log(f"  {name} factors {keys}: {dh.factor_bytes()} bytes on the card; "
+            f"the reference's dense [D, m, m] factors for them: "
+            f"{out[f'dense_bytes_{name}']} bytes")
+    out["launches"] = dict(out["launches"])
+    return out
+
+
+def block_refresh_phase(cfg64, bound64, b) -> dict:
+    """After ``bound64.update`` (the refresh phase): ``hybrid_gs_sym`` PCG on
+    the refreshed lowering through its graphs (captured before the update,
+    not captured again) against a fresh lowering of the refreshed host
+    hierarchy, whose factors are computed anew (≤ HIST_TOL of r0, the same
+    iterations).  A fresh host setup of the drifted matrix re-derives P
+    (the refresh phase prints its history beside the refreshed one), so
+    the lowering is what is held here."""
+    from repro_torch.amg.dist_solve import DistHierarchy, dist_pcg
+    from repro_torch.amg.solve import SolveOptions
+    from repro_torch.core import MACHINES
+
+    dh = bound64.dist_hierarchy
+    opts = SolveOptions(smoother="hybrid_gs_sym")
+    caps0 = collections.Counter(dh.programs.captures)
+    res = dist_pcg(dh, b, tol=cfg64.tol, opts=opts)
+    check(collections.Counter(dh.programs.captures) == caps0,
+          "the block-smoother graphs were captured again after the refresh")
+    t0 = time.perf_counter()
+    fresh = DistHierarchy.build(bound64.hierarchy, N_PODS, LANES,
+                                params=MACHINES[cfg64.machine],
+                                strategy=cfg64.strategy, dtype=torch.float64,
+                                device=DEVICE)
+    t_fresh = time.perf_counter() - t0
+    res_f = dist_pcg(fresh, b, tol=cfg64.tol, opts=opts)
+    hd = history_diff(res_f.residuals, res.residuals)
+    check(res.converged and res.iterations == res_f.iterations and hd <= HIST_TOL,
+          f"refreshed hybrid_gs_sym PCG {res.iterations} iterations vs a fresh "
+          f"lowering {res_f.iterations}, history diff {hd:.2e}")
+    log(f"block refresh: hybrid_gs_sym PCG on the refreshed lowering "
+        f"{res.iterations} iterations, no graph captured again; a fresh "
+        f"lowering ({t_fresh:.2f} s) {res_f.iterations} iterations, history vs "
+        f"it {hd:.2e}")
+    del fresh
+    torch.cuda.empty_cache()
+    return {"iterations": res.iterations, "fresh_lowering_s": t_fresh,
+            "history_vs_fresh_lowering": hd}
+
+
+def born_block_phase(born, b, host_iters: int) -> dict:
+    """``hybrid_gs_sym`` PCG on the (refreshed) dist-born lowering through
+    its graphs: its history against its own eager plain run (≤ HIST_TOL of
+    r0) and its iterations against the refreshed host-setup session's
+    (±1; the coarse grids differ from level 1 on)."""
+    from repro_torch.amg.dist_solve import dist_pcg
+    from repro_torch.amg.solve import SolveOptions
+
+    bound, _ = born
+    dh = bound.dist_hierarchy
+    opts = SolveOptions(smoother="hybrid_gs_sym")
+    res, counts = counted(lambda: dist_pcg(dh, b, tol=bound.config.tol, opts=opts))
+    check(res.converged and counts["tri_solve"] > 0,
+          f"dist-born hybrid_gs_sym PCG: converged {res.converged}, "
+          f"launches {counts}")
+    hd = history_diff(eager_history(dh, b, opts, "pcg", res.iterations),
+                      res.residuals)
+    check(hd <= HIST_TOL and abs(res.iterations - host_iters) <= 1,
+          f"dist-born hybrid_gs_sym PCG: {res.iterations} iterations (host "
+          f"setup {host_iters}), vs eager plain {hd:.2e}")
+    log(f"  dist-born hybrid_gs_sym PCG: {res.iterations} iterations (host-setup "
+        f"session {host_iters}), history vs eager plain {hd:.2e}, tri_solve "
+        f"launches {counts['tri_solve']}")
+    return {"iterations": res.iterations, "history_vs_eager_plain": hd,
+            "tri_solve_launches": counts["tri_solve"]}
+
+
 def launch_counters() -> dict:
     """Every kernel wrapper, by kernel name (each carries ``.launches``)."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.smoother.smoother import block_diag_apply, tri_solve
     from repro_torch.kernels.spmv.bcsr import bcsr_spmm
     from repro_torch.kernels.spmv.spmv import ell_spmm, ell_spmv
     return {"ell_spmv": ell_spmv, "ell_spmm": ell_spmm,
-            "bcsr_spmm": bcsr_spmm, "flash_attention": flash_attention}
+            "bcsr_spmm": bcsr_spmm, "block_diag_apply": block_diag_apply,
+            "tri_solve": tri_solve, "flash_attention": flash_attention}
 
 
 def counted(fn):
@@ -966,8 +1318,10 @@ def service_phase(cfg, A, rng) -> dict:
 
 
 def refresh_phase(bound, host, A, b, t_lower) -> dict:
-    """``bound.update(delta=ΔA)`` beneath the captured graphs: a refresh, no
-    graph captured again, the device tensors the same ones, the solve's
+    """``bound.update(delta=ΔA)`` beneath the captured graphs: a refresh (of
+    every lowering of the hierarchy, with the block smoothers' factors placed
+    by the earlier phases; ``scripts/time_update.py`` times a Jacobi-only
+    one), no graph captured again, the device tensors the same ones, the solve's
     history against the host session refreshed the same way (≤ 1e-7 of r0)
     and its true residual against A + ΔA; a fresh host setup on A + ΔA for
     time and solution (its history differs: it re-derives P)."""
@@ -979,6 +1333,8 @@ def refresh_phase(bound, host, A, b, t_lower) -> dict:
             for t in (v.values() if isinstance(v, dict) else (v,))]
     caps0 = collections.Counter(dh.programs.captures)
     delta = drift(A).data - A.data
+    lowerings = list(bound.hierarchy.dist_cache.values())
+    factors = sum(len(d._factors) for d in lowerings)
     t0 = time.perf_counter()
     action = bound.update(delta=delta)
     t_update = time.perf_counter() - t0
@@ -1016,9 +1372,10 @@ def refresh_phase(bound, host, A, b, t_lower) -> dict:
             "history_vs_refreshed_host": hd, "true_residual": true_rel,
             "fresh_iterations": res_f.iterations,
             "history_vs_fresh_setup": hd_fresh, "x_vs_fresh_setup": xd,
-            "lowerings_refreshed": len(bound.hierarchy.dist_cache)}
-    log(f"refresh: update(delta=) {t_update:.2f} s ({info['lowerings_refreshed']} "
-        f"lowerings) against fresh setup {t_fresh:.2f} s + lowering "
+            "lowerings_refreshed": len(lowerings),
+            "factors_refreshed": factors}
+    log(f"refresh: update(delta=) {t_update:.2f} s ({len(lowerings)} lowerings, "
+        f"{factors} placed block-smoother factors recomputed) against fresh setup {t_fresh:.2f} s + lowering "
         f"{t_lower:.2f} s; PCG {res.iterations} iterations, history vs the "
         f"refreshed host session {hd:.2e}, true residual {true_rel:.2e}, no "
         f"graph captured again; fresh setup {res_f.iterations} iterations, "
@@ -1323,7 +1680,7 @@ def audit_phase(bound, b) -> dict:
     log its capture recorded, which each replay adds, against
     ``expected_collectives``; a replayed PCG's ``comm_log`` against the sum
     of its program calls; level 0's ``A`` apply with the poisoned-halo
-    overlap check.  Then the whole V/W/F × Jacobi/Chebyshev grid over all ten
+    overlap check.  Then the whole V/W/F × five-smoother grid over all ten
     programs on ``laplace_3d(AUDIT_SIZE)``, each program captured and read
     from its replay.  Any violation fails the run."""
     from repro_torch.amg.dist_solve import DistHierarchy
@@ -1584,7 +1941,8 @@ def main() -> int:
     per = build()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in per.items()) or 'cached'})")
-    ptxas = {k: build_report(k) for k in ("flash_attention", "ell_spmm")}
+    ptxas = {k: build_report(k) for k in ("flash_attention", "ell_spmm",
+                                          *SMOOTHER_KERNELS)}
     for k, insts in ptxas.items():
         for inst, used in insts:
             log(f"  ptxas {inst}: {used}")
@@ -1626,6 +1984,8 @@ def main() -> int:
     log(f"kernels (device time per call: CUDA events, median of {SAMPLES} "
         f"bursts of {BURST} queued behind a GPU spin):")
     rows, ell_sums = kernel_phase(dh64, dh32, per_solve)
+    smoother_rows, tri_depth = smoother_kernel_phase(dh64, dh32)
+    rows.update(smoother_rows)
 
     # a BCSR apply is one launch: no pad of x before it, no slice after
     # (profiled before the warm solve's large profile below)
@@ -1700,8 +2060,15 @@ def main() -> int:
     check(res32.converged, f"f32 PCG did not converge: {res32.residuals[-3:]}")
     log(f"pcg f32 (tol 1e-5): {res32.iterations} iterations, launches {c_f32}")
 
+    # the block smoothers through the same sessions' lowerings
+    t0 = time.perf_counter()
+    block = block_smoother_phase(cfg64, A, b, B, dh64, dh32)
+    block["phase_s"] = time.perf_counter() - t0
+    log(f"block-smoother phase: {block['phase_s']:.1f} s in all")
+
     # 7. launch counts over the solve runs
     launches = {k: c_single[k] + c_multi[k] + c_f32[k] for k in SPMV_KERNELS}
+    launches.update({k: block["launches"].get(k, 0) for k in SMOOTHER_KERNELS})
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the main path")
     log(f"launches on the solve path: {launches}")
@@ -1718,9 +2085,12 @@ def main() -> int:
     # session takes the same drift and is held against the refreshed one
     service = service_phase(cfg64, A, rng)
     refresh = refresh_phase(bound64, host, A, b, t_lower64)
+    block["refresh"] = block_refresh_phase(cfg64, bound64, b)
     t0 = time.perf_counter()
     partitioned.update(partitioned_update_phase(born, bound64, A, b,
                                                 partitioned))
+    block["dist_born"] = born_block_phase(born, b,
+                                          block["refresh"]["iterations"])
     del born
     torch.cuda.empty_cache()
     partitioned["aggressive"] = aggressive_phase(cfg64)
@@ -1785,6 +2155,10 @@ def main() -> int:
             "library_ms": top["library_ms"], "card": smi,
             **({"launches_per_run": flash_runs, "bound_fma_ms": top["bound_fma_ms"],
                 "design": top["design"]} if k == "flash_attention" else
+               {"pallas": False, "tri_solve_depth": tri_depth,
+                "launches_per_run": {r["run"]: r["launches"][k]
+                                     for r in block["runs"]}}
+               if k in SMOOTHER_KERNELS else
                {"launches_per_path": {
                    "solve": launches[k],
                    "partitioned_setup": partitioned["launches"][k]
@@ -1802,6 +2176,7 @@ def main() -> int:
                                "graphs": graphs, "service": service,
                                "refresh": refresh, "audit": audit,
                                "partitioned": partitioned,
+                               "block_smoothers": block,
                                "wire": wire,
                                "bcsr_apply_device_kernels": bcsr_apply,
                                "ell_spmv_launches_per_solve": per_solve["ell_spmv"],

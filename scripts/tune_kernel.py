@@ -2,7 +2,8 @@
 one card.
 
 Builds the kernel's source (``--kernel ell_spmv``, the default,
-``ell_spmm`` or ``flash_attention``; ``repro_torch.kernels.build``) and each
+``ell_spmm``, ``flash_attention`` or ``tri_solve``;
+``repro_torch.kernels.build``) and each
 source SRC given (same C interface, e.g. an earlier commit's source or an
 edited copy; named by its file stem) into ``build/tune_<kernel>/``, one
 ``nvcc -Xptxas -v`` each, all at once, and prints each build's register and
@@ -26,7 +27,12 @@ kernel, ...SRC; each version reports the mean of its two times.  The cases:
   14 / 2 heads) in float32 and bfloat16; ``scaled_dot_product_attention``
   and the flop bound (float32: 3xTF32 on the tensor cores, with the FMA
   units' bound beside it); then float32 with large scores (q x 8, k + 50)
-  against a float64 truth, beside the float32 plain version's error.
+  against a float64 truth, beside the float32 plain version's error;
+- ``tri_solve``: both triangles of every non-coarsest level of the f64
+  lowering of ``laplace_3d(SIZE)`` over 2 x 4 ranks (its own factors and
+  level order), k = 1 and 8, and level 0 in float32; each with its DAG
+  depth, ``torch.triangular_solve`` on a sparse CSR operand (cuSPARSE) and
+  the byte bound.
 
 Run from the root of a checkout, on a machine with a card::
 
@@ -285,10 +291,77 @@ def flash_large_scores(fns) -> list:
     return rows
 
 
+def tri_cases(cs, fns, order, size: int) -> list:
+    """Both triangles of every non-coarsest level, k = 1 and K_RHS, in f64,
+    and level 0 in f32, on the lowering's own factors."""
+    from repro_torch.amg import AMGConfig, AMGSolver
+    from repro_torch.amg.problems import laplace_3d
+    from repro_torch.kernels.smoother.ref import tri_solve_ref
+
+    A = laplace_3d(size)
+    rng = np.random.default_rng(0)
+    rows = []
+    for dtype in ("float64", "float32"):
+        dh = AMGSolver(AMGConfig(backend="torch", n_pods=2, lanes=4, dtype=dtype,
+                                 device="cuda")).setup(A).dist_hierarchy
+        for l, dl in enumerate(dh.levels):
+            if dl.coarse_inv is not None or (dtype == "float32" and l > 0):
+                continue
+            for kind in ("gs", "gsu"):
+                f = dh._factor(l, kind, 0)
+                D, m, K = f.cols.shape
+                dt, s = f.vals.dtype, f.vals.element_size()
+                nnz = int((f.cols >= 0).sum())
+                for k in (1, cs.K_RHS):
+                    ext = (k,) if k > 1 else ()
+                    r, x = (torch.as_tensor(rng.standard_normal((D, m) + ext),
+                                            dtype=dt, device="cuda") for _ in range(2))
+                    want = tri_solve_ref(f.cols, f.vals, f.diag, r, x, 1.0, f.schedule())
+                    scale = float(want.abs().max()) or 1.0
+                    library, lib_name = cs.tri_library(f, r)
+                    row = {"level": l, "triangle": kind, "dtype": dtype, "k": k,
+                           "shape": [D, m, K], "depth": f.depth(),
+                           "bound_ms": (nnz * (4 + s) + D * m * s + 3 * D * m * k * s)
+                           / cs.HBM_BYTES_PER_S * 1e3,
+                           "library": lib_name,
+                           "library_ms": None if library is None
+                           else cs.time_ms(library)[0]}
+                    y, z = torch.empty_like(x), torch.empty_like(r)
+                    scratch = torch.empty(2 + D * m, dtype=torch.int32, device="cuda")
+                    stream = torch.cuda.current_stream().cuda_stream
+
+                    def call(fn):
+                        rc = fn(f.cols.data_ptr(), f.vals.data_ptr(), f.diag.data_ptr(),
+                                r.data_ptr(), x.data_ptr(), f.order.data_ptr(),
+                                z.data_ptr(), y.data_ptr(), scratch.data_ptr(), D, m, K,
+                                k, 1.0, int(dt == torch.float64), stream)
+                        assert rc == 0, rc
+
+                    def error(fn):
+                        y.fill_(float("nan"))
+                        call(fn)
+                        torch.cuda.synchronize()
+                        return float((y - want).abs().max()) / scale
+
+                    hold(cs, fns, order, row, call, error, cs.RTOL[dt])
+                    lib = ("none" if row["library_ms"] is None
+                           else f"{row['library_ms']:.4f} ms")
+                    print(f"L{l} {kind} {dtype} [{D}, {m}, {K}] k {k} depth "
+                          f"{row['depth']}: bound {row['bound_ms']:.4f} ms, "
+                          f"cuSPARSE {lib}; "
+                          + ", ".join(f"{v} {row[f'{v}_ms']:.4f}"
+                                      for v in dict.fromkeys(order)), flush=True)
+                    rows.append(row)
+        del dh
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=64)
-    ap.add_argument("--kernel", choices=("ell_spmv", "ell_spmm", "flash_attention"),
+    ap.add_argument("--kernel", choices=("ell_spmv", "ell_spmm", "flash_attention",
+                                         "tri_solve"),
                     default="ell_spmv")
     ap.add_argument("sources", nargs="+", metavar="SRC",
                     help="other sources of the kernel to hold it against")
@@ -318,6 +391,8 @@ def main() -> int:
     sums = {}
     if args.kernel == "flash_attention":
         rows = flash_cases(cs, fns, order) + flash_large_scores(fns)
+    elif args.kernel == "tri_solve":
+        rows = tri_cases(cs, fns, order, args.size)
     else:
         rows, sums = ell_cases(cs, fns, order, args.kernel, args.size)
     if args.out:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..csr import CSR
+from ..dist_solve import FactorPatternChanged
 from ..hierarchy import (Hierarchy, refresh_values as _hierarchy_refresh,
                          setup as _hierarchy_setup)
 from ..solve import (MultiSolveResult, SolveOptions, host_pcg, host_solve,
@@ -407,8 +408,9 @@ class BoundSolver:
         new values are lowered onto the frozen layouts, so compiled
         programs (captured graphs on the card) are reused.  When the
         config's :class:`~repro_torch.amg.api.config.RefreshPolicy` says
-        convergence has regressed past the post-setup baseline, the update
-        escalates to a full re-setup.  Returns the action taken
+        convergence has regressed past the post-setup baseline, or a block
+        smoother's placed factor changed its pattern, the update escalates
+        to a full re-setup.  Returns the action taken
         (``"refresh"`` | ``"resetup"``).  A changed sparsity pattern raises
         :class:`~repro_torch.amg.api.config.PatternMismatch`."""
         if self._fine is None:
@@ -437,7 +439,15 @@ class BoundSolver:
             self.last_iterations = None
         else:
             action, reason = "refresh", "drift"
-            self._refresh(A_new)
+            try:
+                self._refresh(A_new)
+            except FactorPatternChanged:
+                # a block smoother's placed triangle cannot take the new
+                # values in place
+                action, reason = "resetup", "pattern"
+                self._resetup(A_new)
+                self.baseline_iterations = None
+                self.last_iterations = None
         self.last_update_reason = reason
         if self._store is not None:
             self._store.note_update(action, reason)

@@ -25,9 +25,19 @@ pseudo-inverse with ``torch.matmul``.  The drivers run them through
 call is one replay of a captured CUDA graph over static buffers.  Only the
 convergence check touches the host: one residual norm per outer iteration.
 
+The block smoothers (``block_jacobi``, ``hybrid_gs``, ``hybrid_gs_sym``)
+apply ``x + w·M⁻¹(b − A x)`` on the halo'd residual as the reference does,
+but where the reference lowers ``M⁻¹`` to a dense ``[D, m, m]`` factor
+(``DistLevel.smoother_minv``) the port keeps it sparse
+(:meth:`DistLevel.smoother_factor`): the bs×bs block inverses, or each
+rank's lower / upper triangle of its local square block, applied by the
+``block_diag_apply`` and ``tri_solve`` kernels
+(:mod:`repro_torch.kernels.smoother`).
+
 :meth:`DistHierarchy.refresh_values` takes a value-only update beneath the
 captured graphs: every value plane is copied into the tensor already in
-place, and only the Chebyshev programs, which bake ρ in, are captured anew.
+place (the block smoothers' factors too), and only the Chebyshev programs,
+which bake ρ in, are captured anew.
 """
 from __future__ import annotations
 
@@ -46,10 +56,13 @@ from ..core.perf_model import (TPU_V5E, MachineParams, overlap_efficiency,
 from ..core.selector import select
 from ..core.topology import Partition, Topology
 from ..device import resolve_device
+from ..kernels.smoother.ops import place_factor
 from ..kernels.spmv.ops import select_dist_kernel
+from .csr import CSR
 from .dist import rect_vector_graph, schedule_comm_stats
 from .dist_spmv import (DistOperator, build_dist_operator,
-                        build_dist_operator_from_blocks, copy_into)
+                        build_dist_operator_from_blocks, copy_into,
+                        local_square_block)
 from .hierarchy import Hierarchy
 from .interpolation import estimate_rho_DinvA
 from .programs import ProgramCache
@@ -80,6 +93,137 @@ class DistLevel:
     comm_stats: dict[str, dict] = dataclasses.field(default_factory=dict)
     # on/off-process split of A (nnz counts, modeled t_on/t_off/t_comm)
     onoff: dict = dataclasses.field(default_factory=dict)
+    # (A, row partition, rank count) the block smoothers' factors are cut
+    # from (None on the coarsest level, which never smooths)
+    local_src: tuple | None = None
+    _local_A: list | None = dataclasses.field(default=None, repr=False)
+    _factor_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def local_A(self) -> list[CSR]:
+        """Per-rank diagonal square blocks of A (local column ids), the
+        reference's ``local_A``; cut on first use, so a level no block
+        smoother reads never pays for them."""
+        if self._local_A is None:
+            assert self.local_src is not None, "no local blocks on this level"
+            self._local_A = _local_blocks(*self.local_src)
+        return self._local_A
+
+    def set_source(self, A, part: Partition, D: int,
+                   local_A: list | None = None,
+                   factors: dict | None = None) -> None:
+        """Point the level's smoother factors at ``A`` (a refresh): the
+        cached blocks and factors are dropped, or replaced by ``local_A``
+        and ``factors`` ((kind, block size) -> host factor) already cut
+        from it."""
+        self.local_src = (A, part, D)
+        self._local_A = local_A
+        self._factor_cache = dict(factors or {})
+
+    def smoother_factor(self, kind: str, block_size: int = 0) -> dict:
+        """The sparse smoother factor of ``kind`` on the host (numpy; the
+        counterpart of the reference's dense ``smoother_minv``, cached the
+        same way).
+
+        ``kind="bj"``: ``binv`` ``[D, nb, bs, bs]``, the inverses of the
+        ``block_size`` diagonal blocks of each rank's local block (the grid
+        restarting at the rank's first row; padded rows an identity block).
+        ``kind="gs"`` / ``"gsu"``: the local (D + L) / (D + U) factor, its
+        strict triangle in ELL (``cols`` int32 / ``vals`` ``[D, m, K]``,
+        columns ascending, -1 padding) and its diagonal ``diag`` ``[D, m]``.
+        Zero or padded diagonals become 1 in every kind, as in the
+        reference.
+        """
+        key = (kind, block_size)
+        got = self._factor_cache.get(key)
+        if got is None:
+            got = _host_factor(self.local_A, self.A.rows_local, kind,
+                               block_size)
+            self._factor_cache[key] = got
+        return got
+
+
+class FactorPatternChanged(ValueError):
+    """A refreshed smoother factor's pattern differs from the one placed
+    (and captured): its values cannot be copied in place."""
+
+
+def _local_blocks(A, part: Partition, D: int) -> list[CSR]:
+    return [local_square_block(A, part, q) for q in range(D)]
+
+
+def _host_factor(blocks: list[CSR], m: int, kind: str,
+                 block_size: int) -> dict:
+    """The host factor of ``kind`` over the rank blocks ``blocks``."""
+    if kind == "bj":
+        return {"kind": kind, "binv": _block_inverses(blocks, m, block_size)}
+    if kind in ("gs", "gsu"):
+        return {"kind": kind, "upper": kind == "gsu",
+                **_triangle(blocks, m, upper=kind == "gsu")}
+    raise ValueError(f"unknown smoother factor kind {kind!r}")
+
+
+def _block_inverses(blocks: list[CSR], m: int, bs: int) -> np.ndarray:
+    """``[D, ceil(m / bs), bs, bs]`` inverses of each rank's bs×bs diagonal
+    blocks (float64); a zero diagonal (padded rows, rows past ``m`` in the
+    last block) becomes 1."""
+    nb = -(-m // bs)
+    dense = np.zeros((len(blocks), nb, bs, bs))
+    for d, blk in enumerate(blocks):
+        r, c = blk.rows_expanded(), blk.indices
+        same = r // bs == c // bs
+        r, c = r[same], c[same]
+        dense[d, r // bs, r % bs, c % bs] = blk.data[same]
+    ii = np.arange(bs)
+    diag = dense[..., ii, ii]
+    dense[..., ii, ii] = np.where(diag == 0, 1.0, diag)
+    return np.linalg.inv(dense)
+
+
+def _triangle(blocks: list[CSR], m: int, upper: bool) -> dict:
+    """Each rank's strict lower (upper) triangle as rank-stacked ELL, its
+    columns ascending within a row, and its diagonal (1 where it is 0 or
+    the row is padding)."""
+    D = len(blocks)
+    diag = np.ones((D, m))
+    parts = []
+    for d, blk in enumerate(blocks):
+        r, c, v = blk.rows_expanded(), blk.indices, blk.data
+        on = r == c
+        diag[d, r[on]] = np.where(v[on] == 0, 1.0, v[on])
+        keep = c > r if upper else c < r
+        parts.append((r[keep], c[keep], v[keep]))
+    K = max((int(np.bincount(r).max(initial=0)) for r, _, _ in parts),
+            default=0)
+    cols = np.full((D, m, K), -1, dtype=np.int32)
+    vals = np.zeros((D, m, K))
+    for d, (r, c, v) in enumerate(parts):
+        # CSR order: rows ascending, columns ascending within a row
+        start = np.searchsorted(r, r, side="left")
+        slot = np.arange(r.size) - start
+        cols[d, r, slot] = c
+        vals[d, r, slot] = v
+    return {"cols": cols, "vals": vals, "diag": diag}
+
+
+# the sparse factors each block smoother applies: run-array name -> kind
+_FACTOR_ARRS = {"bj": (("minv", "bj"),),
+                "gs": (("minv", "gs"),),
+                "gs_sym": (("minv", "gs"), ("minv_u", "gsu"))}
+
+
+def smoother_arrays_key(opts) -> tuple | None:
+    """Key of the factors ``opts``'s smoother reads (the reference's
+    ``_smoother_arrs_key``; a key of :data:`_FACTOR_ARRS` and a block
+    size): ``None`` for Jacobi and Chebyshev, which run on the base arrays;
+    ``block_size`` counts for block-Jacobi only."""
+    if opts.smoother == "block_jacobi":
+        return ("bj", opts.block_size)
+    if opts.smoother == "hybrid_gs":
+        return ("gs", 0)
+    if opts.smoother == "hybrid_gs_sym":
+        return ("gs_sym", 0)
+    return None
 
 
 def _rank_dinv(A, part: Partition, D: int) -> np.ndarray:
@@ -145,6 +289,11 @@ class DistHierarchy:
         # level arrays, moved to the device once at build time; a refresh
         # copies into these tensors, never rebinds them
         self._arrs = [self._level_arrays(lv) for lv in levels]
+        # the block smoothers' device factors by (level, kind, block size),
+        # placed on first use and shared by every option set that reads
+        # them; the per-level run arrays of each smoother key
+        self._factors: dict[tuple, object] = {}
+        self._arrs_ex: dict[tuple, list[dict]] = {}
         # the stream each split apply's halo exchange runs on (card only)
         self._side = (torch.cuda.Stream(device) if device.type == "cuda"
                       else None)
@@ -317,6 +466,7 @@ class DistHierarchy:
                 dl.modeled.update(interp=tP, restrict=tR)
                 dl.comm_stats["interp"] = schedule_comm_stats(gP, sP)
                 dl.comm_stats["restrict"] = schedule_comm_stats(gR, sR)
+                dl.set_source(lv.A, part, D)
             else:
                 if lv.P is not None:
                     raise ValueError(
@@ -348,13 +498,19 @@ class DistHierarchy:
 
     @property
     def nbytes(self) -> int:
-        """Device bytes this lowering holds: its level tensors, the
-        programs' state buffers and the captured graphs' memory pool."""
+        """Device bytes this lowering holds: its level tensors, the block
+        smoothers' factors placed so far, the programs' state buffers and
+        the captured graphs' memory pool."""
         levels = sum(t.numel() * t.element_size()
                      for a in self._arrs for v in a.values()
                      for t in (v.values() if isinstance(v, dict) else (v,)))
-        return int(levels + self.programs.state_bytes()
+        return int(levels + self.factor_bytes() + self.programs.state_bytes()
                    + self.programs.pool_bytes())
+
+    def factor_bytes(self) -> int:
+        """Device bytes of the block smoothers' factors placed so far."""
+        return sum(t.numel() * t.element_size()
+                   for f in self._factors.values() for t in f.tensors())
 
     # ----------------------------------------------------- streaming refresh
     def refresh_values(self, src_levels) -> None:
@@ -371,7 +527,12 @@ class DistHierarchy:
         into the device tensors already in place, so captured graphs read
         the new values on their next replay.  The Chebyshev programs bake
         ``chebyshev_coeffs(rho)`` in as constants and are dropped, as the
-        reference drops its Chebyshev programs; the Jacobi ones stay.
+        reference drops its Chebyshev programs; the Jacobi ones and the
+        block smoothers' stay, the factors placed so far recomputed on the
+        host and copied into the placed tensors (the reference's
+        ``_arrs_ex`` refresh, dist_solve.py:470-500).  A triangle whose
+        pattern moved raises :class:`FactorPatternChanged` before anything
+        is copied; the session escalates to a re-setup.
         """
         def block_of(M):
             blocks = getattr(M, "blocks", None)
@@ -380,8 +541,25 @@ class DistHierarchy:
             return lambda d: M
 
         D = self.n_pods * self.lanes
+        src_levels = list(src_levels)
         with self.lock:
-            for lv, dl in zip(src_levels, self.levels):
+            # the placed factors' new values, cut before anything changes
+            # (only levels with a placed factor cut their local blocks): a
+            # triangle whose pattern moved cannot be copied in place
+            blocks: dict[int, list] = {}
+            fresh: dict[int, dict] = {}
+            for (l, kind, bs), f in self._factors.items():
+                dl = self.levels[l]
+                if l not in blocks:
+                    blocks[l] = _local_blocks(src_levels[l].A,
+                                              dl.A.row_part, D)
+                host = _host_factor(blocks[l], dl.A.rows_local, kind, bs)
+                if "cols" in host and not np.array_equal(host["cols"],
+                                                         f.host_cols):
+                    raise FactorPatternChanged(
+                        f"level {l}'s {kind} triangle changed its pattern")
+                fresh.setdefault(l, {})[(kind, bs)] = host
+            for l, (lv, dl) in enumerate(zip(src_levels, self.levels)):
                 part = dl.A.row_part
                 dl.A.refresh_values(block_of(lv.A))
                 dl.dinv = _rank_dinv(lv.A, part, D)
@@ -389,6 +567,7 @@ class DistHierarchy:
                     dl.P.refresh_values(block_of(lv.P))
                     dl.R.refresh_values(block_of(lv.R))
                     dl.rho = estimate_rho_DinvA(lv.A)
+                    dl.set_source(lv.A, part, D, blocks.get(l), fresh.get(l))
                 else:
                     dl.coarse_inv = _rank_pinv(lv.A, part, D)
             for dl, a in zip(self.levels, self._arrs):
@@ -399,6 +578,10 @@ class DistHierarchy:
                     dl.R.copy_values(a["R"], self.dtype)
                 if dl.coarse_inv is not None:
                     copy_into(a["cinv"], dl.coarse_inv, self.dtype, "cinv")
+            for (l, kind, bs), f in self._factors.items():
+                host = fresh[l][(kind, bs)]
+                for name in f.VALUES:
+                    copy_into(getattr(f, name), host[name], self.dtype, name)
             self.programs.drop(lambda key: key.smoother == "chebyshev")
 
     # ----------------------------------------------------------- host layout
@@ -429,6 +612,43 @@ class DistHierarchy:
             a["cinv"] = torch.as_tensor(dl.coarse_inv).to(device=dev, dtype=dt)
         return a
 
+    def _factor(self, level: int, kind: str, block_size: int):
+        """The device factor of ``kind`` at ``level``, placed on first use."""
+        key = (level, kind, block_size)
+        f = self._factors.get(key)
+        if f is None:
+            f = place_factor(self.levels[level].smoother_factor(kind, block_size),
+                             self.device, self.dtype)
+            self._factors[key] = f
+        return f
+
+    smoother_arrays_key = staticmethod(smoother_arrays_key)
+
+    def run_arrays(self, opts) -> list[dict]:
+        """Per-level device arrays for one option set (the reference's
+        ``run_arrays``).
+
+        Jacobi and Chebyshev run on the base arrays; a block smoother's are
+        the base dicts extended with its sparse factors (``minv``, and
+        ``minv_u`` for the backward half-sweep), each placed once per
+        (level, kind, block size) and shared by reference across option
+        sets, as the base tensors are.
+        """
+        key = smoother_arrays_key(opts)
+        if key is None:
+            return self._arrs
+        got = self._arrs_ex.get(key)
+        if got is None:
+            got = []
+            for l, (dl, base) in enumerate(zip(self.levels, self._arrs)):
+                a = dict(base)
+                if dl.coarse_inv is None:
+                    for name, kind in _FACTOR_ARRS[key[0]]:
+                        a[name] = self._factor(l, kind, key[1])
+                got.append(a)
+            self._arrs_ex[key] = got
+        return got
+
     def _spmv(self, op: DistOperator, arrs: dict, x: torch.Tensor):
         return op.apply(arrs, x, use_kernel=self.use_kernel,
                         overlap=self.overlap, log=self.comm_log,
@@ -454,18 +674,32 @@ class DistHierarchy:
             for _ in range(sweeps):
                 x = x + opts.omega * dinv * (b - self._spmv(dl.A, aA, x))
             return x
-        if opts.smoother == "chebyshev":
-            # the recurrence shared with the host backend, its matvec swapped
-            # for the level's distributed SpMV
-            degree = opts.cheby_degree * sweeps
-            theta, delta, sigma = chebyshev_coeffs(dl.rho)
-            return chebyshev_recurrence(
-                lambda v: self._spmv(dl.A, aA, v), dinv, x, b, degree,
-                theta, delta, sigma)
-        raise NotImplementedError(
-            f"smoother {opts.smoother!r} is not ported yet: the block "
-            f"smoothers need per-rank dense [D, m, m] factors (ROADMAP, "
-            f"port queue: block smoothers)")
+        if opts.smoother in ("block_jacobi", "hybrid_gs"):
+            # x += w · M⁻¹ (b − A x): the halo'd residual carries every
+            # off-rank coupling, the local factor does the rest
+            minv = arrs["minv"]
+            w = opts.omega if opts.smoother == "block_jacobi" else 1.0
+            for _ in range(sweeps):
+                x = minv.apply(b - self._spmv(dl.A, aA, x), x, w,
+                               self.use_kernel)
+            return x
+        if opts.smoother == "hybrid_gs_sym":
+            # forward (D+L)⁻¹ then backward (D+U)⁻¹ half-sweep, each on a
+            # freshly halo'd residual: 2 SpMVs a sweep
+            minv, minv_u = arrs["minv"], arrs["minv_u"]
+            for _ in range(sweeps):
+                x = minv.apply(b - self._spmv(dl.A, aA, x), x, 1.0,
+                               self.use_kernel)
+                x = minv_u.apply(b - self._spmv(dl.A, aA, x), x, 1.0,
+                                 self.use_kernel)
+            return x
+        # Chebyshev: the recurrence shared with the host backend, its matvec
+        # swapped for the level's distributed SpMV
+        degree = opts.cheby_degree * sweeps
+        theta, delta, sigma = chebyshev_coeffs(dl.rho)
+        return chebyshev_recurrence(
+            lambda v: self._spmv(dl.A, aA, v), dinv, x, b, degree,
+            theta, delta, sigma)
 
     def _cycle_dev(self, b, x, opts, level: int = 0,
                    shape: str | None = None):
@@ -474,7 +708,7 @@ class DistHierarchy:
         :data:`~repro_torch.amg.solve.CYCLE_CHILDREN` recurse in Python."""
         shape = shape or opts.cycle
         dl = self.levels[level]
-        a = self._arrs[level]
+        a = self.run_arrays(opts)[level]
         if dl.coarse_inv is not None:                 # coarsest: direct solve
             full = hier_all_gather(b, self.n_pods, self.lanes,
                                    log=self.comm_log)  # [D, D*rows_local(,k)]

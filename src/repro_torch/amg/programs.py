@@ -67,9 +67,11 @@ _CAPTURE_LOCK = threading.Lock()
 
 class ProgramKey(NamedTuple):
     """What a captured program bakes in: the reference's options key
-    (dist_solve.py:663-665; the block smoothers' arrays key has no
-    counterpart, they are not ported), the RHS width (``None`` for the
-    single-RHS programs), the dtype and the apply knobs the body reads."""
+    (dist_solve.py:663-665) with its smoother-arrays key (the factors a
+    block smoother reads, ``dist_solve.smoother_arrays_key``: block-Jacobi's
+    ``block_size`` counts, the other smoothers ignore it), the RHS width
+    (``None`` for the single-RHS programs), the dtype and the apply knobs
+    the body reads."""
 
     name: str
     cycle: str
@@ -78,6 +80,7 @@ class ProgramKey(NamedTuple):
     postsweeps: int
     omega: float
     cheby_degree: int
+    smoother_arrays: tuple | None
     k: int | None
     dtype: torch.dtype
     overlap: bool
@@ -173,9 +176,9 @@ class ProgramCache:
                              f"single-RHS ones none, got k={k}")
         dh = self.dh
         return ProgramKey(name, opts.cycle, opts.smoother, opts.presweeps,
-                          opts.postsweeps, opts.omega, opts.cheby_degree, k,
-                          dh.dtype, dh.overlap, dh.use_kernel,
-                          dh.reduce_strategy)
+                          opts.postsweeps, opts.omega, opts.cheby_degree,
+                          dh.smoother_arrays_key(opts), k, dh.dtype, dh.overlap,
+                          dh.use_kernel, dh.reduce_strategy)
 
     def state(self, k: int | None) -> dict[str, torch.Tensor]:
         """The state buffers of width ``k`` (allocated on first use)."""
@@ -212,6 +215,7 @@ class ProgramCache:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         self.state(prog.key.k)          # allocated outside the graph's pool
+        self.dh.run_arrays(prog.opts)   # a block smoother's factors, likewise
         graph = torch.cuda.CUDAGraph()
         with _CAPTURE_LOCK:
             prog.capture(graph,

@@ -3,7 +3,7 @@
 lint, and exit 1 on any violation.
 
 The audit lowers a small Laplace hierarchy onto a (pods × lanes) rank grid
-on the card and audits every solve program — V/W/F × Jacobi/Chebyshev, the
+on the card and audits every solve program — V/W/F × the five smoothers, the
 single-RHS programs and their ``*_m`` twins, each captured as a CUDA graph
 and read from its replay — plus every per-level operator apply with the
 poisoned-halo overlap check, and the setup-phase SpGEMM exchanges of two

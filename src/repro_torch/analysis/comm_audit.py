@@ -41,14 +41,14 @@ from collections import Counter
 import torch
 
 from ..amg.programs import PROGRAMS
-from ..amg.solve import CYCLES, SolveOptions
+from ..amg.solve import CYCLES, SMOOTHERS, SolveOptions
 from .log_walk import check_overlap_independence, collect_collectives
 from .records import AuditViolation, CommAudit
 
 #: the ten programs of one hierarchy (single-RHS + ``*_m``)
 PROGRAM_NAMES = PROGRAMS
-#: the smoothers the port runs (the block smoothers are not ported)
-PORTED_SMOOTHERS = ("jacobi", "chebyshev")
+#: the smoothers the port runs: all five of the reference's
+PORTED_SMOOTHERS = SMOOTHERS
 
 
 def _counts(records) -> dict[str, int]:
@@ -291,7 +291,8 @@ def audit_hierarchy(dh, *, pairs=None, programs=PROGRAM_NAMES, k: int = 2,
     """The whole sweep over one lowered hierarchy.
 
     * every program in ``programs`` for every (cycle, smoother) pair in
-      ``pairs`` (default: V/W/F × Jacobi/Chebyshev), ``*_m`` twins at width
+      ``pairs`` (default: V/W/F × the five smoothers, the reference's 15
+      pairs), ``*_m`` twins at width
       ``k`` — on the card each a captured graph's replay,
     * every per-level operator apply (exact ordered strategy signature +
       overlap independence),

@@ -35,6 +35,14 @@ KERNELS = {
     # bcols, bvals, x, y; D, mb, Kb, m, bs, k, rows; f64, stream
     "bcsr_spmm": ("spmv/csrc/bcsr_spmm.cu", "bcsr_spmm_launch",
                   [_P, _P, _P, _P] + [_I64] * 7 + [_INT, _P]),
+    # binv, r, x, y; D, m, nb, bs, k; w, f64, stream
+    "block_diag_apply": ("smoother/csrc/block_diag_apply.cu",
+                         "block_diag_apply_launch",
+                         [_P, _P, _P, _P] + [_I64] * 5
+                         + [ctypes.c_double, _INT, _P]),
+    # cols, vals, diag, r, x, order, z, y, scratch; D, m, K, k; w, f64, stream
+    "tri_solve": ("smoother/csrc/tri_solve.cu", "tri_solve_launch",
+                  [_P] * 9 + [_I64] * 4 + [ctypes.c_double, _INT, _P]),
     # q, k, v, o; B, Hq, Hkv, Sq, Skv, D; (b, h, s) strides of q, k, v, o;
     # causal, window (-1: none), bf16, stream
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",

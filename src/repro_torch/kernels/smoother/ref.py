@@ -1,0 +1,96 @@
+"""Plain PyTorch versions of the two block-smoother kernels.
+
+Each takes the rank-stacked operands of the distributed solve (a leading
+rank dim D) and computes what one launch of the matching CUDA kernel
+computes, so the CPU tests and ``chip_smoke.py`` hold the kernels against
+them.  They stand for the reference's dense ``minv @ r``
+(``repro/amg/dist_solve.py``, ``DistHierarchy._relax``); summation order
+may differ from the kernels.
+
+The triangular solve runs level by level over the triangle's dependency
+DAG: :func:`dag_levels` gives every row its level set on the host,
+:func:`level_order` every rank's rows sorted by level set as flat
+``d·m + i`` indices (the order the kernel hands rows out in),
+:func:`level_schedule` the rows of each set, and :func:`tri_solve_ref`
+solves one set per step, vectorised over ranks.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def block_diag_apply_ref(binv: torch.Tensor, r: torch.Tensor,
+                         x: torch.Tensor, w: float) -> torch.Tensor:
+    """``x + w · Binv r`` with ``Binv`` ``[D, nb, bs, bs]`` the inverses of
+    each rank's bs-row diagonal blocks (the grid restarting at the rank's
+    first row); ``r``, ``x`` ``[D, m]`` or ``[D, m, k]``."""
+    D, nb, bs, _ = binv.shape
+    m = r.shape[1]
+    rk = r if r.ndim == 3 else r[..., None]
+    pad = nb * bs - m
+    if pad:
+        rk = torch.nn.functional.pad(rk, (0, 0, 0, pad))
+    rb = rk.reshape(D, nb, 1, bs, -1)                    # [D, nb, 1, bs, k]
+    z = (binv[..., None] * rb).sum(dim=3)                # [D, nb, bs, k]
+    z = z.reshape(D, nb * bs, -1)[:, :m]
+    return x + w * (z if r.ndim == 3 else z[..., 0])
+
+
+def dag_levels(cols: np.ndarray, upper: bool) -> np.ndarray:
+    """Level set of every row of each rank's strict triangle ``cols``
+    ``[D, m, K]`` (-1 padding): 0 for a row with no dependency, else one
+    more than its deepest dependency's.  Rows are visited in dependency
+    order (ascending for the lower triangle, descending for the upper),
+    all ranks at once."""
+    cols = np.asarray(cols)
+    D, m, K = cols.shape
+    lev = np.zeros((D, m + 1), dtype=np.int64)         # column m: padding
+    lev[:, m] = -1
+    idx = np.where(cols >= 0, cols, m)
+    ranks = np.arange(D)[:, None]
+    for i in (range(m - 1, -1, -1) if upper else range(m)):
+        if K:
+            lev[:, i] = lev[ranks, idx[:, i]].max(axis=1) + 1
+    return lev[:, :m]
+
+
+def level_order(levels: np.ndarray) -> np.ndarray:
+    """Every rank's rows (flat ``d·m + i``) sorted by level set, rows of one
+    set in flat order: each row comes after every row it depends on."""
+    return np.argsort(np.asarray(levels).reshape(-1), kind="stable")
+
+
+def level_schedule(cols: np.ndarray, upper: bool, device=None,
+                   levels: np.ndarray | None = None) -> list[torch.Tensor]:
+    """The rows of each level set in order, as flat ``d·m + i`` indices on
+    ``device``: the plain solve's steps, one a level (``levels``, where
+    given, are :func:`dag_levels` of ``cols`` already)."""
+    lev = (dag_levels(cols, upper) if levels is None
+           else np.asarray(levels)).reshape(-1)
+    counts = np.bincount(lev)
+    return [torch.as_tensor(part, device=device)
+            for part in np.split(level_order(lev), np.cumsum(counts)[:-1])]
+
+
+def tri_solve_ref(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
+                  r: torch.Tensor, x: torch.Tensor, w: float,
+                  schedule: list[torch.Tensor]) -> torch.Tensor:
+    """``x + w · T⁻¹ r`` with ``T`` each rank's strict triangle
+    (``cols``/``vals`` ``[D, m, K]``, -1 padding) plus ``diag`` ``[D, m]``;
+    ``r``, ``x`` ``[D, m]`` or ``[D, m, k]``; ``schedule`` the level sets
+    of :func:`level_schedule`."""
+    D, m, K = cols.shape
+    R = r.reshape(D * m, -1)
+    z = torch.zeros_like(R)
+    keep = (cols >= 0).reshape(D * m, K)
+    offs = (torch.arange(D, device=cols.device) * m).reshape(D, 1, 1)
+    fc = torch.where(cols >= 0, cols.long() + offs, 0).reshape(D * m, K)
+    fv = vals.reshape(D * m, K)
+    dg = diag.reshape(D * m, 1)
+    for rows in schedule:
+        g = z[fc[rows]]                                   # [n, K, k]
+        s = torch.where(keep[rows][..., None], fv[rows][..., None] * g,
+                        0.0).sum(dim=1)
+        z[rows] = (R[rows] - s) / dg[rows]
+    return x + w * z.reshape(r.shape)

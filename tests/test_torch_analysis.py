@@ -3,7 +3,7 @@ reference suite's ``tests/test_analysis.py``.
 
 The audit: golden ``hier_psum`` / ``hier_all_gather`` logs at 1×1 and 2×4,
 the halo tables against operators, a clean audit over the whole V/W/F ×
-Jacobi/Chebyshev grid on 2×4, the two injected regressions (a flat psum, a
+five-smoother grid on 2×4 (the reference's 15 pairs), the two injected regressions (a flat psum, a
 collective on an empty-halo level), the poisoned-halo overlap check with a
 serial counter-example, and a report round-trip.  The lint: each rule on bad
 and sanctioned sources, and ``src/repro_torch`` clean.
@@ -34,7 +34,8 @@ import pytest
 
 N_PODS, LANES = 2, 4
 CYCLES = ("V", "W", "F")
-SMOOTHERS = ("jacobi", "chebyshev")
+SMOOTHERS = ("jacobi", "chebyshev", "block_jacobi", "hybrid_gs",
+             "hybrid_gs_sym")
 PAIRS = [(c, s) for c in CYCLES for s in SMOOTHERS]
 PROGRAMS = ("resid_norm", "cycle", "vcycle", "pcg_init", "pcg_step",
             "resid_norm_m", "cycle_m", "vcycle_m", "pcg_init_m", "pcg_step_m")
@@ -191,7 +192,7 @@ def test_program_audits_clean_1x1(dh11):
 
 
 def test_full_grid_audit_clean_2x4(dh24):
-    """The whole sweep on 2×4: every program × V/W/F × Jacobi/Chebyshev,
+    """The whole sweep on 2×4: every program × V/W/F × the five smoothers,
     every apply (with the poisoned-halo check), the modeled counters."""
     audits, violations = audit_hierarchy(dh24)
     assert violations == [], [str(v) for v in violations]

@@ -5,7 +5,13 @@ SpMV and SpMM at every row length and fill the AMG path has (the SpMM at
 counts that fill no whole block, ranks shorter than a block, operands that
 are not 16-byte aligned, rows of up to 20,001 slots and of 2^24 + 1; BCSR
 sources that are not a multiple of the block size and results cut to the
-true rows, one launch per BCSR apply; degenerate shapes; flash attention
+true rows, one launch per BCSR apply (counted from a captured graph's
+nodes); the block smoothers' block-diagonal apply (block sizes 1-8, rows
+that fill no whole block, 1-33 right-hand sides) and sync-free triangular
+solve (both triangles, rows longer than a warp, a chain as deep as the
+rows, bit-equal run to run, one memset node and one kernel node in a graph
+that replays correctly with new values) and the block-smoother PCG on the
+card against the CPU; degenerate shapes; flash attention
 (each output row's error over its own max) over ragged lengths, windows,
 decode alignment, both head dims, float32 and bfloat16, the served prefill
 shape, strided time-major views, bfloat16 strides the kernel cannot copy
@@ -28,6 +34,8 @@ from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_f64, attention_ref, rel_err_rows)
+from repro_torch.kernels.smoother import ref as sref  # noqa: E402
+from repro_torch.kernels.smoother import smoother as sm  # noqa: E402
 from repro_torch.kernels.spmv import bcsr, ref, spmv  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -261,16 +269,45 @@ def test_bcsr(dev, bs, k, shape, cut, dtype):
     _close(got, want)
 
 
-def _device_kernels(fn):
-    """``fn()`` and the names of the device kernels it ran (profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# the node types cudaGraphDebugDotPrint writes into a node's label
+GRAPH_NODE_TYPES = ("KERNEL", "MEMSET", "MEMCPY", "HOST", "EMPTY", "GRAPH",
+                    "EVENT_RECORD", "WAIT_EVENT", "MEM_ALLOC", "MEM_FREE",
+                    "CONDITIONAL", "EXT_SEMAS")
 
+
+def _graph_nodes(fn):
+    """``fn()`` captured as one CUDA graph and replayed once: its output and
+    the graph's nodes as ``(type, label)``, read from the graph's own DOT
+    dump (``cudaGraphDebugDotPrint``), so the count depends on nothing a
+    profiler may or may not report."""
+    import os
+    import re
+    import tempfile
+
+    g = torch.cuda.CUDAGraph(keep_graph=True)     # the graph outlives capture
+    g.enable_debug_mode()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch.cuda.graph(g):
         out = fn()
-        torch.cuda.synchronize()
-    return out, [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    g.instantiate()
+    g.replay()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        g.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    # a node's definition opens its line; an edge line opens with its
+    # source node and an arrow
+    starts = list(re.finditer(r'^\s*"(graph_\d+_node_\d+)"\s*\[', dot, re.M))
+    nodes = []
+    for a, b in zip(starts, starts[1:] + [None]):
+        label = dot[a.end(): b.start() if b is not None else len(dot)]
+        kind = next((t for t in GRAPH_NODE_TYPES
+                     if re.search(rf"\b{t}\b", label)), "UNKNOWN")
+        nodes.append((kind, label))
+    assert nodes and all(k != "UNKNOWN" for k, _ in nodes), dot[:4000]
+    return out, nodes
 
 
 @pytest.mark.parametrize("k", [None, 3])
@@ -278,7 +315,9 @@ def test_bcsr_apply_is_one_launch(dev, k):
     """One BCSR apply on the card is one ``bcsr_spmm`` launch and nothing
     else (no pad of x, no slice of y), returning ``[D, rows_local(, k)]``:
     the whole apply of an operator whose halo is empty, and the on-process
-    product of one whose halo is not; both against the CPU's apply."""
+    product of one whose halo is not; both against the CPU's apply.  The
+    apply's device work is counted from the node list of a CUDA graph that
+    captures it (a profiler may see no device event at all)."""
     import copy
 
     from repro_torch.amg.csr import CSR
@@ -312,9 +351,10 @@ def test_bcsr_apply_is_one_launch(dev, k):
             if where == "cuda":
                 fn()                          # the kernel's build and load
                 before = bcsr.bcsr_spmm.launches
-                y, names = _device_kernels(fn)
+                y, nodes = _graph_nodes(fn)
                 assert bcsr.bcsr_spmm.launches == before + 1
-                assert len(names) == 1 and "bcsr_spmm_kernel" in names[0], names
+                assert len(nodes) == 1 and nodes[0][0] == "KERNEL" \
+                    and "bcsr_spmm_kernel" in nodes[0][1], nodes
             else:
                 y = fn()
             assert y.shape == (8, op.rows_local) + (() if k is None else (k,))
@@ -511,3 +551,139 @@ def test_lm_forward_on_the_card_matches_the_cpu(dev):
         lc, _ = cpu.decode_step(step, prefill_to_decode_cache(cfg, c_cpu, 320, 300),
                                 300)
         assert float((lg.cpu() - lc).abs().max()) <= 1e-4 * float(lc.abs().max())
+
+
+# ------------------------------------------------ the block smoothers
+def _rhs(rng, D, m, k, dtype, dev):
+    shape = (D, m) + (() if k is None else (k,))
+    return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [None, 1, 3, 33])
+@pytest.mark.parametrize("bs,m", [(1, 13), (3, 13), (4, 64), (4, 1001),
+                                  (8, 1), (8, 4097)])
+def test_block_diag_apply(dev, bs, m, k, dtype):
+    rng = np.random.default_rng(bs * m)
+    nb = -(-m // bs)
+    binv = torch.as_tensor(rng.standard_normal((D, nb, bs, bs)), dtype=dtype,
+                           device=dev)
+    r, x = _rhs(rng, D, m, k, dtype, dev), _rhs(rng, D, m, k, dtype, dev)
+    before = sm.block_diag_apply.launches
+    got = sm.block_diag_apply(binv, r, x, 0.7)
+    assert sm.block_diag_apply.launches == before + 1
+    _close(got, sref.block_diag_apply_ref(binv, r, x, 0.7))
+
+
+def _order(cols, upper):
+    """The kernel's ticket order: every rank's rows by level set."""
+    lev = sref.dag_levels(cols.cpu().numpy(), upper)
+    return torch.as_tensor(sref.level_order(lev), dtype=torch.int32,
+                           device=cols.device)
+
+
+def _triangle(rng, Dn, m, K, upper, dtype, dev, chain=False):
+    """A random strict triangle in ELL (padding at the row's end, columns
+    ascending), small values and a diagonal in [1, 2): a stable solve.
+    ``chain`` adds each row's neighbour, so the DAG is m levels deep."""
+    cols = np.full((Dn, m, K), -1, dtype=np.int32)
+    vals = np.zeros((Dn, m, K))
+    for d in range(Dn):
+        for i in range(m):
+            cand = np.arange(i + 1, m) if upper else np.arange(i)
+            n = min(len(cand), int(rng.integers(0, K + 1)))
+            c = rng.choice(cand, size=n, replace=False)
+            if chain and len(cand) and (i + 1 if upper else i - 1) not in c:
+                c = np.append(c[: K - 1], i + 1 if upper else i - 1)
+            c = np.sort(c)
+            cols[d, i, :c.size] = c
+            vals[d, i, :c.size] = rng.standard_normal(c.size) * 0.5 / max(K, 1)
+    diag = 1.0 + rng.random((Dn, m))
+    return (torch.as_tensor(cols, device=dev),
+            torch.as_tensor(vals, dtype=dtype, device=dev),
+            torch.as_tensor(diag, dtype=dtype, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [None, 1, 2, 8, 33])
+@pytest.mark.parametrize("upper", [False, True], ids=["lower", "upper"])
+@pytest.mark.parametrize("Dn,m,K,chain", [(1, 1, 0, False), (3, 37, 5, False),
+                                          (8, 300, 13, False),
+                                          (2, 200, 40, False),
+                                          (8, 1000, 27, False),
+                                          (2, 3000, 3, True)])
+def test_tri_solve(dev, Dn, m, K, chain, upper, k, dtype):
+    rng = np.random.default_rng(m + K)
+    cols, vals, diag = _triangle(rng, Dn, m, K, upper, dtype, dev, chain)
+    r, x = _rhs(rng, Dn, m, k, dtype, dev), _rhs(rng, Dn, m, k, dtype, dev)
+    order = _order(cols, upper)
+    before = sm.tri_solve.launches
+    got = sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper, order=order)
+    again = sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper, order=order)
+    # tickets in plain row order (the order the wrapper takes without one is
+    # the level order): the same answer, bit for bit
+    rows = torch.arange(Dn * m, dtype=torch.int32, device=dev)
+    if upper:
+        rows = (rows.reshape(Dn, m).flip(1)).T.reshape(-1).contiguous()
+    else:
+        rows = rows.reshape(Dn, m).T.reshape(-1).contiguous()
+    natural = sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper, order=rows)
+    assert sm.tri_solve.launches == before + 3
+    sched = sref.level_schedule(cols.cpu().numpy(), upper, dev)
+    if chain:
+        assert len(sched) == m
+    _close(got, sref.tri_solve_ref(cols, vals, diag, r, x, 0.9, sched))
+    assert torch.equal(got, again)                 # a fixed summation order
+    assert torch.equal(got, natural)
+
+
+@pytest.mark.parametrize("upper", [False, True], ids=["lower", "upper"])
+def test_tri_solve_replays_in_a_graph(dev, upper):
+    """Captured, a solve is one memset node (its flags) and one kernel
+    node, and every replay solves the values its static inputs hold then."""
+    rng = np.random.default_rng(1)
+    cols, vals, diag = _triangle(rng, 8, 500, 13, upper, torch.float64, dev)
+    r = _rhs(rng, 8, 500, None, torch.float64, dev)
+    x = torch.zeros_like(r)
+    order = _order(cols, upper)
+    sm.tri_solve(cols, vals, diag, r, x, upper=upper, order=order)  # build, load
+    y, nodes = _graph_nodes(lambda: sm.tri_solve(cols, vals, diag, r, x,
+                                                 upper=upper, order=order))
+    assert sorted(kind for kind, _ in nodes) == ["KERNEL", "MEMSET"], nodes
+    assert any("tri_solve_kernel" in label for _, label in nodes)
+    sched = sref.level_schedule(cols.cpu().numpy(), upper, dev)
+    _close(y, sref.tri_solve_ref(cols, vals, diag, r, x, 1.0, sched))
+
+
+@pytest.mark.parametrize("smoother", ["block_jacobi", "hybrid_gs",
+                                      "hybrid_gs_sym"])
+def test_block_smoother_pcg_on_the_card_matches_the_cpu(dev, smoother):
+    """laplace_3d(16) on 2×4, f64: PCG through the captured graphs, one RHS
+    and three, against the same solve on the CPU (≤ 1e-7 of r0); the
+    graphs launch the smoother's kernel."""
+    from repro_torch.amg.dist_solve import DistHierarchy, dist_pcg
+    from repro_torch.amg.hierarchy import setup
+    from repro_torch.amg.problems import laplace_3d
+    from repro_torch.amg.solve import SolveOptions
+
+    A = laplace_3d(16)
+    h = setup(A, max_coarse=30)
+    b = np.random.default_rng(0).standard_normal(A.nrows)
+    B = np.stack([b, 2 * b, np.zeros_like(b)], axis=1)
+    opts = SolveOptions(smoother=smoother)
+    wrapper = sm.block_diag_apply if smoother == "block_jacobi" else sm.tri_solve
+    runs = {}
+    for where in ("cpu", "cuda"):
+        dh = DistHierarchy.build(h, 2, 4, dtype=torch.float64, device=where)
+        before = wrapper.launches
+        runs[where] = (dist_pcg(dh, b, tol=1e-10, opts=opts),
+                       dist_pcg(dh, B, tol=1e-10, opts=opts))
+        if where == "cuda":
+            assert wrapper.launches > before
+            assert all(p.graph is not None for p in dh.programs.values())
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = runs["cpu"], runs["cuda"]
+    assert s_gpu.converged and s_gpu.iterations == s_cpu.iterations
+    r0 = s_cpu.residuals[0]
+    assert np.abs(np.subtract(s_gpu.residuals, s_cpu.residuals)).max() <= 1e-7 * r0
+    assert m_gpu.converged and not m_gpu.x[:, 2].any()
+    assert np.abs(m_gpu.x - m_cpu.x).max() <= 1e-7 * np.abs(m_cpu.x).max()

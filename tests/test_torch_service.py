@@ -524,3 +524,58 @@ def test_float32_session_stages_once(problem):
     bound = svc.bound_for("m")
     assert bound.staging_dtype() == np.float32
     assert bound._check_b(b).dtype == np.float32
+
+
+def test_block_smoother_through_service(problem):
+    """The reference suite's ``test_dist_backend_through_service`` on the
+    torch backend: the service drives a ``hybrid_gs_sym`` session (1×1 rank
+    grid, float32) and stages b once in the session's staging dtype."""
+    from repro_torch.amg import SolveOptions
+    A, b = problem
+    cfg = _cfg(n_pods=1, lanes=1, strategy="standard", dtype="float32",
+               tol=1e-5, opts=SolveOptions(smoother="hybrid_gs_sym"))
+    svc = _service(cfg)
+    svc.register("m", A)
+    t = svc.submit("m", b, method="pcg")
+    svc.drain()
+    assert t.diagnostics["converged"]
+    rel = np.linalg.norm(b - A.matvec(t.result())) / np.linalg.norm(b)
+    assert rel < 1e-4
+    bound = svc.bound_for("m")
+    assert bound.staging_dtype() == np.float32      # fp32 session
+    assert bound._check_b(b).dtype == np.float32
+    staged = bound._check_b(b.astype(np.float32))
+    assert staged.dtype == np.float32               # converted exactly once
+    assert bound.dist_hierarchy.factor_bytes() > 0
+
+
+@pytest.mark.parametrize("smoother", ["block_jacobi", "hybrid_gs",
+                                      "hybrid_gs_sym"])
+def test_block_smoother_chunks_match_the_reference(problem, smoother):
+    """A coalesced chunk of three requests (one of them [n, 2]) under each
+    block smoother on 2×4 ranks, against the reference's host service with
+    its smoother split into the same 8 row parts: the same iterations and
+    answers, and the store counting the factors' bytes."""
+    from repro.amg import SolveOptions as RefSolveOptions
+    from repro_torch.amg import SolveOptions
+    A, _ = problem
+    rng = np.random.default_rng(4)
+    reqs = [rng.standard_normal(A.nrows), rng.standard_normal((A.nrows, 2)),
+            rng.standard_normal(A.nrows)]
+    store = SessionStore()
+    svc = _service(_cfg(opts=SolveOptions(smoother=smoother)), store=store)
+    ref = RefAMGService(RefAMGConfig(opts=RefSolveOptions(
+        smoother=smoother, smoother_parts=8)))
+    got, want = {}, {}
+    for s, out in ((svc, got), (ref, want)):
+        s.register("m", A)
+        tickets = [s.submit("m", r, method="pcg") for r in reqs]
+        s.drain()
+        out["x"] = [t.result() for t in tickets]
+        out["it"] = [t.diagnostics["iterations"] for t in tickets]
+    assert got["it"] == want["it"]
+    for g, w in zip(got["x"], want["x"]):
+        _same_x(g, w)
+    dh = svc.bound_for("m").dist_hierarchy
+    assert dh.factor_bytes() > 0
+    assert store.stats()["bytes"] >= dh.nbytes >= dh.factor_bytes()
