@@ -16,7 +16,9 @@ version at the shapes its path gives it:
   row exchanges under the selected NAP schedules) lowered straight onto the
   card and solved through the same kernels; the communication audit over
   the replayed graphs; AMGWire, the socket server, with two tenants on the
-  card serving ``laplace_3d(48)``;
+  card serving ``laplace_3d(48)``; the same solve with one process per rank,
+  ``AMGConfig(ranks="process")``: 8 gloo processes on this card, their
+  collectives ``torch.distributed`` calls staged through host memory;
 - LM serving, ``Engine(cfg, init_lm(qwen3-1.7b)).run()`` at full width (28
   layers, d_model 2048, 16/8 heads of 128, vocab 151,936; random weights
   from a seeded generator): in float32, 8 requests of 512-2048 prompt
@@ -109,7 +111,19 @@ Phases (any failure exits non-zero):
    8 more (and three lone solves), launch counters set to 0 just before
    and read just after; each answer's residual ≤ 100·tol and against the
    in-process service's answer for the same b; solves/s over the wire,
-   p50/p99 latency, the session's bytes as the store counts them;
+   p50/p99 latency, the session's bytes as the store counts them; then one
+   process per rank (``repro_torch.launch.ranks.spawn``: 8 gloo processes on
+   ``cuda:0``, each ``AMGSolver(AMGConfig(ranks="process", ...)).setup(A)``
+   and f64 PCG of ``b`` and of ``[n, 8]``, launch counters set to 0 just
+   before each and read just after): every rank's tensors on ``cuda:0``,
+   its launches of ``ell_spmv``, ``bcsr_spmm`` and ``ell_spmm`` equal to
+   the stacked session's, its iterations the stacked session's, its
+   histories within 1e-7 of r0 of the stacked ones and identical on every
+   rank, its audit of (V, Jacobi)'s ten programs clean; ms an iteration
+   beside the stacked path's, setup / lowering / scatter seconds, and the
+   elements one PCG iteration sends over the slow and the fast group (and
+   the collectives' host ms) under ``auto`` and each forced strategy,
+   beside the model's messages;
 8. flash attention at the serving runs' prefill shape, with a 256-key
    window, with fewer queries than keys, and at head dim 64, each in f32
    and bf16, against its plain version (each row's error over the row's
@@ -193,6 +207,8 @@ AGGRESSIVE_SIZE = 32
 # the audit's grid of V/W/F × the five smoothers over all ten programs, at
 # a smaller depth than the main path so its 150 captures stay cheap
 AUDIT_SIZE = 24
+# the process phase: seconds its 8 spawned ranks may take in all
+PROCESS_DEADLINE = 400.0
 # the wire phase: the largest Laplacian whose register frame fits the wire's
 # 64 MiB frame limit (laplace_3d(48): a 62,263,466-byte frame), and a small
 # one for the second tenant; wire answers against the in-process service's
@@ -1907,6 +1923,167 @@ def wire_phase(cfg) -> dict:
     return info
 
 
+def process_rhs(n: int):
+    """The main path's ``b`` and ``[n, K_RHS]`` ``B``, drawn as ``main``
+    draws them (each rank of the process phase draws its own copy)."""
+    rng = np.random.default_rng(SEED)
+    b = rng.standard_normal(n)
+    return b, np.stack([b] + [rng.standard_normal(n)
+                              for _ in range(K_RHS - 1)], axis=1)
+
+
+def process_rank(ranks) -> dict:
+    """One rank of the process phase, in a spawned process: the entry point
+    with ``ranks="process"`` on ``laplace_3d(SIZE)``, f64 PCG to 1e-8 with
+    one RHS (launch counters set to 0 just before, read just after) and
+    with ``[n, K_RHS]``, a warm solve timed, the audit of (V, Jacobi)'s ten
+    programs, and the elements one PCG iteration sends over the slow and
+    the fast group under ``auto`` and each forced strategy."""
+    from repro_torch.amg import AMGConfig, AMGSolver
+    from repro_torch.amg.problems import laplace_3d
+    from repro_torch.analysis.comm_audit import audit_hierarchy, rank_traffic
+
+    A = laplace_3d(SIZE)
+    b, B = process_rhs(A.nrows)
+    cfg = AMGConfig(backend="torch", ranks="process", n_pods=N_PODS,
+                    lanes=LANES, dtype="float64", tol=1e-8, device=DEVICE)
+    t0 = time.perf_counter()
+    bound = AMGSolver(cfg).setup(A)
+    setup_wall = time.perf_counter() - t0
+    dh = bound.dist_hierarchy
+    res, c1 = counted(lambda: bound.pcg(b))
+    resm, cm = counted(lambda: bound.pcg(B))
+    tensors = [t for a in dh._arrs for v in a.values()
+               for t in (v.values() if isinstance(v, dict) else (v,))]
+    tensors += [t for k in (None, K_RHS)
+                for t in dh.programs.state(k).values()]
+    true_rel = float(np.linalg.norm(b - A.matvec(res.x)) / np.linalg.norm(b))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = bound.pcg(b)
+    ms_iter = (time.perf_counter() - t0) * 1e3 / max(warm.iterations, 1)
+    t0 = time.perf_counter()
+    audits, violations = audit_hierarchy(dh, pairs=[("V", "jacobi")])
+    audit_s = time.perf_counter() - t0
+    traffic = {"auto": rank_traffic(dh)}
+    for strategy in ("standard", "nap2", "nap3"):
+        other = AMGSolver(cfg.replace(strategy=strategy)).setup(A)
+        traffic[strategy] = rank_traffic(other.dist_hierarchy)
+    return {"rank": ranks.rank, "backend": ranks.backend,
+            "devices": sorted({str(t.device) for t in tensors}),
+            "iterations": res.iterations, "converged": res.converged,
+            "hist": list(res.residuals), "true_rel": true_rel,
+            "cols": [list(c.residuals) for c in resm.columns],
+            "cols_iterations": [c.iterations for c in resm.columns],
+            "launches": c1, "launches_multi": cm, "ms_iter": ms_iter,
+            "setup_wall_s": setup_wall, **dh.timings,
+            "audits": len(audits), "audit_s": audit_s,
+            "violations": [str(v) for v in violations], "traffic": traffic}
+
+
+def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter) -> dict:
+    """``AMGConfig(ranks="process")``: 8 gloo processes on this card, each
+    holding its rank of the 2×4 grid (:func:`process_rank`), against the
+    stacked session's f64 runs of phases 4-5: every rank's tensors on
+    ``cuda:0``; its launch counts equal to the stacked session's for the
+    same iterations; the same iterations (a difference of one only where
+    the stacked run's residual lies within 1e-12 of r0 of the tolerance);
+    histories within ``HIST_TOL`` of r0 of the stacked ones and identical
+    on every rank; 0 audit violations on every rank.  The kernels were
+    built by phase 2, so no rank runs ``nvcc``."""
+    from repro_torch.launch.ranks import spawn
+
+    pb, pB = process_rhs(A.nrows)
+    check(np.array_equal(pb, b) and np.array_equal(pB, B),
+          "the ranks' right-hand sides are not the main path's")
+    t0 = time.perf_counter()
+    outs = spawn(process_rank, N_PODS, LANES, deadline=PROCESS_DEADLINE)
+    wall = time.perf_counter() - t0
+    hist = res.residuals
+    nb = float(np.linalg.norm(b))
+    # how near the stacked run's last two residuals lie to the tolerance
+    margin = min(abs(r - 1e-8 * nb) for r in hist[-2:]) / hist[0]
+    tally = {k: c_single[k] for k in SPMV_KERNELS}
+    tally_m = {k: c_multi[k] for k in SPMV_KERNELS}
+    for out in outs:
+        r = out["rank"]
+        check(out["devices"] == ["cuda:0"],
+              f"rank {r} holds tensors on {out['devices']}")
+        check(out["converged"] and out["true_rel"] < 1e-7,
+              f"rank {r}: PCG converged {out['converged']}, true residual "
+              f"{out['true_rel']:.2e}")
+        same_iters = out["iterations"] == res.iterations
+        check(same_iters or (abs(out["iterations"] - res.iterations) == 1
+                             and margin <= 1e-12),
+              f"rank {r}: {out['iterations']} iterations, stacked "
+              f"{res.iterations} (margin {margin:.2e} of r0)")
+        hd = history_diff(hist, out["hist"])
+        check(hd <= HIST_TOL, f"rank {r}: history vs stacked {hd:.2e}")
+        check(out["hist"] == outs[0]["hist"]
+              and out["cols"] == outs[0]["cols"],
+              f"rank {r}'s histories differ from rank 0's")
+        for j, col in enumerate(resm.columns):
+            cd = history_diff(col.residuals, out["cols"][j])
+            check(cd <= HIST_TOL and out["cols_iterations"][j]
+                  == col.iterations,
+                  f"rank {r}: [n, {K_RHS}] column {j} vs stacked {cd:.2e}, "
+                  f"{out['cols_iterations'][j]} vs {col.iterations} iterations")
+        got = {k: out["launches"][k] for k in SPMV_KERNELS}
+        got_m = {k: out["launches_multi"][k] for k in SPMV_KERNELS}
+        check(got["ell_spmv"] > 0 and got["bcsr_spmm"] > 0
+              and got_m["ell_spmm"] > 0,
+              f"rank {r} launched {got} (one RHS), {got_m} (k = {K_RHS})")
+        if same_iters:
+            check(got == tally and got_m == tally_m,
+                  f"rank {r} launched {got} / {got_m}, the stacked session "
+                  f"{tally} / {tally_m}")
+        check(not out["violations"],
+              f"rank {r}: {len(out['violations'])} audit violations: "
+              f"{out['violations'][:3]}")
+    o0 = outs[0]
+    log(f"process ranks ({N_PODS} x {LANES} {o0['backend']} processes on "
+        f"cuda:0, laplace_3d({SIZE}) f64): {o0['iterations']} iterations "
+        f"(stacked {res.iterations}; last residuals {margin:.2e} of r0 from "
+        f"the tolerance), history vs stacked "
+        f"{max(history_diff(hist, o['hist']) for o in outs):.2e}, identical "
+        f"on all ranks; launches {o0['launches']} / [n, {K_RHS}] "
+        f"{o0['launches_multi']} on every rank (stacked {tally} / {tally_m})")
+    log(f"  ms an iteration (warm): ranks "
+        f"{[round(o['ms_iter'], 3) for o in outs]}, stacked graphs "
+        f"{ms_iter:.3f}; rank 0: host setup {o0['setup_s']:.2f} s, lowering "
+        f"{o0['lower_s']:.2f} s, scatter {o0['scatter_s']:.2f} s (ranks "
+        f"{[round(o['scatter_s'], 2) for o in outs]}); phase {wall:.1f} s")
+    log(f"  audit: {o0['audits']} audits a rank, 0 violations on every rank "
+        f"({o0['audit_s']:.1f} s)")
+    log("  elements sent a PCG iteration per rank, slow (across pods) / fast "
+        "(within a pod), beside the model's messages per cycle (all ranks):")
+    for strategy, t0r in o0["traffic"].items():
+        m = t0r["modeled_cycle"]
+        log(f"    {strategy:8s} slow "
+            f"{[o['traffic'][strategy]['elements'].get('slow', 0) for o in outs]}"
+            f" fast "
+            f"{[o['traffic'][strategy]['elements'].get('fast', 0) for o in outs]}"
+            f"; modeled inter {m['inter_msgs']} msgs / {m['inter_bytes']:.0f} B,"
+            f" intra {m['intra_msgs']} msgs / {m['intra_bytes']:.0f} B")
+    log(f"    auto by strategy, rank 0: {o0['traffic']['auto']['by_strategy']}")
+    log("  collectives' host ms in one PCG iteration, slow / fast, by rank: "
+        + ", ".join(f"{strategy} " + str([
+            (round(o["traffic"][strategy]["seconds"].get("slow", 0) * 1e3, 1),
+             round(o["traffic"][strategy]["seconds"].get("fast", 0) * 1e3, 1))
+            for o in outs]) for strategy in o0["traffic"]))
+    return {"ranks": len(outs), "backend": o0["backend"], "phase_s": wall,
+            "iterations": o0["iterations"], "margin_of_r0": margin,
+            "history_vs_stacked": max(history_diff(hist, o["hist"])
+                                      for o in outs),
+            "ms_per_iteration": [o["ms_iter"] for o in outs],
+            "stacked_ms_per_iteration": ms_iter,
+            "setup_s": o0["setup_s"], "lowering_s": o0["lower_s"],
+            "scatter_s": [o["scatter_s"] for o in outs],
+            "launches": o0["launches"], "launches_multi": o0["launches_multi"],
+            "audits_per_rank": o0["audits"],
+            "traffic": [o["traffic"] for o in outs]}
+
+
 def history_diff(a, b) -> float:
     n = min(len(a), len(b))
     r0 = a[0] or 1.0
@@ -2101,6 +2278,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     wire = wire_phase(cfg64)
     torch.cuda.empty_cache()
+    process = process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter)
 
     # 8. flash attention at the serving run's shapes
     cfg = get_arch(LM_ARCH)
@@ -2177,7 +2355,7 @@ def main() -> int:
                                "refresh": refresh, "audit": audit,
                                "partitioned": partitioned,
                                "block_smoothers": block,
-                               "wire": wire,
+                               "wire": wire, "process_ranks": process,
                                "bcsr_apply_device_kernels": bcsr_apply,
                                "ell_spmv_launches_per_solve": per_solve["ell_spmv"],
                                "ell_spmv_excess_ms_per_solve":

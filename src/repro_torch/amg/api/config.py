@@ -1,5 +1,5 @@
-# Copy of repro/amg/api/config.py: adds AMGConfig.device, resolves torch dtypes,
-# and refuses what this port does not run yet (bfloat16).
+# Copy of repro/amg/api/config.py: adds AMGConfig.device and AMGConfig.ranks,
+# resolves torch dtypes, and refuses what this port does not run yet.
 """Solver-session configuration and the versioned wire codec.
 
 :class:`AMGConfig` is the frozen, hashable description of a full solver
@@ -44,11 +44,15 @@ import hashlib
 import numpy as np
 import torch
 
+from ...core.nap_collectives import PROCESS_TODO
 from ...device import resolve_device
 from ..csr import CSR
 from ..solve import SolveOptions
 
 _DTYPES = ("float32", "float64", "bfloat16")
+#: AMGConfig.ranks: all ranks stacked in this process, or one process each
+RANKS = ("stacked", "process")
+BLOCK_SMOOTHERS = ("block_jacobi", "hybrid_gs", "hybrid_gs_sym")
 
 #: Schema version this codec emits.
 WIRE_SCHEMA = 2
@@ -191,6 +195,11 @@ class AMGConfig:
     # torch backend: "cuda" (default) or "cpu"; "cuda" on a machine with no
     # card raises instead of running on the CPU
     device: str = "cuda"
+    # torch backend: where the ranks live — "stacked" (default): all D ranks
+    # of the grid as a leading tensor dim in this process; "process": one
+    # process per rank, this one holding its own rank, the collectives
+    # torch.distributed calls (the reference's mesh of devices)
+    ranks: str = "stacked"
     # halo-exchange/compute overlap in every distributed apply; False keeps
     # the serial fused form (the parity oracle)
     overlap: bool = True
@@ -217,6 +226,19 @@ class AMGConfig:
         if self.machine not in MACHINES:
             raise ValueError(f"unknown machine {self.machine!r}; "
                              f"known: {sorted(MACHINES)}")
+        if self.ranks not in RANKS:
+            raise ValueError(f"ranks must be one of {RANKS}, "
+                             f"got {self.ranks!r}")
+        if self.ranks == "process":
+            if self.backend != "torch":
+                raise ValueError("ranks='process' runs on backend='torch' "
+                                 f"only (got backend={self.backend!r})")
+            if self.setup_backend == "dist":
+                raise NotImplementedError(
+                    f"setup_backend='dist' {PROCESS_TODO}")
+            if self.opts.smoother in BLOCK_SMOOTHERS:
+                raise NotImplementedError(
+                    f"smoother {self.opts.smoother!r} {PROCESS_TODO}")
         if self.backend == "torch":
             if self.dtype == "bfloat16":
                 raise NotImplementedError(

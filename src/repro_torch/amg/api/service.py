@@ -46,6 +46,7 @@ import time
 
 import numpy as np
 
+from ...core.nap_collectives import PROCESS_TODO
 from ..csr import CSR
 from ..solve import MultiSolveResult
 from .config import (AMGConfig, PatternMismatch, RequestOptions,
@@ -221,6 +222,8 @@ class AMGService:
                  max_matrix_bytes: int | None = None,
                  diagnostics_limit: int = 4096, clock=time.monotonic):
         self.config = config or AMGConfig()
+        if self.config.ranks == "process":
+            raise NotImplementedError(f"AMGService {PROCESS_TODO}")
         self.max_rhs = max(1, int(max_rhs))
         self.coalesce_window = float(coalesce_window)
         self.priority_aging = max(1e-9, float(priority_aging))

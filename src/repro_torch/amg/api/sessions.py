@@ -14,6 +14,11 @@ a pluggable :class:`EvictionPolicy` (:class:`LRUPolicy`, :class:`TTLPolicy`,
 accounting; :class:`~repro_torch.amg.api.service.AMGService` instantiates
 its own store so its budget and counters are service-scoped.
 
+With ``ranks="process"`` every process of a ``torch.distributed`` group of
+``n_pods × lanes`` ranks calls the same entry point with the same ``A`` and
+``b``: rank 0 sets up and lowers once, each rank solves on its own slice, and
+every rank returns the whole solution and the same residual history.
+
 ``BoundSolver.update`` streams ``A + ΔA``: on the frozen pattern a
 value-only refresh (the torch backend copies the new values beneath its
 captured CUDA graphs), escalating to a full re-setup on a convergence
@@ -30,6 +35,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ...core.nap_collectives import PROCESS_TODO, rank_groups
 from ..csr import CSR
 from ..dist_solve import FactorPatternChanged
 from ..hierarchy import (Hierarchy, refresh_values as _hierarchy_refresh,
@@ -546,9 +552,9 @@ class TorchBoundSolver(BoundSolver):
 
     @classmethod
     def from_dist_setup(cls, config: AMGConfig, dh) -> "TorchBoundSolver":
-        """Bind a hierarchy that was **born partitioned** (the
-        ``setup_backend="dist"`` path): there is no host ``Hierarchy``, only
-        the already-lowered ``DistHierarchy``."""
+        """Bind an already-lowered ``DistHierarchy`` with no host
+        ``Hierarchy``: one **born partitioned** (the ``setup_backend="dist"``
+        path), or this process's rank slice (``ranks="process"``)."""
         self = cls(config, None)
         self._dist = dh
         return self
@@ -601,6 +607,12 @@ class TorchBoundSolver(BoundSolver):
         return dist_vcycle(self.dist_hierarchy, self._check_b(b), self.opts)
 
     # ---------------------------------------------------- streaming updates
+    def update(self, A_new: CSR | None = None, *, data=None,
+               delta=None) -> str:
+        if self.config.ranks == "process":
+            raise NotImplementedError(f"update {PROCESS_TODO}")
+        return super().update(A_new, data=data, delta=delta)
+
     def _can_refresh(self) -> bool:
         # a dist-born session refreshes through its partitioned levels; if
         # they were evicted from the setup store, only a full re-setup can
@@ -681,7 +693,12 @@ class AMGSolver:
     :class:`BoundSolver` cached per (matrix fingerprint, config); configs
     that differ only in knobs irrelevant to the setup phase share ONE host
     hierarchy.  ``store`` / ``setup_store`` override the module-level
-    default :class:`SessionStore` s."""
+    default :class:`SessionStore` s.
+
+    ``ranks="process"`` needs this process's default ``torch.distributed``
+    group of ``n_pods * lanes`` ranks (:attr:`ranks` is its
+    :class:`~repro_torch.core.nap_collectives.RankGroups`): every process
+    makes its solvers and sessions in the same order."""
 
     def __init__(self, config: AMGConfig | None = None, *,
                  store: SessionStore | None = None,
@@ -691,6 +708,8 @@ class AMGSolver:
         elif overrides:
             config = dataclasses.replace(config, **overrides)
         backend_class(config.backend)        # fail fast on unknown backend
+        self.ranks = (rank_groups(config.n_pods, config.lanes)
+                      if config.ranks == "process" else None)
         self.config = config
         self.store = store if store is not None else _SESSIONS
         self.setup_store = (setup_store if setup_store is not None
@@ -702,21 +721,23 @@ class AMGSolver:
         fp = fingerprint or matrix_fingerprint(A)
         key = (fp, self.config)
         bound = self.store.get(key)
+        if self.ranks is not None:
+            # one process per rank: every rank must hold the same A, and a
+            # cached session is used only where every rank has it (a rank
+            # that sets up alone would wait for the others forever)
+            self.ranks.check_same(fp, "matrix fingerprint")
+            if not self.ranks.all_true(bound is not None):
+                bound = None
         if bound is not None:
             return bound
         t0 = time.perf_counter()
         if self.config.setup_backend == "dist":
             bound = self._setup_dist(A, fp)
+        elif self.ranks is not None:
+            bound = self._setup_process(A, fp)
         else:
-            skw = self.config.setup_kwargs()
-            skey = (fp, tuple(sorted(skw.items())))
-            h = self.setup_store.get(skey)
-            if h is None:
-                t1 = time.perf_counter()
-                h = _hierarchy_setup(A, **skw)
-                self.setup_store.put(skey, h, nbytes=session_nbytes(h),
-                                     setup_cost=time.perf_counter() - t1)
-            bound = backend_class(self.config.backend)(self.config, h)
+            bound = backend_class(self.config.backend)(
+                self.config, self._host_hierarchy(A, fp))
         # streaming-session state: the canonical fine CSR (the hierarchy's
         # own level-0 object on host-setup sessions, so delta updates
         # compose), the frozen pattern fingerprint and the store linkage
@@ -733,6 +754,43 @@ class AMGSolver:
                        setup_cost=time.perf_counter() - t0,
                        nbytes_fn=lambda: session_nbytes(bound))
         return bound
+
+    def _host_hierarchy(self, A: CSR, fp: str) -> Hierarchy:
+        """The host setup of ``A`` under this config's setup knobs, shared
+        through :attr:`setup_store` by every config with the same knobs."""
+        skw = self.config.setup_kwargs()
+        skey = (fp, tuple(sorted(skw.items())))
+        h = self.setup_store.get(skey)
+        if h is None:
+            t1 = time.perf_counter()
+            h = _hierarchy_setup(A, **skw)
+            self.setup_store.put(skey, h, nbytes=session_nbytes(h),
+                                 setup_cost=time.perf_counter() - t1)
+        return h
+
+    def _setup_process(self, A: CSR, fp: str) -> BoundSolver:
+        """The ranks="process" path: rank 0 runs the host setup (shared as
+        on the stacked path) and the lowering once, every rank receives its
+        slice (:meth:`~repro_torch.amg.dist_solve.DistHierarchy.scattered`).
+        The slice is cached per (matrix, setup knobs, lowering knobs), so
+        configs that differ only in solve knobs share it."""
+        from ..dist_solve import DistHierarchy
+        c = self.config
+        skey = (fp, tuple(sorted(c.setup_kwargs().items())), c.n_pods,
+                c.lanes, c.strategy, c.machine, c.dtype, c.device,
+                c.use_kernel, c.reduce_strategy, c.overlap, "process")
+        dh = self.setup_store.get(skey)
+        if not self.ranks.all_true(dh is not None):
+            t0 = time.perf_counter()
+            h = self._host_hierarchy(A, fp) if self.ranks.rank == 0 else None
+            t_setup = time.perf_counter() - t0
+            bk = c.dist_build_kwargs()
+            del bk["n_pods"], bk["lanes"]
+            dh = DistHierarchy.scattered(h, self.ranks, **bk)
+            dh.timings["setup_s"] = t_setup
+            self.setup_store.put(skey, dh, nbytes=session_nbytes(dh),
+                                 setup_cost=time.perf_counter() - t0)
+        return backend_class(c.backend).from_dist_setup(c, dh)
 
     def _setup_dist(self, A: CSR, fp: str) -> BoundSolver:
         """The setup_backend="dist" path: run the partitioned node-aware

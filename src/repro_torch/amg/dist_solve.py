@@ -25,6 +25,17 @@ pseudo-inverse with ``torch.matmul``.  The drivers run them through
 call is one replay of a captured CUDA graph over static buffers.  Only the
 convergence check touches the host: one residual norm per outer iteration.
 
+**One process per rank** (``AMGConfig(ranks="process")``,
+:meth:`DistHierarchy.scattered`): rank 0 runs the host setup and the
+lowering once and hands each process its ``[d:d+1]`` slice of every stacked
+array (:meth:`DistLevel.rank_slice`); the hierarchy's ``ranks``, a
+:class:`~repro_torch.core.nap_collectives.RankGroups`, takes the role of the
+reference's ``mesh=`` and turns every exchange, dot and coarse gather into
+collectives between the processes.  The same bodies run on a leading rank
+dim of size 1, uncaptured (:mod:`.programs`).  The block smoothers, the
+refresh and the partitioned setup are not ported to this mode yet
+(ROADMAP item 12).
+
 The block smoothers (``block_jacobi``, ``hybrid_gs``, ``hybrid_gs_sym``)
 apply ``x + w·M⁻¹(b − A x)`` on the halo'd residual as the reference does,
 but where the reference lowers ``M⁻¹`` to a dense ``[D, m, m]`` factor
@@ -43,14 +54,15 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections import Counter
 
 import numpy as np
 import torch
 
-from ..core.nap_collectives import (gather_signature, halo_signature,
-                                    hier_all_gather, hier_psum,
-                                    reduce_signature)
+from ..core.nap_collectives import (PROCESS_TODO, gather_signature,
+                                    halo_signature, hier_all_gather,
+                                    hier_psum, reduce_signature)
 from ..core.perf_model import (TPU_V5E, MachineParams, overlap_efficiency,
                                spmv_compute_times)
 from ..core.selector import select
@@ -119,6 +131,21 @@ class DistLevel:
         self.local_src = (A, part, D)
         self._local_A = local_A
         self._factor_cache = dict(factors or {})
+
+    def rank_slice(self, d: int) -> "DistLevel":
+        """Rank ``d``'s part of the level (one process per rank): its
+        operators' :meth:`~repro_torch.amg.dist_spmv.DistOperator.rank_slice`,
+        its ``[d:d+1]`` rows of ``dinv`` and ``coarse_inv``, the selection
+        tables whole, and no source for the block smoothers' factors."""
+        def op(o):
+            return None if o is None else o.rank_slice(d)
+
+        return dataclasses.replace(
+            self, A=op(self.A), P=op(self.P), R=op(self.R),
+            dinv=self.dinv[d:d + 1].copy(),
+            coarse_inv=(None if self.coarse_inv is None
+                        else self.coarse_inv[d:d + 1].copy()),
+            local_src=None, _local_A=None, _factor_cache={})
 
     def smoother_factor(self, kind: str, block_size: int = 0) -> dict:
         """The sparse smoother factor of ``kind`` on the host (numpy; the
@@ -226,6 +253,13 @@ def smoother_arrays_key(opts) -> tuple | None:
     return None
 
 
+def _check_dtype(dtype: torch.dtype) -> None:
+    if dtype not in DTYPES:
+        raise NotImplementedError(
+            f"dtype {dtype} is not ported yet; the kernels take "
+            f"torch.float32 and torch.float64")
+
+
 def _rank_dinv(A, part: Partition, D: int) -> np.ndarray:
     """``1 / diag(A)`` (1 where the diagonal is 0) as ``[D, rows_local]``,
     0 on padded rows.  ``A`` is a global CSR or a born-partitioned
@@ -265,12 +299,16 @@ class DistHierarchy:
     ``programs`` holds the compiled form of the ten programs
     (:class:`~repro_torch.amg.programs.ProgramCache`); ``lock`` serialises
     the solves on this hierarchy, whose programs share static buffers.
+
+    ``ranks`` (one process per rank, :meth:`scattered`) is this process's
+    :class:`~repro_torch.core.nap_collectives.RankGroups`; ``levels`` then
+    hold its own rank's slices and every tensor a leading rank dim of 1.
     """
 
     def __init__(self, h: Hierarchy | None, n_pods: int, lanes: int,
                  levels: list[DistLevel], dtype: torch.dtype,
                  device: torch.device, use_kernel: bool,
-                 reduce_strategy: str, overlap: bool):
+                 reduce_strategy: str, overlap: bool, ranks=None):
         # ``h`` is None when the hierarchy was born partitioned
         # (:mod:`repro_torch.amg.dist_setup`): no host Hierarchy ever existed
         self.h = h
@@ -285,7 +323,14 @@ class DistHierarchy:
         # True: every apply is A_on·x + A_off·halo; False: the fused serial
         # form A·[x | halo]
         self.overlap = overlap
+        self.ranks = ranks
         self.comm_log: list | None = None
+        # each operator's tally label: (level, "A" | "P" | "R")
+        self._tags = {id(op): (l, name) for l, dl in enumerate(levels)
+                      for name in ("A", "P", "R")
+                      if (op := getattr(dl, name)) is not None}
+        # seconds of the one-process-per-rank setup (see scattered)
+        self.timings: dict[str, float] = {}
         # level arrays, moved to the device once at build time; a refresh
         # copies into these tensors, never rebinds them
         self._arrs = [self._level_arrays(lv) for lv in levels]
@@ -294,9 +339,11 @@ class DistHierarchy:
         # them; the per-level run arrays of each smoother key
         self._factors: dict[tuple, object] = {}
         self._arrs_ex: dict[tuple, list[dict]] = {}
-        # the stream each split apply's halo exchange runs on (card only)
-        self._side = (torch.cuda.Stream(device) if device.type == "cuda"
-                      else None)
+        # the stream each split apply's halo exchange runs on (card only;
+        # not one process per rank, where a host-staged collective
+        # synchronises anyway)
+        self._side = (torch.cuda.Stream(device)
+                      if device.type == "cuda" and ranks is None else None)
         self.programs = ProgramCache(self)
         self.lock = threading.RLock()
 
@@ -357,15 +404,50 @@ class DistHierarchy:
         return self
 
     @classmethod
+    def scattered(cls, h: Hierarchy | None, ranks, *,
+                  params: MachineParams = TPU_V5E,
+                  strategy: str = "auto",
+                  strategies: tuple[str, ...] = SOLVE_STRATEGIES,
+                  dtype: torch.dtype = torch.float32,
+                  device: str | torch.device = "cuda",
+                  use_kernel: bool | None = None,
+                  reduce_strategy: str = "nap3",
+                  overlap: bool = True) -> "DistHierarchy":
+        """One process per rank: rank 0 lowers ``h`` (``None`` on the other
+        ranks) once, as :meth:`build` does, and every rank receives its own
+        slice of the lowering through ``ranks``; the arrays then move to
+        this rank's device (:meth:`RankGroups.device
+        <repro_torch.core.nap_collectives.RankGroups.device>`).
+        :attr:`timings` holds rank 0's ``lower_s`` and this rank's
+        ``scatter_s`` (on the other ranks the wait for rank 0 included)."""
+        _check_dtype(dtype)
+        n_pods, lanes = ranks.n_pods, ranks.lanes
+        device = ranks.device(device)
+        t0 = time.perf_counter()
+        slices = None
+        if ranks.rank == 0:
+            levels = cls._lower_levels(h.levels, n_pods, lanes, params=params,
+                                       strategy=strategy,
+                                       strategies=strategies,
+                                       dtype=DTYPES[dtype])
+            slices = [[lv.rank_slice(d) for lv in levels]
+                      for d in range(ranks.size)]
+        t1 = time.perf_counter()
+        mine = ranks.scatter_objects(slices)
+        t2 = time.perf_counter()
+        self = cls(None, n_pods, lanes, mine, dtype, device,
+                   True if use_kernel is None else bool(use_kernel),
+                   reduce_strategy, bool(overlap), ranks=ranks)
+        self.timings = {"lower_s": t1 - t0, "scatter_s": t2 - t1}
+        return self
+
+    @classmethod
     def _lowered(cls, h, src_levels, n_pods: int, lanes: int, *, params,
                  strategy, strategies, dtype, device, use_kernel,
                  reduce_strategy, overlap) -> "DistHierarchy":
         """:meth:`build` and :meth:`from_partitioned`'s shared tail: lower
         ``src_levels`` and place them on ``device``."""
-        if dtype not in DTYPES:
-            raise NotImplementedError(
-                f"dtype {dtype} is not ported yet; the kernels take "
-                f"torch.float32 and torch.float64")
+        _check_dtype(dtype)
         device = resolve_device(device)
         levels = cls._lower_levels(src_levels, n_pods, lanes, params=params,
                                    strategy=strategy, strategies=strategies,
@@ -497,6 +579,11 @@ class DistHierarchy:
                 for l, dl in enumerate(self.levels)]
 
     @property
+    def local_ranks(self) -> int:
+        """The ranks this process holds: all D stacked, or its own one."""
+        return 1 if self.ranks is not None else self.n_pods * self.lanes
+
+    @property
     def nbytes(self) -> int:
         """Device bytes this lowering holds: its level tensors, the block
         smoothers' factors placed so far, the programs' state buffers and
@@ -540,6 +627,8 @@ class DistHierarchy:
                 return lambda d: blocks[d]
             return lambda d: M
 
+        if self.ranks is not None:
+            raise NotImplementedError(f"the value refresh {PROCESS_TODO}")
         D = self.n_pods * self.lanes
         src_levels = list(src_levels)
         with self.lock:
@@ -586,12 +675,18 @@ class DistHierarchy:
 
     # ----------------------------------------------------------- host layout
     def scatter(self, x: np.ndarray, level: int = 0) -> torch.Tensor:
-        """Global ``[n(, k)]`` → rank-stacked ``[D, local(, k)]`` on device."""
+        """Global ``[n(, k)]`` → rank-stacked ``[D, local(, k)]`` on device
+        (one process per rank: its own ``[1, local(, k)]``)."""
         arr = self.levels[level].A.scatter_x(np.asarray(x),
                                              dtype=DTYPES[self.dtype])
         return torch.from_numpy(arr).to(self.device)
 
     def gather(self, x_dev: torch.Tensor, level: int = 0) -> np.ndarray:
+        """Rank-stacked ``[D, local(, k)]`` → global ``[n(, k)]``; one
+        process per rank gathers every rank's rows first, so every rank
+        returns the whole vector."""
+        if self.ranks is not None:
+            x_dev = self.ranks.all_gather(x_dev[0], "world", tag=("gather",))
         return self.levels[level].A.gather_y(x_dev.cpu().numpy())
 
     def load(self, buf: torch.Tensor, x: np.ndarray) -> None:
@@ -637,6 +732,9 @@ class DistHierarchy:
         key = smoother_arrays_key(opts)
         if key is None:
             return self._arrs
+        if self.ranks is not None:
+            raise NotImplementedError(f"smoother {opts.smoother!r} "
+                                      f"{PROCESS_TODO}")
         got = self._arrs_ex.get(key)
         if got is None:
             got = []
@@ -649,16 +747,24 @@ class DistHierarchy:
             self._arrs_ex[key] = got
         return got
 
+    def _between_ranks(self, tag) -> dict:
+        """The keywords that run a collective between the processes, with
+        ``tag`` labelling its tally (none on stacked ranks, whose calls
+        stay as they were)."""
+        return {} if self.ranks is None else {"ranks": self.ranks, "tag": tag}
+
     def _spmv(self, op: DistOperator, arrs: dict, x: torch.Tensor):
         return op.apply(arrs, x, use_kernel=self.use_kernel,
                         overlap=self.overlap, log=self.comm_log,
-                        side=self._side)
+                        side=self._side,
+                        **self._between_ranks(self._tags.get(id(op))))
 
     def _pdot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Per-rank replicated dot: ``[D]`` for ``[D, n]`` operands, per
         column ``[D, k]`` for ``[D, n, k]``."""
         return hier_psum((a * b).sum(dim=1), self.n_pods, self.lanes,
-                         strategy=self.reduce_strategy, log=self.comm_log)
+                         strategy=self.reduce_strategy, log=self.comm_log,
+                         **self._between_ranks(("dot",)))
 
     def _pnorm(self, r: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(self._pdot(r, r))
@@ -711,7 +817,8 @@ class DistHierarchy:
         a = self.run_arrays(opts)[level]
         if dl.coarse_inv is not None:                 # coarsest: direct solve
             full = hier_all_gather(b, self.n_pods, self.lanes,
-                                   log=self.comm_log)  # [D, D*rows_local(,k)]
+                                   log=self.comm_log,  # [D, D*rows(,k)]
+                                   **self._between_ranks((level, "coarse")))
             if b.ndim == 2:
                 return torch.matmul(a["cinv"], full.unsqueeze(-1)).squeeze(-1)
             return torch.matmul(a["cinv"], full)
@@ -805,13 +912,14 @@ class DistHierarchy:
         operands (``k`` adds a trailing multi-RHS axis)."""
         overlap = self.overlap if overlap is None else overlap
         dop = getattr(self.levels[level], op)
-        D = self.n_pods * self.lanes
-        shape = (D, dop.plan.local_n) + (() if k is None else (k,))
+        shape = (self.local_ranks, dop.plan.local_n) + (() if k is None
+                                                         else (k,))
         x = torch.zeros(shape, dtype=self.dtype, device=self.device)
         log: list[str] = []
         with self.lock:
             dop.apply(self._arrs[level][op], x, use_kernel=self.use_kernel,
-                      overlap=overlap, log=log, side=self._side)
+                      overlap=overlap, log=log, side=self._side,
+                      **self._between_ranks((level, op)))
         return log
 
     def trace_program(self, name: str, opts=None, k: int = 2) -> list[str]:

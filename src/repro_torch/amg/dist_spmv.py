@@ -147,6 +147,9 @@ class DistOperator:
     bcsr_on_bcols: np.ndarray | None = None  # on-part lowering (A_off stays ELL)
     bcsr_on_bvals: np.ndarray | None = None
     block_size: int = 0                    # 0 = ELL layout
+    # one process per rank: the one rank whose [d:d+1] rows every stacked
+    # array above holds (None: all D ranks stacked)
+    rank: int | None = None
 
     @property
     def n_devices(self) -> int:
@@ -190,6 +193,24 @@ class DistOperator:
             arrs["on_bcols"] = self.bcsr_on_bcols
             arrs["on_bvals"] = self.bcsr_on_bvals
         return arrs
+
+    def rank_slice(self, d: int) -> "DistOperator":
+        """Rank ``d``'s part of this operator: every rank-stacked array cut
+        to its ``[d:d+1]`` rows (copies, so a pickled slice carries no other
+        rank's data), the plan's index arrays likewise.  The widths are the
+        stacked maxima, so the slice is bit-equal to row ``d``."""
+        def cut(a):
+            return None if a is None else a[d:d + 1].copy()
+
+        plan = dataclasses.replace(self.plan, send_idx=cut(self.plan.send_idx),
+                                   recv_sel=cut(self.plan.recv_sel),
+                                   pool_sel=cut(self.plan.pool_sel))
+        return dataclasses.replace(
+            self, plan=plan, rank=d,
+            **{f: cut(getattr(self, f)) for f in (
+                "ell_cols", "ell_vals", "send_idx", "recv_sel", "pool_sel",
+                "on_cols", "on_vals", "off_cols", "off_vals", "bcsr_bcols",
+                "bcsr_bvals", "bcsr_on_bcols", "bcsr_on_bvals")})
 
     def to_device(self, device: torch.device,
                   dtype: torch.dtype) -> dict[str, torch.Tensor]:
@@ -308,7 +329,8 @@ class DistOperator:
     def apply(self, arrs: dict[str, torch.Tensor], x: torch.Tensor,
               use_kernel: bool = True, overlap: bool = True,
               log: list | None = None,
-              side: torch.cuda.Stream | None = None) -> torch.Tensor:
+              side: torch.cuda.Stream | None = None,
+              ranks=None, tag=None) -> torch.Tensor:
         """Halo exchange + local SpMV/SpMM for all ranks at once.
 
         ``arrs`` holds :meth:`to_device`'s tensors; ``x`` is ``[D, local]``
@@ -328,6 +350,10 @@ class DistOperator:
         exchange runs on it while the current stream computes ``A_on·x``,
         and the two join before ``A_off·halo``.  The sum is the same in the
         same order, so the result is bit-equal to the one-stream form.
+
+        ``ranks`` (a :class:`~repro_torch.core.nap_collectives.RankGroups`)
+        runs the exchange between processes on this rank's slice
+        (:meth:`rank_slice`); ``tag`` labels its tally.
         """
         if self.halo_empty:
             return self._on_product(arrs, x, use_kernel)
@@ -335,7 +361,7 @@ class DistOperator:
 
         def exchange():
             return halo_exchange(x, self.plan, arrs["send"], arrs["recv"],
-                                 psel, log=log)
+                                 psel, log=log, ranks=ranks, tag=tag)
 
         if overlap:
             if side is None:
@@ -364,18 +390,20 @@ class DistOperator:
         """Global x (col_part layout) -> [D, x_local(, k)] device layout.
 
         ``x`` may be ``[n]`` or ``[n, k]`` (multi-RHS block); the trailing
-        RHS axis is carried through unsharded.
+        RHS axis is carried through unsharded.  A :meth:`rank_slice` takes
+        its own rank's rows only: ``[1, x_local(, k)]``.
         """
         x = np.asarray(x)
         if x.ndim not in (1, 2) or x.shape[0] != self.col_part.n:
             raise ValueError(f"expected x of shape ({self.col_part.n},) or "
                              f"({self.col_part.n}, k), got {x.shape}")
-        D = self.n_devices
+        held = range(self.n_devices) if self.rank is None else (self.rank,)
         dtype = dtype or self.ell_vals.dtype
-        out = np.zeros((D, self.plan.local_n) + x.shape[1:], dtype=dtype)
-        for d in range(D):
+        out = np.zeros((len(held), self.plan.local_n) + x.shape[1:],
+                       dtype=dtype)
+        for i, d in enumerate(held):
             lo, hi = self.col_part.local_range(d)
-            out[d, : hi - lo] = x[lo:hi]
+            out[i, : hi - lo] = x[lo:hi]
         return out
 
     def gather_y(self, y_dev: np.ndarray) -> np.ndarray:

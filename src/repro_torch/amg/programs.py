@@ -20,6 +20,12 @@ over static buffers:
 * on a CUDA device each program is one ``torch.cuda.CUDAGraph``, captured
   on first use and replayed afterwards; on the CPU its body runs directly
   over the same buffers.
+* with one process per rank (``AMGConfig(ranks="process")``) the body also
+  runs directly over its buffers on every call, on the card too: its
+  collectives are ``torch.distributed`` calls, host code a CUDA graph cannot
+  capture (a gloo group's are staged through host memory besides).
+  Capturing the compute between them, or NCCL collectives inside a graph,
+  is left for later (ROADMAP item 12).
 
 Capture runs the body once on a side stream first (the warm-up loads each
 kernel's library, outside the capture; its outputs are dropped, so it
@@ -27,7 +33,8 @@ changes no state), then captures body and write-back with
 ``capture_error_mode="thread_local"``, so that a worker thread can capture
 while another thread synchronises.  Kernel launches and the collective log
 are recorded at capture and added once per replay.  A capture that fails
-raises: nothing falls back to eager execution on the card.
+raises: on the stacked ranks nothing falls back to eager execution on the
+card.
 
 A graph's static buffers make its program non-reentrant, which a jitted
 program is not, so every driver holds the hierarchy's lock from the
@@ -185,7 +192,7 @@ class ProgramCache:
         st = self._state.get(k)
         if st is None:
             dh = self.dh
-            D, n = dh.n_pods * dh.lanes, dh.levels[0].A.plan.local_n
+            D, n = dh.local_ranks, dh.levels[0].A.plan.local_n
             ext = () if k is None else (k,)
             st = {name: torch.zeros((D, n) + ext, dtype=dh.dtype,
                                     device=dh.device) for name in VECTORS}
@@ -197,12 +204,12 @@ class ProgramCache:
 
     def get(self, name: str, opts, k: int | None = None) -> Program:
         """The program ``name`` for ``opts`` at width ``k``, captured on
-        first use on a CUDA device."""
+        first use on a CUDA device (not one process per rank)."""
         key = self.key(name, opts, k)
         prog = self._programs.get(key)
         if prog is None:
             prog = Program(self.dh, key, opts)
-            if self.dh.device.type == "cuda":
+            if self.dh.device.type == "cuda" and self.dh.ranks is None:
                 self._capture(prog)
             self._programs[key] = prog
         return prog

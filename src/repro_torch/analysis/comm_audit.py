@@ -28,7 +28,12 @@ On the CPU a program call runs its body and logs each step.  On the card it
 is a replay of the program's captured CUDA graph, which logs what the
 capture recorded, so the audit reads exactly what every replay adds.  The
 setup exchanges run on the host, so their audit reads the counters the
-exchange measured.
+exchange measured.  With one process per rank (``ranks="process"``) each
+process audits its own log against the same counts, and
+:func:`rank_traffic` reports the elements it sent over its slow and fast
+groups beside :func:`~repro_torch.amg.dist_solve.cycle_comm_stats`' modeled
+messages (reported, not compared: a padded all-to-all chunk is not one of
+the model's messages).
 
 Any mismatch is a typed :class:`~repro_torch.analysis.records.AuditViolation`
 with the offending step and level/op attribution.
@@ -124,12 +129,12 @@ def audit_apply(dh, level: int, op: str = "A",
     check = None
     if overlap:
         dop = getattr(dh.levels[level], op)
-        x = torch.ones((dh.n_pods * dh.lanes, dop.plan.local_n),
+        x = torch.ones((dh.local_ranks, dop.plan.local_n),
                        dtype=dh.dtype, device=dh.device)
         with dh.lock:
             check = check_overlap_independence(
                 dop, dh._arrs[level][op], x, use_kernel=dh.use_kernel,
-                side=dh._side)
+                side=dh._side, ranks=dh.ranks)
     return audit_log(log, f"apply_{op}",
                      expected_signature=dh.expected_apply_signature(level, op),
                      overlap=check, level=level, op=op)
@@ -175,6 +180,48 @@ def audit_solve(dh, log, calls: dict[str, int], opts=None,
         for p, c in dh.expected_collectives(opts, name).items():
             expected[p] += c * n
     return audit_log(log, label, expected_counts=dict(expected))
+
+
+def rank_traffic(dh, opts=None) -> dict:
+    """What one PCG iteration (one ``pcg_step``) of ``opts`` makes this
+    process send, on a hierarchy with one process per rank:
+    elements (and bytes, and the collectives' host seconds) by group
+    (``slow`` / ``fast`` / ``world``), and elements by the
+    strategy of the step that sent them (an operator's selected halo
+    strategy, ``reduce:<strategy>`` for the dots, ``coarse`` for the
+    coarsest gather), beside the model's messages and bytes for one cycle
+    of ``opts`` over all ranks (:func:`cycle_comm_stats`).  Every rank
+    must call it at the same point."""
+    from ..amg.dist_solve import cycle_comm_stats
+    if dh.ranks is None:
+        raise ValueError("rank_traffic reads the tally of one process per "
+                         "rank; this hierarchy stacks its ranks")
+    opts = opts or SolveOptions()
+    op_key = {"A": "spmv_A", "P": "interp", "R": "restrict"}
+    dh.ranks.reset_tally()
+    dh.trace_program("pcg_step", opts)
+    by_group: Counter = Counter()
+    seconds: Counter = Counter()
+    for (group, _), t in dh.ranks.seconds.items():
+        seconds[group] += t
+    by_strategy: dict[str, Counter] = {}
+    for (group, tag), n in dh.ranks.sent.items():
+        if tag == ("dot",):
+            strat = f"reduce:{dh.reduce_strategy}"
+        elif tag[1] == "coarse":
+            strat = "coarse"
+        else:
+            strat = dh.levels[tag[0]].strategies[op_key[tag[1]]]
+        by_group[group] += n
+        by_strategy.setdefault(strat, Counter())[group] += n
+    model = cycle_comm_stats(dh, opts)
+    return {"rank": dh.ranks.rank,
+            "elements": dict(by_group),
+            "bytes": {g: n * dh.dtype.itemsize for g, n in by_group.items()},
+            "seconds": dict(seconds),
+            "by_strategy": {s: dict(c) for s, c in by_strategy.items()},
+            "modeled_cycle": {key: model[key] for key in (
+                "inter_msgs", "intra_msgs", "inter_bytes", "intra_bytes")}}
 
 
 def audit_cycle_stats(dh, opts=None) -> list[AuditViolation]:

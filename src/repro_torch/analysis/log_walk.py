@@ -77,15 +77,18 @@ def _record_contractions(dop, outputs: list):
 
 def check_overlap_independence(dop, arrs: dict, x: torch.Tensor, *,
                                apply=None, use_kernel: bool = True,
-                               side=None) -> OverlapCheck:
+                               side=None, ranks=None) -> OverlapCheck:
     """Run one apply of ``dop`` on ``x`` twice, clean and with the halo
     poisoned, and compare its local contractions (see the module
     docstring).  ``apply`` (no arguments) runs the apply under test; the
-    default is the split form ``dop.apply(arrs, x, overlap=True)``."""
+    default is the split form ``dop.apply(arrs, x, overlap=True)`` (its
+    exchange between processes when ``ranks`` is given)."""
     if apply is None:
+        between = {} if ranks is None else {"ranks": ranks}
+
         def apply():
             return dop.apply(arrs, x, use_kernel=use_kernel, overlap=True,
-                             side=side)
+                             side=side, **between)
     real = dist_spmv.halo_exchange
     exchanged = []
 

@@ -22,6 +22,24 @@ friends.
   schedules, executed on the host rank-faithfully (phase by phase, message
   by message), with measured message and byte counters.
 
+**One process per rank.**  :class:`RankGroups` is the port's counterpart of
+the reference's ``("pod", "lane")`` mesh: this process's rank on the grid,
+the world group, its pod's **fast** group (the pod's ``lanes`` ranks) and
+its lane's **slow** group (the ``n_pods`` ranks that share the lane), all
+``torch.distributed`` process groups (:func:`init_ranks`).  Passed as
+``ranks=`` to the three exchanges above, it makes every step a real
+collective between processes on tensors whose leading rank dim has size 1:
+a pod-axis swap is an ``all_to_all_single`` over the slow group, a lane-axis
+swap one over the fast group, an intra-pod gather an
+``all_gather_into_tensor`` over the fast group, and NAP-3's all-reduce
+reduce-scatter (fast) → all-reduce (slow) → all-gather (fast).  Each step is
+logged under the same name at the same point as in the stacked form, and
+every element a process sends is tallied by group and by the caller's tag.
+On a gloo group the card's tensors are copied to the host before each
+collective and back after it (gloo ranks sharing one card); on an NCCL group
+they go in directly (one card per rank).  Every ``torch.distributed`` call
+of the port lives in this module.
+
 The plan builders (:class:`HaloPlan` / :func:`build_halo_plan`,
 :class:`MatrixHaloPlan` / :func:`build_matrix_halo_plan`), the matrix-row
 exchange and the signature tables are verbatim numpy copies of the
@@ -30,10 +48,14 @@ reference.
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import os
 import time
+from collections import Counter
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .comm_graph import CommGraph
 from .schedules import Schedule, build as build_schedule
@@ -121,11 +143,240 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(tuple(idx.shape) + ext)
 
 
+# --------------------------------------------------------------------------
+# One process per rank: the rank mesh and its process groups
+# --------------------------------------------------------------------------
+
+#: the reduce-scatter collective (``reduce_scatter_single`` from
+#: torch 2.13, the older name before)
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+#: the rank meshes of this process by (n_pods, lanes): every process creates
+#: every subgroup once, in the same order (``torch.distributed.new_group``'s
+#: rule), so a mesh is made once and shared
+_MESHES: dict[tuple[int, int], "RankGroups"] = {}
+DEFAULT_TIMEOUT = 120.0          # seconds a collective may wait for a peer
+#: how everything one process per rank does not run yet refuses
+PROCESS_TODO = ("is not ported to ranks='process' yet (ROADMAP queue 1, "
+                "item 12)")
+
+
+class RankGroups:
+    """This process's place on the (pods × lanes) rank grid and its process
+    groups: the counterpart of the reference's ``jax.make_mesh((n_pods,
+    lanes), ("pod", "lane"))``.
+
+    ``rank`` is ``d = pod * lanes + lane`` (pod-major, as in
+    :class:`~repro_torch.core.topology.Topology`).  ``fast`` is this pod's
+    group (its ``lanes`` ranks in lane order), ``slow`` this lane's group
+    (the ``n_pods`` ranks that share it, in pod order), ``world`` the
+    default group.  Made by :func:`init_ranks` / :func:`rank_groups` over
+    an initialised default group of ``n_pods * lanes`` ranks.
+
+    ``sent`` tallies the elements this process sends, by (group, tag): an
+    element counts once for every other rank whose result it reaches (an
+    all-to-all chunk for its one receiver, a gathered or all-reduced
+    element for each peer, a reduce-scattered element for the one rank
+    whose piece it is in), padding included.  ``seconds`` holds the
+    collectives' host wall time likewise (on a staged group from after the
+    card's queued work to the result back on the card; on NCCL the enqueue
+    alone).
+    """
+
+    def __init__(self, n_pods: int, lanes: int):
+        world = dist.get_world_size()
+        if world != n_pods * lanes:
+            raise ValueError(
+                f"the default process group has {world} ranks; a {n_pods} x "
+                f"{lanes} rank grid needs {n_pods * lanes}")
+        self.n_pods, self.lanes = n_pods, lanes
+        self.rank = dist.get_rank()
+        self.pod, self.lane = divmod(self.rank, lanes)
+        self.backend = str(dist.get_backend())
+        # gloo moves host memory: card tensors are staged through the host
+        self.staged = self.backend == "gloo"
+        if self.backend == "nccl":
+            # NCCL needs a card of its own for every rank, current before
+            # the first collective
+            local = int(os.environ.get("LOCAL_RANK", self.rank))
+            if local >= torch.cuda.device_count():
+                raise RuntimeError(
+                    f"NCCL needs one card per rank: local rank {local} on a "
+                    f"machine with {torch.cuda.device_count()} card(s)")
+            torch.cuda.set_device(local)
+        fast = [dist.new_group([p * lanes + l for l in range(lanes)])
+                for p in range(n_pods)]
+        slow = [dist.new_group([p * lanes + l for p in range(n_pods)])
+                for l in range(lanes)]
+        self._groups = {"world": (dist.group.WORLD, world),
+                        "fast": (fast[self.pod], lanes),
+                        "slow": (slow[self.lane], n_pods)}
+        self.sent: Counter = Counter()
+        self.seconds: Counter = Counter()
+
+    @property
+    def size(self) -> int:
+        return self.n_pods * self.lanes
+
+    def device(self, requested: str | torch.device = "cuda") -> torch.device:
+        """The device this rank computes on: the CPU when asked; on the card
+        ``requested`` as it is for gloo (every rank may share one card), and
+        ``cuda:<local rank>`` for NCCL (made current when the mesh was
+        made)."""
+        from ..device import resolve_device
+        dev = resolve_device(requested)
+        if dev.type != "cuda" or self.backend != "nccl":
+            return dev
+        return torch.device("cuda", torch.cuda.current_device())
+
+    def reset_tally(self) -> None:
+        self.sent.clear()
+        self.seconds.clear()
+
+    # -- the collectives (each logs its canonical name and tallies) --------
+    def _run(self, op, v: torch.Tensor, group: str, tag, log, name: str,
+             chunked: bool, out_shape) -> torch.Tensor:
+        """One collective ``op(out, src, pg)`` over ``group``: log ``name``,
+        tally what it sends (``chunked``: each peer receives one ``1/size``
+        chunk of ``v``, else all of it), stage a card tensor through the
+        host on gloo, and time it.  ``out_shape(src, size)`` is the output's
+        shape."""
+        _note(log, name)
+        pg, size = self._groups[group]
+        n = v.numel() // size if chunked else v.numel()
+        self.sent[(group, tag)] += n * (size - 1)
+        src = v.contiguous()
+        if self.staged and src.is_cuda:
+            # the copy to the host waits for the card anyway: wait first,
+            # so the clock starts with the collective
+            torch.cuda.current_stream(src.device).synchronize()
+        t0 = time.perf_counter()
+        if self.staged:
+            src = src.cpu()
+        out = src.new_empty(out_shape(src, size))
+        op(out, src, pg)
+        if out.device != v.device:
+            out = out.to(v.device)
+        self.seconds[(group, tag)] += time.perf_counter() - t0
+        return out
+
+    def all_to_all(self, v: torch.Tensor, group: str, tag=None,
+                   log: list | None = None) -> torch.Tensor:
+        """Chunk ``j`` of ``v``'s dim 0 goes to member ``j`` of ``group``;
+        chunk ``i`` of the result came from member ``i``."""
+        return self._run(
+            lambda out, src, pg: dist.all_to_all_single(out, src, group=pg),
+            v, group, tag, log, "all_to_all", True,
+            lambda src, size: src.shape)
+
+    def all_gather(self, v: torch.Tensor, group: str, tag=None,
+                   log: list | None = None) -> torch.Tensor:
+        """``[size] + v.shape``: member ``i``'s ``v`` at index ``i``."""
+        out = self._run(
+            lambda out, src, pg: dist.all_gather_into_tensor(out, src,
+                                                             group=pg),
+            v, group, tag, log, "all_gather", False,
+            lambda src, size: (size * src.shape[0],) + tuple(src.shape[1:]))
+        return out.view((-1,) + tuple(v.shape))
+
+    def reduce_scatter(self, v: torch.Tensor, group: str, tag=None,
+                       log: list | None = None) -> torch.Tensor:
+        """Member ``i`` gets the sum over the group of chunk ``i`` of
+        ``v``'s dim 0."""
+        return self._run(
+            lambda out, src, pg: _reduce_scatter(out, src, group=pg),
+            v, group, tag, log, "psum_scatter", True,
+            lambda src, size: (src.shape[0] // size,) + tuple(src.shape[1:]))
+
+    def all_reduce(self, v: torch.Tensor, group: str, tag=None,
+                   log: list | None = None) -> torch.Tensor:
+        """The sum of ``v`` over the group, on every member."""
+        def op(out, src, pg):
+            out.copy_(src)
+            dist.all_reduce(out, group=pg)
+
+        return self._run(op, v, group, tag, log, "psum", False,
+                         lambda src, size: src.shape)
+
+    # -- host objects ------------------------------------------------------
+    def gather_objects(self, obj) -> list:
+        """Every rank's ``obj``, in rank order, on every rank."""
+        out = [None] * self.size
+        dist.all_gather_object(out, obj)
+        return out
+
+    def check_same(self, value, what: str) -> None:
+        """Raise on every rank unless every rank passed an equal ``value``."""
+        seen = self.gather_objects(value)
+        if any(v != seen[0] for v in seen):
+            raise ValueError(f"the ranks disagree on the {what}: {seen}")
+
+    def all_true(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on every rank (the same answer on all)."""
+        return all(self.gather_objects(bool(flag)))
+
+    def scatter_objects(self, objs: list | None):
+        """Rank 0's ``objs[d]`` on rank ``d`` (``objs`` is ignored on the
+        other ranks)."""
+        out = [None]
+        dist.scatter_object_list(out, objs if self.rank == 0 else None, src=0)
+        return out[0]
+
+
+def init_ranks(n_pods: int, lanes: int, *, rank: int | None = None,
+               world_size: int | None = None, init_method: str | None = None,
+               backend: str = "gloo",
+               timeout: float = DEFAULT_TIMEOUT) -> RankGroups:
+    """Initialise the default process group (unless it already is, as a
+    launcher may leave it) and this process's :class:`RankGroups`.
+
+    ``init_method`` defaults to ``env://`` (``MASTER_ADDR``, ``RANK``, ...
+    as torchrun sets them); ``timeout`` bounds every collective's wait for
+    a peer.  The world size must be ``n_pods * lanes``.
+    """
+    if not dist.is_initialized():
+        kw = {} if rank is None else {"rank": rank}
+        if world_size is not None:
+            kw["world_size"] = world_size
+        dist.init_process_group(
+            backend, init_method=init_method or "env://",
+            timeout=datetime.timedelta(seconds=timeout), **kw)
+    return rank_groups(n_pods, lanes)
+
+
+def rank_groups(n_pods: int, lanes: int) -> RankGroups:
+    """This process's mesh for the (n_pods, lanes) grid, made on first use
+    over the initialised default group (every process must ask in the same
+    order); raises when there is none."""
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            "ranks='process' needs an initialised torch.distributed default "
+            "group of n_pods * lanes ranks: call "
+            "repro_torch.core.nap_collectives.init_ranks, or start the ranks "
+            "with repro_torch.launch.ranks.spawn")
+    mesh = _MESHES.get((n_pods, lanes))
+    if mesh is None:
+        mesh = _MESHES[(n_pods, lanes)] = RankGroups(n_pods, lanes)
+    return mesh
+
+
+def close_ranks() -> None:
+    """Drop this process's meshes and destroy the default group."""
+    _MESHES.clear()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def hier_psum(x: torch.Tensor, n_pods: int, lanes: int,
-              strategy: str = "nap3", log: list | None = None) -> torch.Tensor:
+              strategy: str = "nap3", log: list | None = None,
+              ranks: RankGroups | None = None, tag=None) -> torch.Tensor:
     """All-reduce over all ranks of the per-rank partials ``x`` (``[D, ...]``);
     every rank gets the total.  ``nap3`` = RS(fast) → AR(slow) → AG(fast):
-    the slow axis carries 1/|fast| of the bytes (paper Fig. 12)."""
+    the slow axis carries 1/|fast| of the bytes (paper Fig. 12).  With
+    ``ranks``, ``x`` is this process's ``[1, ...]`` and the steps are
+    collectives between the processes (``tag`` labels their tally)."""
+    if ranks is not None:
+        return _psum_ranks(x, lanes, strategy, log, ranks, tag)
     if strategy == "flat":
         _note(log, "psum")
         return x.sum(dim=0, keepdim=True).expand(x.shape)
@@ -152,10 +403,14 @@ def hier_psum(x: torch.Tensor, n_pods: int, lanes: int,
 
 
 def hier_all_gather(x: torch.Tensor, n_pods: int, lanes: int,
-                    strategy: str = "nap3",
-                    log: list | None = None) -> torch.Tensor:
+                    strategy: str = "nap3", log: list | None = None,
+                    ranks: RankGroups | None = None,
+                    tag=None) -> torch.Tensor:
     """All-gather of ``x`` (``[D, m] + ext``) along dim 1 over all ranks, with
-    pod-major result layout: every rank gets ``[D * m] + ext``."""
+    pod-major result layout: every rank gets ``[D * m] + ext``.  With
+    ``ranks``, ``x`` is this process's ``[1, m] + ext``."""
+    if ranks is not None:
+        return _all_gather_ranks(x, strategy, log, ranks, tag)
     D, m = x.shape[:2]
     ext = tuple(x.shape[2:])
     if strategy == "flat":
@@ -168,6 +423,36 @@ def hier_all_gather(x: torch.Tensor, n_pods: int, lanes: int,
     full = pod.transpose(0, 1).reshape((1, lanes, n_pods * lanes * m) + ext)
     full = full.expand((n_pods, lanes, D * m) + ext)
     return full.reshape((D, D * m) + ext)
+
+
+def _psum_ranks(x, lanes, strategy, log, ranks: RankGroups, tag):
+    """:func:`hier_psum` between processes: the same steps, the same
+    pieces (rank (P, L) reduces piece L), the result bit-identical on every
+    rank."""
+    if strategy == "flat":
+        return ranks.all_reduce(x, "world", tag, log)
+    if strategy != "nap3":
+        raise ValueError(f"hier_psum: unknown strategy {strategy!r}")
+    flat = x.reshape(-1)
+    F = flat.shape[0]
+    pad = (-F) % lanes
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    piece = ranks.reduce_scatter(flat, "fast", tag, log)
+    piece = ranks.all_reduce(piece, "slow", tag, log)
+    full = ranks.all_gather(piece, "fast", tag, log).reshape(-1)
+    return full[:F].reshape(x.shape)
+
+
+def _all_gather_ranks(x, strategy, log, ranks: RankGroups, tag):
+    """:func:`hier_all_gather` between processes, the result pod-major."""
+    ext = tuple(x.shape[2:])
+    if strategy == "flat":
+        full = ranks.all_gather(x[0], "world", tag, log)
+    else:
+        pod = ranks.all_gather(x[0], "fast", tag, log)          # [lanes, m]
+        full = ranks.all_gather(pod.reshape((-1,) + ext), "slow", tag, log)
+    return full.reshape((1, -1) + ext)
 
 
 # --------------------------------------------------------------------------
@@ -468,14 +753,23 @@ def build_halo_plan(graph: CommGraph, n_pods: int, lanes: int,
 
 def halo_exchange(x: torch.Tensor, plan: HaloPlan, send_idx: torch.Tensor,
                   recv_sel: torch.Tensor, pool_sel: torch.Tensor | None,
-                  log: list | None = None) -> torch.Tensor:
+                  log: list | None = None, ranks: RankGroups | None = None,
+                  tag=None) -> torch.Tensor:
     """Every rank's halo values: ``[D, halo_len] + ext``.
 
     ``x`` is the rank-stacked local vector, ``[D, local_n]`` for one RHS or
     ``[D, local_n, k]`` for a multi-RHS batch (the trailing dims ride along
     through one exchange).  ``send_idx``/``recv_sel``/``pool_sel`` are the
     plan's index arrays as int64 tensors on ``x``'s device.
+
+    With ``ranks`` (one process per rank), ``x`` and the index arrays are
+    this rank's ``[1, ...]`` rows and the exchange runs between the
+    processes; the pool a rank receives is element for element the stacked
+    form's row, so ``recv_sel`` selects the same entries.
     """
+    if ranks is not None:
+        return _halo_ranks(x, plan, send_idx, recv_sel, pool_sel, log, ranks,
+                           tag)
     P, L, D = plan.n_pods, plan.lanes, plan.n_devices
     ext = tuple(x.shape[2:])
     if plan.strategy == "standard":
@@ -502,3 +796,37 @@ def halo_exchange(x: torch.Tensor, plan: HaloPlan, send_idx: torch.Tensor,
     else:
         raise ValueError(plan.strategy)
     return _take(pool, recv_sel)
+
+
+def _halo_ranks(x, plan: HaloPlan, send_idx, recv_sel, pool_sel, log,
+                ranks: RankGroups, tag):
+    """:func:`halo_exchange` between processes.  The per-process pack is
+    ``[P_dst(, L_dst), K] + ext``; ``all_to_all_single`` splits dim 0, so the
+    destination axis of each swap is moved to the front before it and the
+    source axis back after it.  The pool comes out as the stacked form's:
+    ``[src pod, src lane, K]`` (standard), ``[lanes, n_pods, K]`` (nap2 and
+    nap3)."""
+    P, L = plan.n_pods, plan.lanes
+    ext = tuple(x.shape[2:])
+    if plan.strategy == "standard":
+        K = send_idx.shape[-1]
+        buf = _take(x, send_idx).reshape((P, L, K) + ext)    # [P_dst, L_dst]
+        buf = ranks.all_to_all(buf, "slow", tag, log)        # [P_src, L_dst]
+        buf = ranks.all_to_all(buf.transpose(0, 1), "fast", tag, log)
+        pool = buf.transpose(0, 1)                           # [P_src, L_src]
+    elif plan.strategy == "nap2":
+        K = send_idx.shape[-1]
+        buf = _take(x, send_idx).reshape((P, K) + ext)       # [P_dst, K]
+        buf = ranks.all_to_all(buf, "slow", tag, log)        # [P_src, K]
+        pool = ranks.all_gather(buf, "fast", tag, log)       # [lanes, P_src]
+    elif plan.strategy == "nap3":
+        contrib = _take(x, send_idx).reshape((-1,) + ext)    # [n_pods * Kc]
+        pod_pool = ranks.all_gather(contrib, "fast", tag, log)
+        pod_pool = pod_pool.reshape((1, -1) + ext)           # [lanes, P, Kc]
+        K3 = pool_sel.shape[-1]
+        out_buf = _take(pod_pool, pool_sel).reshape((P, K3) + ext)
+        out_buf = ranks.all_to_all(out_buf, "slow", tag, log)   # [P_src, K3]
+        pool = ranks.all_gather(out_buf, "fast", tag, log)   # [lanes, P_src]
+    else:
+        raise ValueError(plan.strategy)
+    return _take(pool.reshape((1, plan.pool_len) + ext), recv_sel)

@@ -440,6 +440,28 @@ def test_lint_clean_tree():
     assert lint_paths(SRC) == []
 
 
+def test_lint_keeps_torch_distributed_in_nap_collectives(capsys):
+    """The process-group back-end's ``torch.distributed`` calls live in
+    ``core/nap_collectives.py``, where the rule allows them; the same call
+    appended to any other port module is flagged, and ``python -m
+    repro_torch.analysis --lint-only`` passes on the tree."""
+    from repro_torch.analysis.__main__ import main
+
+    core = SRC / "core" / "nap_collectives.py"
+    src = core.read_text()
+    assert "dist.all_to_all_single(" in src and "dist.init_process_group(" in src
+    assert lint_source(src, str(core)) == []
+    call = "\n\ndef _probe(x):\n    torch.distributed.all_reduce(x)\n"
+    others = [p for p in sorted(SRC.rglob("*.py")) if p != core]
+    assert len(others) > 50
+    for path in others:
+        text = path.read_text() + call
+        got = [(v.rule, v.line) for v in lint_source(text, str(path))]
+        assert got == [("raw-collective", text.count("\n"))], path
+    assert main(["--lint-only"]) == 0
+    assert "lint" in capsys.readouterr().out
+
+
 # ---------------------------------------------- against the reference
 @pytest.fixture(scope="module")
 def reference(h8, tmp_path_factory):
