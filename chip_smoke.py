@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's two paths, after building the six hand-written CUDA
+Drives the port's paths, after building the six hand-written CUDA
 kernels from this checkout and holding each against its plain PyTorch
 version at the shapes its path gives it:
 
@@ -24,7 +24,13 @@ version at the shapes its path gives it:
   from a seeded generator): in float32, 8 requests of 512-2048 prompt
   tokens and 32 greedy new tokens in batches of 4; then in bfloat16
   (weights, caches and the engine), the first 4 of those requests again;
-  prefill attention through ``flash_attention``.
+  prefill attention through ``flash_attention``;
+- the MoE archs, ``mixtral-8x22b`` (8 experts top-2, 48/8 heads, a 4096-key
+  window) and ``qwen3-moe-235b-a22b`` (128 experts top-8, 64/4 heads) at
+  full width and 2 layers in bfloat16 through the same engine, their FFN
+  ``models/moe.py``'s ``moe_ffn_tp``; one qwen3-moe layer expert-parallel
+  (``moe_ffn_ep``) over the 2 x 4 stacked ranks through
+  ``hier_all_to_all``.
 
 Phases (any failure exits non-zero):
 
@@ -123,11 +129,14 @@ Phases (any failure exits non-zero):
    beside the stacked path's, setup / lowering / scatter seconds, and the
    elements one PCG iteration sends over the slow and the fast group (and
    the collectives' host ms) under ``auto`` and each forced strategy,
-   beside the model's messages;
+   beside the model's messages; one ``hier_all_to_all`` of each strategy
+   (flat, nap3) between the ranks bit-equal to the stacked form, its log the
+   strategy's signature;
 8. flash attention at the serving runs' prefill shape, with a 256-key
    window, with fewer queries than keys, and at head dim 64, each in f32
-   and bf16, against its plain version (each row's error over the row's
-   max|plain|: float32 2e-5, bfloat16 1e-2), with device times of the kernel, the plain
+   and bf16, and at the MoE archs' prefill shapes (48:8 with the 4096-key
+   window, 64:4) in bf16, against its plain version (each row's error over
+   the row's max|plain|: float32 2e-5, bfloat16 1e-2), with device times of the kernel, the plain
    version and ``scaled_dot_product_attention``, and the flop / byte bound
    (float32 as 3xTF32 at a third of the tensor cores' 495 TFLOP/s, with the
    FMA units' 67 TFLOP/s bound beside it; bfloat16 at the tensor cores'
@@ -144,8 +153,27 @@ Phases (any failure exits non-zero):
 9-10 again in bf16 on 4 requests (one prefill batch: 28 launches; logits
    to 3e-2 of max|logits|, the reason at ``LOGITS_RTOL``), then bf16's
    prefill s, decode tok/s and ms a step beside f32's;
-11. one JSON line with every kernel's numbers;
-12. last line: ``{"ok": true, "device": {...}}``.
+11. the MoE phase: each MoE arch at full width, 2 layers, bf16, serving
+   the first 4 requests (their tokens drawn in its vocab; one prefill
+   batch: 2 ``flash_attention`` launches, counters set to 0 just before
+   and read just after): parameters, init s, prefill s, decode tok/s, ms a
+   step, peak GiB, the share of (token, slot) selections the capacity
+   dropped at prefill and at decode; kernel vs plain, routing-aware: each
+   layer's attention on the same input (per row, 1e-2), the share of tokens
+   whose experts or kept slots differ in any layer between a kernel and a
+   plain walk of the prefill and the logits of the rest (printed), the
+   logits of every token with the plain walk's experts forced to the
+   kernel walk's (3e-2 of max|logits|), the kernel walk against
+   ``LM.forward``; each layer's routing readings (drops with and without
+   the pads, the share of the router input's energy in its token mean,
+   the router logits' spreads), also with the embedding scaled to unit
+   size; then qwen3-moe's layer 0 expert-parallel over the 2 x 4
+   stacked ranks (16 experts, 512 tokens a rank): ``nap`` on and off
+   bit-equal, each logging 2 x its all-to-all signature, and at the least
+   capacity where nothing drops, EP against ``moe_ffn_tp`` (float32
+   rtol / atol 1e-4, bfloat16 3e-2 of max|y|), with wall ms;
+12. one JSON line with every kernel's numbers;
+13. last line: ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and refuses to run without one.
@@ -246,6 +274,20 @@ F32_HIST_TOL = 1e-4
 LM_ARCH, LM_REQUESTS, LM_BATCH, LM_NEW = "qwen3-1.7b", 8, 4, 32
 LM_PROMPT = (512, 2048)
 LM_BF16_REQUESTS = 4          # the bf16 run: the first prefill batch again
+# the MoE phase: both MoE archs at full width, cut to 2 layers (a choice,
+# enough for an MoE layer fed by another's output; memory does not force it:
+# 2 layers peak near 16 GiB in bf16 and a layer's weights are 4.7 GiB, so
+# one card would hold about 14), served in bf16 on the first 4 prompts; then one qwen3-moe layer's MoE expert
+# parallel over the 2 x 4 stacked ranks (16 experts a rank) at 512 tokens a
+# rank; EP against moe_ffn_tp where nothing drops: the tests' bars (float32
+# rtol / atol, bfloat16 over max|y|)
+MOE_ARCHS, MOE_LAYERS, MOE_REQUESTS = ("mixtral-8x22b",
+                                       "qwen3-moe-235b-a22b"), 2, 4
+EP_ARCH, EP_TOKENS = "qwen3-moe-235b-a22b", 512
+EP_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the routing probe: the embedded tokens scaled from the random init's 0.02
+# to unit scale, where the layers' input is no longer the attention's
+EMBED_PROBE = 50.0
 
 
 def log(msg: str) -> None:
@@ -998,6 +1040,13 @@ def flash_shapes(S: int) -> list[tuple]:
             ("head dim 64", LM_BATCH, 14, 2, S, S, 64, None)]
 
 
+def moe_flash_shapes(S: int) -> list[tuple]:
+    """The MoE archs' prefill shapes (bf16 only, as served): mixtral's GQA
+    48:8 with its 4096-key window, qwen3-moe's 64:4."""
+    return [("mixtral-8x22b prefill", LM_BATCH, 48, 8, S, S, 128, 4096),
+            ("qwen3-moe prefill", LM_BATCH, 64, 4, S, S, 128, None)]
+
+
 def flash_peak(dtype) -> float:
     """The flash kernel's peak rate in ``dtype``: float32 as 3xTF32."""
     return TF32X3_FLOPS if dtype == torch.float32 else PEAK_FLOPS[dtype]
@@ -1019,11 +1068,12 @@ def flash_bounds(dtype, B, Hq, D, pairs, nbytes) -> dict:
 def sdpa_call(q, k, v, window):
     """``scaled_dot_product_attention`` on the same causal (windowed)
     problem, queries right-aligned: the yardstick, used nowhere in the
-    port."""
+    port.  A window no shorter than the keys binds nothing, so that problem
+    takes the plain causal call."""
     import torch.nn.functional as F
 
     Sq, Skv = q.shape[2], k.shape[2]
-    if window is None and Sq == Skv:
+    if (window is None or window >= Skv) and Sq == Skv:
         return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                       enable_gqa=True)
     qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
@@ -1035,15 +1085,17 @@ def sdpa_call(q, k, v, window):
 
 def flash_phase(S: int) -> list[dict]:
     """flash_attention at the serving runs' prefill shape, with a window,
-    with Sq < Skv and at head dim 64, each in f32 and bf16, against its
-    plain version; ``scaled_dot_product_attention`` timed as the
-    yardstick."""
+    with Sq < Skv and at head dim 64, each in f32 and bf16, and at the MoE
+    archs' prefill shapes in bf16, against its plain version;
+    ``scaled_dot_product_attention`` timed as the yardstick."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref, rel_err_rows
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     cases = [(label, dt, *shape) for label, *shape in flash_shapes(S)
              for dt in (torch.float32, torch.bfloat16)]
+    cases += [(label, torch.bfloat16, *shape)
+              for label, *shape in moe_flash_shapes(S)]
     rows = []
     for label, dt, B, Hq, Hkv, Sq, Skv, D, window in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dt)
@@ -1100,10 +1152,15 @@ def lm_serve(cfg, prompts, dtype) -> dict:
             for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
+    if cfg.is_moe:
+        model.moe_stats = {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out, counts = counted(eng.run)
     wall = time.perf_counter() - t0
+    # the decode steps' (token, slot) selections and the ones the experts'
+    # capacity dropped (prefill's: moe_check, from its walk's keep masks)
+    moe_stats, model.moe_stats = model.moe_stats, None
     check(sorted(out) == list(range(len(reqs))), f"answered {sorted(out)}")
     for rid, toks in out.items():
         check(toks.shape == (LM_NEW,) and ((toks >= 0) & (toks < cfg.vocab)).all(),
@@ -1126,12 +1183,17 @@ def lm_serve(cfg, prompts, dtype) -> dict:
             "decode_step_ms": s["decode_s"] * 1e3 / (n_batches * (LM_NEW - 1)),
             "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
             "launches": counts}
+    if moe_stats:
+        info["decode_dropped_share"] = (int(moe_stats["dropped"])
+                                        / moe_stats["selected"])
     log(f"serve {cfg.name} {name} ({info['params'] / 1e9:.3f}B params, init "
         f"{t_init:.2f} s): {len(out)} requests (prompts {info['prompt_lengths']},"
         f" {LM_NEW} new tokens, batches of {LM_BATCH}) in {wall:.2f} s; "
         f"prefill {s['prefill_s']:.3f} s, decode {info['decode_tok_s']:.1f} "
         f"tok/s ({info['decode_step_ms']:.2f} ms/step), peak "
-        f"{info['peak_gb']:.1f} GiB, launches {counts}")
+        f"{info['peak_gb']:.1f} GiB, launches {counts}"
+        + (f"; capacity dropped {info['decode_dropped_share']:.4f} of the "
+           f"decode steps' (token, slot) selections" if moe_stats else ""))
     return {"model": model, "reqs": reqs, "out": out, "ctx_len": ctx_len,
             "info": info}
 
@@ -1211,6 +1273,305 @@ def lm_check(cfg, run, dtype) -> dict:
     for kn, km, kc in step["top_device"]:
         log(f"    {km:9.3f} ms {kc:6d}x  {kn}")
     return res
+
+
+def moe_forced(ffn, cfg, h, sel):
+    """``moe_ffn_tp`` with the experts ``sel`` [T, k] chosen for it: the
+    router's probabilities at ``sel``, renormalised, and the capacity
+    applied to ``sel`` in token order (``moe_ffn_tp`` itself where ``sel``
+    is its own top-k)."""
+    from repro_torch.models.moe import (_capacity, _combine,
+                                        _dispatch_indices, _expert_ffn,
+                                        _scatter)
+
+    x2 = h.reshape(-1, h.shape[-1])
+    probs = torch.softmax(x2.float() @ ffn["router"], dim=-1).gather(1, sel)
+    probs = probs / probs.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = _capacity(x2.shape[0], cfg)
+    e_id, pos = _dispatch_indices(sel, cfg.n_experts, cap)
+    buf, safe_pos, keep = _scatter(x2, e_id, pos, cap, cfg.n_experts,
+                                   cfg.top_k)
+    out = _combine(_expert_ffn(ffn, buf, cfg.act), e_id, safe_pos, keep,
+                   probs, cfg.top_k)
+    return out.reshape(h.shape)
+
+
+def routing_stats(h, router, sel, keep, real, n_experts: int) -> dict:
+    """One MoE layer's routing of a prefill batch (``h`` [T, d], the
+    router's input): the share of (token, slot) selections the capacity
+    dropped, over all tokens and over the prompts' own (``real`` [T]: not
+    padding); the share of h's energy in the real tokens' mean (about 1 / T
+    for tokens unlike each other, 1 when all are alike); the router logits'
+    spread over the real tokens (the experts' mean standard deviation)
+    beside the spread of their means over the experts; the busiest expert's
+    real selections over an even share."""
+    hr = h[real].float()
+    logits = hr @ router
+    load = torch.bincount(sel[real].reshape(-1), minlength=n_experts)
+    return {"dropped": float((~keep).float().mean()),
+            "dropped_real": float((~keep[real]).float().mean()),
+            "mean_energy_share": float(hr.mean(0).square().sum()
+                                       / hr.square().sum(1).mean()),
+            "logit_spread_tokens": float(logits.std(0).mean()),
+            "logit_spread_experts": float(logits.mean(0).std()),
+            "busiest_over_even": float(load.max() / load.float().mean())}
+
+
+def moe_walk(model, cfg, tokens, use_kernel: bool, real, routes=None,
+             embed_scale: float = 1.0):
+    """``LM.forward``'s prefill walked layer by layer, the attention through
+    the kernel (``use_kernel``) or its plain version: every layer's
+    kernel-vs-plain attention error on this walk's own input (per row, over
+    the row's max|plain|), every layer's routing (each token's experts
+    ``sel`` [T, k], and which of them the capacity kept), its
+    :func:`routing_stats` (``real`` [B, S]: not padding) and the logits.
+    ``routes`` (another walk's) forces each layer's experts to that walk's
+    (:func:`moe_forced`); ``embed_scale`` scales the embedded tokens (a
+    probe of what the random embedding's scale does to the routing)."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import rel_err_rows
+    from repro_torch.models.attention import _project_qkv
+    from repro_torch.models.layers import apply_rope, make_norm
+    from repro_torch.models.moe import (_capacity, _dispatch_indices, _route,
+                                        moe_ffn_tp)
+
+    norm = make_norm(cfg.norm)
+    x = model.embed_inputs(tokens) * embed_scale
+    b, S, d = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    cap = _capacity(b * S, cfg)
+    errs, mine, stats = [], [], []
+    for i, layer in enumerate(model.layers):
+        q, k, v = _project_qkv(layer["core"], cfg, norm(layer["ln1"], x))
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        outs = {u: attention(q, k, v, causal=True, window=cfg.window,
+                             use_kernel=u) for u in (True, False)}
+        errs.append(rel_err_rows(outs[True], outs[False]))
+        x = x + outs[use_kernel].reshape(b, S, -1) @ layer["core"]["wo"]
+        h = norm(layer["ln2"], x)
+        _, sel = _route(h.reshape(-1, d), layer["ffn"]["router"], cfg.top_k)
+        _, pos = _dispatch_indices(sel, cfg.n_experts, cap)
+        mine.append((sel, pos < cap))
+        stats.append(routing_stats(h.reshape(-1, d), layer["ffn"]["router"],
+                                   sel, pos < cap, real.reshape(-1),
+                                   cfg.n_experts))
+        x = x + (moe_ffn_tp(layer["ffn"], cfg, h) if routes is None else
+                 moe_forced(layer["ffn"], cfg, h, routes[i][0]))
+        del q, k, v, outs, h
+    return model.unembed(norm(model.final_norm, x)), errs, mine, stats
+
+
+def moe_check(cfg, run) -> dict:
+    """Kernel vs plain on the served MoE batch, routing-aware: each layer's
+    attention kernel against its plain version on the same input (per row,
+    ``FLASH_RTOL``); the share of tokens whose routing (experts and kept
+    slots, in any layer) differs between the kernel walk and the plain walk
+    (a rounding can flip a router decision, and a flipped token's logits
+    differ by O(1)), and the logits of the tokens whose routing agrees
+    (printed: a flip also moves later tokens of its row through the next
+    layer's attention); the logits of every token with the plain walk's
+    experts forced to the kernel walk's (``LOGITS_RTOL``); and the kernel
+    walk against ``LM.forward``.  Also the share of the served prefill's
+    selections the capacity dropped (the kernel walk's keep masks), each
+    layer's :func:`routing_stats`, and the drop shares of a walk with the
+    embedded tokens scaled by ``EMBED_PROBE``."""
+    from repro_torch.serve.engine import pad_prompts
+
+    model, reqs = run["model"], run["reqs"]
+    dtype = model.embed.dtype
+    check(len(reqs) <= LM_BATCH, f"{len(reqs)} requests: one batch expected")
+    with torch.inference_mode():
+        tokens = torch.as_tensor(pad_prompts(reqs), device=DEVICE)
+        S = tokens.shape[1]
+        real = (torch.arange(S, device=DEVICE)[None, :] >= torch.as_tensor(
+            [S - len(r.prompt) for r in reqs], device=DEVICE)[:, None])
+        lk, errs, rk, routing = moe_walk(model, cfg, tokens, True, real)
+        lp, _, rp, _ = moe_walk(model, cfg, tokens, False, real)
+        vocab = lk.shape[-1]
+        same = torch.ones(lk.shape[:2], dtype=torch.bool,
+                          device=DEVICE).reshape(-1)
+        for (sk, kk), (sp, kp) in zip(rk, rp):
+            sk, ok = sk.sort(dim=-1)
+            sp, op = sp.sort(dim=-1)
+            same &= ((sk == sp).all(-1)
+                     & (kk.gather(1, ok) == kp.gather(1, op)).all(-1))
+        scale = float(lk.abs().max())
+        agreed_err = float((lk.reshape(-1, vocab)[same]
+                            - lp.reshape(-1, vocab)[same]).abs().max()) / scale
+        del lp
+        lf = moe_walk(model, cfg, tokens, False, real, routes=rk)[0]
+        forced_err = float((lk - lf).abs().max()) / scale
+        del lf
+        served = model(tokens)
+        walk_err = float((lk - served).abs().max()) / float(served.abs().max())
+        bit_equal = bool(torch.equal(lk, served))
+        del lk, served
+        probe = moe_walk(model, cfg, tokens, True, real,
+                         embed_scale=EMBED_PROBE)[3]
+        dropped = float(sum((~keep).sum() for _, keep in rk)
+                        / sum(keep.numel() for _, keep in rk))
+    flipped = 1.0 - float(same.float().mean())
+    check(max(errs) <= FLASH_RTOL[dtype],
+          f"{cfg.name}: kernel vs plain attention per layer {errs} above "
+          f"{FLASH_RTOL[dtype]:g}")
+    check(forced_err <= LOGITS_RTOL[dtype] and walk_err <= LOGITS_RTOL[dtype],
+          f"{cfg.name}: logits with the experts forced alike {forced_err:.2e},"
+          f" the kernel walk vs LM.forward {walk_err:.2e} of max|logits|")
+    res = {"prefill_dropped_share": dropped, "routing_per_layer": routing,
+           "routing_per_layer_embed_probe": probe,
+           "attention_rel_err_per_layer": errs,
+           "routing_differs_share": flipped,
+           "logits_rel_err_routed_alike": agreed_err,
+           "logits_rel_err_experts_forced": forced_err,
+           "walk_vs_forward": walk_err, "walk_bit_equal": bit_equal}
+    log(f"kernel vs plain ({cfg.name}, {str(dtype).replace('torch.', '')}, "
+        f"prefill, routing-aware): attention per layer "
+        f"{[f'{e:.2e}' for e in errs]} (per row, bar {FLASH_RTOL[dtype]:g}); "
+        f"routing differs for {flipped:.4f} of {same.numel()} tokens; logits "
+        f"of the rest {agreed_err:.2e}, of all with the plain walk's experts "
+        f"forced to the kernel's {forced_err:.2e} of max|logits| (bar "
+        f"{LOGITS_RTOL[dtype]:g}); the kernel walk vs LM.forward "
+        f"{walk_err:.2e}" + (" (bit-equal)" if bit_equal else ""))
+    log(f"  routing ({cfg.name}, prefill, {int(real.sum())} prompt tokens and "
+        f"{int((~real).sum())} pads): capacity dropped {dropped:.4f} of the "
+        f"(token, slot) selections")
+    for i, (r, p) in enumerate(zip(routing, probe)):
+        log(f"    layer {i}: dropped {r['dropped']:.4f} ({r['dropped_real']:.4f}"
+            f" of the prompt tokens'); mean's energy share "
+            f"{r['mean_energy_share']:.4f}; router logits' spread over tokens "
+            f"{r['logit_spread_tokens']:.4f}, over the experts' means "
+            f"{r['logit_spread_experts']:.4f}; busiest expert "
+            f"{r['busiest_over_even']:.2f} x an even share | embedding x "
+            f"{EMBED_PROBE:g}: dropped {p['dropped']:.4f} "
+            f"({p['dropped_real']:.4f}), mean's energy share "
+            f"{p['mean_energy_share']:.4f}, busiest {p['busiest_over_even']:.2f}")
+    return res
+
+
+def moe_ep_phase(ffn, cfg) -> dict:
+    """One layer's MoE (``ffn``, the served model's layer 0) expert
+    parallel over the stacked 2 x 4 ranks, ``EP_TOKENS`` tokens a rank:
+    ``moe_ffn_ep`` with ``nap`` on and off bit-equal at the served capacity,
+    each logging two shuffles' signatures; at the least capacity where
+    nothing drops (from the routing counts), EP against ``moe_ffn_tp`` in
+    float32 and bfloat16 (``EP_TOL``)."""
+    from repro_torch.core.nap_collectives import all_to_all_signature
+    from repro_torch.models.moe import _route, moe_ffn_ep, moe_ffn_tp
+
+    D, E, k = N_PODS * LANES, cfg.n_experts, cfg.top_k
+    mesh = (N_PODS, LANES)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    x32 = torch.randn((D, EP_TOKENS, cfg.d_model), generator=gen,
+                      device=DEVICE)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    res = {"ranks": D, "experts_per_rank": E // D, "tokens_per_rank": EP_TOKENS}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            full = {key: (w if key == "router" else w.to(dtype))
+                    for key, w in ffn.items()}
+            slabs = {key: (w if key == "router" else
+                           w.reshape((D, E // D) + tuple(w.shape[1:])))
+                     for key, w in full.items()}
+            x = x32.to(dtype)
+            row = {}
+            if dtype == torch.bfloat16:      # the served dtype and capacity
+                out, logs = {}, {}
+                # nap3 first as a warm-up, then the timed flat and nap3
+                for nap in (True, False, True):
+                    logs[nap] = []
+                    out[nap], row[f"ms_{'nap3' if nap else 'flat'}"] = timed(
+                        lambda: moe_ffn_ep(slabs, cfg, x, mesh, nap=nap,
+                                           log=logs[nap]))
+                check(torch.equal(out[True], out[False]),
+                      "moe_ffn_ep: nap3 and flat differ")
+                for nap in (True, False):
+                    want = 2 * all_to_all_signature("nap3" if nap else "flat")
+                    check(tuple(logs[nap]) == want,
+                          f"moe_ffn_ep nap={nap} logged {logs[nap]}, want {want}")
+                row["nap3_bit_equal_flat"] = True
+                row["logs"] = {str(nap): logs[nap] for nap in logs}
+                del out
+            # the least capacity factor at which neither EP (a rank's
+            # tokens) nor TP (all tokens) drops a selection
+            _, sel = _route(x.reshape(-1, cfg.d_model), full["router"], k)
+            rank = torch.arange(D, device=DEVICE).repeat_interleave(
+                EP_TOKENS * k)
+            ep_max = int(torch.bincount(rank * E + sel.reshape(-1)).max())
+            tp_max = int(torch.bincount(sel.reshape(-1)).max())
+            cf = max((ep_max + 0.5) / (EP_TOKENS * k / E),
+                     (tp_max + 0.5) / (D * EP_TOKENS * k / E))
+            nodrop = dataclasses.replace(cfg, capacity_factor=cf)
+            ep, row["ms_ep_nodrop"] = timed(
+                lambda: moe_ffn_ep(slabs, nodrop, x, mesh, nap=True))
+            stats = {}
+            tp, row["ms_tp_nodrop"] = timed(
+                lambda: moe_ffn_tp(full, nodrop, x, stats))
+            check(int(stats["dropped"]) == 0, "moe_ffn_tp dropped tokens")
+            diff = (ep.float() - tp.float()).abs()
+            scale = float(tp.float().abs().max())
+            if dtype == torch.float32:
+                ok = bool((diff <= EP_TOL[dtype]
+                           * (1 + tp.float().abs())).all())
+            else:
+                ok = float(diff.max()) <= EP_TOL[dtype] * scale
+            row.update(capacity_factor=cf, max_per_rank_expert=ep_max,
+                       max_per_expert=tp_max,
+                       max_abs_err=float(diff.max()), max_abs_y=scale)
+            check(ok, f"moe_ffn_ep vs moe_ffn_tp ({name}, nothing dropped): "
+                  f"max |diff| {row['max_abs_err']:.3e}, max|y| {scale:.3e}")
+            res[name] = row
+            del full, slabs, x, ep, tp, diff
+            torch.cuda.empty_cache()
+    b16, f32 = res["bfloat16"], res["float32"]
+    log(f"EP {cfg.name} layer 0 on {N_PODS} x {LANES} stacked ranks "
+        f"({E // D} experts, {EP_TOKENS} tokens a rank): bf16 at capacity "
+        f"factor {cfg.capacity_factor}: nap3 == flat bit for bit, logs "
+        f"2 x {all_to_all_signature('nap3')} / 2 x "
+        f"{all_to_all_signature('flat')}; {b16['ms_nap3']:.2f} / "
+        f"{b16['ms_flat']:.2f} ms (nap3 / flat, wall)")
+    for name, row in (("bf16", b16), ("f32", f32)):
+        log(f"  {name}, nothing dropped (capacity factor "
+            f"{row['capacity_factor']:.3f}: at most {row['max_per_rank_expert']}"
+            f" selections a (rank, expert), {row['max_per_expert']} an "
+            f"expert): EP vs TP max |diff| {row['max_abs_err']:.3e} (max|y| "
+            f"{row['max_abs_y']:.3e}); EP {row['ms_ep_nodrop']:.2f} ms, TP "
+            f"{row['ms_tp_nodrop']:.2f} ms (wall)")
+    return res
+
+
+def moe_phase() -> tuple[dict, dict]:
+    """Both MoE archs at full width and ``MOE_LAYERS`` layers served in bf16
+    on the first ``MOE_REQUESTS`` prompts of :func:`lm_workload` (drawn in
+    each arch's vocab; :func:`lm_serve`: flash launched layers x batches
+    times), each checked routing-aware (:func:`moe_check`); then the EP
+    phase on qwen3-moe's layer 0.  Returns the runs' numbers and their
+    flash launches."""
+    from repro_torch.configs import get_arch
+
+    runs, flash = {}, {}
+    for arch in MOE_ARCHS:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=MOE_LAYERS)
+        prompts = lm_workload(cfg.vocab)[:MOE_REQUESTS]
+        run = lm_serve(cfg, prompts, torch.bfloat16)
+        runs[arch] = {**run["info"], **moe_check(cfg, run)}
+        flash[f"{arch} bfloat16"] = run["info"]["launches"]["flash_attention"]
+        if arch == EP_ARCH:
+            ffn = {key: run["model"].layers[0]["ffn"][key].detach()
+                   for key in ("router", "gate", "up", "down")}
+        del run
+        torch.cuda.empty_cache()
+    runs["ep"] = moe_ep_phase(ffn, dataclasses.replace(
+        get_arch(EP_ARCH), n_layers=MOE_LAYERS))
+    return runs, flash
 
 
 def graph_phase(bound, b, res) -> dict:
@@ -1970,6 +2331,7 @@ def process_rank(ranks) -> dict:
         other = AMGSolver(cfg.replace(strategy=strategy)).setup(A)
         traffic[strategy] = rank_traffic(other.dist_hierarchy)
     return {"rank": ranks.rank, "backend": ranks.backend,
+            "all_to_all": process_all_to_all(ranks),
             "devices": sorted({str(t.device) for t in tensors}),
             "iterations": res.iterations, "converged": res.converged,
             "hist": list(res.residuals), "true_rel": true_rel,
@@ -1979,6 +2341,26 @@ def process_rank(ranks) -> dict:
             "setup_wall_s": setup_wall, **dh.timings,
             "audits": len(audits), "audit_s": audit_s,
             "violations": [str(v) for v in violations], "traffic": traffic}
+
+
+def process_all_to_all(ranks) -> dict:
+    """One ``hier_all_to_all`` of each strategy between the processes, on
+    chunks on the card that every rank draws alike: bit-equal to this
+    rank's row of the stacked form, with its log."""
+    from repro_torch.core.nap_collectives import hier_all_to_all
+
+    D, d = N_PODS * LANES, ranks.rank
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    x = torch.randn((D, D, 1024), generator=gen, device=DEVICE)
+    out = {}
+    for strategy in ("flat", "nap3"):
+        log = []
+        mine = hier_all_to_all(x[d:d + 1], N_PODS, LANES, strategy, log=log,
+                               ranks=ranks)
+        stacked = hier_all_to_all(x, N_PODS, LANES, strategy)[d]
+        out[strategy] = {"bit_equal": bool(torch.equal(mine[0], stacked)),
+                         "log": log, "device": str(mine.device)}
+    return out
 
 
 def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter) -> dict:
@@ -1991,6 +2373,7 @@ def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter) -> dict:
     histories within ``HIST_TOL`` of r0 of the stacked ones and identical
     on every rank; 0 audit violations on every rank.  The kernels were
     built by phase 2, so no rank runs ``nvcc``."""
+    from repro_torch.core.nap_collectives import all_to_all_signature
     from repro_torch.launch.ranks import spawn
 
     pb, pB = process_rhs(A.nrows)
@@ -2040,6 +2423,10 @@ def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter) -> dict:
         check(not out["violations"],
               f"rank {r}: {len(out['violations'])} audit violations: "
               f"{out['violations'][:3]}")
+        for strategy, a2a in out["all_to_all"].items():
+            check(a2a["bit_equal"] and a2a["device"] == "cuda:0"
+                  and tuple(a2a["log"]) == all_to_all_signature(strategy),
+                  f"rank {r}: hier_all_to_all {strategy} {a2a}")
     o0 = outs[0]
     log(f"process ranks ({N_PODS} x {LANES} {o0['backend']} processes on "
         f"cuda:0, laplace_3d({SIZE}) f64): {o0['iterations']} iterations "
@@ -2055,6 +2442,10 @@ def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter) -> dict:
         f"{[round(o['scatter_s'], 2) for o in outs]}); phase {wall:.1f} s")
     log(f"  audit: {o0['audits']} audits a rank, 0 violations on every rank "
         f"({o0['audit_s']:.1f} s)")
+    log(f"  hier_all_to_all of [8, 8, 1024] chunks on cuda:0, flat (log "
+        f"{o0['all_to_all']['flat']['log']}) and nap3 (log "
+        f"{o0['all_to_all']['nap3']['log']}): bit-equal to the stacked form "
+        f"on every rank")
     log("  elements sent a PCG iteration per rank, slow (across pods) / fast "
         "(within a pod), beside the model's messages per cycle (all ranks):")
     for strategy, t0r in o0["traffic"].items():
@@ -2081,6 +2472,7 @@ def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter) -> dict:
             "scatter_s": [o["scatter_s"] for o in outs],
             "launches": o0["launches"], "launches_multi": o0["launches_multi"],
             "audits_per_rank": o0["audits"],
+            "all_to_all": o0["all_to_all"],
             "traffic": [o["traffic"] for o in outs]}
 
 
@@ -2305,9 +2697,16 @@ def main() -> int:
         f"ms a step")
     flash_runs = {str(d).replace("torch.", ""): v["launches"]["flash_attention"]
                   for d, v in lm.items()}
+
+    # 11. the MoE archs at full width, 2 layers, bf16; EP on stacked ranks
+    t0 = time.perf_counter()
+    moe, moe_flash = moe_phase()
+    moe["phase_s"] = time.perf_counter() - t0
+    log(f"MoE phase: {moe['phase_s']:.1f} s in all")
+    flash_runs.update(moe_flash)
     launches["flash_attention"] = sum(flash_runs.values())
 
-    # 11. the kernels line: top-level numbers are the main path's case
+    # 12. the kernels line: top-level numbers are the main path's case
     # (sparse kernels: the first float64 case on its operands, BCSR at its
     # block size with one RHS; flash: float32 at the prefill shape); every
     # dtype / shape case is under "variants"; flash's launches are the f32
@@ -2377,10 +2776,10 @@ def main() -> int:
                                "launches_per_run": {"f64": c_single,
                                                     "f64_multi": c_multi,
                                                     "f32": c_f32}},
-                      "lm": f32, "lm_bf16": bf16}),
+                      "lm": f32, "lm_bf16": bf16, "moe": moe}),
           flush=True)
     log(smi)
-    # 12. result
+    # 13. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,6 +17,8 @@ friends.
 * :func:`hier_psum`       — flat or NAP-3 all-reduce (RS(fast) → AR(slow) →
   AG(fast)).
 * :func:`hier_all_gather` — flat or pod-then-global all-gather.
+* :func:`hier_all_to_all` — flat or two-hop all-to-all: a2a(fast) then
+  a2a(slow), one aggregated message per pod pair (the MoE dispatch).
 * :class:`MatrixHaloPlan` / :func:`matrix_halo_exchange` — the setup
   phase's matrix communication: whole CSR rows of B move under the same §3
   schedules, executed on the host rank-faithfully (phase by phase, message
@@ -27,7 +29,7 @@ the reference's ``("pod", "lane")`` mesh: this process's rank on the grid,
 the world group, its pod's **fast** group (the pod's ``lanes`` ranks) and
 its lane's **slow** group (the ``n_pods`` ranks that share the lane), all
 ``torch.distributed`` process groups (:func:`init_ranks`).  Passed as
-``ranks=`` to the three exchanges above, it makes every step a real
+``ranks=`` to the four exchanges above, it makes every step a real
 collective between processes on tensors whose leading rank dim has size 1:
 a pod-axis swap is an ``all_to_all_single`` over the slow group, a lane-axis
 swap one over the fast group, an intra-pod gather an
@@ -81,6 +83,11 @@ GATHER_SIGNATURES: dict[str, tuple[str, ...]] = {
     "flat": ("all_gather",),
     "nap3": ("all_gather", "all_gather"),
 }
+# hier_all_to_all: per shuffle (the MoE dispatch consumer)
+ALL_TO_ALL_SIGNATURES: dict[str, tuple[str, ...]] = {
+    "flat": ("all_to_all",),
+    "nap3": ("all_to_all", "all_to_all"),
+}
 
 
 def halo_signature(plan: "HaloPlan") -> tuple[str, ...]:
@@ -100,6 +107,11 @@ def reduce_signature(strategy: str) -> tuple[str, ...]:
 def gather_signature(strategy: str = "nap3") -> tuple[str, ...]:
     """Collectives one :func:`hier_all_gather` call lowers to."""
     return GATHER_SIGNATURES[strategy]
+
+
+def all_to_all_signature(strategy: str = "nap3") -> tuple[str, ...]:
+    """Collectives one :func:`hier_all_to_all` call lowers to."""
+    return ALL_TO_ALL_SIGNATURES[strategy]
 
 
 # --------------------------------------------------------------------------
@@ -423,6 +435,53 @@ def hier_all_gather(x: torch.Tensor, n_pods: int, lanes: int,
     full = pod.transpose(0, 1).reshape((1, lanes, n_pods * lanes * m) + ext)
     full = full.expand((n_pods, lanes, D * m) + ext)
     return full.reshape((D, D * m) + ext)
+
+
+def hier_all_to_all(x: torch.Tensor, n_pods: int, lanes: int,
+                    strategy: str = "nap3", log: list | None = None,
+                    ranks: RankGroups | None = None) -> torch.Tensor:
+    """All-to-all over all ranks: ``x`` is ``[D, D, ...]``, sender rank
+    then destination chunk (pod-major); rank ``e`` receives ``[D, ...]``
+    with chunk ``e`` of every sender ``d`` at index ``d``.
+
+    ``flat`` is one all-to-all over both rank axes.  ``nap3`` routes
+    pod-crossing chunks as one aggregated message per pod pair: a2a over the
+    lanes (lane ``l`` collects its pod's chunks bound for lane ``l`` of
+    every pod), then a2a over the pods.  Two hops put every chunk where it
+    belongs, so ``nap3`` equals ``flat`` bit for bit (the reference's
+    docstring speaks of a third, redistributing step; its code and its
+    signature have two).  With ``ranks``, ``x`` is this process's
+    ``[1, D, ...]``."""
+    if strategy not in ALL_TO_ALL_SIGNATURES:
+        raise ValueError(f"hier_all_to_all: unknown strategy {strategy!r}")
+    D = n_pods * lanes
+    if x.shape[1] != D:
+        raise ValueError(f"hier_all_to_all: {x.shape[1]} chunks for {D} ranks")
+    if ranks is not None:
+        if strategy == "nap3" and (n_pods, lanes) != (ranks.n_pods,
+                                                       ranks.lanes):
+            raise ValueError(f"hier_all_to_all: a {n_pods} x {lanes} grid "
+                             f"over {ranks.n_pods} x {ranks.lanes} ranks")
+        return _all_to_all_ranks(x, n_pods, lanes, strategy, log, ranks)
+    ext = tuple(x.shape[2:])
+    if strategy == "flat":
+        return _all_to_all(x, 0, 1, log).reshape(x.shape)
+    v = x.reshape((n_pods, lanes, n_pods, lanes) + ext)
+    v = _all_to_all(v, 1, 3, log)        # lane axis: [P_src, l_dst, P_dst, l_src]
+    v = _all_to_all(v, 0, 2, log)        # pod axis:  [P_dst, l_dst, P_src, l_src]
+    return v.reshape(x.shape)
+
+
+def _all_to_all_ranks(x, n_pods, lanes, strategy, log, ranks: RankGroups):
+    """:func:`hier_all_to_all` between processes, the result in the stacked
+    form's order (source pod-major)."""
+    ext = tuple(x.shape[2:])
+    if strategy == "flat":
+        return ranks.all_to_all(x[0], "world", log=log)[None]
+    v = x[0].reshape((n_pods, lanes) + ext).transpose(0, 1)  # [l_dst, P_dst]
+    v = ranks.all_to_all(v, "fast", log=log)                 # [l_src, P_dst]
+    v = ranks.all_to_all(v.transpose(0, 1), "slow", log=log)  # [P_src, l_src]
+    return v.reshape(x.shape)
 
 
 def _psum_ranks(x, lanes, strategy, log, ranks: RankGroups, tag):

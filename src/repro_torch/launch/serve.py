@@ -1,10 +1,15 @@
 """Serving entry point of the port (port of ``repro/launch/serve.py``): bring up
 an engine and drain a synthetic workload, or serve AMGWire on a socket.
 
-* ``--solver lm`` (default) — the LM generation engine::
+* ``--solver lm`` (default) — the LM generation engine, dense or MoE
+  (``mixtral-8x22b``, ``qwen3-moe-235b-a22b``); ``--layers`` cuts the depth
+  (neither MoE arch fits one card whole: mixtral-8x22b's 56 layers hold
+  141 B parameters)::
 
       PYTHONPATH=src python -m repro_torch.launch.serve --solver lm \\
           --arch qwen3-1.7b --reduced --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \\
+          --layers 2
 
 * ``--solver amg`` — :class:`~repro_torch.amg.api.AMGService`: solve requests
   admitted through tickets, same-(matrix, knobs) right-hand sides coalesced
@@ -30,6 +35,7 @@ card and refuses to start without one unless given ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 
@@ -44,6 +50,8 @@ def run_lm(args):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced(n_layers=4, d_model=128, n_heads=4, vocab=1024)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = init_lm(cfg, seed=0, dtype=torch.float32, device=args.device)
     eng = Engine(cfg, model, max_batch=args.batch,
                  ctx_len=args.prompt_len + args.new_tokens + 8,
@@ -193,6 +201,9 @@ def main(argv=None):
     ap.add_argument("--solver", choices=("lm", "amg"), default="lm")
     ap.add_argument("--arch", help="LM architecture (required for --solver lm)")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="LM depth (default: the arch's, or 4 with "
+                         "--reduced)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

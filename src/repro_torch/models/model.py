@@ -1,11 +1,13 @@
-"""The LM (port of ``repro/models/model.py``) for dense, attention-only
-architectures: ``cfg.pattern == ("attn",)``, no MoE, token inputs.
+"""The LM (port of ``repro/models/model.py``) for attention-only
+architectures: ``cfg.pattern == ("attn",)``, token inputs, a dense MLP or a
+Mixture-of-Experts FFN (:mod:`repro_torch.models.moe`, where ``cfg.is_moe``).
 
 The reference stacks identical layer groups and drives them with
 ``lax.scan``; here every layer is a module of a :class:`~torch.nn.ModuleList`
 walked in Python.  A layer's parameters keep the reference's tree
 (``ln1``, ``core`` with ``wq``/``wk``/``wv``/``wo`` and optional
-``bq``/``bk``/``bv``/``q_norm``/``k_norm``, ``ln2``, ``ffn``), so a state-dict
+``bq``/``bk``/``bv``/``q_norm``/``k_norm``, ``ln2``, ``ffn``: ``up``/``down``
+/``gate``, or ``router``/``gate``/``up``/``down`` for MoE), so a state-dict
 key is the reference's path with the group axis unstacked:
 ``layers.<i>.core.wq`` ↔ ``groups[0]["core"]["wq"][i]`` (see
 :mod:`repro_torch.convert`).
@@ -26,16 +28,13 @@ from torch import nn
 from ..device import resolve_device
 from .attention import _project_qkv, attn_forward, attn_params
 from .layers import apply_rope, make_norm, mlp, mlp_params, norm_params, normal_init
+from .moe import moe_ffn_tp, moe_params
 
 NEG_INF = -1e30
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks (models/moe.py) are not ported yet "
-            f"(ROADMAP queue 1 item 13)")
     if tuple(cfg.pattern) != ("attn",):
         raise NotImplementedError(
             f"{cfg.name}: block kinds {cfg.pattern} (models/ssm.py) are not "
@@ -64,13 +63,25 @@ class ParamTree(nn.Module):
         return getattr(self, name)
 
 
+def _has_ffn(cfg) -> bool:
+    return cfg.d_ff > 0 or cfg.is_moe
+
+
 def block_params(gen, cfg, dtype, device) -> dict:
     p = {"ln1": norm_params(cfg.norm, cfg.d_model, dtype, device),
          "core": attn_params(gen, cfg, dtype, device)}
-    if cfg.d_ff > 0:
+    if _has_ffn(cfg):
         p["ln2"] = norm_params(cfg.norm, cfg.d_model, dtype, device)
-        p["ffn"] = mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
+        p["ffn"] = (moe_params(gen, cfg, dtype, device) if cfg.is_moe else
+                    mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                               device))
     return p
+
+
+def _ffn_apply(p, cfg, x, moe_stats: dict | None = None):
+    if cfg.is_moe:
+        return moe_ffn_tp(p["ffn"], cfg, x, moe_stats)
+    return mlp(p["ffn"], x, cfg.act)
 
 
 def block_forward(p, cfg, x, positions, use_kernel: bool = True):
@@ -79,8 +90,8 @@ def block_forward(p, cfg, x, positions, use_kernel: bool = True):
     out, kv = attn_forward(p["core"], cfg, norm(p["ln1"], x), positions,
                            use_kernel=use_kernel)
     x = x + out
-    if cfg.d_ff > 0:
-        x = x + mlp(p["ffn"], norm(p["ln2"], x), cfg.act)
+    if _has_ffn(cfg):
+        x = x + _ffn_apply(p, cfg, norm(p["ln2"], x))
     return x, kv
 
 
@@ -116,11 +127,12 @@ def attn_decode_cached(p, cfg, x, cache: dict, pos: int):
     return out @ p["wo"]
 
 
-def block_decode(p, cfg, x, cache: dict, pos: int):
+def block_decode(p, cfg, x, cache: dict, pos: int,
+                 moe_stats: dict | None = None):
     norm = make_norm(cfg.norm)
     x = x + attn_decode_cached(p["core"], cfg, norm(p["ln1"], x), cache, pos)
-    if cfg.d_ff > 0:
-        x = x + mlp(p["ffn"], norm(p["ln2"], x), cfg.act)
+    if _has_ffn(cfg):
+        x = x + _ffn_apply(p, cfg, norm(p["ln2"], x), moe_stats)
     return x
 
 
@@ -142,12 +154,18 @@ def init_params(cfg, gen: torch.Generator, dtype, device) -> dict:
 
 class LM(nn.Module):
     """Decoder-only LM: embed → layers → final norm → unembed (tied:
-    ``x @ embed.T``)."""
+    ``x @ embed.T``).
+
+    ``moe_stats``: ``None``, or a dict into which every MoE layer of a
+    :meth:`decode_step` adds its (token, slot) selections (``"selected"``)
+    and the ones its capacity dropped (``"dropped"``, on the device until
+    read)."""
 
     def __init__(self, cfg, params: dict):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.moe_stats: dict | None = None
         self.embed = nn.Parameter(params["embed"], requires_grad=False)
         self.layers = nn.ModuleList(ParamTree(p) for p in params["layers"])
         self.final_norm = ParamTree(params["final_norm"])
@@ -196,7 +214,7 @@ class LM(nn.Module):
         for i, layer in enumerate(self.layers):
             layer_cache = {"k": gc["k"][i], "v": gc["v"][i],
                            "slot_pos": gc["slot_pos"][i]}
-            x = block_decode(layer, cfg, x, layer_cache, pos)
+            x = block_decode(layer, cfg, x, layer_cache, pos, self.moe_stats)
         x = make_norm(cfg.norm)(self.final_norm, x)
         return self.unembed(x)[:, 0], cache
 

@@ -99,7 +99,7 @@ if torch is not None:
     from repro_torch.amg.problems import laplace_3d  # noqa: E402
     from repro_torch.analysis import (audit_apply, audit_captured,  # noqa: E402
                                       audit_cycle_stats, audit_hierarchy,
-                                      audit_program, audit_solve,
+                                      audit_log, audit_program, audit_solve,
                                       build_report, check_overlap_independence,
                                       collect_collectives,
                                       collective_signature)
@@ -131,9 +131,11 @@ def dh24(h8):
 # ------------------------------------------------------- the comm audit
 @pytest.mark.parametrize("pods,lanes", [(1, 1), (2, 4)])
 def test_hier_collective_golden_signatures(pods, lanes):
-    from repro_torch.core.nap_collectives import (GATHER_SIGNATURES,
+    from repro_torch.core.nap_collectives import (ALL_TO_ALL_SIGNATURES,
+                                                  GATHER_SIGNATURES,
                                                   REDUCE_SIGNATURES,
-                                                  hier_all_gather, hier_psum)
+                                                  hier_all_gather,
+                                                  hier_all_to_all, hier_psum)
     x = torch.arange(pods * lanes * 8, dtype=torch.float64).reshape(-1, 8)
     for strat, expect in REDUCE_SIGNATURES.items():
         log = []
@@ -143,6 +145,35 @@ def test_hier_collective_golden_signatures(pods, lanes):
         log = []
         hier_all_gather(x, pods, lanes, strat, log=log)
         assert collective_signature(log) == expect, strat
+    chunks = x[:, : pods * lanes]
+    for strat, expect in ALL_TO_ALL_SIGNATURES.items():
+        log = []
+        hier_all_to_all(chunks, pods, lanes, strat, log=log)
+        assert collective_signature(log) == expect, strat
+
+
+@pytest.mark.parametrize("nap", [True, False])
+def test_moe_dispatch_logs_two_shuffles(nap):
+    """An expert-parallel MoE call is one dispatch and one combine shuffle:
+    its log audits clean against twice the all-to-all signature, and a
+    shuffle short fails the audit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.nap_collectives import all_to_all_signature
+    from repro_torch.models.moe import moe_ffn_ep
+
+    cfg = get_arch("qwen3-moe-235b-a22b").reduced(n_experts=16)
+    gen = torch.Generator().manual_seed(0)
+    d, f = cfg.d_model, cfg.moe_d_ff
+    p = {"router": torch.randn(d, 16, generator=gen),
+         "gate": torch.randn(8, 2, d, f, generator=gen),
+         "up": torch.randn(8, 2, d, f, generator=gen),
+         "down": torch.randn(8, 2, f, d, generator=gen)}
+    log = []
+    moe_ffn_ep(p, cfg, torch.randn(8, 4, d, generator=gen), (2, 4), nap=nap,
+               log=log)
+    sig = 2 * all_to_all_signature("nap3" if nap else "flat")
+    assert audit_log(log, "moe_ffn_ep", expected_signature=sig).ok
+    assert not audit_log(log[1:], "moe_ffn_ep", expected_signature=sig).ok
 
 
 def test_halo_signature_tables_match_operators():
@@ -368,6 +399,14 @@ def test_lint_raw_collective_and_markers():
             dist.all_gather_into_tensor(x, x)
         """)
     assert filewide == []
+    # the public collectives are what the rule asks for, anywhere
+    public = _lint("""
+        from repro_torch.core.nap_collectives import hier_all_to_all
+
+        def f(x, log):
+            return hier_all_to_all(x, 2, 4, "nap3", log=log)
+        """)
+    assert public == []
     # the collectives' own module is where the private helpers live
     core = lint_source("def f(v, log):\n    return _all_to_all(v, 0, 2, log)\n",
                        "src/repro_torch/core/nap_collectives.py")

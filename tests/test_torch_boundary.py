@@ -142,7 +142,6 @@ def test_lm_entry_points_refuse_cuda_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("mixtral-8x22b", "MoE"), ("qwen3-moe-235b-a22b", "MoE"),
     ("xlstm-125m", "block kinds"), ("recurrentgemma-9b", "block kinds"),
     ("musicgen-medium", "embed_input"), ("phi-3-vision-4.2b", "embed_input")])
 def test_unported_lm_configs_raise(arch, match):

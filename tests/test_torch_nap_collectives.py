@@ -1,9 +1,70 @@
 """The port's collectives on rank-stacked tensors: the halo of every
 strategy equals ``x[need]`` bit for bit (one RHS and ``[m, k]``, empty
 halos included), every exchange logs exactly its strategy's signature, and
-the NAP-3 all-reduce / hierarchical all-gather compute the flat results."""
+the NAP-3 all-reduce / hierarchical all-gather compute the flat results.
+
+``hier_all_to_all`` (flat and NAP-3 on 1×8, 2×4 and 4×2): bit-equal to the
+reference's under ``shard_map`` on 8 host devices (a JAX subprocess of this
+file) on the chunk pattern ``100·d + e`` of ``tests/multidev_script.py`` and
+on random chunks, bit-equal across strategies, each logging its signature;
+and its process form on 8 gloo ranks bit-equal to the stacked form::
+
+    python tests/test_torch_nap_collectives.py --jax-ref OUT.npz
+"""
+import os
+import pathlib
+import subprocess
+import sys
+import types
+
 import numpy as np
 import pytest
+
+A2A_MESHES = [(1, 8), (2, 4), (4, 2)]
+A2A_STRATEGIES = ("flat", "nap3")
+
+
+def _a2a_inputs():
+    """``[8, 8, ...]`` chunks (sender, destination): the pattern chunk
+    ``d → e`` = ``100·d + e`` (three copies) and random ``[2, 3]`` ones."""
+    D = 8
+    pattern = np.zeros((D, D, 3), np.float32)
+    for d in range(D):
+        for e in range(D):
+            pattern[d, e] = 100 * d + e
+    rand = np.random.default_rng(6).standard_normal((D, D, 2, 3))
+    return {"pattern": pattern, "random": rand.astype(np.float32)}
+
+
+def _jax_reference(out_path):
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from repro.core.compat import shard_map
+    from repro.core.nap_collectives import hier_all_to_all as jhier_all_to_all
+
+    out = {}
+    for mesh_shape in A2A_MESHES:
+        mesh = jax.make_mesh(mesh_shape, ("pod", "lane"))
+        spec = P(("pod", "lane"))
+        for strategy in A2A_STRATEGIES:
+            f = jax.jit(shard_map(
+                lambda a, s=strategy: jhier_all_to_all(a[0], "pod", "lane",
+                                                       s)[None],
+                mesh=mesh, in_specs=(spec,), out_specs=spec, check_vma=False))
+            for name, x in _a2a_inputs().items():
+                key = f"{name}_{mesh_shape[0]}x{mesh_shape[1]}_{strategy}"
+                out[key] = np.asarray(f(x))
+    np.savez(out_path, **out)
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 3 or sys.argv[1] != "--jax-ref":
+        sys.exit("usage: test_torch_nap_collectives.py --jax-ref OUT.npz")
+    _jax_reference(sys.argv[2])
+    sys.exit(0)
 
 torch = pytest.importorskip("torch")
 
@@ -11,8 +72,9 @@ from repro_torch.amg.csr import CSR  # noqa: E402
 from repro_torch.amg.dist import vector_comm_graph  # noqa: E402
 from repro_torch.amg.problems import laplace_3d  # noqa: E402
 from repro_torch.core.nap_collectives import (  # noqa: E402
-    GATHER_SIGNATURES, HALO_SIGNATURES, REDUCE_SIGNATURES, build_halo_plan,
-    halo_exchange, halo_signature, hier_all_gather, hier_psum)
+    ALL_TO_ALL_SIGNATURES, GATHER_SIGNATURES, HALO_SIGNATURES,
+    REDUCE_SIGNATURES, all_to_all_signature, build_halo_plan, halo_exchange,
+    halo_signature, hier_all_gather, hier_all_to_all, hier_psum)
 from repro_torch.core.topology import Partition, Topology  # noqa: E402
 
 MESHES = [(1, 1), (2, 4), (4, 2)]
@@ -119,3 +181,107 @@ def test_hier_all_gather_is_pod_major(mesh, strategy, k):
     assert log == list(GATHER_SIGNATURES[strategy])
     for d in range(D):
         assert torch.equal(out[d], x.reshape((D * m,) + x.shape[2:]))
+
+
+# ----------------------------------------------------------- all-to-all
+def _a2a_rank(ranks):
+    """One gloo rank: every mesh and strategy over the 8 processes, against
+    the stacked form's row (runs in the spawned processes)."""
+    from repro_torch.core.nap_collectives import rank_groups
+
+    d = ranks.rank
+    out = {}
+    for n_pods, lanes in A2A_MESHES:
+        mesh = rank_groups(n_pods, lanes)
+        for strategy in A2A_STRATEGIES:
+            for name, x in _a2a_inputs().items():
+                x = torch.from_numpy(x)
+                log = []
+                mine = hier_all_to_all(x[d:d + 1], n_pods, lanes, strategy,
+                                       log=log, ranks=mesh)
+                key = f"{name}_{n_pods}x{lanes}_{strategy}"
+                out[key] = (mine[0].numpy(), hier_all_to_all(
+                    x, n_pods, lanes, strategy)[d].numpy(), tuple(log))
+    return out
+
+
+@pytest.fixture(scope="module")
+def a2a_runs(tmp_path_factory):
+    """The reference's all-to-alls (a JAX subprocess) and every gloo rank's,
+    run side by side."""
+    from repro_torch.launch.ranks import spawn
+
+    out_path = tmp_path_factory.mktemp("a2a_ref") / "out.npz"
+    env = dict(os.environ)
+    root = pathlib.Path(__file__).parents[1]
+    env["PYTHONPATH"] = str(root / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    jax_ref = subprocess.Popen(
+        [sys.executable, __file__, "--jax-ref", str(out_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        ranks = spawn(_a2a_rank, 2, 4, deadline=120.0)
+        stdout, stderr = jax_ref.communicate(timeout=300)
+    finally:
+        if jax_ref.poll() is None:
+            jax_ref.kill()
+            jax_ref.communicate()
+    assert jax_ref.returncode == 0, f"stdout:\n{stdout}\nstderr:\n{stderr}"
+    return dict(np.load(out_path)), ranks
+
+
+@pytest.mark.parametrize("strategy", A2A_STRATEGIES)
+@pytest.mark.parametrize("mesh", A2A_MESHES)
+def test_hier_all_to_all_is_bit_equal_to_the_reference(a2a_runs, mesh,
+                                                       strategy):
+    ref = a2a_runs[0]
+    D = mesh[0] * mesh[1]
+    for name, x in _a2a_inputs().items():
+        log = []
+        got = hier_all_to_all(torch.from_numpy(x), *mesh, strategy, log=log)
+        assert log == list(ALL_TO_ALL_SIGNATURES[strategy])
+        want = ref[f"{name}_{mesh[0]}x{mesh[1]}_{strategy}"]
+        assert got.shape == want.shape and np.array_equal(got.numpy(), want)
+        if name == "pattern":
+            for e in range(D):
+                for d in range(D):
+                    assert (got[e, d] == 100 * d + e).all(), (e, d)
+
+
+@pytest.mark.parametrize("shape", [(), (5,), (3, 2)])
+@pytest.mark.parametrize("mesh", A2A_MESHES + [(1, 1), (3, 2)])
+def test_hier_all_to_all_nap3_is_bit_equal_to_flat(mesh, shape):
+    D = mesh[0] * mesh[1]
+    x = torch.as_tensor(np.random.default_rng(D).standard_normal(
+        (D, D) + shape))
+    logs = {s: [] for s in A2A_STRATEGIES}
+    out = {s: hier_all_to_all(x, *mesh, s, log=logs[s])
+           for s in A2A_STRATEGIES}
+    assert torch.equal(out["nap3"], out["flat"])
+    assert torch.equal(out["flat"], x.transpose(0, 1))
+    for s in A2A_STRATEGIES:
+        assert tuple(logs[s]) == all_to_all_signature(s)
+
+
+def test_hier_all_to_all_refuses_bad_input():
+    x = torch.zeros(8, 8)
+    with pytest.raises(ValueError, match="unknown strategy"):
+        hier_all_to_all(x, 2, 4, "nap2")
+    with pytest.raises(ValueError, match="8 chunks for 6 ranks"):
+        hier_all_to_all(x, 2, 3)
+    other_grid = types.SimpleNamespace(n_pods=4, lanes=2)
+    with pytest.raises(ValueError, match="2 x 4 grid over 4 x 2 ranks"):
+        hier_all_to_all(x[:1], 2, 4, "nap3", ranks=other_grid)
+
+
+@pytest.mark.parametrize("strategy", A2A_STRATEGIES)
+@pytest.mark.parametrize("mesh", A2A_MESHES)
+def test_hier_all_to_all_on_gloo_ranks_is_bit_equal_to_stacked(a2a_runs,
+                                                              mesh, strategy):
+    ref, ranks = a2a_runs
+    for name in _a2a_inputs():
+        key = f"{name}_{mesh[0]}x{mesh[1]}_{strategy}"
+        for d, out in enumerate(ranks):
+            mine, stacked, log = out[key]
+            assert log == ALL_TO_ALL_SIGNATURES[strategy]
+            assert np.array_equal(mine, stacked)
+            assert np.array_equal(mine, ref[key][d])

@@ -8,6 +8,8 @@ unless ``--device cpu`` asks for the CPU.
 
 The in-process runs go through ``main`` on ``--amg-backend torch --device
 cpu``; the ``--listen`` run is a process of its own, stopped by SIGINT.
+The LM side's MoE archs (``--arch mixtral-8x22b --reduced``, and
+qwen3-moe) are served on the CPU the same way.
 """
 import os
 import pathlib
@@ -142,3 +144,14 @@ def test_amg_serving_refuses_without_a_card(monkeypatch, extra):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--solver", "amg"] + extra)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b"])
+def test_lm_launcher_serves_the_moe_archs_on_the_cpu(capsys, arch):
+    out = serve.main(["--solver", "lm", "--arch", arch, "--reduced",
+                      "--layers", "2", "--device", "cpu", "--requests", "3",
+                      "--batch", "2", "--prompt-len", "8", "--new-tokens",
+                      "3"])
+    assert sorted(out) == [0, 1, 2]
+    assert all(v.shape == (3,) for v in out.values())
+    assert "[serve] 3 requests" in capsys.readouterr().out
