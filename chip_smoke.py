@@ -30,7 +30,13 @@ version at the shapes its path gives it:
   full width and 2 layers in bfloat16 through the same engine, their FFN
   ``models/moe.py``'s ``moe_ffn_tp``; one qwen3-moe layer expert-parallel
   (``moe_ffn_ep``) over the 2 x 4 stacked ranks through
-  ``hier_all_to_all``.
+  ``hier_all_to_all``;
+- the recurrent archs at full width and depth through the same engine:
+  ``xlstm-125m`` (12 layers of mLSTM and sLSTM, d_model 768, no attention)
+  in f32 and bf16, and ``recurrentgemma-9b`` (38 layers: RG-LRU blocks and
+  local attention, 16 query heads on one KV head of 256 dims, 10.4 B
+  parameters) in bf16, its prefill attention through ``flash_attention``'s
+  head-dim-256 instance.
 
 Phases (any failure exits non-zero):
 
@@ -133,7 +139,9 @@ Phases (any failure exits non-zero):
    (flat, nap3) between the ranks bit-equal to the stacked form, its log the
    strategy's signature;
 8. flash attention at the serving runs' prefill shape, with a 256-key
-   window, with fewer queries than keys, and at head dim 64, each in f32
+   window, with fewer queries than keys, at head dim 64, and at
+   recurrentgemma-9b's head dim 256 (16:1, S 1819, its 2048-key window,
+   which binds nothing there, and a 256-key window that binds), each in f32
    and bf16, and at the MoE archs' prefill shapes (48:8 with the 4096-key
    window, 64:4) in bf16, against its plain version (each row's error over
    the row's max|plain|: float32 2e-5, bfloat16 1e-2), with device times of the kernel, the plain
@@ -172,8 +180,23 @@ Phases (any failure exits non-zero):
    bit-equal, each logging 2 x its all-to-all signature, and at the least
    capacity where nothing drops, EP against ``moe_ffn_tp`` (float32
    rtol / atol 1e-4, bfloat16 3e-2 of max|y|), with wall ms;
-12. one JSON line with every kernel's numbers;
-13. last line: ``{"ok": true, "device": {...}}``.
+12. the recurrent phase: xlstm-125m in f32 and bf16 and recurrentgemma-9b
+   in bf16, at full width and depth, each serving the first 4 requests
+   (one prefill batch; ``flash_attention`` launches counted as in 9: 12
+   for recurrentgemma-9b's attention layers, 0 for xlstm-125m): parameters,
+   init s, prefill s, decode tok/s, ms a step, peak GiB; kernel vs plain
+   logits teacher-forced as in 10 (``LOGITS_RTOL``; recurrentgemma-9b's
+   bf16 at 5e-2, the reason at ``ARCH_LOGITS_RTOL``), and for
+   recurrentgemma-9b the hidden state's kernel-vs-plain drift after each
+   layer of two prefill walks (printed); xlstm-125m's mLSTM pad decay at
+   the served prompt (printed); one layer of each
+   recurrent kind at the served shapes in the served type against the
+   same code in float64 on the card (``LAYER_RTOL`` of max|y|, printed
+   with the states' errors and the layer's ms); each model freed before
+   the next;
+13. one JSON line with every kernel's numbers (the flash kernel's head-dim
+   256 instances with their ptxas lines and cases);
+14. last line: ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and refuses to run without one.
@@ -251,6 +274,15 @@ WIRE_X_RTOL = 1e-5
 # mantissa, 4e-3 relative) on both sides, and 28 layers carry a difference
 # of one rounding forward
 LOGITS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# recurrentgemma-9b in bfloat16: 5e-2.  Each of its 12 attention layers adds
+# the kernel's own rounding of P to bfloat16 (8.1e-3 of max|x| after the
+# first, as flash's per-row error, 7.8e-3); the roundings of the 12 add up
+# and 38 layers carry them (the kernel and plain walks' hidden states part
+# by 8.1e-3 after layer 2, 2.2e-2 after layer 11, 3.8e-2 after layer 37: an
+# NVIDIA H100 80GB HBM3 at 700 W), where qwen3-1.7b's 28 layers end at
+# 2.0e-2; its logits part by 3.15e-2 (prefill) and 3.47e-2 (decode) of
+# max|logits|, so 3e-2 would fail on the design's rounding alone
+ARCH_LOGITS_RTOL = {("recurrentgemma-9b", torch.bfloat16): 5e-2}
 SPMV_KERNELS = ("ell_spmv", "ell_spmm", "bcsr_spmm")
 # the block smoothers' kernels: port kernels with no Pallas counterpart
 SMOOTHER_KERNELS = ("block_diag_apply", "tri_solve")
@@ -288,6 +320,17 @@ EP_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # the routing probe: the embedded tokens scaled from the random init's 0.02
 # to unit scale, where the layers' input is no longer the attention's
 EMBED_PROBE = 50.0
+# the recurrent phase: both recurrent archs at full width and depth (no cut:
+# recurrentgemma-9b's 10.4 B parameters are 20.8 GB in bf16), served on the
+# first 4 prompts; xlstm-125m in f32 and bf16, recurrentgemma-9b in bf16
+RECURRENT_RUNS = (("xlstm-125m", torch.float32), ("xlstm-125m", torch.bfloat16),
+                  ("recurrentgemma-9b", torch.bfloat16))
+RECURRENT_REQUESTS = 4
+# one layer of each recurrent kind in the served type against the same code
+# in float64, over max|y|: float32 at the port's 1e-5 bar; bfloat16 rounds
+# every projection's output and the block's own (8-bit mantissa, 4e-3
+# relative each), so 3e-2, as the LM tests' bfloat16 bar
+LAYER_RTOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 
 
 def log(msg: str) -> None:
@@ -1040,6 +1083,14 @@ def flash_shapes(S: int) -> list[tuple]:
             ("head dim 64", LM_BATCH, 14, 2, S, S, 64, None)]
 
 
+def recurrent_flash_shapes(S: int) -> list[tuple]:
+    """recurrentgemma-9b's prefill shape (MQA 16:1 at head dim 256, its
+    2048-key window, which binds nothing at S 1819) and the same with a
+    window of 256 that binds, in f32 and bf16."""
+    return [("recurrentgemma-9b prefill", LM_BATCH, 16, 1, S, S, 256, 2048),
+            ("recurrentgemma-9b window 256", LM_BATCH, 16, 1, S, S, 256, 256)]
+
+
 def moe_flash_shapes(S: int) -> list[tuple]:
     """The MoE archs' prefill shapes (bf16 only, as served): mixtral's GQA
     48:8 with its 4096-key window, qwen3-moe's 64:4."""
@@ -1083,19 +1134,23 @@ def sdpa_call(q, k, v, window):
                                                   enable_gqa=True)
 
 
-def flash_phase(S: int) -> list[dict]:
+def flash_phase(S: int, head_dims=None) -> list[dict]:
     """flash_attention at the serving runs' prefill shape, with a window,
-    with Sq < Skv and at head dim 64, each in f32 and bf16, and at the MoE
-    archs' prefill shapes in bf16, against its plain version;
-    ``scaled_dot_product_attention`` timed as the yardstick."""
+    with Sq < Skv, at head dim 64 and at recurrentgemma-9b's head dim 256
+    (its prefill, and with a window that binds), each in f32 and bf16, and
+    at the MoE archs' prefill shapes in bf16, against its plain version;
+    ``scaled_dot_product_attention`` timed as the yardstick.  ``head_dims``:
+    only the cases at those head dims."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref, rel_err_rows
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    cases = [(label, dt, *shape) for label, *shape in flash_shapes(S)
+    cases = [(label, dt, *shape)
+             for label, *shape in flash_shapes(S) + recurrent_flash_shapes(S)
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(label, torch.bfloat16, *shape)
               for label, *shape in moe_flash_shapes(S)]
+    cases = [c for c in cases if head_dims is None or c[7] in head_dims]
     rows = []
     for label, dt, B, Hq, Hkv, Sq, Skv, D, window in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dt)
@@ -1112,7 +1167,7 @@ def flash_phase(S: int) -> list[dict]:
             sdpa_call(q, k, v, window), (q, k, v), nbytes, bounds["flops"],
             rtol=FLASH_RTOL[dt], library_name="sdpa", rel_err=rel_err_rows,
             peak=flash_peak(dt))
-        row.update(case=label, window=window, visible_pairs=pairs,
+        row.update(case=label, head_dim=D, window=window, visible_pairs=pairs,
                    design=FLASH_DESIGN[dt], main_path=label == "prefill",
                    tflops=bounds["flops"] / row["ms"] / 1e9)
         if "bound_fma_ms" in bounds:
@@ -1166,12 +1221,15 @@ def lm_serve(cfg, prompts, dtype) -> dict:
         check(toks.shape == (LM_NEW,) and ((toks >= 0) & (toks < cfg.vocab)).all(),
               f"request {rid}: bad tokens {toks}")
     n_batches = -(-len(reqs) // LM_BATCH)
-    check(counts["flash_attention"] == cfg.n_layers * n_batches,
+    n_attn = model.kinds.count("attn")
+    check(counts["flash_attention"] == n_attn * n_batches,
           f"flash_attention launched {counts['flash_attention']} times, want "
-          f"{cfg.n_layers} layers x {n_batches} prefill batches")
+          f"{n_attn} attention layers x {n_batches} prefill batches")
     s = eng.stats
     name = str(dtype).replace("torch.", "")
-    info = {"arch": cfg.name, "dtype": name,
+    info = {"arch": cfg.name, "dtype": name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "attention_layers": n_attn,
+            "flash_launches_per_batch": counts["flash_attention"] / n_batches,
             "params": sum(p.numel() for p in model.parameters()),
             "requests": len(reqs), "batches": s["batches"],
             "prompt_lengths": [len(p) for p in prompts], "new_tokens": LM_NEW,
@@ -1198,10 +1256,17 @@ def lm_serve(cfg, prompts, dtype) -> dict:
             "info": info}
 
 
+def clone_cache(cache):
+    """A copy of a decode cache ``(groups, extra)``, every tensor cloned."""
+    return tuple(tuple({k: t.clone() for k, t in c.items()} for c in part)
+                 for part in cache)
+
+
 def lm_check(cfg, run, dtype) -> dict:
     """Kernel vs plain on the served batches, teacher-forced with the served
-    tokens (logits to ``LOGITS_RTOL[dtype]`` of max|logits|), plus the
-    device busy share of one decode step."""
+    tokens (logits to ``LOGITS_RTOL[dtype]`` of max|logits|, or the arch's
+    own bar in ``ARCH_LOGITS_RTOL``), plus the device busy share of one
+    decode step."""
     from repro_torch.serve.engine import pad_prompts, prefill_to_decode_cache
 
     model, reqs, out = run["model"], run["reqs"], run["out"]
@@ -1236,14 +1301,17 @@ def lm_check(cfg, run, dtype) -> dict:
                     break
                 tok = served[:, t:t + 1]
                 if step is None:     # one step alone: wall and device time
+                    # on a copy: a step advances a recurrent layer's state
+                    scratch = clone_cache(caches[True])
                     for _ in range(3):
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
-                        model.decode_step(tok, caches[True], S + t)
+                        model.decode_step(tok, scratch, S + t)
                         torch.cuda.synchronize()
                         wall_ms = (time.perf_counter() - t0) * 1e3
                     prof = device_profile(
-                        lambda: model.decode_step(tok, caches[True], S + t))
+                        lambda: model.decode_step(tok, scratch, S + t))
+                    del scratch
                     dev_ms = sum(v[0] for v in prof.values())
                     step = {"wall_ms": wall_ms,
                             "device_ms": dev_ms if prof else None,
@@ -1257,10 +1325,10 @@ def lm_check(cfg, run, dtype) -> dict:
                     / float(last[True].abs().max())
                 worst["decode"] = max(worst["decode"], err)
             del caches, last
-    tol = LOGITS_RTOL[dtype]
+    tol = ARCH_LOGITS_RTOL.get((cfg.name, dtype), LOGITS_RTOL[dtype])
     check(worst["prefill"] <= tol and worst["decode"] <= tol,
           f"kernel vs plain logits ({dtype}): {worst} exceed {tol:g} x max|logits|")
-    res = {"logits_rel_err": worst, "greedy_agreement": agree,
+    res = {"logits_rel_err": worst, "logits_rtol": tol, "greedy_agreement": agree,
            "decode_step": step}
     log(f"kernel vs plain ({str(dtype).replace('torch.', '')}, teacher-forced): "
         f"prefill logits {worst['prefill']:.2e}, "
@@ -1571,6 +1639,139 @@ def moe_phase() -> tuple[dict, dict]:
         torch.cuda.empty_cache()
     runs["ep"] = moe_ep_phase(ffn, dataclasses.replace(
         get_arch(EP_ARCH), n_layers=MOE_LAYERS))
+    return runs, flash
+
+
+def prompt_tokens(prompts) -> torch.Tensor:
+    """The prompts as the engine prefills them in one batch (left-padded
+    with token 0), on the card."""
+    from repro_torch.serve import Request
+    from repro_torch.serve.engine import pad_prompts
+
+    return torch.as_tensor(pad_prompts([Request(rid=i, prompt=p) for i, p in
+                                        enumerate(prompts)]), device=DEVICE)
+
+
+def mlstm_pad_decay(p, cfg, x, C) -> float:
+    """The reference's pad decay, kept by the port: ||C|| of the prefill's
+    returned state (after the zero pad to a multiple of the 256-step chunk)
+    over ||C|| after the same S steps of ``mlstm_decode``."""
+    from repro_torch.models.ssm import MLSTM_CHUNK, mlstm_decode
+
+    B, S, d = x.shape
+    H = cfg.n_heads
+    state = (torch.zeros((B, H, d // H, d // H), device=x.device),
+             torch.zeros((B, H, d // H), device=x.device))
+    for t in range(S):
+        _, state = mlstm_decode(p, cfg, x[:, t:t + 1], state)
+    ratio = float(torch.linalg.vector_norm(C) / torch.linalg.vector_norm(state[0]))
+    log(f"  mlstm pad decay: the prefill's C over {S} decode steps' C: {ratio:.3e} "
+        f"({(-S) % min(MLSTM_CHUNK, S)} pad steps)")
+    return ratio
+
+
+def recurrent_layer_check(model, cfg, prompts, dtype) -> dict:
+    """One layer of each recurrent kind of ``model`` (its first of that
+    kind) at the served shapes, in ``dtype`` against the same code in
+    float64 on the card (its weights and input widened exactly): the
+    output's and the returned state's error over their max magnitude, and
+    the layer's wall ms in each type.  The input is the served batch's
+    embedded prompts through the layer's norm."""
+    from repro_torch.models.layers import make_norm
+    from repro_torch.models.ssm import recurrent_forward
+
+    tokens = prompt_tokens(prompts)
+    res = {}
+    with torch.inference_mode():
+        emb = model.embed_inputs(tokens)
+        for kind in dict.fromkeys(k for k in model.kinds if k != "attn"):
+            layer = model.layers[model.kinds.index(kind)]
+            x = make_norm(cfg.norm)(layer["ln1"], emb)
+            p = {name: t.detach() for name, t in layer["core"].named_parameters()}
+            runs = {}
+            for dt, pp, xx in ((dtype, p, x),
+                               (torch.float64, {k: t.double() for k, t in p.items()},
+                                x.double())):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[dt] = recurrent_forward(pp, cfg, kind, xx)
+                torch.cuda.synchronize()
+                runs[dt] += ((time.perf_counter() - t0) * 1e3,)
+            (y, st, ms), (y64, st64, ms64) = runs[dtype], runs[torch.float64]
+            check(y.dtype == dtype and tuple(y.shape) == tuple(x.shape)
+                  and bool(torch.isfinite(y).all()),
+                  f"{kind} layer: {y.dtype} {tuple(y.shape)}, finite "
+                  f"{bool(torch.isfinite(y).all())}")
+            err = float((y.double() - y64).abs().max() / y64.abs().max())
+            st_err = {n: float((st[n].double() - st64[n]).abs().max()
+                               / st64[n].abs().max().clamp_min(1e-300))
+                      for n in st}
+            tol = LAYER_RTOL[dtype]
+            check(err <= tol, f"{kind} layer ({dtype}) against float64: "
+                  f"{err:.3e} of max|y|, above {tol:g}")
+            res[kind] = {"layer": model.kinds.index(kind), "rel_err": err,
+                         "state_rel_err": st_err, "ms": ms, "ms_float64": ms64,
+                         "max_abs_y": float(y64.abs().max())}
+            if kind == "mlstm":
+                res[kind]["pad_decay"] = mlstm_pad_decay(p, cfg, x, st["C"])
+            log(f"  {kind} layer {res[kind]['layer']} ({str(dtype)[6:]}) against "
+                f"float64 on the card: y {err:.2e} of max|y|, state "
+                + ", ".join(f"{n} {e:.2e}" for n, e in st_err.items())
+                + f"; {ms:.1f} ms ({ms64:.1f} ms in float64)")
+            del runs, y, y64, st, st64, x
+    return res
+
+
+def hidden_drift(model, cfg, prompts) -> list[float]:
+    """``LM.forward``'s prefill walked twice, layer by layer, the attention
+    through the kernel in one walk and its plain version in the other, each
+    walk fed its own previous output: after each layer, max|x_kernel -
+    x_plain| over max|x_plain|.  Where a kernel-vs-plain difference enters
+    (the attention layers) and how the layers after it carry it."""
+    from repro_torch.models.model import block_forward
+
+    tokens = prompt_tokens(prompts)
+    drift = []
+    with torch.inference_mode():
+        xk = xp = model.embed_inputs(tokens)
+        positions = torch.arange(xk.shape[1], dtype=torch.int32, device=xk.device)
+        for kind, layer in zip(model.kinds, model.layers):
+            xk, _ = block_forward(layer, cfg, kind, xk, positions, True)
+            xp, _ = block_forward(layer, cfg, kind, xp, positions, False)
+            drift.append(float((xk - xp).abs().max()) / float(xp.abs().max()))
+    return drift
+
+
+def recurrent_phase() -> tuple[dict, dict]:
+    """The recurrent archs at full width and depth (:data:`RECURRENT_RUNS`),
+    each served on the first ``RECURRENT_REQUESTS`` prompts of
+    :func:`lm_workload` (drawn in its vocab; :func:`lm_serve`: flash
+    launched once a prefill batch by each attention layer: 12 for
+    recurrentgemma-9b, none for xlstm-125m), checked kernel vs plain
+    (:func:`lm_check`) and one layer of each recurrent kind against float64
+    (:func:`recurrent_layer_check`); each model freed before the next.
+    Returns the runs' numbers and their flash launches."""
+    from repro_torch.configs import get_arch
+
+    runs, flash = {}, {}
+    for arch, dtype in RECURRENT_RUNS:
+        cfg = get_arch(arch)
+        prompts = lm_workload(cfg.vocab)[:RECURRENT_REQUESTS]
+        run = lm_serve(cfg, prompts, dtype)
+        key = f"{arch} {str(dtype).replace('torch.', '')}"
+        runs[key] = {**run["info"],
+                     "layers_vs_float64": recurrent_layer_check(
+                         run["model"], cfg, prompts, dtype)}
+        if "attn" in run["model"].kinds:
+            drift = hidden_drift(run["model"], cfg, prompts)
+            runs[key]["hidden_drift"] = drift
+            log(f"  kernel vs plain walks, hidden state after each layer over "
+                f"max|x|: " + " ".join(f"{k[0]}{e:.1e}" for k, e in
+                                       zip(run["model"].kinds, drift)))
+        runs[key].update(lm_check(cfg, run, dtype))
+        flash[key] = run["info"]["launches"]["flash_attention"]
+        del run
+        torch.cuda.empty_cache()
     return runs, flash
 
 
@@ -2476,6 +2677,25 @@ def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter) -> dict:
             "traffic": [o["traffic"] for o in outs]}
 
 
+def flash_instances(rows, ptxas, head_dim: int) -> dict:
+    """The flash kernel's instances at ``head_dim``, by type: ``ptxas -v``'s
+    registers and spills, and each of its cases' kernel, bound, plain and
+    SDPA ms and error."""
+    out = {}
+    for dt, tag in (("float32", "<float,"), ("bfloat16", "<__nv_bfloat16,")):
+        # demangled: "void <unnamed>::flash_attention_kernel<float, (int)256>"
+        out[dt] = {"ptxas": [u for n, u in ptxas
+                             if tag in n and f"(int){head_dim}>" in n],
+                   "cases": {r["case"]: {key: r[key] for key in (
+                       "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+                       "rel_err", "max_abs_err")}
+                       for r in rows if r["dtype"] == dt and r["head_dim"] == head_dim}}
+        check(len(out[dt]["ptxas"]) == 1 and out[dt]["cases"],
+              f"flash_attention {dt} at head dim {head_dim}: ptxas "
+              f"{out[dt]['ptxas']}, cases {sorted(out[dt]['cases'])}")
+    return out
+
+
 def history_diff(a, b) -> float:
     n = min(len(a), len(b))
     r0 = a[0] or 1.0
@@ -2704,9 +2924,16 @@ def main() -> int:
     moe["phase_s"] = time.perf_counter() - t0
     log(f"MoE phase: {moe['phase_s']:.1f} s in all")
     flash_runs.update(moe_flash)
+
+    # 12. the recurrent archs at full width and depth
+    t0 = time.perf_counter()
+    recurrent, recurrent_flash = recurrent_phase()
+    recurrent["phase_s"] = time.perf_counter() - t0
+    log(f"recurrent phase: {recurrent['phase_s']:.1f} s in all")
+    flash_runs.update(recurrent_flash)
     launches["flash_attention"] = sum(flash_runs.values())
 
-    # 12. the kernels line: top-level numbers are the main path's case
+    # 13. the kernels line: top-level numbers are the main path's case
     # (sparse kernels: the first float64 case on its operands, BCSR at its
     # block size with one RHS; flash: float32 at the prefill shape); every
     # dtype / shape case is under "variants"; flash's launches are the f32
@@ -2731,7 +2958,9 @@ def main() -> int:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "card": smi,
             **({"launches_per_run": flash_runs, "bound_fma_ms": top["bound_fma_ms"],
-                "design": top["design"]} if k == "flash_attention" else
+                "design": top["design"],
+                "instances_head_dim_256": flash_instances(rows[k], ptxas[k], 256)}
+               if k == "flash_attention" else
                {"pallas": False, "tri_solve_depth": tri_depth,
                 "launches_per_run": {r["run"]: r["launches"][k]
                                      for r in block["runs"]}}
@@ -2776,10 +3005,11 @@ def main() -> int:
                                "launches_per_run": {"f64": c_single,
                                                     "f64_multi": c_multi,
                                                     "f32": c_f32}},
-                      "lm": f32, "lm_bf16": bf16, "moe": moe}),
+                      "lm": f32, "lm_bf16": bf16, "moe": moe,
+                      "recurrent": recurrent}),
           flush=True)
     log(smi)
-    # 13. result
+    # 14. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

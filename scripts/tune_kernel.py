@@ -21,13 +21,15 @@ kernel, ...SRC; each version reports the mean of its two times.  The cases:
   byte bound;
 - ``ell_spmm``: the same at the f64 solve of ``[n, 8]`` (8 right-hand
   sides);
-- ``flash_attention``: ``chip_smoke.py``'s four cases at the serving run's
+- ``flash_attention``: ``chip_smoke.py``'s cases at the serving run's
   longest prompt (qwen3-1.7b: B 4, 16 query / 8 KV heads of 128, S 1819,
   causal; with a 256-key window; 128 queries over 1024 keys; head dim 64,
-  14 / 2 heads) in float32 and bfloat16; ``scaled_dot_product_attention``
-  and the flop bound (float32: 3xTF32 on the tensor cores, with the FMA
-  units' bound beside it); then float32 with large scores (q x 8, k + 50)
-  against a float64 truth, beside the float32 plain version's error;
+  14 / 2 heads; recurrentgemma-9b's 16:1 at head dim 256, its 2048-key
+  window and a 256-key one) in float32 and bfloat16 (``--head-dim D``:
+  only those); ``scaled_dot_product_attention`` and the flop bound (float32:
+  3xTF32 on the tensor cores, with the FMA units' bound beside it); then
+  float32 with large scores (q x 8, k + 50) against a float64 truth, beside
+  the float32 plain version's error;
 - ``tri_solve``: both triangles of every non-coarsest level of the f64
   lowering of ``laplace_3d(SIZE)`` over 2 x 4 ranks (its own factors and
   level order), k = 1 and 8, and level 0 in float32; each with its DAG
@@ -205,15 +207,19 @@ def ell_cases(cs, fns, order, kernel: str, size: int) -> tuple[list, dict]:
     return rows, sums
 
 
-def flash_cases(cs, fns, order) -> list:
-    """``chip_smoke.py``'s four flash cases at the serving run's longest
-    prompt (prefill, a 256-key window, Sq < Skv, head dim 64), causal, in
-    float32 and bfloat16."""
+def flash_cases(cs, fns, order, head_dims=None) -> list:
+    """``chip_smoke.py``'s flash cases at the serving run's longest prompt
+    (prefill, a 256-key window, Sq < Skv, head dim 64, recurrentgemma-9b's
+    head dim 256 with its window and a 256-key one), causal, in float32 and
+    bfloat16; ``head_dims``: only the cases at those."""
     from repro_torch.kernels.flash_attention.ref import attention_ref, rel_err_rows
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for label, B, Hq, Hkv, Sq, Skv, D, window in cs.flash_shapes(FLASH_S):
+    shapes = cs.flash_shapes(FLASH_S) + cs.recurrent_flash_shapes(FLASH_S)
+    for label, B, Hq, Hkv, Sq, Skv, D, window in shapes:
+        if head_dims and D not in head_dims:
+            continue
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
                        for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
@@ -255,7 +261,7 @@ def flash_cases(cs, fns, order) -> list:
     return rows
 
 
-def flash_large_scores(fns) -> list:
+def flash_large_scores(fns, head_dims=None) -> list:
     """float32 with q x 8 (one key dominates a row) and k + 50 (scores in
     the hundreds), causal, at the card tests' shapes and the prefill shape:
     each version's per-row error over the float64 truth, and the float32
@@ -265,7 +271,10 @@ def flash_large_scores(fns) -> list:
 
     rows = []
     for B, Hq, Hkv, S, D in ((2, 16, 8, 256, 128), (1, 14, 2, 301, 64),
-                             (4, 16, 8, FLASH_S, 128)):
+                             (4, 16, 8, FLASH_S, 128), (1, 16, 1, 301, 256),
+                             (4, 16, 1, FLASH_S, 256)):
+        if head_dims and D not in head_dims:
+            continue
         gen = torch.Generator(device="cuda").manual_seed(2)
         q, k, v = (torch.randn(s, generator=gen, device="cuda")
                    for s in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
@@ -366,6 +375,9 @@ def main() -> int:
     ap.add_argument("sources", nargs="+", metavar="SRC",
                     help="other sources of the kernel to hold it against")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--head-dim", type=int, action="append", dest="head_dims",
+                    default=None, metavar="D",
+                    help="flash_attention: only the cases at head dim D (repeatable)")
     ap.add_argument("--unchecked", action="append", default=[], metavar="NAME",
                     help="a version (file stem) to time whose error is reported "
                          "but not held to the bar: a variant that trades accuracy "
@@ -390,7 +402,8 @@ def main() -> int:
     fns = build_variants(args.kernel, variants, ROOT / "build" / f"tune_{args.kernel}")
     sums = {}
     if args.kernel == "flash_attention":
-        rows = flash_cases(cs, fns, order) + flash_large_scores(fns)
+        rows = (flash_cases(cs, fns, order, args.head_dims)
+                + flash_large_scores(fns, args.head_dims))
     elif args.kernel == "tri_solve":
         rows = tri_cases(cs, fns, order, args.size)
     else:

@@ -143,7 +143,11 @@ def lm_params_from_arrays(cfg, tree) -> dict[str, torch.Tensor]:
     tensors).  ``groups`` (a tuple over ``cfg.pattern`` of stacked block
     trees) is unstacked on axis 0, one layer per (group, pattern position);
     ``extra`` blocks follow; ``embed``, ``final_norm`` and an untied
-    ``lm_head`` keep their names."""
+    ``lm_head`` keep their names.  Every leaf goes across with its name and
+    type, whatever the block kind: attention and FFN weights, and the
+    recurrent blocks' (mLSTM ``wi``/``wf`` per head and ``f_bias``; sLSTM
+    ``wx``/``rh``/``bias``/``out``; RG-LRU ``in_x``/``in_gate``/``conv``/
+    ``wa``/``wi``/``out`` and ``lam``, float32 in both packages)."""
     L = len(cfg.pattern)
     groups = tree["groups"]
     n_groups = np.asarray(groups[0]["ln1"]["scale"]).shape[0]

@@ -107,6 +107,12 @@
 // of the 3xTF32 bound: each TF32 pass costs about as much as the softmax,
 // loads and barriers together.
 //
+// Head dims 64, 128 and 256.  At D = 256 (recurrentgemma-9b: 16 query heads
+// on one KV head) neither type's shape above fits the registers or two
+// blocks an SM, so both take their own (Cfg<T, 256>, with the arithmetic
+// beside it): 8 warps of one m-tile each, 128 query rows a block, one
+// block an SM.  The skeleton and the products are the same code.
+//
 // Masking: a masked score is -inf while the running max starts at -1e30,
 // so its term is exactly 0 and no inf - inf arises; every row that sees a
 // key (every stored row: Sq <= Skv) gets what masking with -1e30, as the
@@ -152,6 +158,38 @@ struct Cfg<float, D> {
   static constexpr int WARPS = 4, MT = 1, BK = 32, BLOCKS = 2;
   static constexpr int LDQ = D + 16, LDK = D + 16, LDV = D + 4;
   static constexpr bool RESCALE = false;  // accumulate_pv folds it into its FFMA
+};
+
+// D = 256 (recurrentgemma-9b's heads), re-derived: the shapes above do not
+// carry over.
+// bfloat16: with MT = 2 each thread would hold 16 * MT * D / 32 = 256 float32
+// accumulators, past the 255-register limit.  So a warp owns one m-tile (128
+// accumulators, 32 score registers) and the block takes 8 warps, which keeps
+// 128 query rows a block, so each K and V tile still serves 128 rows: shared
+// memory 2 * (128 * 264 + 2 * 64 * (264 + 264)) = 202,752 B of the 232,448 a
+// block may take, one block (8 warps) an SM.
+template <>
+struct Cfg<bf16, 256> {
+  static constexpr int WARPS = 8, MT = 1, BK = 64, BLOCKS = 1;
+  static constexpr int LDQ = 256 + 8, LDK = 256 + 8, LDV = 256 + 8;
+  static constexpr bool RESCALE = true;
+};
+
+// float32: the D = 128 shape at D = 256 takes 4 * (64 * 272 + 2 * 32 * (272 +
+// 260)) = 205,824 B, so two blocks an SM no longer fit, and one block of 4
+// warps leaves one warp a scheduler.  8 warps of 16 rows (128 query rows, as
+// bfloat16) with 16-key tiles take 4 * (128 * 272 + 2 * 16 * (272 + 260)) =
+// 207,360 B: one block, 8 warps an SM as at D = 128, 255 registers a thread
+// under __launch_bounds__(256, 1), of which the accumulator takes 128 and a
+// 16-key tile's scores, their rounding errors and pending chunk 8 each.
+// ptxas spills 76 bytes here; 8-key tiles (16 bytes) and a partly unrolled
+// chunk loop (76-88) were no faster on an H100 (PERF.md), so the spill stays
+// until a design that splits D or keeps O out of the registers.
+template <>
+struct Cfg<float, 256> {
+  static constexpr int WARPS = 8, MT = 1, BK = 16, BLOCKS = 1;
+  static constexpr int LDQ = 256 + 16, LDK = 256 + 16, LDV = 256 + 4;
+  static constexpr bool RESCALE = false;
 };
 
 template <typename T, int D>
@@ -703,7 +741,7 @@ int launch(const Launch& a) {
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a head dim other than 64 or 128 or a grid the
+// cudaErrorInvalidValue for a head dim other than 64, 128 or 256 or a grid the
 // card cannot take.  The caller checks everything else (types, shapes,
 // alignment, Sq <= Skv, Hq % Hkv == 0) before calling.  window < 0: none.
 extern "C" int flash_attention_launch(
@@ -719,5 +757,6 @@ extern "C" int flash_attention_launch(
                  causal, window, static_cast<cudaStream_t>(stream)};
   if (D == 64) return is_bf16 ? launch<bf16, 64>(a) : launch<float, 64>(a);
   if (D == 128) return is_bf16 ? launch<bf16, 128>(a) : launch<float, 128>(a);
+  if (D == 256) return is_bf16 ? launch<bf16, 256>(a) : launch<float, 256>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,15 +1,17 @@
 """Serving entry point of the port (port of ``repro/launch/serve.py``): bring up
 an engine and drain a synthetic workload, or serve AMGWire on a socket.
 
-* ``--solver lm`` (default) — the LM generation engine, dense or MoE
-  (``mixtral-8x22b``, ``qwen3-moe-235b-a22b``); ``--layers`` cuts the depth
-  (neither MoE arch fits one card whole: mixtral-8x22b's 56 layers hold
-  141 B parameters)::
+* ``--solver lm`` (default) — the LM generation engine, dense, MoE
+  (``mixtral-8x22b``, ``qwen3-moe-235b-a22b``) or recurrent (``xlstm-125m``:
+  mLSTM and sLSTM; ``recurrentgemma-9b``: RG-LRU and local attention at head
+  dim 256); ``--layers`` cuts the depth (neither MoE arch fits one card
+  whole: mixtral-8x22b's 56 layers hold 141 B parameters)::
 
       PYTHONPATH=src python -m repro_torch.launch.serve --solver lm \\
           --arch qwen3-1.7b --reduced --device cpu
       PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \\
           --layers 2
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
 
 * ``--solver amg`` — :class:`~repro_torch.amg.api.AMGService`: solve requests
   admitted through tickets, same-(matrix, knobs) right-hand sides coalesced

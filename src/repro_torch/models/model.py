@@ -1,24 +1,30 @@
-"""The LM (port of ``repro/models/model.py``) for attention-only
-architectures: ``cfg.pattern == ("attn",)``, token inputs, a dense MLP or a
-Mixture-of-Experts FFN (:mod:`repro_torch.models.moe`, where ``cfg.is_moe``).
+"""The LM (port of ``repro/models/model.py``): token inputs; layers of the
+kinds ``attn`` (GQA attention, prefill through the flash-attention kernel),
+``mlstm``, ``slstm`` and ``rglru`` (:mod:`repro_torch.models.ssm`), laid out
+as ``cfg.pattern`` repeated and then the ``n_layers % len(pattern)``
+remainder blocks; a dense MLP or a Mixture-of-Experts FFN
+(:mod:`repro_torch.models.moe`, where ``cfg.is_moe``) after the blocks that
+have one (:func:`_has_ffn`).
 
 The reference stacks identical layer groups and drives them with
 ``lax.scan``; here every layer is a module of a :class:`~torch.nn.ModuleList`
 walked in Python.  A layer's parameters keep the reference's tree
-(``ln1``, ``core`` with ``wq``/``wk``/``wv``/``wo`` and optional
-``bq``/``bk``/``bv``/``q_norm``/``k_norm``, ``ln2``, ``ffn``: ``up``/``down``
-/``gate``, or ``router``/``gate``/``up``/``down`` for MoE), so a state-dict
-key is the reference's path with the group axis unstacked:
-``layers.<i>.core.wq`` ↔ ``groups[0]["core"]["wq"][i]`` (see
+(``ln1``, ``core``, ``ln2``, ``ffn``), so a state-dict key is the
+reference's path with the group axis unstacked: ``layers.<g L + j>.core.wq``
+↔ ``groups[j]["core"]["wq"][g]`` for pattern length L, and the remainder
+blocks ``layers.<n_groups L + e>`` ↔ ``extra[e]`` (see
 :mod:`repro_torch.convert`).
 
 Caches keep the reference's layout too: ``forward(return_cache=True)``
-returns ``(({"k", "v"},), ())`` with ``[n_layers, B, S, Hkv, Dh]`` tensors,
-and the decode cache of :func:`init_cache` /
-:func:`repro_torch.serve.engine.prefill_to_decode_cache` is
-``(({"k", "v", "slot_pos"},), ())``.  Unlike the reference,
-:meth:`LM.decode_step` updates the decode cache in place (one ring-buffer
-slot per layer) instead of returning a copy.
+returns ``(groups, extra)``, ``groups`` one dict per pattern position with
+its entries stacked over the groups (``attn``: ``k``/``v`` ``[n_groups, B,
+S, Hkv, Dh]``; ``mlstm``: ``C``/``n``; ``slstm``: ``h``/``c``/``n``;
+``rglru``: ``conv``/``h``), ``extra`` one unstacked dict per remainder
+block; the decode cache of :func:`init_cache` /
+:func:`repro_torch.serve.engine.prefill_to_decode_cache` adds ``slot_pos``
+to the attention entries.  Unlike the reference, :meth:`LM.decode_step`
+updates the decode cache in place (one ring-buffer slot per attention
+layer, the new state of a recurrent one) instead of returning a copy.
 """
 from __future__ import annotations
 
@@ -29,16 +35,22 @@ from ..device import resolve_device
 from .attention import _project_qkv, attn_forward, attn_params
 from .layers import apply_rope, make_norm, mlp, mlp_params, norm_params, normal_init
 from .moe import moe_ffn_tp, moe_params
+from .ssm import PARAMS as RECURRENT_PARAMS
+from .ssm import recurrent_cache, recurrent_decode, recurrent_forward
 
 NEG_INF = -1e30
 
 
+KINDS = ("attn", *RECURRENT_PARAMS)
+
+
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what this port does not run yet."""
-    if tuple(cfg.pattern) != ("attn",):
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {cfg.pattern} (models/ssm.py) are not "
-            f"ported yet; only ('attn',) is (ROADMAP queue 1 item 13)")
+    """Raise ``NotImplementedError`` for what this port does not run yet
+    (``ValueError`` for a block kind the reference does not have either)."""
+    unknown = sorted(set(cfg.pattern) - set(KINDS))
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {unknown}; the "
+                         f"kinds are {KINDS}")
     if not cfg.embed_input:
         raise NotImplementedError(
             f"{cfg.name}: embed_input=False archs (a stub frontend feeding "
@@ -63,14 +75,23 @@ class ParamTree(nn.Module):
         return getattr(self, name)
 
 
-def _has_ffn(cfg) -> bool:
-    return cfg.d_ff > 0 or cfg.is_moe
+def _has_ffn(cfg, kind: str) -> bool:
+    """As the reference: a dense FFN after every block where ``d_ff > 0``,
+    an MoE FFN after the attention blocks only."""
+    return cfg.d_ff > 0 or (cfg.is_moe and kind == "attn")
 
 
-def block_params(gen, cfg, dtype, device) -> dict:
+def layer_kind(cfg, i: int) -> str:
+    """The kind of layer ``i``: ``cfg.pattern`` repeated over the groups,
+    then its first ``n_layers % len(pattern)`` kinds as the remainder."""
+    return cfg.pattern[i % len(cfg.pattern)]
+
+
+def block_params(gen, cfg, kind: str, dtype, device) -> dict:
+    core = attn_params if kind == "attn" else RECURRENT_PARAMS[kind]
     p = {"ln1": norm_params(cfg.norm, cfg.d_model, dtype, device),
-         "core": attn_params(gen, cfg, dtype, device)}
-    if _has_ffn(cfg):
+         "core": core(gen, cfg, dtype, device)}
+    if _has_ffn(cfg, kind):
         p["ln2"] = norm_params(cfg.norm, cfg.d_model, dtype, device)
         p["ffn"] = (moe_params(gen, cfg, dtype, device) if cfg.is_moe else
                     mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
@@ -84,15 +105,21 @@ def _ffn_apply(p, cfg, x, moe_stats: dict | None = None):
     return mlp(p["ffn"], x, cfg.act)
 
 
-def block_forward(p, cfg, x, positions, use_kernel: bool = True):
-    """Full-sequence block.  Returns (x, (k, v))."""
+def block_forward(p, cfg, kind: str, x, positions, use_kernel: bool = True):
+    """Full-sequence block.  Returns (x, cache entry): ``{"k", "v"}`` for
+    attention, the final state for a recurrent block."""
     norm = make_norm(cfg.norm)
-    out, kv = attn_forward(p["core"], cfg, norm(p["ln1"], x), positions,
-                           use_kernel=use_kernel)
+    h = norm(p["ln1"], x)
+    if kind == "attn":
+        out, (k, v) = attn_forward(p["core"], cfg, h, positions,
+                                   use_kernel=use_kernel)
+        cache = {"k": k, "v": v}
+    else:
+        out, cache = recurrent_forward(p["core"], cfg, kind, h)
     x = x + out
-    if _has_ffn(cfg):
+    if _has_ffn(cfg, kind):
         x = x + _ffn_apply(p, cfg, norm(p["ln2"], x))
-    return x, kv
+    return x, cache
 
 
 def attn_decode_cached(p, cfg, x, cache: dict, pos: int):
@@ -127,11 +154,20 @@ def attn_decode_cached(p, cfg, x, cache: dict, pos: int):
     return out @ p["wo"]
 
 
-def block_decode(p, cfg, x, cache: dict, pos: int,
+def block_decode(p, cfg, kind: str, x, cache: dict, pos: int,
                  moe_stats: dict | None = None):
+    """One token through one block; ``cache`` (this layer's entry, views
+    of the stacked caches) is updated in place."""
     norm = make_norm(cfg.norm)
-    x = x + attn_decode_cached(p["core"], cfg, norm(p["ln1"], x), cache, pos)
-    if _has_ffn(cfg):
+    h = norm(p["ln1"], x)
+    if kind == "attn":
+        x = x + attn_decode_cached(p["core"], cfg, h, cache, pos)
+    else:
+        out, new = recurrent_decode(p["core"], cfg, kind, h, cache)
+        for name, t in new.items():
+            cache[name].copy_(t)
+        x = x + out
+    if _has_ffn(cfg, kind):
         x = x + _ffn_apply(p, cfg, norm(p["ln2"], x), moe_stats)
     return x
 
@@ -143,8 +179,8 @@ def init_params(cfg, gen: torch.Generator, dtype, device) -> dict:
     check_supported(cfg)
     params = {"embed": normal_init(gen, (cfg.vocab, cfg.d_model), 0.02, dtype,
                                    device),
-              "layers": [block_params(gen, cfg, dtype, device)
-                         for _ in range(cfg.n_layers)],
+              "layers": [block_params(gen, cfg, layer_kind(cfg, i), dtype, device)
+                         for i in range(cfg.n_layers)],
               "final_norm": norm_params(cfg.norm, cfg.d_model, dtype, device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(gen, (cfg.d_model, cfg.vocab), 0.02,
@@ -168,6 +204,7 @@ class LM(nn.Module):
         self.moe_stats: dict | None = None
         self.embed = nn.Parameter(params["embed"], requires_grad=False)
         self.layers = nn.ModuleList(ParamTree(p) for p in params["layers"])
+        self.kinds = [layer_kind(cfg, i) for i in range(cfg.n_layers)]
         self.final_norm = ParamTree(params["final_norm"])
         self.lm_head = (nn.Parameter(params["lm_head"], requires_grad=False)
                         if "lm_head" in params else None)
@@ -187,21 +224,21 @@ class LM(nn.Module):
     def forward(self, tokens: torch.Tensor, return_cache: bool = False,
                 use_kernel: bool = True):
         """Prefill forward.  tokens: [B, S] → logits [B, S, V] (and the
-        per-layer caches when ``return_cache``).  ``use_kernel=False`` runs
-        the plain attention instead of the flash-attention kernel."""
+        caches, stacked by pattern position, when ``return_cache``).
+        ``use_kernel=False`` runs the plain attention instead of the
+        flash-attention kernel."""
         cfg = self.cfg
         x = self.embed_inputs(tokens)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-        ks, vs = [], []
-        for layer in self.layers:
-            x, (k, v) = block_forward(layer, cfg, x, positions, use_kernel)
+        caches = []
+        for kind, layer in zip(self.kinds, self.layers):
+            x, c = block_forward(layer, cfg, kind, x, positions, use_kernel)
             if return_cache:
-                ks.append(k)
-                vs.append(v)
+                caches.append(c)
         x = make_norm(cfg.norm)(self.final_norm, x)
         logits = self.unembed(x)
         if return_cache:
-            return logits, (({"k": torch.stack(ks), "v": torch.stack(vs)},), ())
+            return logits, _stack_caches(cfg, caches)
         return logits
 
     def decode_step(self, tokens: torch.Tensor, cache, pos: int):
@@ -209,14 +246,31 @@ class LM(nn.Module):
         :func:`init_cache` or ``prefill_to_decode_cache`` (updated in place);
         ``pos``: tokens so far.  Returns (logits [B, V], cache)."""
         cfg = self.cfg
-        (gc,), _ = cache
+        groups, extra = cache
+        L = len(cfg.pattern)
+        n_grouped = len(self.layers) - len(extra)
         x = self.embed_inputs(tokens)
-        for i, layer in enumerate(self.layers):
-            layer_cache = {"k": gc["k"][i], "v": gc["v"][i],
-                           "slot_pos": gc["slot_pos"][i]}
-            x = block_decode(layer, cfg, x, layer_cache, pos, self.moe_stats)
+        for i, (kind, layer) in enumerate(zip(self.kinds, self.layers)):
+            if i < n_grouped:
+                g, j = divmod(i, L)
+                layer_cache = {name: t[g] for name, t in groups[j].items()}
+            else:
+                layer_cache = extra[i - n_grouped]
+            x = block_decode(layer, cfg, kind, x, layer_cache, pos, self.moe_stats)
         x = make_norm(cfg.norm)(self.final_norm, x)
         return self.unembed(x)[:, 0], cache
+
+
+def _stack_caches(cfg, caches: list[dict]):
+    """Per-layer cache entries → ``(groups, extra)``: per pattern position,
+    its layers' entries stacked over the groups; the remainder blocks'
+    entries as they are."""
+    L = len(cfg.pattern)
+    n_groups = len(caches) // L
+    groups = tuple({name: torch.stack([caches[g * L + j][name]
+                                       for g in range(n_groups)])
+                    for name in caches[j]} for j in range(L))
+    return groups, tuple(caches[n_groups * L:])
 
 
 def init_lm(cfg, seed: int = 0, dtype=torch.bfloat16, device="cuda") -> LM:
@@ -229,14 +283,25 @@ def init_lm(cfg, seed: int = 0, dtype=torch.bfloat16, device="cuda") -> LM:
 
 def init_cache(cfg, batch: int, ctx_len: int, dtype=torch.bfloat16,
                device="cuda"):
-    """Empty decode caches ``(({"k", "v", "slot_pos"},), ())``: k/v
-    ``[n_layers, batch, clen, Hkv, Dh]``, slot_pos ``[n_layers, clen]`` = -1,
-    clen = ``min(ctx_len, window)``."""
+    """Empty decode caches ``(groups, extra)`` in the reference's layout:
+    per pattern position an entry stacked over the groups, then one per
+    remainder block.  Attention: k/v ``[.., batch, clen, Hkv, Dh]`` in
+    ``dtype``, slot_pos ``[.., clen]`` = -1, clen = ``min(ctx_len,
+    window)``; a recurrent block's state is float32 zeros
+    (:func:`repro_torch.models.ssm.recurrent_cache`)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    n_groups, n_extra = divmod(cfg.n_layers, len(cfg.pattern))
     clen = min(ctx_len, cfg.window) if cfg.window else ctx_len
-    shape = (cfg.n_layers, batch, clen, cfg.n_kv_heads, cfg.head_dim)
-    return ({"k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev),
-             "slot_pos": torch.full((cfg.n_layers, clen), -1,
-                                    dtype=torch.int32, device=dev)},), ()
+
+    def one(kind, lead):
+        if kind != "attn":
+            return recurrent_cache(cfg, kind, batch, lead, dev)
+        shape = lead + (batch, clen, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "slot_pos": torch.full(lead + (clen,), -1, dtype=torch.int32,
+                                       device=dev)}
+
+    return (tuple(one(kind, (n_groups,)) for kind in cfg.pattern),
+            tuple(one(cfg.pattern[e], ()) for e in range(n_extra)))

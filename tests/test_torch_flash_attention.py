@@ -275,6 +275,10 @@ KERNEL_SRC = (Path(fa.__file__).parent / "csrc" / "flash_attention.cu").read_tex
 # the float32 instance's key tile, as the kernel source sets it
 BK = int(re.search(r"struct Cfg<float, D> \{\s*static constexpr int WARPS = \d+, "
                    r"MT = \d+, BK = (\d+)", KERNEL_SRC).group(1))
+# the head dims with a shape of their own (Cfg<float, 256>)
+BK_OF = {int(D): int(bk) for D, bk in re.findall(
+    r"struct Cfg<float, (\d+)> \{\s*static constexpr int WARPS = \d+, MT = \d+, "
+    r"BK = (\d+)", KERNEL_SRC)}
 LOG2E = np.float32(1.4426950408889634)
 
 
@@ -563,7 +567,7 @@ def test_attention_f64_is_the_plain_function(case, causal):
     assert ref.rel_err_rows(ref.attention_ref(tq, tk, tv, causal, case[-1]), truth) <= TOL
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("kind", ["peaked", "offset"])
 def test_3xtf32_emulation_holds_large_scores(kind, D):
     """At the kernel's head dims, with q scaled by 8 (one key dominates a
@@ -581,8 +585,10 @@ def test_3xtf32_emulation_holds_large_scores(kind, D):
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     truth = ref.attention_f64(tq, tk, tv)
     plain = ref.rel_err_rows(ref.attention_ref(tq, tk, tv), truth)
-    got = ref.rel_err_rows(emulate(q, k, v, True, None), truth)
+    bk = BK_OF.get(D, BK)        # the key tile of this head dim's instance
+    got = ref.rel_err_rows(emulate(q, k, v, True, None, bk=bk), truth)
     assert got <= TOL and got <= plain, (got, plain)
     if kind == "offset":
         assert plain > TOL
-    assert ref.rel_err_rows(emulate(q, k, v, True, None, passes=1), truth) > TOL
+    assert ref.rel_err_rows(emulate(q, k, v, True, None, passes=1, bk=bk),
+                            truth) > TOL
