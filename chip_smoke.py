@@ -194,9 +194,29 @@ Phases (any failure exits non-zero):
    same code in float64 on the card (``LAYER_RTOL`` of max|y|, printed
    with the states' errors and the layer's ms); each model freed before
    the next;
-13. one JSON line with every kernel's numbers (the flash kernel's head-dim
-   256 instances with their ptxas lines and cases);
-14. last line: ``{"ok": true, "device": {...}}``.
+13. the embedding-input phase: phi-3-vision-4.2b (32 heads of 96: the
+   flash kernel's head-dim-96 instances, checked at its prefill shape in
+   the flash cases of 8) and musicgen-medium, each at full width and depth
+   in f32 and bf16, served on the stub frontend's embeddings at the first 4
+   prompts' lengths (32 and 48 flash launches a batch, counted as in 9);
+   kernel vs plain logits teacher-forced with zero embeddings at decode, as
+   in 10;
+14. the training phase (f32, TF32 off): ``repro_torch.launch.train`` at its
+   defaults on qwen3-1.7b at full width and depth (batch 8, seq 256, 3
+   steps, its checkpoint in the reference's format), the checkpoint
+   restored bit-equal and stepping as the live model does, 2 microbatches
+   against 1, timed steps (ms, tokens/s, device ms, busy share, peak GiB),
+   the loss falling on a periodic token file, seq 2048 with remat through
+   ``chunked_attention``, the step against float64 at 2 layers, and
+   xlstm-125m trained 3 steps;
+15. the grad-sync phase: ``hier_grad_sync`` (flat, nap3, nap3 + int8) over
+   one qwen3-1.7b layer's gradient tree on the 2 x 4 stacked ranks and on 8
+   gloo processes on this card, bit-equal, with the slow and fast groups'
+   elements beside the model's figures;
+16. one JSON line with every kernel's numbers (the flash kernel's head-dim
+   256 and 96 instances with their ptxas lines and cases) and every phase's
+   seconds;
+17. last line: ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and refuses to run without one.
@@ -204,6 +224,7 @@ CUDA card and refuses to run without one.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import json
@@ -241,6 +262,9 @@ RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # (``rel_err_rows``: late causal rows are far smaller than the first ones);
 # bfloat16 rounds the output (8-bit mantissa, 4e-3 relative) and P
 FLASH_RTOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# the plain flash version's timing bursts (it takes 7-26 ms a call at the
+# prefill shapes, 40-300 times the kernel: fewer bursts keep the phase short)
+FLASH_PLAIN_SAMPLES = 5
 HIST_TOL = 1e-7
 GRAPH_ITERS = (5, 10)         # two PCG lengths whose runtime calls compare
 OVERLAP_REPLAYS = 5           # pcg_step replays profiled; the last is read
@@ -282,7 +306,17 @@ LOGITS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # NVIDIA H100 80GB HBM3 at 700 W), where qwen3-1.7b's 28 layers end at
 # 2.0e-2; its logits part by 3.15e-2 (prefill) and 3.47e-2 (decode) of
 # max|logits|, so 3e-2 would fail on the design's rounding alone
-ARCH_LOGITS_RTOL = {("recurrentgemma-9b", torch.bfloat16): 5e-2}
+# phi-3-vision-4.2b in bfloat16: 5e-2.  bfloat16 alone moves its plain
+# prefill logits 2.65e-2 of max|logits| from the same weights in float32,
+# and the kernel-vs-plain prefill logits sit at that distance (2.68e-2): its
+# 32 attention layers each add the kernel's rounding of P (the walks' hidden
+# states part by 4.9e-3 after layer 1 and 2.6e-2 after layer 32, where
+# qwen3-1.7b's 28 end at 2.0e-2).  The decode steps feed zero embeddings, so
+# a step's first layer sees a zero input (its norm gives q = k = v = 0) and
+# its logits come from the attention over the cache alone: 4.01e-2 of their
+# own max, teacher-forced (an NVIDIA H100 80GB HBM3 at 700 W)
+ARCH_LOGITS_RTOL = {("recurrentgemma-9b", torch.bfloat16): 5e-2,
+                    ("phi-3-vision-4.2b", torch.bfloat16): 5e-2}
 SPMV_KERNELS = ("ell_spmv", "ell_spmm", "bcsr_spmm")
 # the block smoothers' kernels: port kernels with no Pallas counterpart
 SMOOTHER_KERNELS = ("block_diag_apply", "tri_solve")
@@ -331,6 +365,62 @@ RECURRENT_REQUESTS = 4
 # every projection's output and the block's own (8-bit mantissa, 4e-3
 # relative each), so 3e-2, as the LM tests' bfloat16 bar
 LAYER_RTOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# the embedding-input phase: phi-3-vision-4.2b (32 heads of 96: the flash
+# kernel's head-dim-96 instances) and musicgen-medium at full width and depth,
+# in f32 and bf16, each fed the stub frontend's embeddings (standard normals
+# from SEED) at the first 4 prompts' lengths; decode steps take zero
+# embeddings, as the engine feeds them
+EMBED_RUNS = tuple((arch, dt) for arch in ("phi-3-vision-4.2b", "musicgen-medium")
+                   for dt in (torch.float32, torch.bfloat16))
+EMBED_REQUESTS = 4
+# the training phase: qwen3-1.7b in f32 at full width and depth: the
+# launcher's defaults (batch 8, seq 256) for TRAIN_STEPS steps, then
+# resume and microbatch checks from its checkpoint, TRAIN_TIMED steps
+# (:func:`timed_steps`: one warm, the wall-clock median of the rest but the
+# last, which is profiled), PERIODIC_STEPS on a token file of one
+# PERIOD-token sequence repeated, and LONG_STEPS at seq LONG_SEQ with remat
+# (chunked_attention past 1024); the step against float64 on the card at
+# F64_LAYERS layers, at seq 256 and at LONG_SEQ with remat; xlstm-125m for
+# XLSTM_STEPS steps (the recurrent blocks' backward)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_TIMED = "qwen3-1.7b", 3, 7
+PERIOD, PERIODIC_STEPS = 64, 6
+# the periodic file's loss must fall by this share of its first value over
+# the steps, at seq 256 and at LONG_SEQ (on random tokens it stays near ln V:
+# nothing to learn)
+LOSS_FALL = 0.02
+LONG_SEQ, LONG_BATCH, LONG_STEPS = 2048, 2, 3
+F64_LAYERS = 2
+XLSTM_ARCH, XLSTM_STEPS = "xlstm-125m", 4
+# a resumed or re-split step against the live one: the same float32 step,
+# apart from the order of the card's atomic adds (the embedding's backward
+# scatters into its rows), so 1e-5 of the loss and the grad norm and 1e-4
+# of each moment leaf's max
+RESUME_RTOL, MOMENT_RTOL = 1e-5, 1e-4
+# float32 against float64 at 2 layers, full width (TF32 off): the loss is a
+# mean of log-sum-exps over 151,936 logits whose products sum 2048 terms in
+# float32 (2^-24 each, growing as their square root), so 1e-5; the gradient
+# norm and the moments go through the backward's longer chains, 1e-4 of the
+# norm and of each leaf's max
+F64_RTOL = {"loss": 1e-5, "grad_norm": 1e-4, "m": 1e-4, "v": 1e-4}
+# one seq-LONG_SEQ step carried on from the periodic run's state with
+# chunked_attention and remat against the same step with the plain
+# attention: the two sum each softmax in another order (online over two
+# key chunks, or in one pass), so float32 roundings apart: 1e-5 of the loss,
+# 1e-4 of the grad norm and of each moment leaf's max; the next batch's loss
+# after the update at 1e-4 (each element moves by at most about lr along
+# m / sqrt(v), so rounding-level gradients move only the elements whose
+# moments are at rounding level)
+CARRIED_RTOL = {"loss": 1e-5, "grad_norm": 1e-4, "m": 1e-4, "v": 1e-4,
+                "next_loss": 1e-4}
+# hier_grad_sync over one qwen3-1.7b layer's gradient tree on the 2 x 4 ranks
+# (stacked, then 8 gloo processes on this card), per-rank gradients of small
+# integers over 2^10 (every sum exact in any order: the two forms bit-equal);
+# flat against nap3 at 1e-6 of max|mean|, int8 at 3e-2 (a code is one step
+# of 1/127 of its piece's max, summed over the pods)
+GRAD_SYNC_REPS = 5            # stacked: bursts timed; gloo: calls a run
+GRAD_SYNC_GLOO_REPS = 2
+GRAD_SYNC_DEADLINE = 300.0
+GRAD_SYNC_TOL = {"nap3": 1e-6, "int8": 3e-2}
 
 
 def log(msg: str) -> None:
@@ -1136,8 +1226,9 @@ def sdpa_call(q, k, v, window):
 
 def flash_phase(S: int, head_dims=None) -> list[dict]:
     """flash_attention at the serving runs' prefill shape, with a window,
-    with Sq < Skv, at head dim 64 and at recurrentgemma-9b's head dim 256
-    (its prefill, and with a window that binds), each in f32 and bf16, and
+    with Sq < Skv, at head dim 64, at recurrentgemma-9b's head dim 256
+    (its prefill, and with a window that binds) and at phi-3-vision-4.2b's
+    head dim 96 (its prefill), each in f32 and bf16, and
     at the MoE archs' prefill shapes in bf16, against its plain version;
     ``scaled_dot_product_attention`` timed as the yardstick.  ``head_dims``:
     only the cases at those head dims."""
@@ -1146,7 +1237,8 @@ def flash_phase(S: int, head_dims=None) -> list[dict]:
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     cases = [(label, dt, *shape)
-             for label, *shape in flash_shapes(S) + recurrent_flash_shapes(S)
+             for label, *shape in (flash_shapes(S) + recurrent_flash_shapes(S)
+                                   + embed_flash_shapes(S))
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(label, torch.bfloat16, *shape)
               for label, *shape in moe_flash_shapes(S)]
@@ -1166,7 +1258,7 @@ def flash_phase(S: int, head_dims=None) -> list[dict]:
             lambda q, k, v, w=window: attention_ref(q, k, v, True, w),
             sdpa_call(q, k, v, window), (q, k, v), nbytes, bounds["flops"],
             rtol=FLASH_RTOL[dt], library_name="sdpa", rel_err=rel_err_rows,
-            peak=flash_peak(dt))
+            peak=flash_peak(dt), plain_samples=FLASH_PLAIN_SAMPLES)
         row.update(case=label, head_dim=D, window=window, visible_pairs=pairs,
                    design=FLASH_DESIGN[dt], main_path=label == "prefill",
                    tflops=bounds["flops"] / row["ms"] / 1e9)
@@ -1264,7 +1356,8 @@ def clone_cache(cache):
 
 def lm_check(cfg, run, dtype) -> dict:
     """Kernel vs plain on the served batches, teacher-forced with the served
-    tokens (logits to ``LOGITS_RTOL[dtype]`` of max|logits|, or the arch's
+    tokens (zero embeddings for an embedding-input arch, as its engine
+    decodes) (logits to ``LOGITS_RTOL[dtype]`` of max|logits|, or the arch's
     own bar in ``ARCH_LOGITS_RTOL``), plus the device busy share of one
     decode step."""
     from repro_torch.serve.engine import pad_prompts, prefill_to_decode_cache
@@ -1300,6 +1393,9 @@ def lm_check(cfg, run, dtype) -> dict:
                 if t == LM_NEW - 1:
                     break
                 tok = served[:, t:t + 1]
+                if not cfg.embed_input:    # the engine feeds zero embeddings
+                    tok = torch.zeros((len(batch), 1, cfg.d_model), dtype=dtype,
+                                      device=DEVICE)
                 if step is None:     # one step alone: wall and device time
                     # on a copy: a step advances a recurrent layer's state
                     scratch = clone_cache(caches[True])
@@ -1326,8 +1422,6 @@ def lm_check(cfg, run, dtype) -> dict:
                 worst["decode"] = max(worst["decode"], err)
             del caches, last
     tol = ARCH_LOGITS_RTOL.get((cfg.name, dtype), LOGITS_RTOL[dtype])
-    check(worst["prefill"] <= tol and worst["decode"] <= tol,
-          f"kernel vs plain logits ({dtype}): {worst} exceed {tol:g} x max|logits|")
     res = {"logits_rel_err": worst, "logits_rtol": tol, "greedy_agreement": agree,
            "decode_step": step}
     log(f"kernel vs plain ({str(dtype).replace('torch.', '')}, teacher-forced): "
@@ -1335,6 +1429,8 @@ def lm_check(cfg, run, dtype) -> dict:
         f"decode logits {worst['decode']:.2e} of max|logits|; greedy tokens as "
         f"served: kernel {agree['kernel']}/{agree['total']}, plain "
         f"{agree['plain']}/{agree['total']}")
+    check(worst["prefill"] <= tol and worst["decode"] <= tol,
+          f"kernel vs plain logits ({dtype}): {worst} exceed {tol:g} x max|logits|")
     log(f"  one decode step: {step['wall_ms']:.3f} ms wall, device "
         + (f"{step['device_ms']:.3f} ms, busy share {step['busy_share']:.3f}"
            if step["device_ms"] is not None else "time not measured (no events)"))
@@ -1644,7 +1740,7 @@ def moe_phase() -> tuple[dict, dict]:
 
 def prompt_tokens(prompts) -> torch.Tensor:
     """The prompts as the engine prefills them in one batch (left-padded
-    with token 0), on the card."""
+    with token 0, or embedding prompts with zero rows), on the card."""
     from repro_torch.serve import Request
     from repro_torch.serve.engine import pad_prompts
 
@@ -1773,6 +1869,623 @@ def recurrent_phase() -> tuple[dict, dict]:
         del run
         torch.cuda.empty_cache()
     return runs, flash
+
+
+def embed_flash_shapes(S: int) -> list[tuple]:
+    """phi-3-vision-4.2b's prefill shape: 32 query heads on 32 KV heads of
+    96 (the head-dim-96 instances), in f32 and bf16."""
+    return [("phi-3-vision prefill", LM_BATCH, 32, 32, S, S, 96, None)]
+
+
+def embed_workload(cfg, n: int) -> list[np.ndarray]:
+    """The stub frontend's prompts: standard normal embeddings ``[S, d]``
+    drawn from SEED at the lengths of :func:`lm_workload`'s first ``n``."""
+    lengths = [len(p) for p in lm_workload(cfg.vocab)[:n]]
+    rng = np.random.default_rng(SEED)
+    return [rng.standard_normal((m, cfg.d_model)).astype(np.float32)
+            for m in lengths]
+
+
+def embed_phase() -> tuple[dict, dict]:
+    """The embedding-input archs at full width and depth
+    (:data:`EMBED_RUNS`), each served on :func:`embed_workload`'s prompts
+    (:func:`lm_serve`: flash launched once a prefill batch by each of their
+    attention layers: 32 for phi-3-vision-4.2b, 48 for musicgen-medium),
+    checked kernel vs plain teacher-forced (:func:`lm_check`); each model
+    freed before the next.  Returns the runs' numbers and their flash
+    launches."""
+    from repro_torch.configs import get_arch
+
+    runs, flash = {}, {}
+    for arch, dtype in EMBED_RUNS:
+        cfg = get_arch(arch)
+        prompts = embed_workload(cfg, EMBED_REQUESTS)
+        run = lm_serve(cfg, prompts, dtype)
+        key = f"{arch} {str(dtype).replace('torch.', '')}"
+        runs[key] = dict(run["info"])
+        if dtype == torch.bfloat16:
+            drift = hidden_drift(run["model"], cfg, prompts)
+            runs[key]["hidden_drift"] = drift
+            runs[key]["bf16_vs_f32"] = bf16_yardstick(run["model"], prompts)
+            log(f"  kernel vs plain walks, hidden state after each layer over "
+                f"max|x|: " + " ".join(f"{e:.1e}" for e in drift)
+                + f"; plain bf16 against the same weights in f32, prefill "
+                f"logits: {runs[key]['bf16_vs_f32']:.2e} of max|logits|")
+        runs[key].update(lm_check(cfg, run, dtype))
+        flash[key] = run["info"]["launches"]["flash_attention"]
+        del run
+        torch.cuda.empty_cache()
+    return runs, flash
+
+
+def bf16_yardstick(model, prompts) -> float:
+    """How far bfloat16 itself moves the plain prefill logits: ``model``
+    (bf16) against a float32 copy of the same weights, both plain, over
+    max|logits|."""
+    x = prompt_tokens(prompts)
+    with torch.inference_mode():
+        lb = model(x, use_kernel=False).float()
+        m32 = copy.deepcopy(model).float()
+        lf = m32(x, use_kernel=False)
+        del m32
+        err = float((lb - lf).abs().max()) / float(lf.abs().max())
+    torch.cuda.empty_cache()
+    return err
+
+
+def periodic_tokens(path: str, vocab: int) -> str:
+    """A token file of one PERIOD-token sequence (drawn from SEED in
+    ``vocab``) repeated: every training window is a shift of it."""
+    from repro_torch.train.data import write_token_file
+
+    base = np.random.default_rng(SEED).integers(0, vocab, PERIOD, dtype=np.int32)
+    write_token_file(path, np.tile(base, 2048))
+    return path
+
+
+def timed_steps(step, model, opt, batches) -> tuple[dict, object, list]:
+    """Run ``step`` over ``batches`` (tensors on the card, three or more),
+    each synchronised: the first warm and untimed, then wall ms a step (the
+    median over every step but the first and the last; ``timed_steps``
+    says how many), tokens/s, peak GiB, and the device ms of the last step
+    from ``torch.profiler`` (its busy share of the median wall time).
+    Returns (numbers, opt state, losses)."""
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches[:-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls = walls[1:]
+    res = {}
+
+    def last():
+        res["out"] = step(model, opt, batches[-1])
+
+    prof = device_profile(last)
+    _, opt, m = res["out"]
+    losses.append(float(m["loss"]))
+    dev_ms = sum(v[0] for v in prof.values())
+    wall = float(np.median(walls))
+    tokens = int(batches[0]["targets"].numel())
+    info = {"ms_per_step": wall, "timed_steps": len(walls), "tokens_per_step": tokens,
+            "tokens_per_s": tokens / wall * 1e3,
+            "device_ms_per_step": dev_ms if prof else None,
+            "busy_share": dev_ms / wall if prof else None,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "top_device": [[kn[:80], km, kc] for kn, (km, kc) in sorted(
+                prof.items(), key=lambda kv: -kv[1][0])[:5]]}
+    return info, opt, losses
+
+
+def leaf_errs(got: dict, want: dict) -> float:
+    """The largest over leaves of max|got - want| over max|want|."""
+    worst = 0.0
+    for n, w in want.items():
+        scale = float(w.double().abs().max()) or 1.0
+        worst = max(worst, float((got[n].double() - w.double()).abs().max()) / scale)
+    return worst
+
+
+@contextlib.contextmanager
+def counting_chunked():
+    """Count the calls of ``models.attention.chunked_attention`` (the train
+    forward's attention past 1024 keys) while the block runs."""
+    import repro_torch.models.attention as attention
+
+    calls = collections.Counter()
+    plain_chunked = attention.chunked_attention
+
+    def counting(*a, **kw):
+        calls["chunked_attention"] += 1
+        return plain_chunked(*a, **kw)
+
+    attention.chunked_attention = counting
+    try:
+        yield calls
+    finally:
+        attention.chunked_attention = plain_chunked
+
+
+def f64_step_check(cfg, batch, remat: bool = False) -> dict:
+    """One train step at full width, F64_LAYERS layers, in float32 and the
+    same code in float64 on the card (the float32 model's weights widened
+    exactly, float64 moments): loss, grad norm, m and v.  With ``remat``
+    the float32 step runs with remat and the float64 one without, so a
+    batch past 1024 positions holds ``chunked_attention``'s forward, its
+    checkpointed steps' recompute and their backward under remat's
+    recompute to float64."""
+    from repro_torch.models import init_lm
+    from repro_torch.train import AdamWConfig, TrainOptions, init_opt_state, make_step_fn
+
+    cfg2 = dataclasses.replace(cfg, n_layers=F64_LAYERS)
+    runs = {}
+    m32 = init_lm(cfg2, seed=SEED, dtype=torch.float32, device=DEVICE, trainable=True)
+    m64 = copy.deepcopy(m32).to(torch.float64)      # before the step moves m32
+    seq = int(batch["targets"].shape[1])
+    for dt, model, rm in ((torch.float32, m32, remat), (torch.float64, m64, False)):
+        step = make_step_fn(cfg2, AdamWConfig(), TrainOptions(remat=rm))
+        opt = init_opt_state(dict(model.named_parameters()), moment_dtype=dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counting_chunked() as calls:
+            _, opt, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        runs[dt] = (float(m["loss"]), float(m["grad_norm"]), opt,
+                    (time.perf_counter() - t0) * 1e3, calls["chunked_attention"])
+    (l32, g32, o32, ms32, c32), (l64, g64, o64, ms64, c64) = \
+        runs[torch.float32], runs[torch.float64]
+    if seq > 1024:
+        check(c32 >= F64_LAYERS and c64 >= F64_LAYERS,
+              f"f32 vs f64 at seq {seq}: chunked_attention ran {c32} / {c64} times")
+    errs = {"loss": abs(l32 - l64) / abs(l64), "grad_norm": abs(g32 - g64) / g64,
+            "m": leaf_errs(o32["m"], o64["m"]), "v": leaf_errs(o32["v"], o64["v"])}
+    for k, e in errs.items():
+        check(e <= F64_RTOL[k], f"train step f32 vs f64 at {F64_LAYERS} layers, "
+              f"seq {seq}: {k} {e:.3e} above {F64_RTOL[k]:g}")
+    log(f"  step f32{' (remat)' if remat else ''} vs f64 ({F64_LAYERS} layers, full width, "
+        f"seq {seq}): loss {errs['loss']:.2e}, grad norm {errs['grad_norm']:.2e}, "
+        f"m {errs['m']:.2e}, v {errs['v']:.2e} (loss {l32:.6f} / {l64:.6f}; "
+        f"{ms32:.1f} / {ms64:.1f} ms; chunked_attention {c32} / {c64} calls)")
+    return {**errs, "seq": seq, "remat": remat, "loss_f32": l32, "loss_f64": l64,
+            "ms_f32": ms32, "ms_f64": ms64, "chunked_attention_calls": [c32, c64]}
+
+
+def plain_attention(q, k, v, causal=True, window=None, chunk=None):
+    """``chunked_attention``'s signature over the plain softmax attention of
+    all keys at once (q/k/v ``[B, S, H, D]``)."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=causal,
+                         window=window).transpose(1, 2)
+
+
+def carried_long_check(cfg, model, opt, batches) -> dict:
+    """One train step at LONG_SEQ with remat from the periodic run's state
+    (``model``, its parameters kept on the host between the two runs, and
+    its AdamW state ``opt``, which a step does not change), with
+    ``chunked_attention`` and again with the plain attention over all keys: loss, grad norm, moments and the loss of ``batches[1]`` after the
+    update (``CARRIED_RTOL``).  From this state the seq-2048 steps overshoot
+    (``scripts/long_step_probe.py``), so a wrong long-sequence backward
+    would part the two here."""
+    import repro_torch.models.attention as attention
+    from repro_torch.models.model import loss_fn
+    from repro_torch.train import AdamWConfig, TrainOptions, make_step_fn
+
+    t0 = time.perf_counter()
+    params = dict(model.named_parameters())
+    kept = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
+    step = make_step_fn(cfg, AdamWConfig(warmup_steps=1, total_steps=LONG_STEPS),
+                        TrainOptions(remat=True))
+    runs = {}
+    for name in ("chunked", "plain"):
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(kept[n])
+        with counting_chunked() as calls:
+            if name == "plain":      # the counting wrapper comes back on exit
+                attention.chunked_attention = plain_attention
+            _, o, m = step(model, opt, batches[0])
+            with torch.no_grad():
+                nxt = float(loss_fn(model, cfg, batches[1], use_kernel=False))
+        # the first run's moments wait on the host, the second's stay here
+        runs[name] = (float(m["loss"]), float(m["grad_norm"]), nxt,
+                      {k: {n: t.cpu() if name == "chunked" else t for n, t in o[k].items()}
+                       for k in ("m", "v")},
+                      calls["chunked_attention"])
+        del o
+    (lc, gc, nc, oc, cc), (lp, gp, nxp, op, cp) = runs["chunked"], runs["plain"]
+    errs = {"loss": abs(lc - lp) / abs(lp), "grad_norm": abs(gc - gp) / gp,
+            **{k: leaf_errs({n: t.to(DEVICE) for n, t in oc[k].items()}, op[k])
+               for k in ("m", "v")},
+            "next_loss": abs(nc - nxp) / abs(nxp)}
+    del runs, oc, op
+    secs = time.perf_counter() - t0
+    check(cc >= cfg.n_layers and cp == 0,
+          f"carried seq {LONG_SEQ} step: chunked_attention ran {cc} / {cp} times")
+    for k, e in errs.items():
+        check(e <= CARRIED_RTOL[k], f"carried seq {LONG_SEQ} step, chunked vs plain "
+              f"attention: {k} {e:.3e} above {CARRIED_RTOL[k]:g}")
+    log(f"  seq {LONG_SEQ} step carried on from the periodic state, chunked (remat) vs "
+        f"plain attention: loss {errs['loss']:.2e}, grad norm {errs['grad_norm']:.2e}, "
+        f"m {errs['m']:.2e}, v {errs['v']:.2e}, next batch's loss {errs['next_loss']:.2e} "
+        f"(loss {lc:.4f} / {lp:.4f}, next {nc:.4f} / {nxp:.4f}, grad norm {gc:.4g}; "
+        f"{secs:.1f} s)")
+    return {"errs": errs, "loss": [lc, lp], "next_loss": [nc, nxp],
+            "grad_norm": [gc, gp], "chunked_attention_calls": [cc, cp], "s": secs}
+
+
+def train_phase() -> dict:
+    """Training on the card, f32 (TF32 off):
+
+    1. ``repro_torch.launch.train`` at its defaults (batch 8, seq 256) on
+       qwen3-1.7b at full width and depth, TRAIN_STEPS steps of random
+       tokens; its final checkpoint (the reference's format);
+    2. that checkpoint restored into a second model: parameters and moments
+       bit-equal to the live ones, and one step of each on the pipeline's
+       next batch agreeing (``RESUME_RTOL``); then the live model with one
+       microbatch against the restored one with two (``RESUME_RTOL``, the
+       moments at ``MOMENT_RTOL``);
+    3. TRAIN_TIMED steps timed (ms, tokens/s, device ms, busy share, peak);
+    4. a fresh model trained PERIODIC_STEPS steps on a periodic token file:
+       the loss falls; from its state one step at LONG_SEQ with
+       ``chunked_attention`` against the plain attention
+       (:func:`carried_long_check`);
+    5. a fresh model trained LONG_STEPS steps on the periodic file at seq
+       LONG_SEQ with remat, ``chunked_attention`` counted: the loss falls
+       (``scripts/long_step_probe.py`` takes such steps from the periodic
+       run's state instead);
+    6. the step in f32 against f64 at F64_LAYERS layers
+       (:func:`f64_step_check`), at seq 256 and at LONG_SEQ with remat;
+    7. xlstm-125m trained XLSTM_STEPS steps on its periodic token file.
+    """
+    from repro_torch.ckpt.checkpoint import latest_step, restore_train_state
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import init_lm
+    from repro_torch.train import (AdamWConfig, DataConfig, TokenPipeline,
+                                   TrainOptions, init_opt_state, make_step_fn)
+    from repro_torch.train.train_step import to_device
+
+    cfg = get_arch(TRAIN_ARCH)
+    res = {"arch": cfg.name, "dtype": "float32", "layers": cfg.n_layers,
+           "d_model": cfg.d_model}
+    with tempfile.TemporaryDirectory(prefix="train-") as tmp:
+        # 1. the launcher
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, opt, hist = ltrain.main(["--arch", TRAIN_ARCH, "--steps",
+                                        str(TRAIN_STEPS), "--ckpt", tmp,
+                                        "--device", DEVICE])
+        res["launcher"] = {"wall_s": time.perf_counter() - t0, "losses": hist,
+                           "batch": 8, "seq": 256,
+                           "params": sum(p.numel() for p in model.parameters()),
+                           "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+        check(len(hist) == TRAIN_STEPS and np.isfinite(hist).all(),
+              f"launcher losses {hist}")
+        check(latest_step(tmp) == TRAIN_STEPS, f"latest step {latest_step(tmp)}")
+        npz = Path(tmp) / f"step_{TRAIN_STEPS:09d}.npz"
+        res["launcher"]["checkpoint_gb"] = npz.stat().st_size / 2**30
+        log(f"train {cfg.name} f32 via the launcher ({res['launcher']['params'] / 1e9:.3f}B "
+            f"params, batch 8 x seq 256): {TRAIN_STEPS} steps in "
+            f"{res['launcher']['wall_s']:.1f} s (init and the final checkpoint of "
+            f"{res['launcher']['checkpoint_gb']:.1f} GiB included), losses "
+            f"{[round(x, 4) for x in hist]}, peak {res['launcher']['peak_gb']:.1f} GiB")
+
+        # 2. resume and microbatches from the checkpoint
+        t0 = time.perf_counter()
+        model2 = init_lm(cfg, seed=SEED + 1, dtype=torch.float32, device=DEVICE,
+                         trainable=True)
+        opt2 = restore_train_state(cfg, model2, init_opt_state(dict(
+            model2.named_parameters())), tmp, TRAIN_STEPS)
+        t_restore = time.perf_counter() - t0
+        p1, p2 = dict(model.named_parameters()), dict(model2.named_parameters())
+        same = (all(torch.equal(p1[n], p2[n]) for n in p1)
+                and all(torch.equal(opt[k][n], opt2[k][n]) for k in ("m", "v")
+                        for n in p1) and int(opt2["count"]) == TRAIN_STEPS)
+        check(same, "the restored train state is not the live one")
+        del p1, p2
+        pipe = TokenPipeline(DataConfig(seq_len=256, global_batch=8, vocab=cfg.vocab))
+        acfg = AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS)   # the launcher's
+        step1 = make_step_fn(cfg, acfg, TrainOptions(remat=False))
+        step2 = make_step_fn(cfg, acfg, TrainOptions(remat=False, microbatches=2))
+        checks = {}
+        for name, (sa, sb), at in (("resume", (step1, step1), TRAIN_STEPS),
+                                   ("microbatches", (step1, step2), TRAIN_STEPS + 1)):
+            batch = to_device(pipe.batch_at(at), DEVICE)
+            model, opt, ma = sa(model, opt, batch)
+            model2, opt2, mb = sb(model2, opt2, batch)
+            e = {"loss": abs(float(ma["loss"]) - float(mb["loss"])) / abs(float(ma["loss"])),
+                 "grad_norm": abs(float(ma["grad_norm"]) - float(mb["grad_norm"]))
+                 / float(ma["grad_norm"]),
+                 "m": leaf_errs(opt2["m"], opt["m"]), "v": leaf_errs(opt2["v"], opt["v"])}
+            check(e["loss"] <= RESUME_RTOL and e["grad_norm"] <= RESUME_RTOL
+                  and e["m"] <= MOMENT_RTOL and e["v"] <= MOMENT_RTOL,
+                  f"{name}: {e}")
+            checks[name] = e
+            log(f"  {name}: step {at} of the live model against the restored one"
+                + (" (2 microbatches)" if name == "microbatches" else "")
+                + f": loss {e['loss']:.2e}, grad norm {e['grad_norm']:.2e}, "
+                f"m {e['m']:.2e}, v {e['v']:.2e}")
+        res["restore_s"] = t_restore
+        res["checks"] = checks
+        del model2, opt2
+        torch.cuda.empty_cache()
+
+        # 3. timed steps at the launcher's shape
+        batches = [to_device(pipe.batch_at(TRAIN_STEPS + 2 + i), DEVICE)
+                   for i in range(TRAIN_TIMED)]
+        res["timed"], opt, _ = timed_steps(step1, model, opt, batches)
+        t = res["timed"]
+        log(f"  timed: {t['ms_per_step']:.1f} ms a step (median of {t['timed_steps']}; "
+            f"batch 8 x seq 256), "
+            f"{t['tokens_per_s']:.0f} tokens/s, device "
+            + (f"{t['device_ms_per_step']:.1f} ms a step, busy share {t['busy_share']:.3f}"
+               if t["device_ms_per_step"] is not None else "time not measured")
+            + f", peak {t['peak_gb']:.1f} GiB")
+        del model, opt, batches
+        torch.cuda.empty_cache()
+
+        # 4. loss falling on a periodic token file
+        model = init_lm(cfg, seed=SEED, dtype=torch.float32, device=DEVICE,
+                        trainable=True)
+        opt = init_opt_state(dict(model.named_parameters()))
+        ppipe = TokenPipeline(DataConfig(
+            seq_len=256, global_batch=8, vocab=cfg.vocab,
+            token_file=periodic_tokens(f"{tmp}/periodic.bin", cfg.vocab)))
+        step = make_step_fn(cfg, AdamWConfig(warmup_steps=1,
+                                             total_steps=PERIODIC_STEPS),
+                            TrainOptions(remat=False))
+        _, opt, losses = timed_steps(step, model, opt, [
+            to_device(ppipe.batch_at(i), DEVICE) for i in range(PERIODIC_STEPS)])
+        check(np.isfinite(losses).all() and losses[-1] < (1 - LOSS_FALL) * losses[0],
+              f"periodic tokens: losses {losses} do not fall by {LOSS_FALL:g} "
+              f"of the first")
+        res["periodic_losses"] = losses
+        log(f"  periodic token file (period {PERIOD}): losses "
+            f"{[round(x, 4) for x in losses]}")
+        lpipe = TokenPipeline(DataConfig(
+            seq_len=LONG_SEQ, global_batch=LONG_BATCH, vocab=cfg.vocab,
+            token_file=f"{tmp}/periodic.bin"))
+        res["carried_long"] = carried_long_check(
+            cfg, model, opt, [to_device(lpipe.batch_at(i), DEVICE) for i in range(2)])
+
+        del model, opt
+        torch.cuda.empty_cache()
+
+        # 5. long sequences with remat: chunked_attention
+        model = init_lm(cfg, seed=SEED, dtype=torch.float32, device=DEVICE,
+                        trainable=True)
+        opt = init_opt_state(dict(model.named_parameters()))
+        with counting_chunked() as calls:
+            lstep = make_step_fn(cfg, AdamWConfig(warmup_steps=1,
+                                                  total_steps=LONG_STEPS),
+                                 TrainOptions(remat=True))
+            res["long"], opt, llosses = timed_steps(lstep, model, opt, [
+                to_device(lpipe.batch_at(i), DEVICE) for i in range(LONG_STEPS)])
+        n_attn = cfg.n_layers
+        check(calls["chunked_attention"] >= n_attn * LONG_STEPS and np.isfinite(llosses).all()
+              and llosses[-1] < (1 - LOSS_FALL) * llosses[0],
+              f"seq {LONG_SEQ} with remat: chunked_attention ran "
+              f"{calls['chunked_attention']} times, losses {llosses} (must fall by "
+              f"{LOSS_FALL:g} of the first)")
+        res["long"].update(seq=LONG_SEQ, batch=LONG_BATCH, losses=llosses,
+                           chunked_attention_calls=calls["chunked_attention"])
+        t = res["long"]
+        log(f"  seq {LONG_SEQ} x batch {LONG_BATCH} with remat: {t['ms_per_step']:.1f} ms "
+            f"a step (median of {t['timed_steps']}), {t['tokens_per_s']:.0f} tokens/s, busy share "
+            + (f"{t['busy_share']:.3f}" if t["busy_share"] is not None else "not measured")
+            + f", peak {t['peak_gb']:.1f} GiB, chunked_attention {calls['chunked_attention']} "
+            f"calls (forward and the remat recompute), losses {[round(x, 4) for x in llosses]}")
+        del model, opt
+        torch.cuda.empty_cache()
+
+        # 6. float32 against float64 at 2 layers, at seq 256 and at LONG_SEQ
+        # with remat (chunked_attention's backward)
+        res["f64"] = f64_step_check(cfg, to_device(pipe.batch_at(0), DEVICE))
+        res["f64_long"] = f64_step_check(cfg, to_device(lpipe.batch_at(0), DEVICE),
+                                         remat=True)
+        torch.cuda.empty_cache()
+
+        # 7. xlstm-125m
+        xcfg = get_arch(XLSTM_ARCH)
+        model = init_lm(xcfg, seed=SEED, dtype=torch.float32, device=DEVICE,
+                        trainable=True)
+        opt = init_opt_state(dict(model.named_parameters()))
+        xpipe = TokenPipeline(DataConfig(
+            seq_len=256, global_batch=8, vocab=xcfg.vocab,
+            token_file=periodic_tokens(f"{tmp}/xlstm.bin", xcfg.vocab)))
+        xstep = make_step_fn(xcfg, AdamWConfig(warmup_steps=1, total_steps=XLSTM_STEPS),
+                             TrainOptions(remat=False))
+        res["xlstm"], _, xl = timed_steps(xstep, model, opt, [
+            to_device(xpipe.batch_at(i), DEVICE) for i in range(XLSTM_STEPS)])
+        check(np.isfinite(xl).all(), f"xlstm losses {xl}")
+        res["xlstm"].update(arch=xcfg.name, losses=xl,
+                            params=sum(p.numel() for p in model.parameters()))
+        t = res["xlstm"]
+        log(f"  {xcfg.name} f32 (batch 8 x seq 256, periodic tokens): "
+            f"{t['ms_per_step']:.1f} ms a step (median of {t['timed_steps']}), "
+            f"{t['tokens_per_s']:.0f} tokens/s, "
+            f"busy share " + (f"{t['busy_share']:.3f}" if t["busy_share"] is not None
+                              else "not measured")
+            + f", peak {t['peak_gb']:.1f} GiB, losses {[round(x, 4) for x in xl]}")
+        del model, opt
+        torch.cuda.empty_cache()
+    return res
+
+
+def grad_tree(cfg, rank: int) -> dict:
+    """Rank ``rank``'s gradients for one layer of ``cfg`` (its shapes,
+    float32 on the card): small integers over 2^10 from a generator seeded
+    by the rank, so every sum over the ranks is exact in any order."""
+    from repro_torch.models.model import block_params
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 100 + rank)
+    shapes = block_params(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                          "attn", torch.float32, DEVICE)
+
+    def fill(t):
+        if isinstance(t, dict):
+            return {k: fill(v) for k, v in t.items()}
+        g = torch.randn(t.shape, generator=gen, device=DEVICE)
+        return torch.round(g * 64) / 1024
+
+    return fill(shapes)
+
+
+def _flat_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _flat_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack_trees(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def digest(tree) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in _flat_leaves(tree):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+GRAD_SYNC_RUNS = (("flat", "flat", False), ("nap3", "nap3", False),
+                  ("int8", "nap3", True))
+
+
+def grad_sync_rank(ranks) -> dict:
+    """One gloo rank of the grad-sync phase: its row of :func:`grad_tree`
+    through each run, the result's digest, log, elements sent by (group,
+    tag) and wall ms (median of GRAD_SYNC_GLOO_REPS calls)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.nap_collectives import rank_groups
+    from repro_torch.train.grad_sync import hier_grad_sync
+
+    mesh = rank_groups(N_PODS, LANES)
+    cfg = get_arch(TRAIN_ARCH)
+    g = tree_map(lambda t: t[None], grad_tree(cfg, ranks.rank))
+    out = {"rank": ranks.rank}
+    for name, strategy, compress in GRAD_SYNC_RUNS:
+        walls = []
+        for rep in range(GRAD_SYNC_GLOO_REPS):
+            mesh.reset_tally()
+            log_ = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, _ = hier_grad_sync(g, N_PODS, LANES, strategy, compress, log=log_,
+                                  ranks=mesh)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"digest": digest(s), "log": log_, "sent": dict(mesh.sent),
+                     "ms": float(np.median(walls)),
+                     "device": str(_flat_leaves(s)[0].device)}
+    return out
+
+
+def grad_sync_phase() -> dict:
+    """``hier_grad_sync`` over one qwen3-1.7b layer's gradient tree
+    (:func:`grad_tree`) on the 2 x 4 ranks: stacked on this card (flat,
+    nap3, nap3 + int8: each log its legs', nap3 against flat and int8
+    against flat at ``GRAD_SYNC_TOL``, ms by CUDA events), then 8 gloo
+    processes on ``cuda:0`` (:func:`grad_sync_rank`): every rank's result
+    bit-equal to its stacked row, its log the stacked one's, the elements it
+    sends over the slow and fast groups beside the model's figures (nap3's
+    slow leg 1/|fast| of a slow-group all-reduce of the whole gradient;
+    int8 one byte an element of it)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.ranks import spawn
+    from repro_torch.train.grad_sync import INT8_TAG, hier_grad_sync
+
+    cfg = get_arch(TRAIN_ARCH)
+    rows = [grad_tree(cfg, d) for d in range(N_PODS * LANES)]
+
+    g = _stack_trees(rows)
+    del rows
+    leaves = _flat_leaves(g)
+    n = sum(t[0].numel() for t in leaves)
+    piece = sum(-(-t[0].numel() // LANES) for t in leaves)
+    res = {"elements_per_rank": n, "leaves": len(leaves), "stacked": {}}
+    outs = {}
+    for name, strategy, compress in GRAD_SYNC_RUNS:
+        log_ = []
+        s, _ = hier_grad_sync(g, N_PODS, LANES, strategy, compress, log=log_)
+        ms, _ = time_ms(lambda: hier_grad_sync(g, N_PODS, LANES, strategy, compress),
+                        samples=GRAD_SYNC_REPS)
+        outs[name] = s
+        res["stacked"][name] = {"ms": ms, "log": log_}
+    mean = _flat_leaves(outs["flat"])
+    scale = max(float(t.abs().max()) for t in mean)
+    for name in ("nap3", "int8"):
+        err = max(float((a - b).abs().max()) for a, b in
+                  zip(_flat_leaves(outs[name]), mean)) / scale
+        check(err <= GRAD_SYNC_TOL[name], f"hier_grad_sync {name} against flat: "
+              f"{err:.3e} of max|mean|, above {GRAD_SYNC_TOL[name]:g}")
+        res["stacked"][name]["rel_err_vs_flat"] = err
+    digests = {name: [digest(tree_map(lambda t, d=d: t[d], out))
+                      for d in range(N_PODS * LANES)] for name, out in outs.items()}
+    del g, outs, mean
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(grad_sync_rank, N_PODS, LANES, deadline=GRAD_SYNC_DEADLINE)
+    res["gloo_wall_s"] = time.perf_counter() - t0
+    whole_slow = n * (N_PODS - 1)
+    res["model"] = {"nap3_slow_share": 1 / LANES, "int8_slow_byte_share": 1 / 4}
+    res["gloo"] = {}
+    for name, _, _ in GRAD_SYNC_RUNS:
+        for out in ranks:
+            r = out["rank"]
+            mine = out[name]
+            check(mine["device"] == ("cuda:0" if DEVICE == "cuda" else DEVICE),
+                  f"rank {r}: {mine['device']}")
+            check(mine["digest"] == digests[name][r],
+                  f"grad sync {name}: rank {r} differs from its stacked row")
+            check(mine["log"] == res["stacked"][name]["log"],
+                  f"grad sync {name}: rank {r} logged {mine['log']}")
+        sent = ranks[0][name]["sent"]
+        slow = sum(v for (grp, _), v in sent.items() if grp == "slow")
+        slow_bytes = sum(v * (1 if tag == INT8_TAG else 4)
+                         for (grp, tag), v in sent.items() if grp == "slow")
+        fast = sum(v for (grp, _), v in sent.items() if grp == "fast")
+        world = sum(v for (grp, _), v in sent.items() if grp == "world")
+        res["gloo"][name] = {"ms": float(np.median([o[name]["ms"] for o in ranks])),
+                             "slow_elements": slow, "slow_bytes": slow_bytes,
+                             "fast_elements": fast, "world_elements": world,
+                             "slow_share_of_whole": slow / whole_slow}
+    nap3, int8 = res["gloo"]["nap3"], res["gloo"]["int8"]
+    check(nap3["slow_elements"] == piece * (N_PODS - 1),
+          f"nap3 slow elements {nap3['slow_elements']}, want {piece * (N_PODS - 1)}")
+    check(int8["slow_bytes"] == piece * (N_PODS - 1) + 4 * len(leaves) * (N_PODS - 1),
+          f"int8 slow bytes {int8['slow_bytes']}")
+    int8["slow_byte_share_of_nap3"] = int8["slow_bytes"] / nap3["slow_bytes"]
+    log(f"hier_grad_sync over one {cfg.name} layer ({n} elements a rank, "
+        f"{len(leaves)} leaves) on {N_PODS} x {LANES} ranks:")
+    for name, _, _ in GRAD_SYNC_RUNS:
+        st, gl = res["stacked"][name], res["gloo"][name]
+        log(f"  {name:5s} stacked {st['ms']:.3f} ms, log {st['log'][:4]}"
+            + (f", vs flat {st['rel_err_vs_flat']:.1e}" if "rel_err_vs_flat" in st else "")
+            + f"; gloo {gl['ms']:.1f} ms a call, per rank: slow {gl['slow_elements']} "
+            f"elements ({gl['slow_bytes']} B, {gl['slow_share_of_whole']:.4f} of a slow "
+            f"all-reduce of the whole gradient), fast {gl['fast_elements']}, world "
+            f"{gl['world_elements']}")
+    log(f"  model: nap3's slow leg 1/|fast| = {1 / LANES:.4f} of the whole "
+        f"(measured {nap3['slow_share_of_whole']:.4f}); int8 1/4 of nap3's bytes "
+        f"(measured {int8['slow_byte_share_of_nap3']:.4f}, the scales included); "
+        f"gloo ranks {res['gloo_wall_s']:.1f} s, bit-equal to the stacked rows")
+    return res
 
 
 def graph_phase(bound, b, res) -> dict:
@@ -2708,6 +3421,15 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    clock = {"t": time.perf_counter()}
+    phase_s: dict[str, float] = {}
+
+    def lap(name: str) -> None:
+        """The seconds since the last lap, as phase ``name``'s."""
+        now = time.perf_counter()
+        phase_s[name] = now - clock["t"]
+        clock["t"] = now
+
     from repro_torch.amg import AMGConfig, AMGSolver
     from repro_torch.amg.problems import laplace_3d
     from repro_torch.configs import get_arch
@@ -2759,6 +3481,7 @@ def main() -> int:
     dh32 = bound32.dist_hierarchy
     log(f"  lowering f32 {time.perf_counter() - t0:.2f} s")
 
+    lap("device, build, setup and lowerings")
     # 3. kernels
     B = np.stack([b] + [rng.standard_normal(A.nrows)
                         for _ in range(K_RHS - 1)], axis=1)
@@ -2787,6 +3510,7 @@ def main() -> int:
     log(f"{APPLY_REPS} BCSR applies per BCSR level, profiled alone: device kernels "
         f"{ {l: {n[:50]: c for n, c in v.items()} for l, v in bcsr_apply.items()} }")
 
+    lap("kernels")
     # 4. main path, f64
     res, c_single = counted(lambda: bound64.pcg(b))
     check(res.converged, f"f64 PCG did not converge: {res.residuals[-3:]}")
@@ -2855,6 +3579,7 @@ def main() -> int:
     block["phase_s"] = time.perf_counter() - t0
     log(f"block-smoother phase: {block['phase_s']:.1f} s in all")
 
+    lap("solves (f64, multi-RHS, f32, graphs, block smoothers)")
     # 7. launch counts over the solve runs
     launches = {k: c_single[k] + c_multi[k] + c_f32[k] for k in SPMV_KERNELS}
     launches.update({k: block["launches"].get(k, 0) for k in SMOOTHER_KERNELS})
@@ -2885,12 +3610,16 @@ def main() -> int:
     partitioned["aggressive"] = aggressive_phase(cfg64)
     partitioned["phase_s"] = t_part + time.perf_counter() - t0
     log(f"partitioned setup phase: {partitioned['phase_s']:.1f} s in all")
+    lap("partitioned setup, service, refresh")
     audit = audit_phase(bound64, b)
+    lap("audit")
     del bound64, bound32, host, dh64, dh32
     torch.cuda.empty_cache()
     wire = wire_phase(cfg64)
     torch.cuda.empty_cache()
+    lap("wire")
     process = process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter)
+    lap("process ranks")
 
     # 8. flash attention at the serving run's shapes
     cfg = get_arch(LM_ARCH)
@@ -2899,6 +3628,7 @@ def main() -> int:
     log(f"flash_attention (S = {S}, the longest prompt; device time as above):")
     rows["flash_attention"] = flash_phase(S)
     torch.cuda.empty_cache()
+    lap("flash")
 
     # 9-10. LM serving in f32, then the first batch again in bf16; each
     # held against the plain attention, teacher-forced
@@ -2917,6 +3647,7 @@ def main() -> int:
         f"ms a step")
     flash_runs = {str(d).replace("torch.", ""): v["launches"]["flash_attention"]
                   for d, v in lm.items()}
+    lap("LM serving")
 
     # 11. the MoE archs at full width, 2 layers, bf16; EP on stacked ranks
     t0 = time.perf_counter()
@@ -2924,6 +3655,7 @@ def main() -> int:
     moe["phase_s"] = time.perf_counter() - t0
     log(f"MoE phase: {moe['phase_s']:.1f} s in all")
     flash_runs.update(moe_flash)
+    lap("MoE")
 
     # 12. the recurrent archs at full width and depth
     t0 = time.perf_counter()
@@ -2931,9 +3663,32 @@ def main() -> int:
     recurrent["phase_s"] = time.perf_counter() - t0
     log(f"recurrent phase: {recurrent['phase_s']:.1f} s in all")
     flash_runs.update(recurrent_flash)
-    launches["flash_attention"] = sum(flash_runs.values())
+    lap("recurrent")
 
-    # 13. the kernels line: top-level numbers are the main path's case
+    # 13. the embedding-input archs at full width and depth
+    t0 = time.perf_counter()
+    embed, embed_flash = embed_phase()
+    embed["phase_s"] = time.perf_counter() - t0
+    log(f"embedding-input phase: {embed['phase_s']:.1f} s in all")
+    flash_runs.update(embed_flash)
+    launches["flash_attention"] = sum(flash_runs.values())
+    lap("embedding-input")
+
+    # 14. training: qwen3-1.7b at full width and depth, xlstm-125m
+    t0 = time.perf_counter()
+    train = train_phase()
+    train["phase_s"] = time.perf_counter() - t0
+    log(f"training phase: {train['phase_s']:.1f} s in all")
+    lap("training")
+
+    # 15. the node-aware gradient sync, stacked and over gloo ranks
+    t0 = time.perf_counter()
+    grad_sync = grad_sync_phase()
+    grad_sync["phase_s"] = time.perf_counter() - t0
+    log(f"grad-sync phase: {grad_sync['phase_s']:.1f} s in all")
+    lap("grad sync")
+
+    # 16. the kernels line: top-level numbers are the main path's case
     # (sparse kernels: the first float64 case on its operands, BCSR at its
     # block size with one RHS; flash: float32 at the prefill shape); every
     # dtype / shape case is under "variants"; flash's launches are the f32
@@ -2959,7 +3714,8 @@ def main() -> int:
             "library_ms": top["library_ms"], "card": smi,
             **({"launches_per_run": flash_runs, "bound_fma_ms": top["bound_fma_ms"],
                 "design": top["design"],
-                "instances_head_dim_256": flash_instances(rows[k], ptxas[k], 256)}
+                "instances_head_dim_256": flash_instances(rows[k], ptxas[k], 256),
+                "instances_head_dim_96": flash_instances(rows[k], ptxas[k], 96)}
                if k == "flash_attention" else
                {"pallas": False, "tri_solve_depth": tri_depth,
                 "launches_per_run": {r["run"]: r["launches"][k]
@@ -3006,10 +3762,13 @@ def main() -> int:
                                                     "f64_multi": c_multi,
                                                     "f32": c_f32}},
                       "lm": f32, "lm_bf16": bf16, "moe": moe,
-                      "recurrent": recurrent}),
+                      "recurrent": recurrent, "embed": embed, "train": train,
+                      "grad_sync": grad_sync, "phase_s": phase_s}),
           flush=True)
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+        + f"; {sum(phase_s.values()):.1f} s in all")
     log(smi)
-    # 14. result
+    # 17. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

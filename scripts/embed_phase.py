@@ -1,0 +1,56 @@
+"""Run ``chip_smoke.py``'s head-dim-96 flash cases and its embedding-input
+phase alone on one card: the quickest check that the embedding-input archs
+still serve there.
+
+Builds the kernels and prints every ``flash_attention`` instance's ``ptxas
+-v`` line, then runs ``chip_smoke.flash_phase`` at head dim 96 only
+(phi-3-vision-4.2b's prefill, 32 heads of 96 on 32 KV heads, in f32 and
+bf16, against the plain version, beside SDPA and the bound) and
+``chip_smoke.embed_phase``: phi-3-vision-4.2b and musicgen-medium in f32
+and bf16 at full width and depth, served on the stub frontend's embeddings
+at the smoke's first 4 prompt lengths and checked kernel vs plain.  The
+same checks and prints as the smoke; its numbers as one JSON line, then
+``OK``::
+
+    python3 scripts/embed_phase.py
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.build import build, build_report
+
+    if not torch.cuda.is_available():
+        print("embed_phase: needs a CUDA card", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build()
+    ptxas = build_report("flash_attention")
+    for inst, used in ptxas:
+        print(f"ptxas {inst}: {used}", flush=True)
+    S = max(len(p) for p in cs.lm_workload(get_arch(cs.LM_ARCH).vocab))
+    rows = cs.flash_phase(S, head_dims=(96,))
+    runs, flash = cs.embed_phase()
+    print(json.dumps({"flash_head_dim_96": cs.flash_instances(rows, ptxas, 96),
+                      "embed": runs, "flash_launches": flash}), flush=True)
+    print("OK", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

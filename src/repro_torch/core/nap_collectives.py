@@ -19,6 +19,10 @@ friends.
 * :func:`hier_all_gather` — flat or pod-then-global all-gather.
 * :func:`hier_all_to_all` — flat or two-hop all-to-all: a2a(fast) then
   a2a(slow), one aggregated message per pod pair (the MoE dispatch).
+* :func:`fast_reduce_scatter`, :func:`slow_all_gather`,
+  :func:`fast_all_gather` — single legs over one group, for a caller that
+  changes the data between them (the int8 gradient sync of
+  :mod:`repro_torch.train.grad_sync`).
 * :class:`MatrixHaloPlan` / :func:`matrix_halo_exchange` — the setup
   phase's matrix communication: whole CSR rows of B move under the same §3
   schedules, executed on the host rank-faithfully (phase by phase, message
@@ -379,6 +383,50 @@ def close_ranks() -> None:
         dist.destroy_process_group()
 
 
+def fast_reduce_scatter(x: torch.Tensor, n_pods: int, lanes: int,
+                        log: list | None = None,
+                        ranks: RankGroups | None = None,
+                        tag=None) -> torch.Tensor:
+    """Reduce-scatter inside each pod (NAP-3's first leg on its own):
+    per-rank ``x`` ``[D, F]`` with ``F % lanes == 0`` → rank (P, L) holds its
+    pod's sum of piece L, ``[D, F / lanes]``.  With ``ranks``, ``x`` is this
+    process's ``[1, F]``."""
+    if ranks is not None:
+        return ranks.reduce_scatter(x[0], "fast", tag, log)[None]
+    _note(log, "psum_scatter")
+    return x.reshape(n_pods, lanes, lanes, -1).sum(dim=1) \
+        .reshape(n_pods * lanes, -1)
+
+
+def slow_all_gather(x: torch.Tensor, n_pods: int, lanes: int,
+                    log: list | None = None, ranks: RankGroups | None = None,
+                    tag=None) -> torch.Tensor:
+    """All-gather over the slow group (the ranks that share a lane), untiled:
+    per-rank ``x`` ``[D, ...]`` → ``[D, n_pods, ...]``, rank (P, L) getting
+    every pod's lane-L ``x`` in pod order.  With ``ranks``, ``x`` is this
+    process's ``[1, ...]``."""
+    if ranks is not None:
+        return ranks.all_gather(x[0], "slow", tag, log)[None]
+    _note(log, "all_gather")
+    ext = tuple(x.shape[1:])
+    by_lane = x.reshape((n_pods, lanes) + ext).transpose(0, 1)   # [L, P_src]
+    return by_lane.unsqueeze(0).expand((n_pods, lanes, n_pods) + ext) \
+        .reshape((n_pods * lanes, n_pods) + ext)
+
+
+def fast_all_gather(x: torch.Tensor, n_pods: int, lanes: int,
+                    log: list | None = None, ranks: RankGroups | None = None,
+                    tag=None) -> torch.Tensor:
+    """All-gather inside each pod, tiled (NAP-3's last leg on its own):
+    per-rank ``x`` ``[D, n]`` (or ``[n_pods, lanes, n]``) → ``[D, lanes *
+    n]``, the pod's pieces in lane order.  With ``ranks``, ``x`` is this
+    process's ``[1, n]``."""
+    if ranks is not None:
+        return ranks.all_gather(x[0], "fast", tag, log).reshape(1, -1)
+    return _all_gather_lanes(x.reshape(n_pods, lanes, -1), log) \
+        .reshape(n_pods * lanes, -1)
+
+
 def hier_psum(x: torch.Tensor, n_pods: int, lanes: int,
               strategy: str = "nap3", log: list | None = None,
               ranks: RankGroups | None = None, tag=None) -> torch.Tensor:
@@ -386,32 +434,35 @@ def hier_psum(x: torch.Tensor, n_pods: int, lanes: int,
     every rank gets the total.  ``nap3`` = RS(fast) → AR(slow) → AG(fast):
     the slow axis carries 1/|fast| of the bytes (paper Fig. 12).  With
     ``ranks``, ``x`` is this process's ``[1, ...]`` and the steps are
-    collectives between the processes (``tag`` labels their tally)."""
-    if ranks is not None:
-        return _psum_ranks(x, lanes, strategy, log, ranks, tag)
+    collectives between the processes (``tag`` labels their tally), the
+    same pieces (rank (P, L) reduces piece L), the result bit-identical on
+    every rank."""
     if strategy == "flat":
+        if ranks is not None:
+            return ranks.all_reduce(x, "world", tag, log)
         _note(log, "psum")
         return x.sum(dim=0, keepdim=True).expand(x.shape)
     if strategy != "nap3":
         raise ValueError(f"hier_psum: unknown strategy {strategy!r}")
-    D = x.shape[0]
-    shape = tuple(x.shape[1:])
-    flat = x.reshape(n_pods, lanes, -1)
-    F = flat.shape[-1]
+    flat = x.reshape(x.shape[0], -1)
+    F = flat.shape[1]
     pad = (-F) % lanes
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
     # 1) reduce-scatter inside the pod: rank (P, L) keeps piece L
-    _note(log, "psum_scatter")
-    piece = flat.reshape(n_pods, lanes, lanes, -1).sum(dim=1)
+    piece = fast_reduce_scatter(flat, n_pods, lanes, log, ranks, tag)
     # 2) one aggregated inter-pod reduction per piece
-    _note(log, "psum")
-    piece = piece.sum(dim=0, keepdim=True).expand(n_pods, lanes, -1)
+    if ranks is not None:
+        piece = ranks.all_reduce(piece, "slow", tag, log)
+    else:
+        _note(log, "psum")
+        # left [n_pods, lanes, n] with the pod dim broadcast: step 3 then
+        # copies nothing either (the result is a view of one pod's sums)
+        piece = piece.reshape(n_pods, lanes, -1).sum(dim=0, keepdim=True) \
+            .expand(n_pods, lanes, -1)
     # 3) redistribute inside the pod (tiled: pieces concatenate in lane order)
-    full = _all_gather_lanes(piece, log).reshape(D, -1)
-    if pad:
-        full = full[:, :F]
-    return full.reshape((D,) + shape)
+    full = fast_all_gather(piece, n_pods, lanes, log, ranks, tag)
+    return full[:, :F].reshape(x.shape)
 
 
 def hier_all_gather(x: torch.Tensor, n_pods: int, lanes: int,
@@ -482,25 +533,6 @@ def _all_to_all_ranks(x, n_pods, lanes, strategy, log, ranks: RankGroups):
     v = ranks.all_to_all(v, "fast", log=log)                 # [l_src, P_dst]
     v = ranks.all_to_all(v.transpose(0, 1), "slow", log=log)  # [P_src, l_src]
     return v.reshape(x.shape)
-
-
-def _psum_ranks(x, lanes, strategy, log, ranks: RankGroups, tag):
-    """:func:`hier_psum` between processes: the same steps, the same
-    pieces (rank (P, L) reduces piece L), the result bit-identical on every
-    rank."""
-    if strategy == "flat":
-        return ranks.all_reduce(x, "world", tag, log)
-    if strategy != "nap3":
-        raise ValueError(f"hier_psum: unknown strategy {strategy!r}")
-    flat = x.reshape(-1)
-    F = flat.shape[0]
-    pad = (-F) % lanes
-    if pad:
-        flat = torch.nn.functional.pad(flat, (0, pad))
-    piece = ranks.reduce_scatter(flat, "fast", tag, log)
-    piece = ranks.all_reduce(piece, "slow", tag, log)
-    full = ranks.all_gather(piece, "fast", tag, log).reshape(-1)
-    return full[:F].reshape(x.shape)
 
 
 def _all_gather_ranks(x, strategy, log, ranks: RankGroups, tag):

@@ -107,7 +107,7 @@
 // of the 3xTF32 bound: each TF32 pass costs about as much as the softmax,
 // loads and barriers together.
 //
-// Head dims 64, 128 and 256.  At D = 256 (recurrentgemma-9b: 16 query heads
+// Head dims 64, 96, 128 and 256.  At D = 256 (recurrentgemma-9b: 16 query heads
 // on one KV head) neither type's shape above fits the registers or two
 // blocks an SM, so both take their own (Cfg<T, 256>, with the arithmetic
 // beside it): 8 warps of one m-tile each, 128 query rows a block, one
@@ -142,9 +142,9 @@ template <typename T, int D>
 struct Cfg;
 
 // bfloat16: one 16-byte chunk of padding a row puts the 8 rows that one
-// ldmatrix phase reads at one chunk in 8 different bank groups (D * 2 is a
-// multiple of 128 bytes), and keeps every fragment's address a lane's base
-// plus a constant.
+// ldmatrix phase reads at one chunk in 8 different bank groups (a padded
+// row is an odd number of 16-byte chunks: 9, 13 and 17 at D = 64, 96 and
+// 128), and keeps every fragment's address a lane's base plus a constant.
 template <int D>
 struct Cfg<bf16, D> {
   static constexpr int WARPS = 4, MT = 2, BK = 64, BLOCKS = 1;
@@ -191,6 +191,33 @@ struct Cfg<float, 256> {
   static constexpr int LDQ = 256 + 16, LDK = 256 + 16, LDV = 256 + 4;
   static constexpr bool RESCALE = false;
 };
+
+// D = 96 (phi-3-vision-4.2b: 32 heads of 3072 / 32), re-derived: the
+// generic shapes above carry over, for these reasons.
+// bfloat16: a row is 96 * 2 = 192 bytes, 12 chunks of 16 bytes, not a
+// multiple of 128 bytes.  With LDQ = LDK = LDV = 104 a row is 208 bytes, 13
+// chunks: the 8 rows an ldmatrix phase reads at one chunk c sit in 16-byte
+// bank groups (13 r + c) mod 8, r = 0..7, all different because 13 is odd
+// (an unpadded 12-chunk row would put rows r and r + 2 in one group), and
+// every row start stays 16-byte aligned for cp.async and ldmatrix.  The
+// products walk D / 16 = 6 k-chunks (scores) and 6 pairs of n-tiles (P V),
+// the store D / 8 = 12 n-tiles; load_tile copies 12 chunks a row.
+// Registers: 2 * 12 * 4 = 96 accumulators and 64 score registers a thread
+// (192 and 64 at D = 128), yet ptxas takes all 255 and spills 56 bytes, as
+// it spills 92 at D = 128 (both unrolled deeply; PERF.md); shared memory
+// 2 * (128 * 104 + 2 * 64 * (104 + 104)) = 79,872 B.
+// float32: 96 is 0 mod 32 as 128 is, so the strides keep their residues:
+// LDQ = LDK = 112 = 16 mod 32 and LDV = 100 = 4 mod 32 words, and the
+// float4 reads of a quarter warp (rows g, g + 1 at words 4t, or V rows 2t,
+// 2t + 1 at words 4g) still fall in distinct banks.  scores takes D / 16 =
+// 6 chunks, an even number, so every even chunk's sum is folded in with its
+// odd partner (an odd count would drop the last one); accumulate_pv and
+// store_row take D / 32 = 3 groups of four n-tiles; load_tile copies 24
+// float4s a row.  48 accumulators a thread (64 at D = 128) under the same
+// __launch_bounds__(128, 2) (ptxas: 219 registers, no spill); shared memory 4 * (64 * 112 + 2 * 32 * (112 +
+// 100)) = 82,944 B, two blocks an SM.
+static_assert(96 % 16 == 0 && (96 / 16) % 2 == 0 && 96 % 32 == 0,
+              "the D = 96 instances rely on these divisions");
 
 template <typename T, int D>
 constexpr int BQ = 16 * Cfg<T, D>::MT * Cfg<T, D>::WARPS;   // query rows a block
@@ -741,7 +768,7 @@ int launch(const Launch& a) {
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a head dim other than 64, 128 or 256 or a grid the
+// cudaErrorInvalidValue for a head dim other than 64, 96, 128 or 256 or a grid the
 // card cannot take.  The caller checks everything else (types, shapes,
 // alignment, Sq <= Skv, Hq % Hkv == 0) before calling.  window < 0: none.
 extern "C" int flash_attention_launch(
@@ -756,6 +783,7 @@ extern "C" int flash_attention_launch(
                  {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
                  causal, window, static_cast<cudaStream_t>(stream)};
   if (D == 64) return is_bf16 ? launch<bf16, 64>(a) : launch<float, 64>(a);
+  if (D == 96) return is_bf16 ? launch<bf16, 96>(a) : launch<float, 96>(a);
   if (D == 128) return is_bf16 ? launch<bf16, 128>(a) : launch<float, 128>(a);
   if (D == 256) return is_bf16 ? launch<bf16, 256>(a) : launch<float, 256>(a);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -21,7 +21,7 @@ from ..launches import note
 from .ref import attention_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 96, 128, 256)
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

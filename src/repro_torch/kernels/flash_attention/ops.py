@@ -17,7 +17,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Returns [B, S, Hq, D].  ``use_kernel=True`` goes through the kernel
     wrapper (the CUDA kernel for CUDA tensors, reading the time-major
     tensors in place); ``False`` runs the plain version.
+
+    The kernel has no backward, as the reference's Pallas kernel has no
+    VJP (``jax.grad`` through it fails): with grad mode on and an operand
+    that requires grad, ``use_kernel=True`` raises on either device rather
+    than return an output that autograd cannot see through.  Training runs
+    with ``use_kernel=False``, as the reference's ``TrainOptions`` does.
     """
+    if use_kernel and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash attention: the kernel has no backward (nor has the "
+            "reference's Pallas kernel a VJP); call with use_kernel=False "
+            "to differentiate, or under torch.no_grad() to serve")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if use_kernel:
         out = flash_attention(qt, kt, vt, causal=causal, window=window)

@@ -13,17 +13,20 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, window: int | None = None) -> torch.Tensor:
     """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D]; Hq % Hkv == 0.
 
-    Returns [B, Hq, Sq, D] in q's type.  Scores are float32 and masked with
-    -1e30 (not -inf); queries are right-aligned at Skv (the decode case).
+    Returns [B, Hq, Sq, D] in q's type.  Scores are float32 (float64 for
+    float64 operands) and masked with -1e30 (not -inf); queries are
+    right-aligned at Skv (the decode case).
     ``window``: attend only to keys with 0 <= q_pos - k_pos < window.
     """
     sq, d = q.shape[2], q.shape[3]
     skv = k.shape[2]
     group = q.shape[1] // k.shape[1]
-    kx = k.repeat_interleave(group, dim=1).float()
-    vx = v.repeat_interleave(group, dim=1).float()
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))   # in float32
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    kx = k.repeat_interleave(group, dim=1).to(acc)
+    vx = v.repeat_interleave(group, dim=1).to(acc)
+    scale = (float(np.float32(1.0) / np.sqrt(np.float32(d)))  # in float32
+             if acc == torch.float32 else d ** -0.5)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kx) * scale
     qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)

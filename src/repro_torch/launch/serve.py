@@ -12,6 +12,11 @@ an engine and drain a synthetic workload, or serve AMGWire on a socket.
       PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \\
           --layers 2
       PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch phi-3-vision-4.2b
+
+  An embedding-input arch (``musicgen-medium``, ``phi-3-vision-4.2b``) is
+  fed the stub frontend's embeddings, standard normals drawn from
+  ``--seed`` with numpy.
 
 * ``--solver amg`` — :class:`~repro_torch.amg.api.AMGService`: solve requests
   admitted through tickets, same-(matrix, knobs) right-hand sides coalesced
@@ -58,12 +63,16 @@ def run_lm(args):
     eng = Engine(cfg, model, max_batch=args.batch,
                  ctx_len=args.prompt_len + args.new_tokens + 8,
                  device=args.device)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     for rid in range(args.requests):
+        if cfg.embed_input:
+            prompt = rng.integers(0, cfg.vocab, args.prompt_len, dtype=np.int32)
+        else:   # the stub frontend's embeddings
+            prompt = rng.standard_normal((args.prompt_len, cfg.d_model)) \
+                .astype(np.float32)
         eng.submit(Request(
-            rid=rid,
-            prompt=rng.integers(0, cfg.vocab, args.prompt_len, dtype=np.int32),
+            rid=rid, prompt=prompt,
             max_new_tokens=args.new_tokens,
             temperature=args.temperature))
     out = eng.run()
@@ -211,6 +220,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the prompts' seed (tokens, or the stub frontend's "
+                         "embeddings for an embedding-input arch)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     # amg knobs

@@ -24,20 +24,27 @@ def dense_init(gen: torch.Generator, fan_in: int, shape, dtype,
     return normal_init(gen, shape, fan_in ** -0.5, dtype, device)
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the arithmetic type the reference widens to: float32 for
+    bfloat16 and float32, float64 for float64 (so the same code gives a
+    float64 truth)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 # ---------------------------------------------------------------- norms
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = wide(x)
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * p["scale"].float()).to(x.dtype)
+    return (out * p["scale"].to(xf.dtype)).to(x.dtype)
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = wide(x)
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
-    out = out * p["scale"].float() + p["bias"].float()
+    out = out * p["scale"].to(xf.dtype) + p["bias"].to(xf.dtype)
     return out.to(x.dtype)
 
 
@@ -59,24 +66,28 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def _rope_freqs_on(head_dim: int, theta: float,
-                   device: torch.device) -> torch.Tensor:
-    """:func:`rope_freqs` as float32 on ``device``, made once: a copy from
-    the host per call would stall every decode step on the card."""
-    return torch.as_tensor(rope_freqs(head_dim, theta).astype(np.float32),
-                           device=device)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """:func:`rope_freqs` as ``dtype`` (float32, or float64 for a float64
+    model) on ``device``, made once: a copy from the host per call would
+    stall every decode step on the card."""
+    f = rope_freqs(head_dim, theta)
+    if dtype == torch.float32:
+        f = f.astype(np.float32)
+    return torch.as_tensor(f, dtype=dtype, device=device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [B, S, H, D]; positions: [B, S] (or [S]).  Half-split rotation."""
-    freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
+    xf = wide(x)
+    freqs = _rope_freqs_on(x.shape[-1], theta, x.device, xf.dtype)
     if positions.ndim == 1:
         positions = positions[None, :]
-    ang = positions[..., None].float() * freqs               # [B, S, D/2]
+    ang = positions[..., None].to(xf.dtype) * freqs          # [B, S, D/2]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(xf, 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 

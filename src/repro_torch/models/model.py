@@ -1,4 +1,6 @@
-"""The LM (port of ``repro/models/model.py``): token inputs; layers of the
+"""The LM (port of ``repro/models/model.py``): token inputs, or the
+embeddings of a stub frontend (``embed_input=False``: musicgen-medium,
+phi-3-vision-4.2b; no ``embed``, an ``lm_head``); layers of the
 kinds ``attn`` (GQA attention, prefill through the flash-attention kernel),
 ``mlstm``, ``slstm`` and ``rglru`` (:mod:`repro_torch.models.ssm`), laid out
 as ``cfg.pattern`` repeated and then the ``n_layers % len(pattern)``
@@ -25,15 +27,25 @@ block; the decode cache of :func:`init_cache` /
 to the attention entries.  Unlike the reference, :meth:`LM.decode_step`
 updates the decode cache in place (one ring-buffer slot per attention
 layer, the new state of a recurrent one) instead of returning a copy.
+
+Training: :func:`loss_fn` (next-token cross-entropy, optionally masked and
+streamed over sequence chunks) over ``LM.forward`` with ``remat`` (each
+pattern group and each remainder block under ``torch.utils.checkpoint``,
+the reference's ``jax.checkpoint``) and ``return_hidden``.  Parameters are
+frozen unless the model is made with ``init_lm(trainable=True)`` (or
+``requires_grad_(True)``); the flash kernel has no backward, so a trainable
+forward runs with ``use_kernel=False``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import _project_qkv, attn_forward, attn_params
-from .layers import apply_rope, make_norm, mlp, mlp_params, norm_params, normal_init
+from .layers import (apply_rope, make_norm, mlp, mlp_params, norm_params,
+                     normal_init, wide)
 from .moe import moe_ffn_tp, moe_params
 from .ssm import PARAMS as RECURRENT_PARAMS
 from .ssm import recurrent_cache, recurrent_decode, recurrent_forward
@@ -45,22 +57,18 @@ KINDS = ("attn", *RECURRENT_PARAMS)
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what this port does not run yet
-    (``ValueError`` for a block kind the reference does not have either)."""
+    """Raise ``ValueError`` for a block kind the reference does not have."""
     unknown = sorted(set(cfg.pattern) - set(KINDS))
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {unknown}; the "
                          f"kinds are {KINDS}")
-    if not cfg.embed_input:
-        raise NotImplementedError(
-            f"{cfg.name}: embed_input=False archs (a stub frontend feeding "
-            f"embeddings) are not ported yet (ROADMAP queue 1 item 13)")
 
 
 class ParamTree(nn.Module):
     """A nested parameter dict as a module: tensors become (frozen)
     parameters, dicts become submodules, and ``p[name]`` reads either, so
-    the layer functions index it as they index the reference's pytree."""
+    the layer functions index it as they index the reference's pytree.
+    ``requires_grad_(True)`` makes them trainable."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -85,6 +93,17 @@ def layer_kind(cfg, i: int) -> str:
     """The kind of layer ``i``: ``cfg.pattern`` repeated over the groups,
     then its first ``n_layers % len(pattern)`` kinds as the remainder."""
     return cfg.pattern[i % len(cfg.pattern)]
+
+
+def layer_slot(cfg, i: int) -> tuple[int | None, int]:
+    """Where layer ``i`` sits in the reference's stacked tree: ``(g, j)``,
+    group ``g`` at pattern position ``j``, for a layer inside a pattern
+    group; ``(None, e)`` for the remainder block ``extra[e]``."""
+    L = len(cfg.pattern)
+    n_grouped = (cfg.n_layers // L) * L
+    if i < n_grouped:
+        return divmod(i, L)
+    return None, i - n_grouped
 
 
 def block_params(gen, cfg, kind: str, dtype, device) -> dict:
@@ -175,34 +194,40 @@ def block_decode(p, cfg, kind: str, x, cache: dict, pos: int,
 def init_params(cfg, gen: torch.Generator, dtype, device) -> dict:
     """Random parameters at the reference's scales (normal × fan_in^-0.5 for
     projections, 0.02 for embed and head, ones/zeros for norms and biases):
-    ``{"embed", "layers": [block...], "final_norm"[, "lm_head"]}``."""
+    ``{["embed",] "layers": [block...], "final_norm"[, "lm_head"]}``: no
+    ``embed`` where ``embed_input=False``, an ``lm_head`` unless the
+    embedding is tied."""
     check_supported(cfg)
-    params = {"embed": normal_init(gen, (cfg.vocab, cfg.d_model), 0.02, dtype,
-                                   device),
-              "layers": [block_params(gen, cfg, layer_kind(cfg, i), dtype, device)
-                         for i in range(cfg.n_layers)],
-              "final_norm": norm_params(cfg.norm, cfg.d_model, dtype, device)}
-    if not cfg.tie_embeddings:
+    params = {}
+    if cfg.embed_input:
+        params["embed"] = normal_init(gen, (cfg.vocab, cfg.d_model), 0.02,
+                                      dtype, device)
+    params["layers"] = [block_params(gen, cfg, layer_kind(cfg, i), dtype, device)
+                        for i in range(cfg.n_layers)]
+    params["final_norm"] = norm_params(cfg.norm, cfg.d_model, dtype, device)
+    if not (cfg.tie_embeddings and cfg.embed_input):
         params["lm_head"] = normal_init(gen, (cfg.d_model, cfg.vocab), 0.02,
                                         dtype, device)
     return params
 
 
 class LM(nn.Module):
-    """Decoder-only LM: embed → layers → final norm → unembed (tied:
-    ``x @ embed.T``).
+    """Decoder-only LM: embed (or the frontend's embeddings) → layers →
+    final norm → unembed (tied: ``x @ embed.T``, else ``x @ lm_head``).
 
     ``moe_stats``: ``None``, or a dict into which every MoE layer of a
     :meth:`decode_step` adds its (token, slot) selections (``"selected"``)
     and the ones its capacity dropped (``"dropped"``, on the device until
-    read)."""
+    read).  The parameters are frozen (serving); ``requires_grad_(True)``
+    makes them trainable."""
 
     def __init__(self, cfg, params: dict):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.moe_stats: dict | None = None
-        self.embed = nn.Parameter(params["embed"], requires_grad=False)
+        self.embed = (nn.Parameter(params["embed"], requires_grad=False)
+                      if "embed" in params else None)
         self.layers = nn.ModuleList(ParamTree(p) for p in params["layers"])
         self.kinds = [layer_kind(cfg, i) for i in range(cfg.n_layers)]
         self.final_norm = ParamTree(params["final_norm"])
@@ -211,51 +236,90 @@ class LM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_norm["scale"].device
 
-    def embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens]
+    @property
+    def dtype(self) -> torch.dtype:
+        """The type of the weights (the norm scales')."""
+        return self.final_norm["scale"].dtype
+
+    def embed_inputs(self, inputs: torch.Tensor) -> torch.Tensor:
+        """Tokens ``[B, S]`` → their embeddings; where ``embed_input=False``
+        the inputs are the frontend's embeddings ``[B, S, d]`` already, and
+        go on in the weights' type (the reference's type promotion would
+        widen the activations instead; torch's products want one type)."""
+        if self.cfg.embed_input:
+            return self.embed[inputs]
+        return inputs.to(self.dtype)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:
             return x @ self.embed.T
         return x @ self.lm_head
 
-    def forward(self, tokens: torch.Tensor, return_cache: bool = False,
-                use_kernel: bool = True):
-        """Prefill forward.  tokens: [B, S] → logits [B, S, V] (and the
+    def _groups(self):
+        """The layers as (kinds, layers) runs: one per pattern group, then
+        one per remainder block (the units ``remat`` checkpoints)."""
+        runs: dict = {}
+        for i, (kind, layer) in enumerate(zip(self.kinds, self.layers)):
+            g, j = layer_slot(self.cfg, i)
+            kinds, layers = runs.setdefault(g if g is not None else ("extra", j),
+                                            ([], []))
+            kinds.append(kind)
+            layers.append(layer)
+        return list(runs.values())
+
+    def forward(self, inputs: torch.Tensor, return_cache: bool = False,
+                use_kernel: bool = True, remat: bool = False,
+                return_hidden: bool = False):
+        """Train / prefill forward.  inputs: tokens [B, S] (or embeddings
+        [B, S, d] where ``embed_input=False``) → logits [B, S, V] (and the
         caches, stacked by pattern position, when ``return_cache``).
-        ``use_kernel=False`` runs the plain attention instead of the
-        flash-attention kernel."""
+        ``use_kernel=False`` runs the plain attention (or
+        :func:`~repro_torch.models.attention.chunked_attention` past 1024
+        positions) instead of the flash-attention kernel; ``remat`` runs
+        each pattern group and each remainder block under
+        ``torch.utils.checkpoint`` (recomputed in the backward);
+        ``return_hidden`` returns the final-normed hidden state [B, S, d]
+        instead of the logits."""
         cfg = self.cfg
-        x = self.embed_inputs(tokens)
+        x = self.embed_inputs(inputs)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         caches = []
-        for kind, layer in zip(self.kinds, self.layers):
-            x, c = block_forward(layer, cfg, kind, x, positions, use_kernel)
-            if return_cache:
-                caches.append(c)
+
+        def run(x, kinds, layers):
+            out = []
+            for kind, layer in zip(kinds, layers):
+                x, c = block_forward(layer, cfg, kind, x, positions, use_kernel)
+                out.append(c if return_cache else None)
+            return x, out
+
+        for kinds, layers in self._groups():
+            if remat and torch.is_grad_enabled():
+                x, c = checkpoint(run, x, kinds, layers, use_reentrant=False)
+            else:
+                x, c = run(x, kinds, layers)
+            caches += c
         x = make_norm(cfg.norm)(self.final_norm, x)
+        if return_hidden:
+            return x
         logits = self.unembed(x)
         if return_cache:
             return logits, _stack_caches(cfg, caches)
         return logits
 
     def decode_step(self, tokens: torch.Tensor, cache, pos: int):
-        """One-token decode.  tokens: [B, 1]; ``cache`` from
+        """One-token decode.  tokens: [B, 1] (embeddings [B, 1, d] where
+        ``embed_input=False``); ``cache`` from
         :func:`init_cache` or ``prefill_to_decode_cache`` (updated in place);
         ``pos``: tokens so far.  Returns (logits [B, V], cache)."""
         cfg = self.cfg
         groups, extra = cache
-        L = len(cfg.pattern)
-        n_grouped = len(self.layers) - len(extra)
         x = self.embed_inputs(tokens)
         for i, (kind, layer) in enumerate(zip(self.kinds, self.layers)):
-            if i < n_grouped:
-                g, j = divmod(i, L)
-                layer_cache = {name: t[g] for name, t in groups[j].items()}
-            else:
-                layer_cache = extra[i - n_grouped]
+            g, j = layer_slot(cfg, i)
+            layer_cache = (extra[j] if g is None else
+                           {name: t[g] for name, t in groups[j].items()})
             x = block_decode(layer, cfg, kind, x, layer_cache, pos, self.moe_stats)
         x = make_norm(cfg.norm)(self.final_norm, x)
         return self.unembed(x)[:, 0], cache
@@ -273,12 +337,67 @@ def _stack_caches(cfg, caches: list[dict]):
     return groups, tuple(caches[n_groups * L:])
 
 
-def init_lm(cfg, seed: int = 0, dtype=torch.bfloat16, device="cuda") -> LM:
+def init_lm(cfg, seed: int = 0, dtype=torch.bfloat16, device="cuda",
+            trainable: bool = False) -> LM:
     """A randomly initialised :class:`LM` on ``device`` (the card unless
-    ``device="cpu"``), drawn from a ``torch.Generator`` seeded with ``seed``."""
+    ``device="cpu"``), drawn from a ``torch.Generator`` seeded with ``seed``;
+    its parameters require grad when ``trainable``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return LM(cfg, init_params(cfg, gen, dtype, dev))
+    return LM(cfg, init_params(cfg, gen, dtype, dev)).requires_grad_(trainable)
+
+
+def _xent(logits: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """Per-position negative log-likelihood of ``tgt`` in float32 (float64
+    for a float64 model)."""
+    logits = wide(logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None].long())[..., 0]
+    return lse - gold
+
+
+def _chunk_nll(model, xc, tc, mc):
+    nll = _xent(model.unembed(xc), tc)
+    return (nll * mc).sum(), mc.sum()
+
+
+def loss_fn(model: LM, cfg, batch: dict, use_kernel: bool = False,
+            remat: bool = False, loss_chunk: int | None = None) -> torch.Tensor:
+    """Next-token cross-entropy (port of the reference's ``loss_fn``).
+    batch: ``{"inputs": tokens | embeddings, "targets": [B, S] int, "mask":
+    [B, S] (optional)}``; the mean over the positions (masked: over the mask's
+    sum, at least 1).
+
+    ``loss_chunk``: the unembed and log-sum-exp stream over sequence chunks
+    of that length (each under ``torch.utils.checkpoint`` when grad mode is
+    on, as the reference's ``jax.checkpoint``), so the [B, S, V] logits
+    never exist at once; it must divide S."""
+    tgt = batch["targets"]
+    mask = batch.get("mask")
+    if loss_chunk is None:
+        logits = model(batch["inputs"], use_kernel=use_kernel, remat=remat)
+        nll = _xent(logits, tgt)
+        if mask is not None:
+            mask = mask.to(nll.dtype)
+            return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return nll.mean()
+    x = model(batch["inputs"], use_kernel=use_kernel, remat=remat,
+              return_hidden=True)
+    B, S, d = x.shape
+    c = min(loss_chunk, S)
+    if S % c:
+        raise ValueError(f"loss_chunk {loss_chunk} must divide seq_len {S}")
+    acc = torch.promote_types(x.dtype, torch.float32)
+    mask = (torch.ones((B, S), dtype=acc, device=x.device)
+            if mask is None else mask.to(acc))
+    tot = torch.zeros((), dtype=acc, device=x.device)
+    cnt = torch.zeros((), dtype=acc, device=x.device)
+    for i in range(0, S, c):
+        args = (model, x[:, i:i + c], tgt[:, i:i + c], mask[:, i:i + c])
+        s_nll, s_cnt = (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                        if torch.is_grad_enabled() else _chunk_nll(*args))
+        tot, cnt = tot + s_nll, cnt + s_cnt
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def init_cache(cfg, batch: int, ctx_len: int, dtype=torch.bfloat16,

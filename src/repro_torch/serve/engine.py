@@ -4,7 +4,10 @@ prefill-cache conversion into the ring-buffer decode layout.
 
 Prompts of a batch are left-padded with token 0 to the longest one and
 prefilled with no padding mask, as the reference does: changing that would
-change the answers.  Greedy rows agree with the reference; sampled rows
+change the answers.  An ``embed_input=False`` arch takes prompts of frontend
+embeddings ``[S, d]``, right-aligned over zero rows the same way, and each
+decode step is fed a zero embedding (the reference's engine does both: the
+stub frontend has no embedding of a generated token).  Greedy rows agree with the reference; sampled rows
 draw from a :class:`torch.Generator`, so their bits differ from JAX's.
 """
 from __future__ import annotations
@@ -21,7 +24,7 @@ from ..device import resolve_device
 @dataclasses.dataclass
 class Request:
     rid: int
-    prompt: np.ndarray            # [S] tokens
+    prompt: np.ndarray            # [S] tokens, or [S, d] embeddings
     max_new_tokens: int = 16
     temperature: float = 0.0
 
@@ -64,9 +67,14 @@ def prefill_to_decode_cache(cfg, caches, ctx_len: int, prompt_len: int,
 
 def pad_prompts(reqs: list[Request]) -> np.ndarray:
     """``[B, S]`` int32 prompts, right-aligned (left-padded with token 0) to
-    the longest prompt of the batch."""
+    the longest prompt of the batch; embedding prompts ``[S, d]`` as ``[B,
+    S, d]`` float32 left-padded with zero rows."""
     S = max(r.prompt.shape[0] for r in reqs)
-    prompts = np.zeros((len(reqs), S), np.int32)
+    first = reqs[0].prompt
+    if first.ndim == 2:
+        prompts = np.zeros((len(reqs), S, first.shape[1]), np.float32)
+    else:
+        prompts = np.zeros((len(reqs), S), np.int32)
     for i, r in enumerate(reqs):
         prompts[i, S - r.prompt.shape[0]:] = r.prompt
     return prompts
@@ -144,7 +152,11 @@ class Engine:
         outs = [toks]
         t0 = time.perf_counter()
         for t in range(max_new - 1):
-            lg, cache = self.model.decode_step(toks[:, None], cache, S + t)
+            step_in = toks[:, None]
+            if not self.cfg.embed_input:   # embedding-input archs: zeros
+                step_in = torch.zeros((B, 1, self.cfg.d_model), dtype=self.dtype,
+                                      device=self.device)
+            lg, cache = self.model.decode_step(step_in, cache, S + t)
             toks = self._sample(lg, temps, gen)
             outs.append(toks)
         self._sync()

@@ -141,19 +141,6 @@ def test_lm_entry_points_refuse_cuda_without_a_card(monkeypatch):
     assert Engine(cfg, model, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch,match", [
-    ("musicgen-medium", "embed_input"), ("phi-3-vision-4.2b", "embed_input")])
-def test_unported_lm_configs_raise(arch, match):
-    from repro_torch.configs import get_arch
-    from repro_torch.models import init_cache, init_lm
-
-    cfg = get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match=match):
-        init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        init_cache(cfg, 1, 8, device="cpu")
-
-
 def test_amg_serving_is_not_ported_yet(monkeypatch):
     """AMG serving is ported now: ``--solver amg`` runs on the card by
     default and refuses a machine without one; the reference's JAX ``dist``

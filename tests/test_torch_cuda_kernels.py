@@ -13,14 +13,15 @@ rows, bit-equal run to run, one memset node and one kernel node in a graph
 that replays correctly with new values) and the block-smoother PCG on the
 card against the CPU; degenerate shapes; flash attention
 (each output row's error over its own max) over ragged lengths, windows,
-decode alignment, head dims 64, 128 and 256 (recurrentgemma-9b's 16:1
-MQA), float32 and bfloat16, the served prefill shapes, strided time-major views, bfloat16 strides the kernel cannot copy
+decode alignment, head dims 64, 96 (phi-3-vision-4.2b's 32:32), 128 and
+256 (recurrentgemma-9b's 16:1 MQA), float32 and bfloat16, the served prefill shapes, strided time-major views, bfloat16 strides the kernel cannot copy
 and a failed launch; float32 with large scores (q x 8, k + 50) against a
 float64 truth, and no register spills in the float32 instances — a small
 distributed PCG on the
 card against the same solve on the CPU, and small LMs on the card against
 the CPU (qwen3; recurrentgemma and xlstm, their recurrent states carried on
-the card).
+the card; two train steps of qwen3 and phi-3-vision with remat through
+``chunked_attention``).
 
 Run on a machine with an NVIDIA card::
 
@@ -427,6 +428,11 @@ FA_CASES = [
     (1, 16, 1, 1819, 1819, 256, 256),    # a window that binds
     (1, 4, 1, 77, 77, 256, 17),          # ragged S, a window inside a tile
     (1, 16, 1, 13, 301, 256, None),      # Sq < Skv, right-aligned (decode)
+    # head dim 96: phi-3-vision-4.2b's 32 heads of 96, no GQA
+    (4, 32, 32, 1819, 1819, 96, None),   # its served prefill
+    (1, 32, 32, 1819, 1819, 96, 256),    # a window that binds
+    (1, 4, 2, 77, 77, 96, 17),           # ragged S, GQA, a window inside a tile
+    (1, 32, 32, 13, 301, 96, None),      # Sq < Skv, right-aligned (decode)
 ]
 
 
@@ -457,7 +463,8 @@ def test_flash_attention(dev, case, causal, dtype):
 
 @pytest.mark.parametrize("kind", ["peaked", "offset"])
 @pytest.mark.parametrize("case", [FA_CASES[0], (1, 14, 2, 301, 301, 64, None),
-                                  (1, 16, 1, 301, 301, 256, None)])
+                                  (1, 16, 1, 301, 301, 256, None),
+                                  (1, 32, 32, 301, 301, 96, None)])
 def test_flash_attention_f32_large_scores(dev, case, kind):
     """float32 with q scaled by 8 (one key dominates a row's softmax) and
     with k + 50 (scores in the hundreds, where the TF32 low parts carry
@@ -479,7 +486,7 @@ def test_flash_attention_f32_large_scores(dev, case, kind):
 
 def test_flash_attention_f32_instances_do_not_spill(dev):
     """The ptxas report of the float32 instances: no register spills at
-    head dims 64 and 128; the head-dim-256 instance, whose accumulator alone
+    head dims 64, 96 and 128; the head-dim-256 instance, whose accumulator alone
     takes 128 of its 255 registers, spills at most 128 bytes (76 on the
     toolchain it was written on; its time beside the others' in
     PERF.md)."""
@@ -490,7 +497,7 @@ def test_flash_attention_f32_instances_do_not_spill(dev):
     kernel("flash_attention")
     rows = [(name, used) for name, used in build_report("flash_attention")
             if "<float," in name or "IfLi" in name]
-    assert len(rows) == 3, build_report("flash_attention")
+    assert len(rows) == 4, build_report("flash_attention")
     for name, used in rows:
         if "256" in name:
             stores = int(re.search(r"(\d+) bytes spill stores", used).group(1))
@@ -529,8 +536,8 @@ def test_flash_attention_failed_launch_raises(dev, monkeypatch):
     """A head dim the kernel has no instance for: the C side refuses it
     (cudaErrorInvalidValue) and the wrapper raises instead of falling
     back; no launch is counted."""
-    monkeypatch.setattr(fa, "HEAD_DIMS", (64, 96, 128))
-    q, k, v = _qkv((1, 2, 2, 8, 8, 96, None), torch.float32, dev)
+    monkeypatch.setattr(fa, "HEAD_DIMS", (64, 80, 128))
+    q, k, v = _qkv((1, 2, 2, 8, 8, 80, None), torch.float32, dev)
     before = fa.flash_attention.launches
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         fa.flash_attention(q, k, v)
@@ -567,6 +574,49 @@ def test_lm_forward_on_the_card_matches_the_cpu(dev):
         lc, _ = cpu.decode_step(step, prefill_to_decode_cache(cfg, c_cpu, 320, 300),
                                 300)
         assert float((lg.cpu() - lc).abs().max()) <= 1e-4 * float(lc.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "phi-3-vision-4.2b"])
+def test_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """Two train steps (loss, AdamW) of a small model on the card against
+    the same weights on the CPU, at S = 1100 with remat so the plain path
+    runs ``chunked_attention``: losses at 1e-5, the parameters within 0.25
+    lr (an element whose gradient is near zero moves by a ratio of two
+    small numbers) and the moments at 1e-4 of their max."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_lm
+    from repro_torch.train import (AdamWConfig, TrainOptions, init_opt_state,
+                                   make_step_fn)
+
+    kw = (dict(n_layers=2, d_model=192, n_heads=2, vocab=256)
+          if arch.startswith("phi") else
+          dict(n_layers=2, d_model=128, n_heads=4, vocab=256))
+    cfg = get_arch(arch).reduced(**kw)
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    rng = np.random.default_rng(0)
+    B, S = 2, 1100
+    batches = [{"inputs": torch.as_tensor(
+                    rng.integers(0, cfg.vocab, (B, S)) if cfg.embed_input else
+                    rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)),
+                "targets": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)))}
+               for _ in range(2)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = init_lm(cfg, seed=0, dtype=torch.float32, device="cpu",
+                        trainable=True).to(device)
+        opt = init_opt_state(dict(model.named_parameters()))
+        step = make_step_fn(cfg, acfg, TrainOptions(remat=True))
+        losses = []
+        for batch in batches:
+            model, opt, m = step(model, opt, {k: v.to(device) for k, v in batch.items()})
+            losses.append(float(m["loss"]))
+        runs[device] = (losses, {n: p.detach().cpu() for n, p in model.named_parameters()},
+                        {n: t.cpu() for n, t in opt["m"].items()})
+    (lg, pg, mg), (lc, pc, mc) = runs["cuda"], runs["cpu"]
+    assert np.allclose(lg, lc, rtol=1e-5, atol=0)
+    for n in pc:
+        assert float((pg[n] - pc[n]).abs().max()) <= 0.25 * acfg.lr, n
+        assert float((mg[n] - mc[n]).abs().max()) <= 1e-4 * float(mc[n].abs().max()), n
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])

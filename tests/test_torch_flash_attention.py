@@ -567,7 +567,7 @@ def test_attention_f64_is_the_plain_function(case, causal):
     assert ref.rel_err_rows(ref.attention_ref(tq, tk, tv, causal, case[-1]), truth) <= TOL
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
 @pytest.mark.parametrize("kind", ["peaked", "offset"])
 def test_3xtf32_emulation_holds_large_scores(kind, D):
     """At the kernel's head dims, with q scaled by 8 (one key dominates a
