@@ -57,11 +57,18 @@ Phases (any failure exits non-zero):
    capture of the solve's graphs, times each graph's replays; the tally
    must equal the launch counter there and in phase 4's / 5's counted run)
    and the sums of launches × (time − bound) and of launches × time over
-   them; ``block_diag_apply`` (bs 4) and ``tri_solve`` (both triangles),
-   k = 1 and 8, f32 and f64, at every non-coarsest level on the lowered
-   hierarchy's own factors, beside batched ``torch.matmul`` and
-   ``torch.triangular_solve`` on a sparse CSR operand (cuSPARSE; "none"
-   where the install has none), with each triangle's DAG depth;
+   them; ``block_diag_apply`` (bs 4) and ``tri_solve`` (both triangles,
+   on the route its rule takes and on the other where it can take the
+   case, bit-equal across routes, run to run and in another valid order:
+   plain row order on the L2 route, each level set reversed on the block
+   route), k = 1 and 8,
+   f32 and f64, at
+   every non-coarsest level on the lowered hierarchy's own factors, beside
+   batched ``torch.matmul`` and ``torch.triangular_solve`` on a sparse CSR
+   operand (cuSPARSE; "none" where the install has none), with each
+   triangle's DAG depth and µs a dependent step; a chain of 8,192 rows on
+   each route gives the one-step floor and each row's second bound, depth
+   × floor;
 4. f64 PCG to 1e-8 through the captured graphs, residual history against
    the numpy host backend (≤ 1e-7 of r0), true residual in numpy, setup /
    lowering / per-iteration times, the device time of a warm solve by
@@ -320,6 +327,9 @@ ARCH_LOGITS_RTOL = {("recurrentgemma-9b", torch.bfloat16): 5e-2,
 SPMV_KERNELS = ("ell_spmv", "ell_spmm", "bcsr_spmm")
 # the block smoothers' kernels: port kernels with no Pallas counterpart
 SMOOTHER_KERNELS = ("block_diag_apply", "tri_solve")
+# the rows of the chain (each row needs the one before) whose µs a row is
+# tri_solve's measured one-step floor on each route
+TRI_CHAIN_ROWS = 8192
 # the Pallas kernel each replaces (the sources: repro_torch.kernels.build);
 # the smoothers' kernels replace the reference's dense minv @ r
 REPLACES = {
@@ -491,10 +501,11 @@ def bcsr_to_csr(bcols: torch.Tensor, bvals: torch.Tensor, m: int,
 
 def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
                 library_name="torch.sparse.mm", rel_err=None, peak=None,
-                plain_samples=SAMPLES):
+                plain_samples=SAMPLES, timed=None):
     """Run one kernel against its plain version; time all three (the
     library call only where ``library`` is given; the plain version over
-    ``plain_samples`` bursts).  The error is max|kernel - plain| over
+    ``plain_samples`` bursts; ``timed``: a row of the same inputs whose
+    plain and library times to reuse).  The error is max|kernel - plain| over
     max|plain|, or ``rel_err(kernel, plain)`` where given; the flop bound is
     taken at ``peak`` FLOP/s, by default the card's highest dense rate for
     the type."""
@@ -515,17 +526,20 @@ def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
            "shape": [list(a.shape) for a in args],
            "max_abs_err": err, "rel_err": rel,
            "ms": ms, "host_ms": host_ms,
-           "plain_ms": time_ms(lambda: plain(*args), plain_samples)[0],
-           "library_ms": None if library is None else time_ms(library)[0],
+           "plain_ms": (timed["plain_ms"] if timed else
+                        time_ms(lambda: plain(*args), plain_samples)[0]),
+           "library_ms": (timed["library_ms"] if timed else None
+                          if library is None else time_ms(library)[0]),
            "bound_ms": bound_s * 1e3,
            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                         >= flops / peak else "operations")}
     log(f"  {name:9s} {row['dtype']:7s} {row['shape']}: err {err:.2e} "
         f"(rel {rel:.1e}) kernel {row['ms']:.4f} ms (host "
         f"{host_ms:.4f} ms/call), plain "
-        f"{row['plain_ms']:.4f} ms, {library_name} "
-        + ("none" if library is None else f"{row['library_ms']:.4f} ms") + ", "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        + ("not timed" if row["plain_ms"] is None else f"{row['plain_ms']:.4f} ms")
+        + f", {library_name} "
+        + ("none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms")
+        + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
 
@@ -748,15 +762,107 @@ def tri_library(f, r):
         return None, f"none on this install ({type(e).__name__}: {str(e)[:80]})"
 
 
+def tri_chain(D: int, m: int, dtype, dev):
+    """A pure chain on every rank (row i needs row i - 1: depth m), as a
+    lower-triangle factor: the measured one-step floor's operand."""
+    from repro_torch.kernels.smoother.ops import TriFactor
+
+    cols = np.arange(-1, m - 1, dtype=np.int32).reshape(1, m, 1).repeat(D, 0)
+    rng = np.random.default_rng(SEED + 2)
+    return TriFactor.place({"cols": cols, "upper": False,
+                            "vals": rng.standard_normal((D, m, 1)) * 0.5,
+                            "diag": 1.0 + rng.random((D, m))}, dev, dtype)
+
+
+def another_order(f, route: str) -> tuple:
+    """Another valid row order for the route: each rank's rows in plain row
+    order (descending for the upper triangle) on the L2 route, which reads
+    no level sets; on the block route each level set's rows reversed."""
+    D, m = f.diag.shape
+    if route == "l2":
+        rows = torch.arange(m, dtype=torch.int32, device=f.diag.device)
+        return (rows.flip(0) if f.upper else rows).expand(D, m).contiguous(), f.starts
+    order, starts = f.order.cpu().numpy().copy(), f.starts.cpu().numpy()
+    for d in range(D):
+        for lo, hi in zip(starts[d, :-1], starts[d, 1:]):
+            order[d, lo:hi] = order[d, lo:hi][::-1]
+    return torch.as_tensor(order, device=f.diag.device), f.starts
+
+
+def tri_cases(label, f, k, dt, rng, sched, extra, timed=None) -> list[dict]:
+    """``tri_solve`` on factor ``f`` with ``k`` right-hand sides on the
+    route the rule takes and on the other route where it can take the case
+    (the block route where the rank fits a block's shared memory); each
+    against the plain version at RTOL, repeated, in another valid order
+    (``another_order``) and across routes bit for bit; µs a dependent step
+    (kernel ms over the DAG's depth).  The plain version and cuSPARSE are
+    timed once (``timed``: their times given, none taken)."""
+    from repro_torch.kernels.smoother import ref as sref
+    from repro_torch.kernels.smoother import smoother as ks
+
+    dev = f.cols.device
+    D, m, _ = f.cols.shape
+    s = torch.finfo(dt).bits // 8
+    nnz = int((f.cols >= 0).sum())
+    shape = (D, m) + ((k,) if k > 1 else ())
+    r, x = (torch.as_tensor(rng.standard_normal(shape), dtype=dt, device=dev)
+            for _ in range(2))
+    library, lib_name = tri_library(f, r)
+    smem = ks.tri_smem(dev)
+    depth = len(sched)
+    rule = ks.tri_plan(m, f.depth(), k, s, smem)
+    routes = [rule] + [o for o in ks.TRI_ROUTES if o != rule
+                       and (o == "l2" or m * k * s <= smem)]
+    rows, outs = [], []
+    for name in routes:
+        route = None if name == rule else name
+
+        def fn(c, v, d, r, x, route=route):
+            return ks.tri_solve(c, v, d, r, x, 1.0, upper=f.upper,
+                                order=(f.order, f.starts), route=route)
+
+        row = kernel_case(
+            f"tri_solve {label} k{k} {name}", fn,
+            lambda c, v, d, r, x: sref.tri_solve_ref(c, v, d, r, x, 1.0, sched),
+            library, (f.cols, f.vals, f.diag, r, x),
+            # the stored entries' column ids and values, diag, r and x read
+            # once, y written once
+            nnz * (4 + s) + D * m * s + 3 * D * m * k * s,
+            2 * (nnz + D * m) * k, library_name=lib_name, plain_samples=3,
+            timed=timed)
+        timed = row
+        args = (f.cols, f.vals, f.diag, r, x)
+        y = fn(*args)
+        other = ks.tri_solve(*args, 1.0, upper=f.upper,
+                             order=another_order(f, name), route=name)
+        check(torch.equal(y, fn(*args)) and torch.equal(y, other),
+              f"tri_solve {label} k{k} {name}: not bit-equal run to run or in "
+              f"another order")
+        outs.append(y)
+        row.update(k=k, depth=depth, route=name,
+                   us_per_step=row["ms"] * 1e3 / max(depth, 1),
+                   library=lib_name, main_path_route=route is None, **extra)
+        rows.append(row)
+    check(all(torch.equal(outs[0], o) for o in outs[1:]),
+          f"tri_solve {label} k{k}: the routes' results differ")
+    log(f"    {label} k{k}: depth {depth}, " + ", ".join(
+        f"{w['route']} {w['us_per_step']:.3f} us a step" for w in rows))
+    return rows
+
+
 def smoother_kernel_phase(dh64, dh32) -> tuple[dict, dict]:
     """``block_diag_apply`` (bs 4, the main path's) and ``tri_solve`` (both
-    triangles) at every non-coarsest level, k = 1 and K_RHS, in f64 and
-    f32, on the lowered hierarchy's own factors, against their plain
-    versions; each timed beside its plain version, the library call where
-    this install has one (batched ``torch.matmul`` over the blocks;
-    ``torch.triangular_solve`` on a sparse CSR operand, cuSPARSE) and the
-    bytes bound.  Returns the rows by kernel and each triangle's DAG depth
-    by level ("L0 gs": levels)."""
+    triangles, on both routes where a rank fits a block) at every
+    non-coarsest level, k = 1 and K_RHS, in f64 and f32, on the lowered
+    hierarchy's own factors, against their plain versions; each timed beside
+    its plain version, the library call where this install has one (batched
+    ``torch.matmul`` over the blocks; ``torch.triangular_solve`` on a sparse
+    CSR operand, cuSPARSE) and the bytes bound; then a pure chain of
+    TRI_CHAIN_ROWS rows on each route (f64, k = 1), whose µs a row is the
+    measured one-step floor, and each ``tri_solve`` row's second bound,
+    depth × its route's floor.  Returns the rows by kernel and a summary:
+    each triangle's DAG depth by level ("L0 gs": levels), the floors and the
+    route by level."""
     from repro_torch.amg.solve import SolveOptions
     from repro_torch.kernels.smoother import ref as sref
     from repro_torch.kernels.smoother import smoother as ks
@@ -795,30 +901,33 @@ def smoother_kernel_phase(dh64, dh32) -> tuple[dict, dict]:
                 f = dh._factor(l, kind, 0)
                 sched = f.schedule()
                 depth[f"L{l} {kind}"] = len(sched)
-                nnz = int((f.cols >= 0).sum())
+                label = f"L{l} {'upper' if f.upper else 'lower'}"
                 for k in (1, K_RHS):
-                    shape = (D, m) + ((k,) if k > 1 else ())
-                    r, x = (torch.as_tensor(rng.standard_normal(shape),
-                                            dtype=dt, device=dev)
-                            for _ in range(2))
-                    library, lib_name = tri_library(f, r)
-                    row = kernel_case(
-                        f"tri_solve L{l} {'upper' if f.upper else 'lower'} k{k}",
-                        lambda c, v, d, r, x, f=f: ks.tri_solve(
-                            c, v, d, r, x, 1.0, upper=f.upper, order=f.order),
-                        lambda c, v, d, r, x, sc=sched: sref.tri_solve_ref(
-                            c, v, d, r, x, 1.0, sc),
-                        library, (f.cols, f.vals, f.diag, r, x),
-                        # the stored entries' column ids and values, diag, r
-                        # and x read once, y written once
-                        nnz * (4 + s) + D * m * s + 3 * D * m * k * s,
-                        2 * (nnz + D * m) * k, library_name=lib_name,
-                        plain_samples=3)
-                    row.update(level=l, triangle=kind, k=k, depth=len(sched),
-                               main_path=l == 0 and kind == "gs", library=lib_name)
-                    out["tri_solve"].append(row)
+                    for row in tri_cases(label, f, k, dt, rng, sched,
+                                         {"level": l, "triangle": kind}):
+                        row["main_path"] = (l == 0 and kind == "gs"
+                                            and row["main_path_route"])
+                        out["tri_solve"].append(row)
     log(f"  tri_solve DAG depth (level sets) by level and triangle: {depth}")
-    return out, depth
+    # the one-step floor: a chain on each route
+    m0 = TRI_CHAIN_ROWS
+    chain = tri_chain(dh64.n_pods * dh64.lanes, m0, torch.float64, dh64.device)
+    floors = {}
+    # (the plain version takes a step a row: not timed)
+    for row in tri_cases("chain", chain, 1, torch.float64, rng, chain.schedule(),
+                         {"level": None, "triangle": "chain"},
+                         {"plain_ms": None, "library_ms": None}):
+        row["main_path"] = False
+        floors[row["route"]] = row["us_per_step"]
+        out["tri_solve"].append(row)
+    for row in out["tri_solve"]:
+        row["step_bound_ms"] = row["depth"] * floors[row["route"]] / 1e3
+    routes = {f"L{r['level']} {r['dtype']} k{r['k']}": r["route"]
+              for r in out["tri_solve"] if r["main_path_route"]
+              and r["triangle"] == "gs"}
+    log(f"  tri_solve one-step floor (a {m0}-row chain, f64): " + ", ".join(
+        f"{k} {v:.3f} us" for k, v in floors.items()) + f"; routes taken: {routes}")
+    return out, {"depth": depth, "step_floor_us": floors, "route_by_level": routes}
 
 
 def eager_history(dh, rhs, opts, method: str, iters: int) -> list:
@@ -3496,7 +3605,7 @@ def main() -> int:
     log(f"kernels (device time per call: CUDA events, median of {SAMPLES} "
         f"bursts of {BURST} queued behind a GPU spin):")
     rows, ell_sums = kernel_phase(dh64, dh32, per_solve)
-    smoother_rows, tri_depth = smoother_kernel_phase(dh64, dh32)
+    smoother_rows, tri_summary = smoother_kernel_phase(dh64, dh32)
     rows.update(smoother_rows)
 
     # a BCSR apply is one launch: no pad of x before it, no slice after
@@ -3717,9 +3826,13 @@ def main() -> int:
                 "instances_head_dim_256": flash_instances(rows[k], ptxas[k], 256),
                 "instances_head_dim_96": flash_instances(rows[k], ptxas[k], 96)}
                if k == "flash_attention" else
-               {"pallas": False, "tri_solve_depth": tri_depth,
+               {"pallas": False,
                 "launches_per_run": {r["run"]: r["launches"][k]
-                                     for r in block["runs"]}}
+                                     for r in block["runs"]},
+                **({"tri_route": top["route"],
+                    "us_per_step": top["us_per_step"],
+                    "step_bound_ms": top["step_bound_ms"], **tri_summary}
+                   if k == "tri_solve" else {})}
                if k in SMOOTHER_KERNELS else
                {"launches_per_path": {
                    "solve": launches[k],

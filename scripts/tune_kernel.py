@@ -32,13 +32,20 @@ kernel, ...SRC; each version reports the mean of its two times.  The cases:
   the float32 plain version's error;
 - ``tri_solve``: both triangles of every non-coarsest level of the f64
   lowering of ``laplace_3d(SIZE)`` over 2 x 4 ranks (its own factors and
-  level order), k = 1 and 8, and level 0 in float32; each with its DAG
-  depth, ``torch.triangular_solve`` on a sparse CSR operand (cuSPARSE) and
-  the byte bound.
+  row orders), k = 1 and 8, and level 0 in float32, on the block route
+  where a rank fits a block and on the L2 route, with the rule's; each with its DAG depth and µs a dependent
+  step, ``torch.triangular_solve`` on a sparse CSR operand (cuSPARSE) and
+  the byte bound; ``--chain M`` adds a chain of M rows (the one-step
+  floor), ``--level L`` keeps level L alone, ``--cube N`` (repeatable, with
+  ``--size 0`` alone) sweeps the 27-point stencil's triangle on an N³ box a
+  rank on both routes, the readings behind the route rule's widths
+  (``smoother.BLOCK_MAX_WIDTH``).  A variant of ``tri_solve.cu`` is a copy
+  with one of its constants edited (``LANES``, ``BLOCK_THREADS``,
+  ``L2_BLOCKS_PER_SM``).
 
 Run from the root of a checkout, on a machine with a card::
 
-    python3 scripts/tune_kernel.py SRC [SRC ...] [--kernel ell_spmm]
+    python3 scripts/tune_kernel.py [SRC ...] [--kernel ell_spmm]
         [--size 64] [--out results.json]
 """
 from __future__ import annotations
@@ -300,67 +307,125 @@ def flash_large_scores(fns, head_dims=None) -> list:
     return rows
 
 
-def tri_cases(cs, fns, order, size: int) -> list:
-    """Both triangles of every non-coarsest level, k = 1 and K_RHS, in f64,
-    and level 0 in f32, on the lowering's own factors."""
-    from repro_torch.amg import AMGConfig, AMGSolver
-    from repro_torch.amg.problems import laplace_3d
+def tri_case(cs, fns, order, label, f, k, rng, library=True) -> list:
+    """``tri_solve`` on factor ``f`` with ``k`` right-hand sides: every
+    version on the block route where the rank fits a block's shared memory
+    and on the L2 route (the C entry point's ``block`` argument), with µs a
+    dependent step and the route the rule takes."""
+    from repro_torch.kernels.smoother import smoother as ks
     from repro_torch.kernels.smoother.ref import tri_solve_ref
 
-    A = laplace_3d(size)
+    D, m, K = f.cols.shape
+    dt, s = f.vals.dtype, f.vals.element_size()
+    nnz = int((f.cols >= 0).sum())
+    ext = (k,) if k > 1 else ()
+    r, x = (torch.as_tensor(rng.standard_normal((D, m) + ext), dtype=dt,
+                            device="cuda") for _ in range(2))
+    want = tri_solve_ref(f.cols, f.vals, f.diag, r, x, 1.0, f.schedule())
+    scale = float(want.abs().max()) or 1.0
+    call_lib, lib_name = cs.tri_library(f, r) if library else (None, "not timed")
+    smem = ks.tri_smem(r.device)
+    rule = ks.tri_plan(m, f.depth(), k, s, smem)
+    lib_ms = None if call_lib is None else cs.time_ms(call_lib)[0]
+    rows = []
+    for route in ks.TRI_ROUTES:
+        if route == "block" and m * k * s > smem:
+            continue
+        row = {"case": label, "dtype": str(dt).replace("torch.", ""), "k": k,
+               "route": route, "rule": rule, "shape": [D, m, K],
+               "depth": f.depth(), "rows_per_set": m / f.depth(),
+               "bound_ms": (nnz * (4 + s) + D * m * s + 3 * D * m * k * s)
+               / cs.HBM_BYTES_PER_S * 1e3,
+               "library": lib_name, "library_ms": lib_ms}
+        y, z = torch.empty_like(x), torch.empty_like(r)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call(fn, block=int(route == "block")):
+            rc = fn(f.cols.data_ptr(), f.vals.data_ptr(), f.diag.data_ptr(),
+                    r.data_ptr(), x.data_ptr(), f.order.data_ptr(),
+                    f.starts.data_ptr(), z.data_ptr(), y.data_ptr(), D, m, K, k,
+                    f.depth(), 1.0, int(dt == torch.float64), block, stream)
+            assert rc == 0, rc
+
+        def error(fn, call=call):
+            y.fill_(float("nan"))
+            call(fn)
+            torch.cuda.synchronize()
+            return float((y - want).abs().max()) / scale
+
+        hold(cs, fns, order, row, call, error, cs.RTOL[dt])
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        print(f"{label} {row['dtype']} [{D}, {m}, {K}] k {k} {route} (rule: {rule}) "
+              f"depth {row['depth']}, {row['rows_per_set']:.1f} rows a set: bound "
+              f"{row['bound_ms']:.4f} ms, cuSPARSE {lib}; "
+              + ", ".join(f"{v} {row[f'{v}_ms']:.4f} ({row[f'{v}_ms'] * 1e3 / row['depth']:.3f} "
+                          f"us a step)" for v in dict.fromkeys(order)), flush=True)
+        rows.append(row)
+    return rows
+
+
+def tri_cube(D: int, n: int, dtype, rng):
+    """The 27-point stencil's strict lower triangle on an n³ box in natural
+    order on each of D ranks (13 entries a row, depth 7(n - 1) + 1), random
+    values, diagonal in [1, 2), as a factor on the card."""
+    from repro_torch.kernels.smoother.ops import TriFactor
+
+    i = np.arange(n ** 3)
+    x, y, zc = i % n, (i // n) % n, i // (n * n)
+    offs = [o for o in np.ndindex(3, 3, 3) if o < (1, 1, 1)]
+    cols = np.full((n ** 3, len(offs)), -1, dtype=np.int32)
+    for e, (dz, dy, dx) in enumerate(offs):
+        cx, cy, cz = x + dx - 1, y + dy - 1, zc + dz - 1
+        ok = (cx >= 0) & (cx < n) & (cy >= 0) & (cy < n) & (cz >= 0)
+        cols[ok, e] = (cx + n * (cy + n * cz))[ok]
+    cols = np.broadcast_to(cols, (D,) + cols.shape).copy()
+    return TriFactor.place({"cols": cols, "upper": False,
+                            "vals": np.where(cols >= 0, rng.standard_normal(cols.shape)
+                                             * 0.5 / 13, 0.0),
+                            "diag": 1.0 + rng.random((D, n ** 3))}, "cuda", dtype)
+
+
+def tri_cases(cs, fns, order, size: int, chain=None, levels=None,
+              cubes=()) -> list:
+    """Both triangles of every non-coarsest level, k = 1 and K_RHS, in f64,
+    and level 0 in f32, on the lowering's own factors (``levels``: only
+    those); with ``chain`` a pure chain of that many rows (each row needs
+    the one before) on 8 ranks and on 1 first, f64, k = 1; with ``cubes``
+    the route rule's sweep first: the 27-point stencil's lower triangle on
+    an n³ box a rank for each n, 8 ranks, f32 and f64, k = 1 and K_RHS,
+    wherever a rank fits a block (:func:`tri_case`)."""
+    from repro_torch.amg import AMGConfig, AMGSolver
+    from repro_torch.amg.problems import laplace_3d
+    from repro_torch.kernels.smoother.smoother import tri_smem
+
     rng = np.random.default_rng(0)
     rows = []
+    for n in cubes:
+        for dtype in (torch.float64, torch.float32):
+            f = tri_cube(8, n, dtype, rng)
+            for k in (1, cs.K_RHS):
+                if n ** 3 * k * f.vals.element_size() <= tri_smem("cuda"):
+                    rows += tri_case(cs, fns, order, f"cube {n}", f, k, rng,
+                                     library=False)
+    if chain:
+        for D in (8, 1):
+            f = cs.tri_chain(D, chain, torch.float64, "cuda")
+            rows += tri_case(cs, fns, order, f"chain D{D}", f, 1, rng,
+                             library=False)
+    if not size:
+        return rows
+    A = laplace_3d(size)
     for dtype in ("float64", "float32"):
         dh = AMGSolver(AMGConfig(backend="torch", n_pods=2, lanes=4, dtype=dtype,
                                  device="cuda")).setup(A).dist_hierarchy
         for l, dl in enumerate(dh.levels):
-            if dl.coarse_inv is not None or (dtype == "float32" and l > 0):
+            if (dl.coarse_inv is not None or (dtype == "float32" and l > 0)
+                    or (levels and l not in levels)):
                 continue
             for kind in ("gs", "gsu"):
-                f = dh._factor(l, kind, 0)
-                D, m, K = f.cols.shape
-                dt, s = f.vals.dtype, f.vals.element_size()
-                nnz = int((f.cols >= 0).sum())
                 for k in (1, cs.K_RHS):
-                    ext = (k,) if k > 1 else ()
-                    r, x = (torch.as_tensor(rng.standard_normal((D, m) + ext),
-                                            dtype=dt, device="cuda") for _ in range(2))
-                    want = tri_solve_ref(f.cols, f.vals, f.diag, r, x, 1.0, f.schedule())
-                    scale = float(want.abs().max()) or 1.0
-                    library, lib_name = cs.tri_library(f, r)
-                    row = {"level": l, "triangle": kind, "dtype": dtype, "k": k,
-                           "shape": [D, m, K], "depth": f.depth(),
-                           "bound_ms": (nnz * (4 + s) + D * m * s + 3 * D * m * k * s)
-                           / cs.HBM_BYTES_PER_S * 1e3,
-                           "library": lib_name,
-                           "library_ms": None if library is None
-                           else cs.time_ms(library)[0]}
-                    y, z = torch.empty_like(x), torch.empty_like(r)
-                    scratch = torch.empty(2 + D * m, dtype=torch.int32, device="cuda")
-                    stream = torch.cuda.current_stream().cuda_stream
-
-                    def call(fn):
-                        rc = fn(f.cols.data_ptr(), f.vals.data_ptr(), f.diag.data_ptr(),
-                                r.data_ptr(), x.data_ptr(), f.order.data_ptr(),
-                                z.data_ptr(), y.data_ptr(), scratch.data_ptr(), D, m, K,
-                                k, 1.0, int(dt == torch.float64), stream)
-                        assert rc == 0, rc
-
-                    def error(fn):
-                        y.fill_(float("nan"))
-                        call(fn)
-                        torch.cuda.synchronize()
-                        return float((y - want).abs().max()) / scale
-
-                    hold(cs, fns, order, row, call, error, cs.RTOL[dt])
-                    lib = ("none" if row["library_ms"] is None
-                           else f"{row['library_ms']:.4f} ms")
-                    print(f"L{l} {kind} {dtype} [{D}, {m}, {K}] k {k} depth "
-                          f"{row['depth']}: bound {row['bound_ms']:.4f} ms, "
-                          f"cuSPARSE {lib}; "
-                          + ", ".join(f"{v} {row[f'{v}_ms']:.4f}"
-                                      for v in dict.fromkeys(order)), flush=True)
-                    rows.append(row)
+                    rows += tri_case(cs, fns, order, f"L{l} {kind}",
+                                     dh._factor(l, kind, 0), k, rng)
         del dh
         torch.cuda.empty_cache()
     return rows
@@ -372,9 +437,19 @@ def main() -> int:
     ap.add_argument("--kernel", choices=("ell_spmv", "ell_spmm", "flash_attention",
                                          "tri_solve"),
                     default="ell_spmv")
-    ap.add_argument("sources", nargs="+", metavar="SRC",
+    ap.add_argument("sources", nargs="*", metavar="SRC",
                     help="other sources of the kernel to hold it against")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--chain", type=int, default=None, metavar="M",
+                    help="tri_solve: also a chain of M rows (8 ranks, then 1); "
+                         "--size 0 for the chains alone")
+    ap.add_argument("--level", type=int, action="append", dest="levels",
+                    default=None, metavar="L",
+                    help="tri_solve: only level L (repeatable)")
+    ap.add_argument("--cube", type=int, action="append", dest="cubes",
+                    default=[], metavar="N",
+                    help="tri_solve: also the route rule's sweep at the 27-point "
+                         "stencil on an N^3 box a rank (repeatable)")
     ap.add_argument("--head-dim", type=int, action="append", dest="head_dims",
                     default=None, metavar="D",
                     help="flash_attention: only the cases at head dim D (repeatable)")
@@ -405,7 +480,8 @@ def main() -> int:
         rows = (flash_cases(cs, fns, order, args.head_dims)
                 + flash_large_scores(fns, args.head_dims))
     elif args.kernel == "tri_solve":
-        rows = tri_cases(cs, fns, order, args.size)
+        rows = tri_cases(cs, fns, order, args.size, args.chain, args.levels,
+                         args.cubes)
     else:
         rows, sums = ell_cases(cs, fns, order, args.kernel, args.size)
     if args.out:

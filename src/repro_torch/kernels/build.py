@@ -40,9 +40,10 @@ KERNELS = {
                          "block_diag_apply_launch",
                          [_P, _P, _P, _P] + [_I64] * 5
                          + [ctypes.c_double, _INT, _P]),
-    # cols, vals, diag, r, x, order, z, y, scratch; D, m, K, k; w, f64, stream
+    # cols, vals, diag, r, x, order, starts, z, y; D, m, K, k, levels; w,
+    # f64, block, stream
     "tri_solve": ("smoother/csrc/tri_solve.cu", "tri_solve_launch",
-                  [_P] * 9 + [_I64] * 4 + [ctypes.c_double, _INT, _P]),
+                  [_P] * 9 + [_I64] * 5 + [ctypes.c_double, _INT, _INT, _P]),
     # q, k, v, o; B, Hq, Hkv, Sq, Skv, D; (b, h, s) strides of q, k, v, o;
     # causal, window (-1: none), bf16, stream
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",
@@ -51,7 +52,7 @@ KERNELS = {
                         + [_INT, _I64, _INT, _P]),
 }
 
-_LOADED: dict[str, ctypes._CFuncPtr] = {}
+_LOADED: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -144,12 +145,18 @@ def build_report(name: str) -> list[tuple[str, str]]:
 def kernel(name: str):
     """The C entry point of kernel ``name`` (built on first use), with its
     argument types declared."""
-    fn = _LOADED.get(name)
+    _, symbol, argtypes = KERNELS[name]
+    return entry(name, symbol, argtypes)
+
+
+def entry(name: str, symbol: str, argtypes: list):
+    """Another C function ``symbol`` of kernel ``name``'s library (built on
+    first use), returning an int, with its argument types declared."""
+    fn = _LOADED.get((name, symbol))
     if fn is None:
         build([name])
-        _, symbol, argtypes = KERNELS[name]
         fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LOADED[name] = fn
+        _LOADED[(name, symbol)] = fn
     return fn

@@ -10,216 +10,595 @@
 // laplace_3d(64) on 2 x 4 ranks.  Here T stays sparse: the strict triangle in
 // ELL, cols/vals [D, m, K] (cols == -1 is padding, column ids local to the
 // rank), and its diagonal apart, diag [D, m] (a zero or padded diagonal is 1).
-// r, x, y and the scratch z = T^-1 r are [D, m, k] (k = 1 for vectors).
+// r, x and y are [D, m, k] (k = 1 for vectors); z = T^-1 r is scratch.
 //
-// Bound on an H100 SXM (80 GB HBM3 at 3.35 TB/s): the stored entries' column
-// ids and values, diag, r and x are read once, y written once (the scratch z
-// and the ELL padding are this design's, not the function's):
-//   t >= (nnz*(4 + sizeof(T)) + D*m*sizeof(T) + 3*D*m*k*sizeof(T)) / 3.35e12 s.
-// What holds it in practice is neither: row i needs z of every row it
-// couples to, so a solve is a chain of dependent steps as long as the
-// triangle's DAG is deep (218 level sets at level 0 of laplace_3d(64) on
-// 2 x 4), each step a few round trips through the L2.
+// Bounds on an H100 SXM (80 GB HBM3 at 3.35 TB/s).  Bytes: the stored
+// entries' column ids and values, diag, r and x are read once, y written once
+//   t >= (nnz*(4 + sizeof(T)) + D*m*sizeof(T) + 3*D*m*k*sizeof(T)) / 3.35e12 s,
+// 0.0134 ms at level 0 of laplace_3d(64) on 2 x 4 in float64.  Dependent
+// steps: row i needs z of every row it couples to, so a solve is a chain as
+// long as the triangle's DAG is deep (218 level sets at that level):
+//   t >= depth * (one dependent step).
+// That bound binds; the bytes do not.
 //
-// Design (sync-free, one launch): persistent warps take rows by an atomic
-// ticket, ticket t being row order[t] -- every rank's rows sorted by their
-// level set in the triangle's DAG (host-computed once per pattern) -- so a
-// row's dependencies, all in lower level sets, hold smaller tickets, taken by
-// warps that are running: no warp waits on one that cannot run, whatever the
-// grid.  (Tickets in row order, ascending for the lower triangle and
-// descending for the upper, would be as safe, but the rows in flight are then
-// a window of consecutive rows, of which a 27-point stencil in natural order
-// lets only a few lines run at once: 8.6 ms at level 0 of laplace_3d(64) on
-// an H100, against the DAG's 218 level sets of about 1,200 rows each.)  The
-// lanes wait on the row's dependencies' ready flags together (lane e on slots
-// e, e + 32, ...) with acquire loads, then read their z through the L2
-// (ld.cg: z is written during the launch, and the L1 is not coherent); the
-// warp solves its row, writes z and y, and publishes its flag with a release
-// store.  With one right-hand side the row's own r and x load while the warp
-// waits, the lanes' products meet in a fixed butterfly, and lane 0's release
-// orders its own stores (a fence before it cost 15% at level 0).  With k of
-// them each lane takes a column and sums the row's slots in order, the
-// slots' columns and values broadcast by shuffles so that several z loads
-// are in flight at once, and each lane fences its stores before lane 0's
-// release.  Either way the order is fixed and results repeat bit for bit.
-// The flags and the ticket live in one scratch buffer that the launch clears
-// with a cudaMemsetAsync on the same stream, so the pair is captured into a
-// CUDA graph as a memset node and a kernel node and replays correctly.  A
-// wait that outlasts about a second of polling traps rather than hanging the
-// card.
+// What a step costs, on an H100 (scripts/tune_kernel.py --kernel tri_solve,
+// --chain for a pure chain of rows; PERF.md): far more than a memory round
+// trip.  Waiting on values as the L2 route does, with each z in a thread-block
+// cluster's shared memory, a chain took 2.5 us a step at 1024 threads a
+// block and 1.6 at 256, slower than through the L2 (1.3-1.7): fewer waiting
+// lanes, a shorter step, so their loads compete with the lane that has
+// work.  Waiting at barriers instead took about 0.8 us a level set on one
+// block (__syncthreads) and 1.4-1.9 on clusters of 2-8 blocks (the cluster
+// barrier), which lost to the L2 route at every size; so a rank is one
+// block or the L2 route, and the wrapper's rule (smoother.tri_plan) takes
+// the block where it measured faster.
+//
+// Design.  No rank's triangle depends on another's (cols are rank-local), so
+// each rank solves on its own; `order` [D, m] lists each rank's rows by
+// level set, `starts` [D, nlev + 1] where each set begins.
+//
+// * Block route: one thread block a rank, z of the rank's m rows in its
+//   shared memory.  The block's groups take a level set's rows by a static
+//   stride, then every thread meets at __syncthreads before the next set.
+//   A dependency lies in an earlier set, so its z is there: one plain load
+//   from shared memory, and no flag.  A group fetches its next row's column
+//   ids, values, r, x and diag (and the row index after it) before it
+//   solves the current one.  No memset and no scratch in device memory:
+//   captured in a CUDA graph, a launch is one kernel node.
+// * L2 route: z [D, m, k] in device memory, set to all-ones bits by a memset
+//   on the same stream (a memset node and a kernel node in a graph), and a
+//   persistent grid (two blocks an SM) whose groups take global positions p
+//   by a static stride, position p being rank p % D's row order[p % D][p / D].
+//   There is no barrier across a grid, so a dependency is waited on: z is
+//   its own ready flag, all-ones bits (a NaN no result may take: a computed
+//   z with that pattern, only a NaN carried in from r, is stored as the
+//   canonical NaN) until written, and a consumer's one load at .gpu scope
+//   returns either that (load again) or z itself; no flag array, no second
+//   load, no ticket.  Progress: every group takes its rows in increasing
+//   position, so the group holding the smallest unfinished position has
+//   finished every row it took before and every dependency of that row (all
+//   at smaller positions): it completes.  That needs only that every group
+//   runs: the grid is sized to blocks the card holds at once and waits on
+//   nothing outside the launch.  A wait that outlasts about a second traps
+//   rather than hanging the card.
+//
+// Each row's sum runs in a fixed order (k = 1: lane g of a group of G lanes
+// sums slots g, g + G, ... in turn, then a butterfly over the G lanes;
+// k > 1: lane j sums column j over the slots in turn), so results repeat bit
+// for bit whatever order the rows of a level set come in, and the two
+// routes give the same bits.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-// resident blocks an SM at most (32 warps): 6% faster at level 0 of
-// laplace_3d(64) on an H100 than 4, 5% slower at level 1
-constexpr int BLOCKS_PER_SM = 8;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned SPIN_LIMIT = 1u << 21;   // polls: about a second
+// lanes a row with one right-hand side (the level-0 strict triangle of a
+// 27-point stencil has 13 entries; 8 and 16 measured slower on both routes)
+constexpr int LANES = 32;
+constexpr int BLOCK_THREADS = 1024;            // a block-route block at most
+// slots of a row a lane fetches ahead (at least 16 a group); the rest load
+// as the row is solved
+template <int G>
+constexpr int SLOTS = G < 16 ? 16 / G : 1;
+constexpr int L2_THREADS = 256;
+// the L2 route's resident blocks an SM at most: fewer waiting lanes leave
+// the L2 to the loads that find their value
+constexpr int L2_BLOCKS_PER_SM = 2;
+constexpr long long TRAP_CYCLES = 2000000000ll; // about a second of waiting
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+template <typename T> struct Bits;
+template <> struct Bits<float> {
+  using U = unsigned;
+  static constexpr U EMPTY = 0xffffffffu;
+  static constexpr U CANONICAL_NAN = 0x7fc00000u;
+  __device__ static U of(float v) { return __float_as_uint(v); }
+  __device__ static float value(U u) { return __uint_as_float(u); }
+};
+template <> struct Bits<double> {
+  using U = unsigned long long;
+  static constexpr U EMPTY = 0xffffffffffffffffull;
+  static constexpr U CANONICAL_NAN = 0x7ff8000000000000ull;
+  __device__ static U of(double v) {
+    return static_cast<U>(__double_as_longlong(v));
+  }
+  __device__ static double value(U u) {
+    return __longlong_as_double(static_cast<long long>(u));
+  }
+};
+
+// the L2 route's one load of a dependency's z and the store that publishes
+// a row's z: the value is all a producer publishes, so relaxed (single-copy
+// atomic at .gpu scope) suffices; acquire / release cost 20-30%
+__device__ __forceinline__ unsigned ld_gpu(const unsigned* p) {
   unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+__device__ __forceinline__ unsigned long long ld_gpu(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_gpu(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_gpu(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
 }
 
-__device__ __forceinline__ void wait_ready(const unsigned* flag) {
-  unsigned polls = 0;
-  while (ld_acquire(flag) == 0u) {
-    if (++polls > SPIN_LIMIT) __trap();
+__device__ __forceinline__ unsigned ld_smem(uint32_t a, unsigned) {
+  unsigned v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ unsigned long long ld_smem(uint32_t a, unsigned long long) {
+  unsigned long long v;
+  asm volatile("ld.shared.b64 %0, [%1];" : "=l"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void st_smem(uint32_t a, unsigned v) {
+  asm volatile("st.shared.b32 [%0], %1;" :: "r"(a), "r"(v));
+}
+__device__ __forceinline__ void st_smem(uint32_t a, unsigned long long v) {
+  asm volatile("st.shared.b64 [%0], %1;" :: "r"(a), "l"(v));
+}
+
+// z of one rank in the block's shared memory, written and read in different
+// level sets, a barrier apart: plain accesses
+template <typename T>
+struct BlockZ {
+  using U = typename Bits<T>::U;
+  static constexpr bool WAITS = false;
+  uint32_t base;   // the block's z (shared::cta address)
+  uint32_t k;
+  __device__ uint32_t at(int, int c, int j) const {
+    return base + (static_cast<uint32_t>(c) * k + static_cast<uint32_t>(j)) *
+                      static_cast<uint32_t>(sizeof(T));
   }
+  __device__ U load(uint32_t a) const { return ld_smem(a, U()); }
+  __device__ void store(uint32_t a, U v) const { st_smem(a, v); }
+};
+
+// z of every rank in device memory, each value its own ready flag
+template <typename T>
+struct GlobalZ {
+  using U = typename Bits<T>::U;
+  static constexpr bool WAITS = true;
+  U* z;
+  int64_t m, k;
+  __device__ U* at(int d, int c, int j) const { return z + (d * m + c) * k + j; }
+  __device__ U load(const U* a) const { return ld_gpu(a); }
+  __device__ void store(U* a, U v) const { st_gpu(a, v); }
+};
+
+// z at a, whose first load gave v; where z waits, loads it again while it
+// is empty
+template <typename T, class Z, class A>
+__device__ __forceinline__ T settle(const Z& z, A a, typename Bits<T>::U v) {
+  if constexpr (Z::WAITS) {
+    if (v == Bits<T>::EMPTY) {
+      const long long t0 = clock64();
+      do {
+        v = z.load(a);
+        if (clock64() - t0 > TRAP_CYCLES) __trap();
+      } while (v == Bits<T>::EMPTY);
+    }
+  }
+  return Bits<T>::value(v);
+}
+
+// z as stored: never the empty pattern
+template <typename T>
+__device__ __forceinline__ typename Bits<T>::U publish_bits(T v) {
+  const auto u = Bits<T>::of(v);
+  return u == Bits<T>::EMPTY ? Bits<T>::CANONICAL_NAN : u;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-tri_solve_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
-                 const T* __restrict__ diag, const T* __restrict__ r,
-                 const T* __restrict__ x, const int* __restrict__ order, T* z,
-                 T* __restrict__ y, unsigned long long* ticket, unsigned* flags,
-                 int64_t D, int64_t m, int K, int64_t k, T w) {
-  const int lane = threadIdx.x & 31;
-  const unsigned long long total = static_cast<unsigned long long>(D * m);
-  for (;;) {
-    unsigned long long t = 0;
-    if (lane == 0) t = atomicAdd(ticket, 1ull);
-    t = __shfl_sync(FULL, t, 0);
-    if (t >= total) return;
-    const int64_t row = __ldg(order + t);           // d * m + i
-    const int64_t d = row / m;
-    const int* rc = cols + row * K;
-    const T* rv = vals + row * K;
-    const unsigned* fl = flags + d * m;
-    const T* zd = z + d * m * k;
-    const T dg = __ldg(diag + row);
-    if (k == 1) {
-      // the row's own operands load while the warp waits on its slots
-      const T ri = lane == 0 ? __ldg(r + row) : T(0);
-      const T xi = lane == 0 ? __ldg(x + row) : T(0);
-      T acc = T(0);
-      for (int e = lane; e < K; e += 32) {
-        const int c = __ldg(rc + e);
-        if (c >= 0) {
-          wait_ready(fl + c);
-          acc += __ldg(rv + e) * __ldcg(zd + c);
-        }
-      }
+struct Args {
+  const int* __restrict__ cols;
+  const T* __restrict__ vals;
+  const T* __restrict__ diag;
+  const T* __restrict__ r;
+  const T* __restrict__ x;
+  T* __restrict__ y;
+  int64_t m;
+  int K;
+  int64_t k;
+  T w;
+};
+
+struct Pos {
+  int d, i;   // rank, row of the rank
+};
+
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (G == 32) {
+    return FULL;
+  } else {
+    const unsigned lane = threadIdx.x & 31u;
+    return ((1u << G) - 1u) << (lane & ~static_cast<unsigned>(G - 1));
+  }
+}
+
+// ---------------------------------------------------- one right-hand side
+template <typename T, int S>
+struct RowK1 {
+  Pos at;
+  int c[S];
+  T v[S];
+  T ri, xi, dg;
+};
+
+template <typename T, int G, int S>
+__device__ __forceinline__ void fetch_k1(const Args<T>& a, Pos at, int g,
+                                         RowK1<T, S>& row) {
+  row.at = at;
+  const int64_t flat = at.d * a.m + at.i;
+  const int* rc = a.cols + flat * a.K;
+  const T* rv = a.vals + flat * a.K;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
-      if (lane == 0) {
-        const T zi = (ri - acc) / dg;
-        __stcg(z + row, zi);
-        y[row] = xi + w * zi;
-        st_release(flags + row, 1u);     // orders this lane's stores before it
+  for (int t = 0; t < S; ++t) {
+    const int e = g + t * G;
+    row.c[t] = e < a.K ? __ldg(rc + e) : -1;
+    row.v[t] = e < a.K ? __ldg(rv + e) : T(0);
+  }
+  if (g == 0) {
+    row.ri = __ldg(a.r + flat);
+    row.xi = __ldg(a.x + flat);
+    row.dg = __ldg(a.diag + flat);
+  }
+}
+
+template <typename T, int G, int S, class Z>
+__device__ __forceinline__ void solve_k1(const Args<T>& a, const Z& z,
+                                         const RowK1<T, S>& row, int g,
+                                         unsigned mask) {
+  using U = typename Bits<T>::U;
+  const int d = row.at.d;
+  // every slot's load in flight at once, then each summed in turn
+  decltype(z.at(0, 0, 0)) at[S];
+  U bits[S];
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    if (row.c[t] >= 0) {
+      at[t] = z.at(d, row.c[t], 0);
+      bits[t] = z.load(at[t]);
+    }
+  }
+  T acc = T(0);
+#pragma unroll
+  for (int t = 0; t < S; ++t)
+    if (row.c[t] >= 0) acc += row.v[t] * settle<T>(z, at[t], bits[t]);
+  if (a.K > S * G) {   // rows longer than the fetched slots
+    const int64_t flat = d * a.m + row.at.i;
+    for (int e = S * G + g; e < a.K; e += G) {
+      const int c = __ldg(a.cols + flat * a.K + e);
+      if (c >= 0) {
+        const auto ce = z.at(d, c, 0);
+        acc += __ldg(a.vals + flat * a.K + e) * settle<T>(z, ce, z.load(ce));
       }
-    } else {
-      // lane e holds slot e0 + e of each chunk of 32 slots and waits on it;
-      // then lane j sums column j0 + j over the chunk's slots in order, the
-      // slots' columns and values broadcast by shuffles so that the z loads
-      // of several slots are in flight at once
-      for (int64_t j0 = 0; j0 < k; j0 += 32) {
-        const int64_t j = j0 + lane;
-        const bool live = j < k;
-        T acc = T(0);
-        for (int e0 = 0; e0 < K; e0 += 32) {
-          int c = -1;
-          T v = T(0);
-          if (e0 + lane < K) {
-            c = __ldg(rc + e0 + lane);
-            v = __ldg(rv + e0 + lane);
-            if (c >= 0 && j0 == 0) wait_ready(fl + c);
-          }
-          __syncwarp();
-          const int n = K - e0 < 32 ? K - e0 : 32;
-#pragma unroll 4
-          for (int e = 0; e < n; ++e) {
-            const int ce = __shfl_sync(FULL, c, e);
-            const T ve = __shfl_sync(FULL, v, e);
-            const T zv = live && ce >= 0 ? __ldcg(zd + ce * k + j) : T(0);
-            acc += ve * zv;
+    }
+  }
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(mask, acc, o);
+  if (g == 0) {
+    const auto bits = publish_bits<T>((row.ri - acc) / row.dg);
+    z.store(z.at(d, row.at.i, 0), bits);
+    a.y[d * a.m + row.at.i] = row.xi + a.w * Bits<T>::value(bits);
+  }
+}
+
+// ------------------------------------------------ k right-hand sides, k > 1
+// lane g takes columns g, g + G, ...; the group loads G slots at a time and
+// broadcasts each slot's column id and value by shuffles; W slots' loads of
+// z in flight at once
+template <typename T, int G, class Z>
+__device__ void solve_multi(const Args<T>& a, const Z& z, Pos at, int g,
+                            unsigned mask) {
+  using U = typename Bits<T>::U;
+  constexpr int W = G < 8 ? G : 8;
+  const int64_t flat = at.d * a.m + at.i;
+  const int* rc = a.cols + flat * a.K;
+  const T* rv = a.vals + flat * a.K;
+  const T dg = __ldg(a.diag + flat);
+  for (int64_t j0 = 0; j0 < a.k; j0 += G) {
+    const int j = static_cast<int>(j0) + g;
+    const bool live = j < a.k;
+    const T rj = live ? __ldg(a.r + flat * a.k + j) : T(0);
+    const T xj = live ? __ldg(a.x + flat * a.k + j) : T(0);
+    T acc = T(0);
+    for (int e0 = 0; e0 < a.K; e0 += G) {
+      const bool has = e0 + g < a.K;
+      const int cl = has ? __ldg(rc + e0 + g) : -1;
+      const T vl = has ? __ldg(rv + e0 + g) : T(0);
+      const int n = a.K - e0 < G ? a.K - e0 : G;
+      for (int e = 0; e < n; e += W) {
+        decltype(z.at(0, 0, 0)) ad[W];
+        U bits[W];
+        T ve[W];
+        bool use[W];
+#pragma unroll
+        for (int u = 0; u < W; ++u) {
+          const int src = (e + u) & (G - 1);
+          const int ce = __shfl_sync(mask, cl, src, G);
+          ve[u] = __shfl_sync(mask, vl, src, G);
+          use[u] = live && e + u < n && ce >= 0;
+          if (use[u]) {
+            ad[u] = z.at(at.d, ce, j);
+            bits[u] = z.load(ad[u]);
           }
         }
-        if (live) {
-          const int64_t at = row * k + j;
-          const T zi = (__ldg(r + at) - acc) / dg;
-          __stcg(z + at, zi);
-          y[at] = __ldg(x + at) + w * zi;
-        }
+#pragma unroll
+        for (int u = 0; u < W; ++u)
+          if (use[u]) acc += ve[u] * settle<T>(z, ad[u], bits[u]);
       }
-      __threadfence();
-      __syncwarp();
-      if (lane == 0) st_release(flags + row, 1u);
+    }
+    if (live) {
+      const auto bits = publish_bits<T>((rj - acc) / dg);
+      z.store(z.at(at.d, at.i, j), bits);
+      a.y[flat * a.k + j] = xj + a.w * Bits<T>::value(bits);
     }
   }
 }
 
-template <typename T>
-int resident_blocks() {
-  static int cached[32] = {0};
+// --------------------------------------------------------------- L2 route
+// the group's rows: positions p, p + stride, ... < end, pos(p) their rows;
+// with one right-hand side row p + stride is fetched, and position
+// p + 2 stride read, while row p waits on its dependencies
+template <typename T, int G, bool MULTI, class P>
+__device__ void run_l2(const Args<T>& a, const GlobalZ<T>& z, P pos, int64_t p,
+                       int64_t stride, int64_t end) {
+  const int g = static_cast<int>(threadIdx.x % G);
+  const unsigned mask = group_mask<G>();
+  if constexpr (MULTI) {
+    for (; p < end; p += stride) solve_multi<T, G>(a, z, pos(p), g, mask);
+  } else {
+    constexpr int S = SLOTS<G>;
+    if (p >= end) return;
+    RowK1<T, S> cur, nxt;
+    fetch_k1<T, G, S>(a, pos(p), g, nxt);
+    Pos ahead = p + stride < end ? pos(p + stride) : Pos{0, 0};
+    for (; p < end; p += stride) {
+      cur = nxt;
+      if (p + stride < end) fetch_k1<T, G, S>(a, ahead, g, nxt);
+      if (p + 2 * stride < end) ahead = pos(p + 2 * stride);
+      solve_k1<T, G, S>(a, z, cur, g, mask);
+    }
+  }
+}
+
+// a persistent grid over every rank, z in device memory
+template <typename T, int G, bool MULTI>
+__global__ void __launch_bounds__(L2_THREADS)
+tri_solve_l2_kernel(Args<T> a, const int* __restrict__ order,
+                    typename Bits<T>::U* z, int64_t D) {
+  const GlobalZ<T> zg{z, a.m, a.k};
+  const int64_t groups = static_cast<int64_t>(gridDim.x) * (blockDim.x / G);
+  const int64_t q = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const int64_t m = a.m;
+  auto pos = [order, D, m](int64_t p) {
+    const int d = static_cast<int>(p % D);
+    return Pos{d, __ldg(order + d * m + p / D)};
+  };
+  run_l2<T, G, MULTI>(a, zg, pos, q, groups, D * m);
+}
+
+// ------------------------------------------------------------ block route
+// a group's place in its rank's rows, level set by level set: set L holds
+// positions [st[L], st[L + 1]), the group positions st[L] + q, + groups, ...
+struct Walk {
+  const int* st;
+  int nlev, q, groups;
+  int L;
+  int p;
+  __device__ bool live() const { return L < nlev; }
+  // onto the group's first row at or after (L, p)
+  __device__ void settle() {
+    while (L < nlev && p >= __ldg(st + L + 1)) {
+      ++L;
+      if (L < nlev) p = __ldg(st + L) + q;
+    }
+  }
+  __device__ void next() {
+    p += groups;
+    settle();
+  }
+};
+
+// one block a rank (blockIdx.x), solving the rank's rows level set by level
+// set, z in its shared memory
+template <typename T, int G, bool MULTI>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+tri_solve_block_kernel(Args<T> a, const int* __restrict__ order,
+                       const int* __restrict__ starts, int nlev) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int d = static_cast<int>(blockIdx.x);
+  const BlockZ<T> z{static_cast<uint32_t>(__cvta_generic_to_shared(smem)),
+                    static_cast<uint32_t>(a.k)};
+  const int* ord = order + d * a.m;
+  const int* st = starts + static_cast<int64_t>(d) * (nlev + 1);
+  const int g = static_cast<int>(threadIdx.x % G);
+  const int q = static_cast<int>(threadIdx.x / G);
+  const int groups = static_cast<int>(blockDim.x / G);
+  const unsigned mask = group_mask<G>();
+  if constexpr (MULTI) {
+    for (int L = 0; L < nlev; ++L) {
+      const int hi = __ldg(st + L + 1);
+      for (int p = __ldg(st + L) + q; p < hi; p += groups)
+        solve_multi<T, G>(a, z, Pos{d, __ldg(ord + p)}, g, mask);
+      __syncthreads();
+    }
+  } else {
+    constexpr int S = SLOTS<G>;
+    // `ahead`: the row after the one fetched, its index read a row early
+    Walk ahead{st, nlev, q, groups, 0, q};
+    ahead.settle();
+    RowK1<T, S> cur, nxt;
+    int idx = ahead.live() ? __ldg(ord + ahead.p) : 0;
+    if (ahead.live()) {
+      fetch_k1<T, G, S>(a, Pos{d, idx}, g, nxt);
+      ahead.next();
+      idx = ahead.live() ? __ldg(ord + ahead.p) : 0;
+    }
+    int hi = __ldg(st + 1);
+    int p = q;
+    for (int L = 0; L < nlev; ++L) {
+      for (; p < hi; p += groups) {
+        cur = nxt;
+        const bool more = ahead.live();
+        if (more) fetch_k1<T, G, S>(a, Pos{d, idx}, g, nxt);
+        solve_k1<T, G, S>(a, z, cur, g, mask);
+        if (more) {   // off the row's path: the walk to the row after
+          ahead.next();
+          idx = ahead.live() ? __ldg(ord + ahead.p) : 0;
+        }
+      }
+      if (L + 1 < nlev) {   // the next set's bounds read before the barrier
+        p = hi + q;
+        hi = __ldg(st + L + 2);
+      }
+      __syncthreads();   // the set's z written before the next set reads
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+constexpr int MAX_DEVICES = 32;
+
+int device_index() {
   int dev = 0;
   cudaGetDevice(&dev);
-  if (dev < 32 && cached[dev] > 0) return cached[dev];
+  return dev;
+}
+
+int smem_optin() {
+  static int cached[MAX_DEVICES] = {0};
+  const int dev = device_index();
+  if (dev < MAX_DEVICES && cached[dev] > 0) return cached[dev];
+  int bytes = 0;
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (dev < MAX_DEVICES) cached[dev] = bytes;
+  return bytes;
+}
+
+template <typename T, int G, bool MULTI>
+int launch_block(const Args<T>& a, const int* order, const int* starts,
+                 int64_t nlev, int64_t D, cudaStream_t stream) {
+  static bool ready[MAX_DEVICES] = {false};   // the opt-in set, a device
+  const int dev = device_index();
+  if (dev >= MAX_DEVICES || !ready[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tri_solve_block_kernel<T, G, MULTI>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_optin());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < MAX_DEVICES) ready[dev] = true;
+  }
+  const int64_t lanes = ((a.m * G + 31) / 32) * 32;
+  const unsigned threads =
+      static_cast<unsigned>(lanes < BLOCK_THREADS ? lanes : BLOCK_THREADS);
+  tri_solve_block_kernel<T, G, MULTI>
+      <<<static_cast<unsigned>(D), threads, static_cast<size_t>(a.m * a.k) * sizeof(T),
+         stream>>>(a, order, starts, static_cast<int>(nlev));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int G, bool MULTI>
+int resident_l2_blocks() {
+  static int cached[MAX_DEVICES] = {0};
+  const int dev = device_index();
+  if (dev < MAX_DEVICES && cached[dev] > 0) return cached[dev];
   int sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tri_solve_kernel<T>, THREADS, 0);
-  if (per_sm > BLOCKS_PER_SM) per_sm = BLOCKS_PER_SM;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, tri_solve_l2_kernel<T, G, MULTI>, L2_THREADS, 0);
+  if (per_sm > L2_BLOCKS_PER_SM) per_sm = L2_BLOCKS_PER_SM;
   const int n = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-  if (dev < 32) cached[dev] = n;
+  if (dev < MAX_DEVICES) cached[dev] = n;
   return n;
+}
+
+template <typename T, int G, bool MULTI>
+int launch_l2(const Args<T>& a, const int* order, void* z, int64_t D,
+              cudaStream_t stream) {
+  const size_t bytes = static_cast<size_t>(D * a.m * a.k) * sizeof(T);
+  cudaError_t err = cudaMemsetAsync(z, 0xff, bytes, stream);   // all empty
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int64_t blocks = (D * a.m * G + L2_THREADS - 1) / L2_THREADS;
+  const int resident = resident_l2_blocks<T, G, MULTI>();
+  if (blocks > resident) blocks = resident;
+  tri_solve_l2_kernel<T, G, MULTI><<<static_cast<unsigned>(blocks), L2_THREADS, 0, stream>>>(
+      a, order, static_cast<typename Bits<T>::U*>(z), D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int G, bool MULTI>
+int launch_route(const Args<T>& a, const int* order, const int* starts,
+                 int64_t nlev, void* z, int64_t D, int block, cudaStream_t stream) {
+  if (block) return launch_block<T, G, MULTI>(a, order, starts, nlev, D, stream);
+  return launch_l2<T, G, MULTI>(a, order, z, D, stream);
 }
 
 template <typename T>
 int launch(const int* cols, const T* vals, const T* diag, const T* r, const T* x,
-           const int* order, T* z, T* y, void* scratch, int64_t D, int64_t m,
-           int64_t K, int64_t k, double w, cudaStream_t stream) {
-  // scratch: the ticket (8 bytes) and then one ready flag a row
-  const size_t bytes = 8 + static_cast<size_t>(D * m) * sizeof(unsigned);
-  cudaError_t err = cudaMemsetAsync(scratch, 0, bytes, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto* ticket = static_cast<unsigned long long*>(scratch);
-  auto* flags = reinterpret_cast<unsigned*>(static_cast<char*>(scratch) + 8);
-  int64_t blocks = (D * m + WARPS - 1) / WARPS;
-  const int resident = resident_blocks<T>();
-  if (blocks > resident) blocks = resident;
-  tri_solve_kernel<T><<<blocks, THREADS, 0, stream>>>(
-      cols, vals, diag, r, x, order, z, y, ticket, flags, D, m,
-      static_cast<int>(K), k, static_cast<T>(w));
-  return static_cast<int>(cudaGetLastError());
+           const int* order, const int* starts, void* z, T* y, int64_t D,
+           int64_t m, int64_t K, int64_t k, int64_t nlev, double w, int block,
+           cudaStream_t stream) {
+  const Args<T> a{cols, vals, diag, r, x, y, m, static_cast<int>(K), k,
+                  static_cast<T>(w)};
+  if (k == 1)
+    return launch_route<T, LANES, false>(a, order, starts, nlev, z, D, block, stream);
+  if (k <= 8) return launch_route<T, 8, true>(a, order, starts, nlev, z, D, block, stream);
+  if (k <= 16) return launch_route<T, 16, true>(a, order, starts, nlev, z, D, block, stream);
+  return launch_route<T, 32, true>(a, order, starts, nlev, z, D, block, stream);
 }
 
 }  // namespace
 
-// Returns the memset's error, else cudaGetLastError() after the launch (0 on
-// success).  The caller guarantees D, m, k > 0, K >= 0, contiguous operands on
-// one device, D * m < 2^31, cols != -1 only for columns of the row's rank
-// that come before the row in `order` (a permutation of 0 .. D*m - 1, each
-// row d * m + i after every row it depends on), scratch of 8 + 4*D*m bytes,
-// 8-byte aligned, and z, y apart from every input.
+// y = x + w * T^-1 r.  `order` [D, m] lists each rank's rows by level set
+// (ref.rank_level_order), `starts` [D, nlev + 1] where each of the nlev level
+// sets begins in it (ref.rank_level_starts; nlev the most level sets of any
+// rank).  `block` != 0 takes the block route (m*k*sizeof(T) bytes of shared
+// memory at most the card's opt-in limit, tri_solve_smem; z unused), 0 the
+// L2 route (z: scratch of D*m*k elements, 8-byte aligned; starts and nlev
+// unused).  Returns the memset's error, else the launch's, else
+// cudaGetLastError() (0 on success).  The caller guarantees D, m, k > 0,
+// K >= 0, contiguous operands on one device, D * m < 2^31, cols != -1 only
+// for columns of the row's rank that it depends on, and y apart from every
+// input.
 extern "C" int tri_solve_launch(const void* cols, const void* vals,
                                 const void* diag, const void* r, const void* x,
-                                const void* order, void* z, void* y,
-                                void* scratch, int64_t D, int64_t m, int64_t K,
-                                int64_t k, double w, int is_f64, void* stream) {
+                                const void* order, const void* starts, void* z,
+                                void* y, int64_t D, int64_t m, int64_t K,
+                                int64_t k, int64_t nlev, double w, int is_f64,
+                                int block, void* stream) {
   const auto* c = static_cast<const int*>(cols);
   const auto* o = static_cast<const int*>(order);
+  const auto* st = static_cast<const int*>(starts);
   auto s = static_cast<cudaStream_t>(stream);
   if (is_f64)
     return launch<double>(c, static_cast<const double*>(vals),
                           static_cast<const double*>(diag),
                           static_cast<const double*>(r),
-                          static_cast<const double*>(x), o,
-                          static_cast<double*>(z), static_cast<double*>(y),
-                          scratch, D, m, K, k, w, s);
+                          static_cast<const double*>(x), o, st, z,
+                          static_cast<double*>(y), D, m, K, k, nlev, w, block, s);
   return launch<float>(c, static_cast<const float*>(vals),
                        static_cast<const float*>(diag),
                        static_cast<const float*>(r), static_cast<const float*>(x),
-                       o, static_cast<float*>(z), static_cast<float*>(y), scratch,
-                       D, m, K, k, w, s);
+                       o, st, z, static_cast<float*>(y), D, m, K, k, nlev, w,
+                       block, s);
+}
+
+// The opt-in shared memory a block may have on the current device (bytes):
+// the block route's limit on m*k*sizeof(T).  Returns a CUDA error (0 on
+// success).
+extern "C" int tri_solve_smem(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(err);
 }

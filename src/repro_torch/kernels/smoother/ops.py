@@ -16,8 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .ref import (block_diag_apply_ref, dag_levels, level_order,
-                  level_schedule, tri_solve_ref)
+from .ref import (block_diag_apply_ref, dag_levels, level_schedule,
+                  rank_level_order, rank_level_starts, tri_solve_ref)
 from .smoother import block_diag_apply, tri_solve
 
 
@@ -44,16 +44,19 @@ class BlockFactor:
 @dataclasses.dataclass(eq=False)
 class TriFactor:
     """One triangle: strict part ``cols``/``vals`` ``[D, m, K]`` (-1
-    padding), ``diag`` ``[D, m]``, and ``order`` (int32 ``[D·m]``), every
-    rank's rows sorted by their level set in the triangle's DAG, the order
-    the kernel hands rows out in.  ``host_cols`` and ``levels`` stay on the
-    host (pattern only: a refresh keeps them) for the plain version's level
-    sets, built on first use."""
+    padding), ``diag`` ``[D, m]``, and the kernel's row order, built on the
+    host once per pattern: ``order`` (int32 ``[D, m]``, each rank's rows
+    sorted by their level set in the triangle's DAG,
+    :func:`.ref.rank_level_order`) and ``starts`` (int32 ``[D, nlev + 1]``,
+    where each rank's level sets begin in it, :func:`.ref.rank_level_starts`).
+    ``host_cols`` and ``levels`` stay on the host (pattern only: a refresh
+    keeps them) for the plain version's level sets, built on first use."""
 
     cols: torch.Tensor
     vals: torch.Tensor
     diag: torch.Tensor
     order: torch.Tensor
+    starts: torch.Tensor
     upper: bool
     host_cols: np.ndarray
     levels: np.ndarray
@@ -64,14 +67,15 @@ class TriFactor:
     def place(cls, host: dict, device, dtype) -> "TriFactor":
         upper = bool(host["upper"])
         levels = dag_levels(host["cols"], upper)
-        order = torch.as_tensor(level_order(levels), dtype=torch.int32)
         return cls(torch.as_tensor(host["cols"]).to(device=device),
                    torch.as_tensor(host["vals"]).to(device=device, dtype=dtype),
                    torch.as_tensor(host["diag"]).to(device=device, dtype=dtype),
-                   order.to(device=device), upper, host["cols"], levels)
+                   torch.as_tensor(rank_level_order(levels)).to(device=device),
+                   torch.as_tensor(rank_level_starts(levels)).to(device=device),
+                   upper, host["cols"], levels)
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
-        return (self.cols, self.vals, self.diag, self.order)
+        return (self.cols, self.vals, self.diag, self.order, self.starts)
 
     def schedule(self) -> list[torch.Tensor]:
         """The plain version's level sets (flat row indices on the factor's
@@ -91,7 +95,7 @@ class TriFactor:
                                  self.schedule())
         on_cpu = self.cols.device.type == "cpu"
         return tri_solve(self.cols, self.vals, self.diag, r, x, w,
-                         upper=self.upper, order=self.order,
+                         upper=self.upper, order=(self.order, self.starts),
                          schedule=self.schedule() if on_cpu else None)
 
 

@@ -10,9 +10,10 @@ may differ from the kernels.
 The triangular solve runs level by level over the triangle's dependency
 DAG: :func:`dag_levels` gives every row its level set on the host,
 :func:`level_order` every rank's rows sorted by level set as flat
-``d·m + i`` indices (the order the kernel hands rows out in),
-:func:`level_schedule` the rows of each set, and :func:`tri_solve_ref`
-solves one set per step, vectorised over ranks.
+``d·m + i`` indices, :func:`level_schedule` the rows of each set, and
+:func:`tri_solve_ref` solves one set per step, vectorised over ranks.
+:func:`rank_level_order` is the kernel's row order (each rank's rows by
+level set) and :func:`rank_level_starts` where each rank's sets begin.
 """
 from __future__ import annotations
 
@@ -59,6 +60,29 @@ def level_order(levels: np.ndarray) -> np.ndarray:
     """Every rank's rows (flat ``d·m + i``) sorted by level set, rows of one
     set in flat order: each row comes after every row it depends on."""
     return np.argsort(np.asarray(levels).reshape(-1), kind="stable")
+
+
+def rank_level_order(levels: np.ndarray) -> np.ndarray:
+    """The kernel's row order ``[D, m]`` (int32, rows local to the rank):
+    each rank's rows sorted by level set and, within a set, by row, so
+    every row comes after each row it depends on (all in lower sets)."""
+    lev = np.asarray(levels, dtype=np.int64)
+    return np.argsort(lev, axis=1, kind="stable").astype(np.int32)
+
+
+def rank_level_starts(levels: np.ndarray) -> np.ndarray:
+    """Where each level set begins in :func:`rank_level_order`: int32
+    ``[D, nlev + 1]``, nlev the most level sets of any rank; rank d's set L
+    at positions ``[s[d, L], s[d, L + 1])`` (empty past the rank's last
+    set)."""
+    lev = np.asarray(levels, dtype=np.int64)
+    D, m = lev.shape
+    nlev = int(lev.max(initial=-1)) + 1
+    counts = np.zeros((D, nlev), dtype=np.int64)
+    np.add.at(counts, (np.repeat(np.arange(D), m), lev.reshape(-1)), 1)
+    starts = np.zeros((D, nlev + 1), dtype=np.int64)
+    starts[:, 1:] = np.cumsum(counts, axis=1)
+    return starts.astype(np.int32)
 
 
 def level_schedule(cols: np.ndarray, upper: bool, device=None,

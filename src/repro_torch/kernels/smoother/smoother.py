@@ -18,14 +18,18 @@ compute from sparse factors:
 version (:mod:`.ref`) only for tensors that lie on the CPU; for CUDA tensors
 it launches its kernel on the current stream or raises.
 ``<wrapper>.launches`` counts the launches the device ran, replays of a
-captured CUDA graph included (:mod:`..launches`); each ``tri_solve`` launch
-is a memset of its flags and one kernel.
+captured CUDA graph included (:mod:`..launches`).  A ``tri_solve`` launch is
+one kernel on its block route (each rank's solution in the shared memory of
+one thread block) and a memset of its scratch and one kernel on its L2
+route (:func:`tri_plan` says which).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from ..build import kernel
+from ..build import entry, kernel
 from ..launches import note
 from ..spmv.spmv import FLOAT_DTYPES, raise_on_error
 from .ref import block_diag_apply_ref, level_schedule, tri_solve_ref
@@ -83,18 +87,94 @@ def block_diag_apply(binv: torch.Tensor, r: torch.Tensor, x: torch.Tensor,
     return y
 
 
+# the two routes of the tri_solve kernel (csrc/tri_solve.cu)
+TRI_ROUTES = ("block", "l2")
+# The rule's widest level sets for the block route at k = 1: the most rows
+# a level set may hold on average, m / nlev, by bytes a value.  Measured on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6): on the 27-point
+# stencil's lower triangle on n^3 boxes, 8 ranks (scripts/tune_kernel.py
+# --kernel tri_solve --size 0 --cube N), the block route won up to 43.5
+# rows a set in f64 and lost from 48.6; in f32 it won up to 29.8 and lost
+# from 34.1, but lost at level 1 of laplace_3d(64) on 2 x 4 (28.3 rows a
+# set, chip_smoke.py) and won at 25.8.
+BLOCK_MAX_WIDTH = {4: 26, 8: 44}
+_SMEM: dict[int, int] = {}
+
+
+def tri_smem(device) -> int:
+    """The opt-in shared memory a block may have on ``device`` (bytes),
+    asked once a device: the block route's limit on a rank's solution."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    got = _SMEM.get(index)
+    if got is None:
+        out = ctypes.c_int(0)
+        fn = entry("tri_solve", "tri_solve_smem", [ctypes.c_void_p])
+        with torch.cuda.device(index):
+            raise_on_error("tri_solve_smem", fn(ctypes.addressof(out)))
+        got = _SMEM[index] = out.value
+    return got
+
+
+def tri_plan(m: int, nlev: int, k: int, itemsize: int, smem: int,
+             route: str | None = None) -> str:
+    """The route of a ``tri_solve`` launch for ranks of ``m`` rows in
+    ``nlev`` level sets and ``k`` right-hand sides of ``itemsize`` bytes,
+    decided before the launch: ``"block"`` or ``"l2"``.
+
+    The rule: the block route (one thread block a rank, its solution in
+    shared memory) where the rank's solution fits the block, m·k·itemsize
+    ≤ ``smem``, and, at k = 1, its level sets hold at most
+    ``BLOCK_MAX_WIDTH[itemsize]`` rows on average (m / nlev ≤ that); the L2
+    route elsewhere.  A block has one SM: it solves a narrow set in one
+    pass and meets at a barrier cheaper than a wait through the L2, a wide
+    set in many passes.  At k > 1 the block route won at every level of
+    laplace_3d(64) on 2 x 4 that it holds, but on the 27-point stencil's
+    cubes it lost up to 34.1 rows a set (and won from 38.6 in f32;
+    PERF.md): the rule follows the solve's levels there.
+    ``route`` forces one, for tests and measurement: ``"l2"``, or
+    ``"block"`` (raises where the rank does not fit the block)."""
+    fits = m * k * itemsize <= smem
+    if route is None:
+        wide = k == 1 and m > BLOCK_MAX_WIDTH[itemsize] * max(nlev, 1)
+        return "block" if fits and not wide else "l2"
+    if route == "l2":
+        return route
+    if route == "block":
+        if not fits:
+            raise ValueError(f"tri_solve: {m} rows of {k} x {itemsize} bytes "
+                             f"do not fit a block's {smem} bytes")
+        return route
+    raise ValueError(f"tri_solve: route {route!r}, not one of {TRI_ROUTES}")
+
+
+def _check_index(name: str, t, shape: tuple, dev) -> None:
+    """Raise unless ``t`` is a contiguous int32 tensor of ``shape`` (None:
+    any length but 0) on ``dev``."""
+    if (t is None or t.dtype != torch.int32 or t.ndim != len(shape)
+            or any(n is not None and n != got for n, got in zip(shape, t.shape))
+            or t.shape[-1] == 0 or t.device != dev or not t.is_contiguous()):
+        raise ValueError(f"tri_solve: the row {name} must be int32 "
+                         f"{list(shape)} on {dev}")
+
+
 def tri_solve(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
               r: torch.Tensor, x: torch.Tensor, w: float = 1.0, *,
-              upper: bool, order: torch.Tensor | None = None,
-              schedule: list[torch.Tensor] | None = None) -> torch.Tensor:
+              upper: bool, order=None,
+              schedule: list[torch.Tensor] | None = None,
+              route: str | None = None) -> torch.Tensor:
     """``x + w · T⁻¹ r`` with ``T`` the strict triangle ``cols``/``vals``
     ``[D, m, K]`` (-1 padding; columns below the row for the lower
     triangle, above it for ``upper``) plus ``diag`` ``[D, m]``.
 
-    The kernel hands rows out in ``order`` (int32 ``[D·m]``, required on
-    the card: :func:`.ref.level_order` of the triangle's level sets); the
-    plain version solves ``schedule`` (:func:`.ref.level_schedule`,
-    computed from ``cols`` where it is not given)."""
+    On the card ``order`` is the kernel's row order, the int32 pair
+    ``(order [D, m], starts [D, nlev + 1])`` of :func:`.ref.rank_level_order`
+    and :func:`.ref.rank_level_starts` (``TriFactor.order``, ``.starts``; the
+    rows of a level set may come in any order), and the launch takes the
+    route :func:`tri_plan` gives (``route`` forces one, for tests).  The
+    plain version solves ``schedule`` (:func:`.ref.level_schedule`, computed
+    from ``cols`` where it is not given); it ignores ``order`` and
+    ``route``."""
     on_card = _on_card("tri_solve", {"cols": cols, "vals": vals, "diag": diag},
                        r, x)
     D, m = r.shape[:2]
@@ -114,18 +194,23 @@ def tri_solve(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
         return y
     if D * m >= 2 ** 31:
         raise ValueError(f"tri_solve: {D * m} rows, the kernel takes < 2^31")
-    if (order is None or order.dtype != torch.int32
-            or tuple(order.shape) != (D * m,) or order.device != r.device):
-        raise ValueError(f"tri_solve: the row order must be int32 [{D * m}] "
-                         f"on {r.device}")
-    z = torch.empty_like(r)
-    # the ticket (8 bytes) and one ready flag a row, cleared by the launch
-    scratch = torch.empty(2 + D * m, dtype=torch.int32, device=r.device)
+    if not isinstance(order, tuple) or len(order) != 2:
+        raise ValueError("tri_solve: the kernel needs order=(order [D, m], "
+                         "starts [D, nlev + 1]), each rank's rows by level "
+                         f"set; got {type(order).__name__}")
+    o, starts = order
+    _check_index("order", o, (D, m), r.device)
+    _check_index("starts", starts, (D, None), r.device)
+    nlev = starts.shape[1] - 1
+    block = tri_plan(m, nlev, k, r.element_size(), tri_smem(r.device),
+                     route) == "block"
+    # the L2 route's solution in device memory, set empty by the launch
+    z = None if block else torch.empty_like(r)
     rc = kernel("tri_solve")(
         cols.data_ptr(), vals.data_ptr(), diag.data_ptr(), r.data_ptr(),
-        x.data_ptr(), order.data_ptr(), z.data_ptr(), y.data_ptr(),
-        scratch.data_ptr(), D, m, K, k, float(w),
-        int(r.dtype == torch.float64),
+        x.data_ptr(), o.data_ptr(), starts.data_ptr(),
+        None if z is None else z.data_ptr(), y.data_ptr(), D, m, K, k, nlev,
+        float(w), int(r.dtype == torch.float64), int(block),
         torch.cuda.current_stream(r.device).cuda_stream)
     raise_on_error("tri_solve", rc)
     note(tri_solve)

@@ -8,10 +8,14 @@ sources that are not a multiple of the block size and results cut to the
 true rows, one launch per BCSR apply (counted from a captured graph's
 nodes); the block smoothers' block-diagonal apply (block sizes 1-8, rows
 that fill no whole block, 1-33 right-hand sides) and sync-free triangular
-solve (both triangles, rows longer than a warp, a chain as deep as the
-rows, bit-equal run to run, one memset node and one kernel node in a graph
-that replays correctly with new values) and the block-smoother PCG on the
-card against the CPU; degenerate shapes; flash attention
+solve on each route (block, L2: both triangles, rows longer than a warp,
+a chain as deep as the rows, bit-equal run to run, in another valid order
+and across routes, a forced block refused past its shared memory; a
+level-0-sized rank; the route rule's edges; a 20,000-row chain; a NaN in r;
+no row order refused; one kernel node in a graph on the block route, a
+memset node and a kernel node on the L2 route, each replaying correctly
+with new values) and the
+block-smoother PCG on the card against the CPU; degenerate shapes; flash attention
 (each output row's error over its own max) over ragged lengths, windows,
 decode alignment, head dims 64, 96 (phi-3-vision-4.2b's 32:32), 128 and
 256 (recurrentgemma-9b's 16:1 MQA), float32 and bfloat16, the served prefill shapes, strided time-major views, bfloat16 strides the kernel cannot copy
@@ -676,10 +680,28 @@ def test_block_diag_apply(dev, bs, m, k, dtype):
 
 
 def _order(cols, upper):
-    """The kernel's ticket order: every rank's rows by level set."""
+    """The kernel's row order: each rank's rows by level set and where the
+    sets begin, as ``TriFactor.place`` builds them."""
     lev = sref.dag_levels(cols.cpu().numpy(), upper)
-    return torch.as_tensor(sref.level_order(lev), dtype=torch.int32,
-                           device=cols.device)
+    return tuple(torch.as_tensor(f(lev), device=cols.device)
+                 for f in (sref.rank_level_order, sref.rank_level_starts))
+
+
+def _another_order(cols, upper, route):
+    """Another valid order for the route: each rank's rows in plain row
+    order (descending for the upper triangle) on the L2 route, which reads
+    no level sets; on the block route each level set's rows reversed."""
+    Dn, m = cols.shape[:2]
+    order, starts = _order(cols, upper)
+    if route == "l2":
+        rows = np.arange(m)[::-1] if upper else np.arange(m)
+        return torch.as_tensor(np.tile(rows, (Dn, 1)).astype(np.int32),
+                               device=cols.device), starts
+    order, st = order.cpu().numpy(), starts.cpu().numpy()
+    for d in range(Dn):
+        for lo, hi in zip(st[d, :-1], st[d, 1:]):
+            order[d, lo:hi] = order[d, lo:hi][::-1].copy()
+    return torch.as_tensor(order, device=cols.device), starts
 
 
 def _triangle(rng, Dn, m, K, upper, dtype, dev, chain=False):
@@ -704,6 +726,53 @@ def _triangle(rng, Dn, m, K, upper, dtype, dev, chain=False):
             torch.as_tensor(diag, dtype=dtype, device=dev))
 
 
+def _stencil_triangle(rng, Dn, m, nx, ny, upper, dtype, dev):
+    """The strict lower (or upper) triangle of the 27-point stencil on an
+    nx × ny × ceil(m / (nx·ny)) box in natural order, cut to its first m
+    rows (13 entries a row; the level-0 triangles of laplace_3d(64) on 2 x 4
+    ranks are 32 x 32 x 32, depth 218), random values, diagonal in [1, 2)."""
+    i = np.arange(m)
+    x, y, zc = i % nx, (i // nx) % ny, i // (nx * ny)
+    offs = [o for o in np.ndindex(3, 3, 3)
+            if ((o > (1, 1, 1)) if upper else (o < (1, 1, 1)))]
+    cols = np.full((m, len(offs)), -1, dtype=np.int32)
+    for e, (dz, dy, dx) in enumerate(offs):
+        cx, cy, cz = x + dx - 1, y + dy - 1, zc + dz - 1
+        c = cx + nx * (cy + ny * cz)
+        ok = (cx >= 0) & (cx < nx) & (cy >= 0) & (cy < ny) & (cz >= 0) & (c < m)
+        cols[ok, e] = c[ok]
+    cols = np.sort(np.where(cols < 0, np.iinfo(np.int32).max, cols), axis=1)
+    cols = np.where(cols == np.iinfo(np.int32).max, -1, cols).astype(np.int32)
+    cols = np.broadcast_to(cols, (Dn, m, len(offs))).copy()
+    vals = np.where(cols >= 0, rng.standard_normal(cols.shape) * 0.5 / 13, 0.0)
+    diag = 1.0 + rng.random((Dn, m))
+    return (torch.as_tensor(cols, device=dev),
+            torch.as_tensor(vals, dtype=dtype, device=dev),
+            torch.as_tensor(diag, dtype=dtype, device=dev))
+
+
+def _solve_checked(cols, vals, diag, r, x, w, upper, route):
+    """One launch on ``route``: the result, held against the plain version
+    and repeated bit for bit by a second launch."""
+    order = _order(cols, upper)
+    before = sm.tri_solve.launches
+    got = sm.tri_solve(cols, vals, diag, r, x, w, upper=upper, order=order,
+                       route=route)
+    again = sm.tri_solve(cols, vals, diag, r, x, w, upper=upper, order=order,
+                         route=route)
+    assert sm.tri_solve.launches == before + 2
+    sched = sref.level_schedule(cols.cpu().numpy(), upper, cols.device)
+    _close(got, sref.tri_solve_ref(cols, vals, diag, r, x, w, sched))
+    assert torch.equal(got, again)
+    return got
+
+
+def _fits(m, k, dtype, dev):
+    """Whether a rank of m rows and k right-hand sides fits a block."""
+    return m * (k or 1) * (torch.finfo(dtype).bits // 8) <= sm.tri_smem(dev)
+
+
+@pytest.mark.parametrize("route", sm.TRI_ROUTES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("k", [None, 1, 2, 8, 33])
 @pytest.mark.parametrize("upper", [False, True], ids=["lower", "upper"])
@@ -712,45 +781,164 @@ def _triangle(rng, Dn, m, K, upper, dtype, dev, chain=False):
                                           (2, 200, 40, False),
                                           (8, 1000, 27, False),
                                           (2, 3000, 3, True)])
-def test_tri_solve(dev, Dn, m, K, chain, upper, k, dtype):
+def test_tri_solve(dev, Dn, m, K, chain, upper, k, dtype, route):
     rng = np.random.default_rng(m + K)
     cols, vals, diag = _triangle(rng, Dn, m, K, upper, dtype, dev, chain)
     r, x = _rhs(rng, Dn, m, k, dtype, dev), _rhs(rng, Dn, m, k, dtype, dev)
-    order = _order(cols, upper)
-    before = sm.tri_solve.launches
-    got = sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper, order=order)
-    again = sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper, order=order)
-    # tickets in plain row order (the order the wrapper takes without one is
-    # the level order): the same answer, bit for bit
-    rows = torch.arange(Dn * m, dtype=torch.int32, device=dev)
-    if upper:
-        rows = (rows.reshape(Dn, m).flip(1)).T.reshape(-1).contiguous()
-    else:
-        rows = rows.reshape(Dn, m).T.reshape(-1).contiguous()
-    natural = sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper, order=rows)
-    assert sm.tri_solve.launches == before + 3
-    sched = sref.level_schedule(cols.cpu().numpy(), upper, dev)
     if chain:
-        assert len(sched) == m
-    _close(got, sref.tri_solve_ref(cols, vals, diag, r, x, 0.9, sched))
-    assert torch.equal(got, again)                 # a fixed summation order
+        assert len(sref.level_schedule(cols.cpu().numpy(), upper)) == m
+    if route == "block" and not _fits(m, k, dtype, dev):
+        # a rank past a block's shared memory: the forced block refuses
+        with pytest.raises(ValueError, match="do not fit"):
+            sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper,
+                         order=_order(cols, upper), route=route)
+        return
+    got = _solve_checked(cols, vals, diag, r, x, 0.9, upper, route)
+    # the rows in another valid order (plain row order on the L2 route,
+    # each level set reversed on the block route): the same answer, bit for
+    # bit
+    natural = sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper,
+                           order=_another_order(cols, upper, route),
+                           route=route)
     assert torch.equal(got, natural)
+    # the two routes sum each row in one order: the same bits
+    if _fits(m, k, dtype, dev):
+        other = sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper,
+                             order=_order(cols, upper),
+                             route="block" if route == "l2" else "l2")
+        assert torch.equal(got, other)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 8])
 @pytest.mark.parametrize("upper", [False, True], ids=["lower", "upper"])
-def test_tri_solve_replays_in_a_graph(dev, upper):
-    """Captured, a solve is one memset node (its flags) and one kernel
-    node, and every replay solves the values its static inputs hold then."""
+def test_tri_solve_at_the_level_0_rank_size(dev, upper, k, dtype):
+    """Level 0 of laplace_3d(64) on 2 x 4 ranks: 32,768 rows a rank, the
+    27-point stencil's 13-entry triangles, 218 level sets, on the route the
+    rule takes (L2: about 150 rows a level set), and on the block route
+    where a rank fits one (f32, k = 1), bit-equal."""
+    rng = np.random.default_rng(k)
+    Dn, m = 2, 32_768
+    cols, vals, diag = _stencil_triangle(rng, Dn, m, 32, 32, upper, dtype, dev)
+    assert len(sref.level_schedule(cols.cpu().numpy(), upper)) == 218
+    kk = None if k == 1 else k
+    r, x = _rhs(rng, Dn, m, kk, dtype, dev), _rhs(rng, Dn, m, kk, dtype, dev)
+    s = vals.element_size()
+    assert sm.tri_plan(m, 218, k, s, sm.tri_smem(dev)) == "l2"
+    got = _solve_checked(cols, vals, diag, r, x, 1.0, upper, None)
+    assert _fits(m, k, dtype, dev) == (dtype == torch.float32 and k == 1)
+    if _fits(m, k, dtype, dev):
+        assert torch.equal(got, _solve_checked(cols, vals, diag, r, x, 1.0,
+                                               upper, "block"))
+
+
+@pytest.mark.parametrize("side", ["fits", "one row more"])
+@pytest.mark.parametrize("edge", ["width", "shared memory"])
+def test_tri_solve_at_the_route_rule_edge(dev, edge, side):
+    """The rule's two edges, f64, k = 1: a rank whose level sets hold
+    BLOCK_MAX_WIDTH rows on average (20 sets of that many rows, each row
+    needing one of the set before) and a chain whose rows just fill a
+    block's shared memory take the block route; one row more (a row with no
+    dependency, so the sets stay 20; one more link of the chain) takes the
+    L2 route, where a forced block raises past the shared memory; all
+    solve."""
+    rng = np.random.default_rng(3)
+    smem = sm.tri_smem(dev)
+    more = side == "one row more"
+    if edge == "width":
+        w, nlev = sm.BLOCK_MAX_WIDTH[8], 20
+        m = w * nlev + more
+        dep = np.arange(m) - w
+        dep[:w] = -1
+        dep[w * nlev:] = -1
+    else:
+        m, nlev = smem // 8 + more, smem // 8 + more
+        dep = np.arange(m) - 1
+    cols = torch.as_tensor(dep.reshape(1, m, 1).astype(np.int32), device=dev)
+    vals = torch.as_tensor(np.where(dep >= 0, 0.5, 0.0).reshape(1, m, 1),
+                           dtype=torch.float64, device=dev)
+    diag = torch.as_tensor(1.0 + rng.random((1, m)), dtype=torch.float64,
+                           device=dev)
+    assert len(sref.level_schedule(cols.cpu().numpy(), False)) == nlev
+    r, x = _rhs(rng, 1, m, None, torch.float64, dev), _rhs(rng, 1, m, None,
+                                                           torch.float64, dev)
+    assert sm.tri_plan(m, nlev, 1, 8, smem) == ("l2" if more else "block")
+    if edge == "shared memory" and more:
+        with pytest.raises(ValueError):
+            sm.tri_plan(m, nlev, 1, 8, smem, "block")
+    _solve_checked(cols, vals, diag, r, x, 1.0, False, None)
+
+
+@pytest.mark.parametrize("route", ["block", "l2"])
+def test_tri_solve_deep_chain_finishes(dev, route):
+    """A 20,000-row chain (each row needs the one before: depth = m) runs to
+    its end on each route: 20,000 barriers on the block route, 20,000 waits
+    on the L2 route, each well inside its polling trap."""
+    rng = np.random.default_rng(4)
+    cols, vals, diag = _triangle(rng, 1, 20_000, 3, False, torch.float64,
+                                 dev, chain=True)
+    r, x = _rhs(rng, 1, 20_000, None, torch.float64, dev), _rhs(
+        rng, 1, 20_000, None, torch.float64, dev)
+    _solve_checked(cols, vals, diag, r, x, 1.0, False, route)
+
+
+@pytest.mark.parametrize("route", sm.TRI_ROUTES)
+@pytest.mark.parametrize("k", [None, 8])
+def test_tri_solve_nan_in_r_stays_nan(dev, k, route):
+    """A NaN in r (the canonical one, and all-ones bits: the empty pattern
+    the L2 route's z starts from) comes out as NaN in y at its row and at
+    every row that depends on it, as in the plain version; the rest holds
+    its bars."""
+    rng = np.random.default_rng(6)
+    cols, vals, diag = _triangle(rng, 2, 300, 5, False, torch.float64, dev)
+    r, x = _rhs(rng, 2, 300, k, torch.float64, dev), _rhs(rng, 2, 300, k,
+                                                          torch.float64, dev)
+    r[0, 17] = float("nan")
+    r.view(torch.int64)[1, 40] = -1                       # all-ones bits
+    got = sm.tri_solve(cols, vals, diag, r, x, 1.0, upper=False,
+                       order=_order(cols, False), route=route)
+    sched = sref.level_schedule(cols.cpu().numpy(), False, dev)
+    want = sref.tri_solve_ref(cols, vals, diag, r, x, 1.0, sched)
+    torch.cuda.synchronize()
+    assert torch.isnan(want[0, 17]).all() and torch.isnan(want[1, 40]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    keep = ~torch.isnan(want)
+    _close(got[keep], want[keep])
+
+
+def test_tri_solve_without_an_order_raises(dev):
+    """On the card the kernel needs the row order: none, or a bare order
+    tensor with no level-set starts, raises a ValueError naming it before
+    any launch."""
+    rng = np.random.default_rng(7)
+    cols, vals, diag = _triangle(rng, 2, 50, 4, False, torch.float64, dev)
+    r, x = _rhs(rng, 2, 50, None, torch.float64, dev), _rhs(rng, 2, 50, None,
+                                                            torch.float64, dev)
+    before = sm.tri_solve.launches
+    for order in (None, _order(cols, False)[0]):
+        with pytest.raises(ValueError, match="order"):
+            sm.tri_solve(cols, vals, diag, r, x, upper=False, order=order)
+    assert sm.tri_solve.launches == before
+
+
+@pytest.mark.parametrize("route", sm.TRI_ROUTES)
+@pytest.mark.parametrize("upper", [False, True], ids=["lower", "upper"])
+def test_tri_solve_replays_in_a_graph(dev, upper, route):
+    """Captured, a solve is one kernel node on the block route (its z in
+    shared memory, no scratch to clear) and a memset node (its z set empty)
+    and a kernel node on the L2 route; every replay solves the values its
+    static inputs hold then."""
     rng = np.random.default_rng(1)
     cols, vals, diag = _triangle(rng, 8, 500, 13, upper, torch.float64, dev)
     r = _rhs(rng, 8, 500, None, torch.float64, dev)
     x = torch.zeros_like(r)
-    order = _order(cols, upper)
-    sm.tri_solve(cols, vals, diag, r, x, upper=upper, order=order)  # build, load
-    y, nodes = _graph_nodes(lambda: sm.tri_solve(cols, vals, diag, r, x,
-                                                 upper=upper, order=order))
-    assert sorted(kind for kind, _ in nodes) == ["KERNEL", "MEMSET"], nodes
-    assert any("tri_solve_kernel" in label for _, label in nodes)
+    # each rank's rows by level set, built before the capture
+    kw = dict(upper=upper, order=_order(cols, upper), route=route)
+    sm.tri_solve(cols, vals, diag, r, x, **kw)  # build, load
+    y, nodes = _graph_nodes(lambda: sm.tri_solve(cols, vals, diag, r, x, **kw))
+    want = ["KERNEL"] if route == "block" else ["KERNEL", "MEMSET"]
+    assert sorted(kind for kind, _ in nodes) == want, nodes
+    assert any(f"tri_solve_{route}_kernel" in label for _, label in nodes)
     sched = sref.level_schedule(cols.cpu().numpy(), upper, dev)
     _close(y, sref.tri_solve_ref(cols, vals, diag, r, x, 1.0, sched))
 
