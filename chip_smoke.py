@@ -151,14 +151,18 @@ Phases (any failure exits non-zero):
    which binds nothing there, and a 256-key window that binds), each in f32
    and bf16, and at the MoE archs' prefill shapes (48:8 with the 4096-key
    window, 64:4) in bf16, against its plain version (each row's error over
-   the row's max|plain|: float32 2e-5, bfloat16 1e-2), with device times of the kernel, the plain
-   version and ``scaled_dot_product_attention``, and the flop / byte bound
-   (float32 as 3xTF32 at a third of the tensor cores' 495 TFLOP/s, with the
-   FMA units' 67 TFLOP/s bound beside it; bfloat16 at the tensor cores'
-   989);
+   the row's max|plain|: float32 2e-5, bfloat16 1e-2), each through the
+   kernel the route table names (float32: ``flash_attention.cu``, 3xTF32 on
+   ``mma.sync``; bfloat16: ``flash_attention_wgmma.cu``, ``wgmma`` fed by
+   TMA), its per-kernel count checked, with device times of the kernel, the
+   plain version and ``scaled_dot_product_attention``, and the flop / byte
+   bound (float32 as 3xTF32 at a third of the tensor cores' 495 TFLOP/s,
+   with the FMA units' 67 TFLOP/s bound beside it; bfloat16 at the tensor
+   cores' 989);
 9. LM serving in f32: one warm-up request, then the 8 requests with the
    counters set to 0 just before and read just after (28
-   ``flash_attention`` launches per prefill batch); prefill seconds, decode
+   ``flash_attention`` launches per prefill batch, each bf16 one through
+   the ``wgmma`` kernel's counter too); prefill seconds, decode
    tokens/s, and the device busy share of one decode step
    (``torch.profiler``);
 10. kernel vs plain on the served batches, teacher-forced with the served
@@ -220,8 +224,9 @@ Phases (any failure exits non-zero):
    one qwen3-1.7b layer's gradient tree on the 2 x 4 stacked ranks and on 8
    gloo processes on this card, bit-equal, with the slow and fast groups'
    elements beside the model's figures;
-16. one JSON line with every kernel's numbers (the flash kernel's head-dim
-   256 and 96 instances with their ptxas lines and cases) and every phase's
+16. one JSON line with every kernel's numbers (both flash kernels' instances
+   at each head dim with their ptxas lines and cases; the ``wgmma`` kernel's
+   own entry, its main path the bf16 serving runs) and every phase's
    seconds;
 17. last line: ``{"ok": true, "device": {...}}``.
 
@@ -262,8 +267,14 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12,
 # taken at a third of that rate; the FMA units' bound (PEAK_FLOPS) stays
 # beside it in each row as bound_fma_ms
 TF32X3_FLOPS = 495e12 / 3
-FLASH_DESIGN = {torch.float32: "3xTF32 on the tensor cores (mma.sync m16n8k8)",
-                torch.bfloat16: "bf16 on the tensor cores (mma.sync m16n8k16)"}
+# the flash kernels (``flash_attention.route`` picks one by dtype and head
+# dim) and the design each runs for a dtype
+FLASH_KERNELS = ("flash_attention", "flash_attention_wgmma")
+FLASH_DESIGN = {
+    ("flash_attention", torch.float32): "3xTF32 on the tensor cores (mma.sync m16n8k8)",
+    ("flash_attention_wgmma", torch.bfloat16):
+        "bf16 on wgmma m64nNk16, TMA into a 2-stage ring, a producer warp and two "
+        "consumer warpgroups"}
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # flash attention: each output row's error over the row's own max|plain|
 # (``rel_err_rows``: late causal rows are far smaller than the first ones);
@@ -339,6 +350,7 @@ REPLACES = {
     "block_diag_apply": "src/repro/amg/dist_solve.py:557-569",
     "tri_solve": "src/repro/amg/dist_solve.py:557-569",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:86",
+    "flash_attention_wgmma": "src/repro/kernels/flash_attention/flash_attention.py:86",
 }
 # the block-smoother phase: the stationary hybrid_gs solve's cycle limit;
 # a float32 run's history against its eager plain run (each operation
@@ -1144,14 +1156,19 @@ def born_block_phase(born, b, host_iters: int) -> dict:
 
 
 def launch_counters() -> dict:
-    """Every kernel wrapper, by kernel name (each carries ``.launches``)."""
+    """Every kernel wrapper, by kernel name (each carries ``.launches``);
+    ``flash_attention`` counts both flash kernels, ``flash_attention_wgmma``
+    the Hopper kernel's launches alone."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.smoother.smoother import block_diag_apply, tri_solve
     from repro_torch.kernels.spmv.bcsr import bcsr_spmm
     from repro_torch.kernels.spmv.spmv import ell_spmm, ell_spmv
     return {"ell_spmv": ell_spmv, "ell_spmm": ell_spmm,
             "bcsr_spmm": bcsr_spmm, "block_diag_apply": block_diag_apply,
-            "tri_solve": tri_solve, "flash_attention": flash_attention}
+            "tri_solve": tri_solve, "flash_attention": flash_attention,
+            # the wrapper counts both flash kernels; this one the Hopper
+            # kernel's own launches
+            "flash_attention_wgmma": flash_attention.by_kernel["flash_attention_wgmma"]}
 
 
 def counted(fn):
@@ -1341,7 +1358,7 @@ def flash_phase(S: int, head_dims=None) -> list[dict]:
     at the MoE archs' prefill shapes in bf16, against its plain version;
     ``scaled_dot_product_attention`` timed as the yardstick.  ``head_dims``:
     only the cases at those head dims."""
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention, route
     from repro_torch.kernels.flash_attention.ref import attention_ref, rel_err_rows
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -1361,6 +1378,8 @@ def flash_phase(S: int, head_dims=None) -> list[dict]:
         # q, k, v read once, o written once
         nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         bounds = flash_bounds(dt, B, Hq, D, pairs, nbytes)
+        name = route(dt, D)
+        before = flash_attention.by_kernel[name].launches
         row = kernel_case(
             f"flash_attention {label}",
             lambda q, k, v, w=window: flash_attention(q, k, v, True, w),
@@ -1368,9 +1387,14 @@ def flash_phase(S: int, head_dims=None) -> list[dict]:
             sdpa_call(q, k, v, window), (q, k, v), nbytes, bounds["flops"],
             rtol=FLASH_RTOL[dt], library_name="sdpa", rel_err=rel_err_rows,
             peak=flash_peak(dt), plain_samples=FLASH_PLAIN_SAMPLES)
+        check(flash_attention.by_kernel[name].launches > before,
+              f"flash_attention {label} {dt}: {name} launched no time")
         row.update(case=label, head_dim=D, window=window, visible_pairs=pairs,
-                   design=FLASH_DESIGN[dt], main_path=label == "prefill",
+                   kernel=name, design=FLASH_DESIGN[name, dt],
+                   main_path=label == "prefill",
                    tflops=bounds["flops"] / row["ms"] / 1e9)
+        if dt == torch.bfloat16:
+            log(f"    {row['tflops']:.1f} TFLOP/s")
         if "bound_fma_ms" in bounds:
             row["bound_fma_ms"] = bounds["bound_fma_ms"]
             log(f"    {row['tflops']:.1f} TFLOP/s; bound {row['bound_ms']:.4f} ms "
@@ -1389,6 +1413,7 @@ def lm_workload(vocab: int) -> list[np.ndarray]:
 def lm_serve(cfg, prompts, dtype) -> dict:
     """The serving path in ``dtype`` (weights and caches): init, a warm-up
     request, then the counted run."""
+    from repro_torch.kernels.flash_attention.flash_attention import route
     from repro_torch.models import init_lm
     from repro_torch.serve import Engine, Request
 
@@ -1426,11 +1451,17 @@ def lm_serve(cfg, prompts, dtype) -> dict:
     check(counts["flash_attention"] == n_attn * n_batches,
           f"flash_attention launched {counts['flash_attention']} times, want "
           f"{n_attn} attention layers x {n_batches} prefill batches")
+    flash_kernel = route(dtype, cfg.head_dim)
+    want = counts["flash_attention"] if flash_kernel == "flash_attention_wgmma" else 0
+    check(counts["flash_attention_wgmma"] == want,
+          f"{cfg.name} {dtype}: flash_attention_wgmma launched "
+          f"{counts['flash_attention_wgmma']} times, want {want} (route: {flash_kernel})")
     s = eng.stats
     name = str(dtype).replace("torch.", "")
     info = {"arch": cfg.name, "dtype": name, "layers": cfg.n_layers,
             "d_model": cfg.d_model, "attention_layers": n_attn,
             "flash_launches_per_batch": counts["flash_attention"] / n_batches,
+            "flash_kernel": flash_kernel,
             "params": sum(p.numel() for p in model.parameters()),
             "requests": len(reqs), "batches": s["batches"],
             "prompt_lengths": [len(p) for p in prompts], "new_tokens": LM_NEW,
@@ -1836,7 +1867,7 @@ def moe_phase() -> tuple[dict, dict]:
         prompts = lm_workload(cfg.vocab)[:MOE_REQUESTS]
         run = lm_serve(cfg, prompts, torch.bfloat16)
         runs[arch] = {**run["info"], **moe_check(cfg, run)}
-        flash[f"{arch} bfloat16"] = run["info"]["launches"]["flash_attention"]
+        flash[f"{arch} bfloat16"] = flash_counts(run)
         if arch == EP_ARCH:
             ffn = {key: run["model"].layers[0]["ffn"][key].detach()
                    for key in ("router", "gate", "up", "down")}
@@ -1974,10 +2005,16 @@ def recurrent_phase() -> tuple[dict, dict]:
                 f"max|x|: " + " ".join(f"{k[0]}{e:.1e}" for k, e in
                                        zip(run["model"].kinds, drift)))
         runs[key].update(lm_check(cfg, run, dtype))
-        flash[key] = run["info"]["launches"]["flash_attention"]
+        flash[key] = flash_counts(run)
         del run
         torch.cuda.empty_cache()
     return runs, flash
+
+
+def flash_counts(run) -> dict:
+    """A serving run's flash launches: all of them (``flash_attention``, the
+    wrapper) and the Hopper kernel's (``flash_attention_wgmma``)."""
+    return {k: run["info"]["launches"][k] for k in FLASH_KERNELS}
 
 
 def embed_flash_shapes(S: int) -> list[tuple]:
@@ -2021,7 +2058,7 @@ def embed_phase() -> tuple[dict, dict]:
                 + f"; plain bf16 against the same weights in f32, prefill "
                 f"logits: {runs[key]['bf16_vs_f32']:.2e} of max|logits|")
         runs[key].update(lm_check(cfg, run, dtype))
-        flash[key] = run["info"]["launches"]["flash_attention"]
+        flash[key] = flash_counts(run)
         del run
         torch.cuda.empty_cache()
     return runs, flash
@@ -3500,21 +3537,24 @@ def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter) -> dict:
 
 
 def flash_instances(rows, ptxas, head_dim: int) -> dict:
-    """The flash kernel's instances at ``head_dim``, by type: ``ptxas -v``'s
-    registers and spills, and each of its cases' kernel, bound, plain and
-    SDPA ms and error."""
+    """The flash instances at ``head_dim``, by type: the kernel that serves
+    it, ``ptxas -v``'s registers and spills of its instance, and each case's
+    kernel, bound, plain and SDPA ms and error."""
     out = {}
-    for dt, tag in (("float32", "<float,"), ("bfloat16", "<__nv_bfloat16,")):
-        # demangled: "void <unnamed>::flash_attention_kernel<float, (int)256>"
-        out[dt] = {"ptxas": [u for n, u in ptxas
-                             if tag in n and f"(int){head_dim}>" in n],
-                   "cases": {r["case"]: {key: r[key] for key in (
-                       "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
-                       "rel_err", "max_abs_err")}
-                       for r in rows if r["dtype"] == dt and r["head_dim"] == head_dim}}
-        check(len(out[dt]["ptxas"]) == 1 and out[dt]["cases"],
-              f"flash_attention {dt} at head dim {head_dim}: ptxas "
-              f"{out[dt]['ptxas']}, cases {sorted(out[dt]['cases'])}")
+    # demangled: "void <unnamed>::flash_attention_kernel<float, (int)256>",
+    # "void <unnamed>::flash_wgmma_kernel<(int)256>"
+    for dt, kname, tag in (("float32", "flash_attention", "<float, "),
+                           ("bfloat16", "flash_attention_wgmma", "<")):
+        cases = {r["case"]: {key: r.get(key) for key in (
+            "kernel", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+            "tflops", "rel_err", "max_abs_err")}
+            for r in rows if r["dtype"] == dt and r["head_dim"] == head_dim}
+        out[dt] = {"kernel": sorted({c["kernel"] for c in cases.values()}),
+                   "ptxas": [u for n, u in ptxas[kname]
+                             if f"{tag}(int){head_dim}>" in n],
+                   "cases": cases}
+        check(len(out[dt]["ptxas"]) == 1 and out[dt]["kernel"] == [kname],
+              f"flash_attention {dt} at head dim {head_dim}: {out[dt]}")
     return out
 
 
@@ -3561,7 +3601,7 @@ def main() -> int:
     per = build()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in per.items()) or 'cached'})")
-    ptxas = {k: build_report(k) for k in ("flash_attention", "ell_spmm",
+    ptxas = {k: build_report(k) for k in (*FLASH_KERNELS, "ell_spmm",
                                           *SMOOTHER_KERNELS)}
     for k, insts in ptxas.items():
         for inst, used in insts:
@@ -3735,7 +3775,9 @@ def main() -> int:
     prompts = lm_workload(cfg.vocab)
     S = max(len(p) for p in prompts)
     log(f"flash_attention (S = {S}, the longest prompt; device time as above):")
-    rows["flash_attention"] = flash_phase(S)
+    all_flash = flash_phase(S)
+    for k in FLASH_KERNELS:
+        rows[k] = [r for r in all_flash if r["kernel"] == k]
     torch.cuda.empty_cache()
     lap("flash")
 
@@ -3754,7 +3796,7 @@ def main() -> int:
         f"a batch, decode {bf16['decode_tok_s']:.1f} vs {f32['decode_tok_s']:.1f} "
         f"tok/s, {bf16['decode_step_ms']:.2f} vs {f32['decode_step_ms']:.2f} "
         f"ms a step")
-    flash_runs = {str(d).replace("torch.", ""): v["launches"]["flash_attention"]
+    flash_runs = {str(d).replace("torch.", ""): {k: v["launches"][k] for k in FLASH_KERNELS}
                   for d, v in lm.items()}
     lap("LM serving")
 
@@ -3780,7 +3822,14 @@ def main() -> int:
     embed["phase_s"] = time.perf_counter() - t0
     log(f"embedding-input phase: {embed['phase_s']:.1f} s in all")
     flash_runs.update(embed_flash)
-    launches["flash_attention"] = sum(flash_runs.values())
+    # the Hopper kernel's launches, and the mma.sync source's own (the
+    # wrapper counts both)
+    launches["flash_attention_wgmma"] = sum(v["flash_attention_wgmma"]
+                                            for v in flash_runs.values())
+    launches["flash_attention"] = sum(v["flash_attention"] for v in flash_runs.values()) \
+        - launches["flash_attention_wgmma"]
+    for k in FLASH_KERNELS:
+        check(launches[k] > 0, f"{k} launched no time on the serving path")
     lap("embedding-input")
 
     # 14. training: qwen3-1.7b at full width and depth, xlstm-125m
@@ -3799,15 +3848,18 @@ def main() -> int:
 
     # 16. the kernels line: top-level numbers are the main path's case
     # (sparse kernels: the first float64 case on its operands, BCSR at its
-    # block size with one RHS; flash: float32 at the prefill shape); every
-    # dtype / shape case is under "variants"; flash's launches are the f32
-    # and bf16 serving runs' together; a sparse kernel's are the solve
-    # path's, with the dist-born session's counted runs beside them
+    # block size with one RHS; flash: float32 at the prefill shape, the
+    # wgmma kernel bf16 at recurrentgemma-9b's prefill shape); every dtype /
+    # shape case is under "variants"; a flash kernel's launches are the
+    # serving runs' through it; a sparse kernel's are the solve path's, with
+    # the dist-born session's counted runs beside them
     kernels = []
     for k, replaces in REPLACES.items():
         if k == "flash_attention":
             top = next(r for r in rows[k] if r["main_path"]
                        and r["dtype"] == "float32")
+        elif k == "flash_attention_wgmma":
+            top = next(r for r in rows[k] if r["case"] == "recurrentgemma-9b prefill")
         else:
             top = next(r for r in rows[k] if r["dtype"] == "float64"
                        and r.get("main_path", True)
@@ -3821,11 +3873,15 @@ def main() -> int:
             "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "card": smi,
-            **({"launches_per_run": flash_runs, "bound_fma_ms": top["bound_fma_ms"],
-                "design": top["design"],
-                "instances_head_dim_256": flash_instances(rows[k], ptxas[k], 256),
-                "instances_head_dim_96": flash_instances(rows[k], ptxas[k], 96)}
+            **({"launches_per_run": {run: v["flash_attention"] - v["flash_attention_wgmma"]
+                                     for run, v in flash_runs.items()},
+                "bound_fma_ms": top["bound_fma_ms"], "design": top["design"],
+                **{f"instances_head_dim_{d}": flash_instances(all_flash, ptxas, d)
+                   for d in (256, 96, 128, 64)}}
                if k == "flash_attention" else
+               {"launches_per_run": {run: v[k] for run, v in flash_runs.items()},
+                "design": top["design"], "tflops": top["tflops"]}
+               if k == "flash_attention_wgmma" else
                {"pallas": False,
                 "launches_per_run": {r["run"]: r["launches"][k]
                                      for r in block["runs"]},

@@ -2,10 +2,11 @@
 phase alone on one card: the quickest check that the embedding-input archs
 still serve there.
 
-Builds the kernels and prints every ``flash_attention`` instance's ``ptxas
--v`` line, then runs ``chip_smoke.flash_phase`` at head dim 96 only
-(phi-3-vision-4.2b's prefill, 32 heads of 96 on 32 KV heads, in f32 and
-bf16, against the plain version, beside SDPA and the bound) and
+Builds the kernels and prints every instance's ``ptxas -v`` line of both
+flash kernels (``flash_attention``, ``flash_attention_wgmma``), then runs
+``chip_smoke.flash_phase`` at head dim 96 only (phi-3-vision-4.2b's
+prefill, 32 heads of 96 on 32 KV heads, in f32 and bf16, against the plain
+version, beside SDPA and the bound) and
 ``chip_smoke.embed_phase``: phi-3-vision-4.2b and musicgen-medium in f32
 and bf16 at full width and depth, served on the stub frontend's embeddings
 at the smoke's first 4 prompt lengths and checked kernel vs plain.  The
@@ -40,8 +41,8 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     build()
-    ptxas = build_report("flash_attention")
-    for inst, used in ptxas:
+    ptxas = {k: build_report(k) for k in cs.FLASH_KERNELS}
+    for inst, used in ptxas["flash_attention"] + ptxas["flash_attention_wgmma"]:
         print(f"ptxas {inst}: {used}", flush=True)
     S = max(len(p) for p in cs.lm_workload(get_arch(cs.LM_ARCH).vocab))
     rows = cs.flash_phase(S, head_dims=(96,))

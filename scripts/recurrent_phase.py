@@ -2,9 +2,10 @@
 alone on one card: the quickest check that the recurrent archs still serve
 there.
 
-Builds the kernels and prints every ``flash_attention`` instance's ``ptxas
--v`` line, then runs ``chip_smoke.flash_phase`` at head dim 256 only
-(recurrentgemma-9b's prefill, and with a 256-key window, in f32 and bf16,
+Builds the kernels and prints every instance's ``ptxas -v`` line of both
+flash kernels (``flash_attention``, ``flash_attention_wgmma``), then runs
+``chip_smoke.flash_phase`` at head dim 256 only (recurrentgemma-9b's
+prefill, and with a 256-key window, in f32 and bf16,
 against the plain version, beside SDPA and the bound) and
 ``chip_smoke.recurrent_phase``: xlstm-125m in f32 and bf16 and
 recurrentgemma-9b in bf16 at full width and depth, served on the smoke's
@@ -40,8 +41,8 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     build()
-    ptxas = build_report("flash_attention")
-    for inst, used in ptxas:
+    ptxas = {k: build_report(k) for k in cs.FLASH_KERNELS}
+    for inst, used in ptxas["flash_attention"] + ptxas["flash_attention_wgmma"]:
         print(f"ptxas {inst}: {used}", flush=True)
     S = max(len(p) for p in cs.lm_workload(get_arch(cs.LM_ARCH).vocab))
     rows = cs.flash_phase(S, head_dims=(256,))

@@ -2,13 +2,14 @@
 one card.
 
 Builds the kernel's source (``--kernel ell_spmv``, the default,
-``ell_spmm``, ``flash_attention`` or ``tri_solve``;
-``repro_torch.kernels.build``) and each
+``ell_spmm``, ``flash_attention``, ``flash_attention_wgmma`` or
+``tri_solve``; ``repro_torch.kernels.build``) and each
 source SRC given (same C interface, e.g. an earlier commit's source or an
 edited copy; named by its file stem) into ``build/tune_<kernel>/``, one
 ``nvcc -Xptxas -v`` each, all at once, and prints each build's register and
 spill counts and, from ``cuobjdump -sass``, the count of tensor-core
-(``HMMA``) and float32 FMA (``FFMA``) instructions of each kernel instance.
+instructions (``HMMA``: ``mma.sync``; ``HGMMA``: ``wgmma``) and float32 FMA
+(``FFMA``) instructions of each kernel instance.
 Then at each case it checks every version against the plain version
 (``chip_smoke.py``'s bars) and times it beside the library call and the
 bound (CUDA events around bursts of 10 calls queued behind a GPU spin,
@@ -21,15 +22,25 @@ kernel, ...SRC; each version reports the mean of its two times.  The cases:
   byte bound;
 - ``ell_spmm``: the same at the f64 solve of ``[n, 8]`` (8 right-hand
   sides);
-- ``flash_attention``: ``chip_smoke.py``'s cases at the serving run's
-  longest prompt (qwen3-1.7b: B 4, 16 query / 8 KV heads of 128, S 1819,
-  causal; with a 256-key window; 128 queries over 1024 keys; head dim 64,
-  14 / 2 heads; recurrentgemma-9b's 16:1 at head dim 256, its 2048-key
-  window and a 256-key one) in float32 and bfloat16 (``--head-dim D``:
-  only those); ``scaled_dot_product_attention`` and the flop bound (float32:
-  3xTF32 on the tensor cores, with the FMA units' bound beside it); then
-  float32 with large scores (q x 8, k + 50) against a float64 truth, beside
-  the float32 plain version's error;
+- ``flash_attention`` (float32, 3xTF32 on ``mma.sync``): ``chip_smoke.py``'s
+  cases at the serving run's longest prompt (qwen3-1.7b: B 4, 16 query / 8
+  KV heads of 128, S 1819, causal; with a 256-key window; 128 queries over
+  1024 keys; head dim 64, 14 / 2 heads; recurrentgemma-9b's 16:1 at head
+  dim 256, its 2048-key window and a 256-key one; phi-3-vision-4.2b's 32:32
+  at head dim 96) (``--head-dim D``: only those);
+  ``scaled_dot_product_attention`` and the flop bound (3xTF32 on the tensor
+  cores, with the FMA units' bound beside it); then large scores (q x 8, k
+  + 50) against a float64 truth, beside the float32 plain version's error;
+- ``flash_attention_wgmma`` (bfloat16, the Hopper design, same C
+  interface): the same cases and the MoE archs' (mixtral-8x22b 48:8 with
+  its 4096-key window, qwen3-moe 64:4) in bfloat16, beside SDPA and the
+  flop bound at the tensor cores' 989 TFLOP/s.  An earlier commit's
+  ``flash_attention.cu`` as SRC (``git show <commit>:src/repro_torch/
+  kernels/flash_attention/csrc/flash_attention.cu > build/old.cu``, one that
+  still has bfloat16 instances on ``mma.sync``) holds the two designs
+  against each other.  Tile shapes are the ``Cfg`` lines of the source
+  (``BK``, ``STAGES``) and its ``L2_FIT_BYTES`` / ``L2_SECTION_BYTES``: a
+  Python ``str.replace`` of one into ``build/`` makes a variant;
 - ``tri_solve``: both triangles of every non-coarsest level of the f64
   lowering of ``laplace_3d(SIZE)`` over 2 x 4 ranks (its own factors and
   row orders), k = 1 and 8, and level 0 in float32, on the block route
@@ -99,7 +110,7 @@ def build_variants(kernel: str, variants: dict[str, Path], out_dir: Path) -> dic
 
 
 def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
-    """Per kernel function of ``lib``: its HMMA and FFMA instruction counts,
+    """Per kernel function of ``lib``: its HMMA, HGMMA and FFMA instruction counts,
     and under "ops" the count of every opcode (modifiers dropped)."""
     from repro_torch.kernels.build import nvcc_path
 
@@ -111,9 +122,9 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            out[name] = {"HMMA": 0, "FFMA": 0, "ops": collections.Counter()}
+            out[name] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0, "ops": collections.Counter()}
         elif name:
-            for op in ("HMMA", "FFMA"):
+            for op in ("HMMA", "HGMMA", "FFMA"):
                 if re.search(rf"\b{op}\b", line):
                     out[name][op] += 1
             m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
@@ -214,57 +225,62 @@ def ell_cases(cs, fns, order, kernel: str, size: int) -> tuple[list, dict]:
     return rows, sums
 
 
-def flash_cases(cs, fns, order, head_dims=None) -> list:
+def flash_cases(cs, fns, order, head_dims, dtypes) -> list:
     """``chip_smoke.py``'s flash cases at the serving run's longest prompt
     (prefill, a 256-key window, Sq < Skv, head dim 64, recurrentgemma-9b's
-    head dim 256 with its window and a 256-key one), causal, in float32 and
-    bfloat16; ``head_dims``: only the cases at those."""
+    head dim 256 with its window and a 256-key one, phi-3-vision-4.2b's
+    head dim 96), causal, in ``dtypes``, and the MoE archs' prefill shapes
+    in bfloat16 (as served); ``head_dims``: only the cases at those."""
     from repro_torch.kernels.flash_attention.ref import attention_ref, rel_err_rows
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    shapes = cs.flash_shapes(FLASH_S) + cs.recurrent_flash_shapes(FLASH_S)
-    for label, B, Hq, Hkv, Sq, Skv, D, window in shapes:
+    cases = [(shape, dt) for shape in (cs.flash_shapes(FLASH_S)
+                                       + cs.recurrent_flash_shapes(FLASH_S)
+                                       + cs.embed_flash_shapes(FLASH_S))
+             for dt in dtypes]
+    cases += [(shape, torch.bfloat16) for shape in cs.moe_flash_shapes(FLASH_S)
+              if torch.bfloat16 in dtypes]
+    for (label, B, Hq, Hkv, Sq, Skv, D, window), dt in cases:
         if head_dims and D not in head_dims:
             continue
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
-                       for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
-            o = torch.empty_like(q)
-            want = attention_ref(q, k, v, True, window)
-            strides = [st for t in (q, k, v, o) for st in t.stride()[:3]]
-            stream = torch.cuda.current_stream().cuda_stream
-            w = -1 if window is None else window
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
+                   for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+        o = torch.empty_like(q)
+        want = attention_ref(q, k, v, True, window)
+        strides = [st for t in (q, k, v, o) for st in t.stride()[:3]]
+        stream = torch.cuda.current_stream().cuda_stream
+        w = -1 if window is None else window
 
-            def call(fn):
-                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                        B, Hq, Hkv, Sq, Skv, D, *strides, 1, w,
-                        int(dt == torch.bfloat16), stream)
-                assert rc == 0, rc
+        def call(fn):
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    B, Hq, Hkv, Sq, Skv, D, *strides, 1, w,
+                    int(dt == torch.bfloat16), stream)
+            assert rc == 0, rc
 
-            def error(fn):
-                o.fill_(float("nan"))
-                call(fn)
-                torch.cuda.synchronize()
-                return rel_err_rows(o, want)
+        def error(fn):
+            o.fill_(float("nan"))
+            call(fn)
+            torch.cuda.synchronize()
+            return rel_err_rows(o, want)
 
-            bounds = cs.flash_bounds(dt, B, Hq, D, cs.visible_pairs(Sq, Skv, True, window),
-                                     (2 * q.numel() + 2 * k.numel()) * q.element_size())
-            row = {"case": label, "dtype": str(dt).replace("torch.", ""),
-                   "shape": [B, Hq, Hkv, Sq, Skv, D], "window": window, **bounds,
-                   "library_ms": cs.time_ms(cs.sdpa_call(q, k, v, window))[0]}
-            hold(cs, fns, order, row, call, error, cs.FLASH_RTOL[dt])
-            for name in fns:
-                row[f"{name}_tflops"] = bounds["flops"] / (row[f"{name}_ms"] * 1e-3) / 1e12
-            fma = (f", FMA bound {row['bound_fma_ms']:.4f} ms" if "bound_fma_ms" in row
-                   else "")
-            print(f"{label} {row['dtype']} {row['shape']} window {window}: bound "
-                  f"{row['bound_ms']:.4f} ms{fma}, sdpa {row['library_ms']:.4f} ms; "
-                  + ", ".join(f"{n} {row[f'{n}_ms']:.4f} ms ({row[f'{n}_tflops']:.0f} "
-                              f"TFLOP/s, error {row[f'{n}_rel_err']:.2e})"
-                              for n in dict.fromkeys(order)), flush=True)
-            rows.append(row)
-            del q, k, v, o, want
+        bounds = cs.flash_bounds(dt, B, Hq, D, cs.visible_pairs(Sq, Skv, True, window),
+                                 (2 * q.numel() + 2 * k.numel()) * q.element_size())
+        row = {"case": label, "dtype": str(dt).replace("torch.", ""),
+               "shape": [B, Hq, Hkv, Sq, Skv, D], "window": window, **bounds,
+               "library_ms": cs.time_ms(cs.sdpa_call(q, k, v, window))[0]}
+        hold(cs, fns, order, row, call, error, cs.FLASH_RTOL[dt])
+        for name in fns:
+            row[f"{name}_tflops"] = bounds["flops"] / (row[f"{name}_ms"] * 1e-3) / 1e12
+        fma = (f", FMA bound {row['bound_fma_ms']:.4f} ms" if "bound_fma_ms" in row
+               else "")
+        print(f"{label} {row['dtype']} {row['shape']} window {window}: bound "
+              f"{row['bound_ms']:.4f} ms{fma}, sdpa {row['library_ms']:.4f} ms; "
+              + ", ".join(f"{n} {row[f'{n}_ms']:.4f} ms ({row[f'{n}_tflops']:.0f} "
+                          f"TFLOP/s, error {row[f'{n}_rel_err']:.2e})"
+                          for n in dict.fromkeys(order)), flush=True)
+        rows.append(row)
+        del q, k, v, o, want
     return rows
 
 
@@ -435,7 +451,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=64)
     ap.add_argument("--kernel", choices=("ell_spmv", "ell_spmm", "flash_attention",
-                                         "tri_solve"),
+                                         "flash_attention_wgmma", "tri_solve"),
                     default="ell_spmv")
     ap.add_argument("sources", nargs="*", metavar="SRC",
                     help="other sources of the kernel to hold it against")
@@ -477,8 +493,10 @@ def main() -> int:
     fns = build_variants(args.kernel, variants, ROOT / "build" / f"tune_{args.kernel}")
     sums = {}
     if args.kernel == "flash_attention":
-        rows = (flash_cases(cs, fns, order, args.head_dims)
+        rows = (flash_cases(cs, fns, order, args.head_dims, dtypes=(torch.float32,))
                 + flash_large_scores(fns, args.head_dims))
+    elif args.kernel == "flash_attention_wgmma":
+        rows = flash_cases(cs, fns, order, args.head_dims, dtypes=(torch.bfloat16,))
     elif args.kernel == "tri_solve":
         rows = tri_cases(cs, fns, order, args.size, args.chain, args.levels,
                          args.cubes)

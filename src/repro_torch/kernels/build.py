@@ -50,6 +50,12 @@ KERNELS = {
                         "flash_attention_launch",
                         [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
                         + [_INT, _I64, _INT, _P]),
+    # the bfloat16 Hopper design (wgmma fed by TMA, warp-specialised), with
+    # flash_attention's C signature (float32 operands are refused)
+    "flash_attention_wgmma": ("flash_attention/csrc/flash_attention_wgmma.cu",
+                              "flash_attention_launch",
+                              [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
+                              + [_INT, _I64, _INT, _P]),
 }
 
 _LOADED: dict[tuple[str, str], ctypes._CFuncPtr] = {}

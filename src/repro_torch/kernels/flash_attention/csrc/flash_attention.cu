@@ -6,20 +6,22 @@
 // softmax, an optional sliding window, and queries right-aligned at Skv
 // (query i sits at position i + Skv - Sq).  q [B, Hq, Sq, D], k/v
 // [B, Hkv, Skv, D], any (b, h, s) strides with the D dim contiguous, float32
-// or bfloat16 in, float32 accumulation, output in the input type.
+// in and out.  bfloat16 runs flash_attention_wgmma.cu, the Hopper design
+// (wgmma fed by TMA), which replaced this file's mma.sync m16n8k16
+// instances at every head dim, 1.7-2.5x faster on an H100 (PERF.md).
 //
 // Bound on an H100 SXM: with P = the number of visible (query, key) pairs,
 // the function needs 4*B*Hq*D*P flops (2 for q.k, 2 for p.v per pair and
 // dim) and has to read q, k, v once and write o once:
 //   t >= max(flops * passes / peak, (|q| + |k| + |v| + |o|) * sizeof(T) / 3.35e12) s,
-// in bfloat16 one pass at the dense tensor cores' 989 TFLOP/s; in float32
-// three TF32 passes at their 495 TFLOP/s (below), i.e. 165 TFLOP/s of
-// float32-accurate product, 2.5x the FMA units' 67 TFLOP/s (data sheet).
+// three TF32 passes at the dense tensor cores' 495 TFLOP/s (below), i.e.
+// 165 TFLOP/s of float32-accurate product, 2.5x the FMA units' 67 TFLOP/s
+// (data sheet).
 // At the prefill shapes (S in the thousands, D = 128) the flops bound it by
 // two orders of magnitude.
 //
-// One kernel template serves both types: one block per (b, h_q, query tile
-// of 16 * MT * WARPS rows); each warp owns MT m16 tiles of rows; a loop over
+// The kernel template (over T = float and D): one block per (b, h_q, query
+// tile of 16 * MT * WARPS rows); each warp owns MT m16 tiles of rows; a loop over
 // the one run of key tiles [lo, hi] visible to some row of the query tile
 // takes the place of the Pallas grid's sequential ("arbitrary") axis, as
 // pl.when(run) skips invisible blocks, so the flops follow P; the longest
@@ -33,24 +35,8 @@
 // running max, sum and output accumulator in float32 registers.  K/V are
 // never repeated in memory: query head h reads KV head h / G.  Ragged edges
 // are masked in the kernel (rows past Sq are not stored, keys past Skv are
-// zero and masked), so no padding copy exists.  What differs by type is
-// how the two products and the store are done (scores / accumulate_pv /
-// store_row):
-//
-// bfloat16: m16n8k16, bf16 in, fed by ldmatrix.  128 query rows a block, 4
-// warps of 32 rows (MT = 2), so every K and V fragment a warp reads serves
-// both its m-tiles.  Q is read from shared memory at each k-step, which
-// leaves the registers to the 32 x D accumulator.  The probabilities are
-// rounded to bf16 and used straight from the score registers as the A
-// operand of P V (the m16n8 accumulator layout is the m16k16 operand
-// layout), so P never goes through shared memory; V comes in by
-// ldmatrix.trans.  That rounding is where this instance's error enters.
-// 102 KB of shared memory at D = 128, two blocks an SM.  At the prefill
-// shape it reaches 18% of the 989 TFLOP/s bound on an H100 (PERF.md).
-// What we take to hold it there is latency (neither more warps nor fewer
-// shared reads made it faster): with two warps a scheduler, a warp's
-// ldmatrix -> mma -> softmax chain is not covered, and the two
-// accumulators take 192 of the D = 128 instance's 255 registers.
+// zero and masked), so no padding copy exists.  The products and the
+// store (scores / accumulate_pv / store_row):
 //
 // float32: 3xTF32 on m16n8k8 (tf32 in, float32 accumulate).  Every operand
 // element x is split at fragment load into hi = rna(x) and lo = rna(x -
@@ -108,8 +94,8 @@
 // loads and barriers together.
 //
 // Head dims 64, 96, 128 and 256.  At D = 256 (recurrentgemma-9b: 16 query heads
-// on one KV head) neither type's shape above fits the registers or two
-// blocks an SM, so both take their own (Cfg<T, 256>, with the arithmetic
+// on one KV head) the shape above fits neither the registers nor two
+// blocks an SM, so it takes its own (Cfg<float, 256>, with the arithmetic
 // beside it): 8 warps of one m-tile each, 128 query rows a block, one
 // block an SM.  The skeleton and the products are the same code.
 //
@@ -117,7 +103,6 @@
 // so its term is exactly 0 and no inf - inf arises; every row that sees a
 // key (every stored row: Sq <= Skv) gets what masking with -1e30, as the
 // reference does, gives.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -127,8 +112,6 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-
-using bf16 = __nv_bfloat16;
 
 struct Strides {
   int64_t b, h, s;
@@ -141,45 +124,18 @@ struct Strides {
 template <typename T, int D>
 struct Cfg;
 
-// bfloat16: one 16-byte chunk of padding a row puts the 8 rows that one
-// ldmatrix phase reads at one chunk in 8 different bank groups (a padded
-// row is an odd number of 16-byte chunks: 9, 13 and 17 at D = 64, 96 and
-// 128), and keeps every fragment's address a lane's base plus a constant.
-template <int D>
-struct Cfg<bf16, D> {
-  static constexpr int WARPS = 4, MT = 2, BK = 64, BLOCKS = 1;
-  static constexpr int LDQ = D + 8, LDK = D + 8, LDV = D + 8;
-  static constexpr bool RESCALE = true;   // the softmax rescales O in place
-};
-
 // float32: see the note above for the strides and the shape.
 template <int D>
 struct Cfg<float, D> {
   static constexpr int WARPS = 4, MT = 1, BK = 32, BLOCKS = 2;
   static constexpr int LDQ = D + 16, LDK = D + 16, LDV = D + 4;
-  static constexpr bool RESCALE = false;  // accumulate_pv folds it into its FFMA
 };
 
-// D = 256 (recurrentgemma-9b's heads), re-derived: the shapes above do not
-// carry over.
-// bfloat16: with MT = 2 each thread would hold 16 * MT * D / 32 = 256 float32
-// accumulators, past the 255-register limit.  So a warp owns one m-tile (128
-// accumulators, 32 score registers) and the block takes 8 warps, which keeps
-// 128 query rows a block, so each K and V tile still serves 128 rows: shared
-// memory 2 * (128 * 264 + 2 * 64 * (264 + 264)) = 202,752 B of the 232,448 a
-// block may take, one block (8 warps) an SM.
-template <>
-struct Cfg<bf16, 256> {
-  static constexpr int WARPS = 8, MT = 1, BK = 64, BLOCKS = 1;
-  static constexpr int LDQ = 256 + 8, LDK = 256 + 8, LDV = 256 + 8;
-  static constexpr bool RESCALE = true;
-};
-
-// float32: the D = 128 shape at D = 256 takes 4 * (64 * 272 + 2 * 32 * (272 +
-// 260)) = 205,824 B, so two blocks an SM no longer fit, and one block of 4
-// warps leaves one warp a scheduler.  8 warps of 16 rows (128 query rows, as
-// bfloat16) with 16-key tiles take 4 * (128 * 272 + 2 * 16 * (272 + 260)) =
-// 207,360 B: one block, 8 warps an SM as at D = 128, 255 registers a thread
+// D = 256 (recurrentgemma-9b's heads), re-derived: the D = 128 shape takes
+// 4 * (64 * 272 + 2 * 32 * (272 + 260)) = 205,824 B, so two blocks an SM no
+// longer fit, and one block of 4 warps leaves one warp a scheduler.  8
+// warps of 16 rows (128 query rows) with 16-key tiles take 4 * (128 * 272
+// + 2 * 16 * (272 + 260)) = 207,360 B: one block, 8 warps an SM as at D = 128, 255 registers a thread
 // under __launch_bounds__(256, 1), of which the accumulator takes 128 and a
 // 16-key tile's scores, their rounding errors and pending chunk 8 each.
 // ptxas spills 76 bytes here; 8-key tiles (16 bytes) and a partly unrolled
@@ -189,24 +145,11 @@ template <>
 struct Cfg<float, 256> {
   static constexpr int WARPS = 8, MT = 1, BK = 16, BLOCKS = 1;
   static constexpr int LDQ = 256 + 16, LDK = 256 + 16, LDV = 256 + 4;
-  static constexpr bool RESCALE = false;
 };
 
 // D = 96 (phi-3-vision-4.2b: 32 heads of 3072 / 32), re-derived: the
-// generic shapes above carry over, for these reasons.
-// bfloat16: a row is 96 * 2 = 192 bytes, 12 chunks of 16 bytes, not a
-// multiple of 128 bytes.  With LDQ = LDK = LDV = 104 a row is 208 bytes, 13
-// chunks: the 8 rows an ldmatrix phase reads at one chunk c sit in 16-byte
-// bank groups (13 r + c) mod 8, r = 0..7, all different because 13 is odd
-// (an unpadded 12-chunk row would put rows r and r + 2 in one group), and
-// every row start stays 16-byte aligned for cp.async and ldmatrix.  The
-// products walk D / 16 = 6 k-chunks (scores) and 6 pairs of n-tiles (P V),
-// the store D / 8 = 12 n-tiles; load_tile copies 12 chunks a row.
-// Registers: 2 * 12 * 4 = 96 accumulators and 64 score registers a thread
-// (192 and 64 at D = 128), yet ptxas takes all 255 and spills 56 bytes, as
-// it spills 92 at D = 128 (both unrolled deeply; PERF.md); shared memory
-// 2 * (128 * 104 + 2 * 64 * (104 + 104)) = 79,872 B.
-// float32: 96 is 0 mod 32 as 128 is, so the strides keep their residues:
+// generic shape above carries over, for these reasons.
+// 96 is 0 mod 32 as 128 is, so the strides keep their residues:
 // LDQ = LDK = 112 = 16 mod 32 and LDV = 100 = 4 mod 32 words, and the
 // float4 reads of a quarter warp (rows g, g + 1 at words 4t, or V rows 2t,
 // 2t + 1 at words 4g) still fall in distinct banks.  scores takes D / 16 =
@@ -217,7 +160,7 @@ struct Cfg<float, 256> {
 // __launch_bounds__(128, 2) (ptxas: 219 registers, no spill); shared memory 4 * (64 * 112 + 2 * 32 * (112 +
 // 100)) = 82,944 B, two blocks an SM.
 static_assert(96 % 16 == 0 && (96 / 16) % 2 == 0 && 96 % 32 == 0,
-              "the D = 96 instances rely on these divisions");
+              "the D = 96 instance relies on these divisions");
 
 template <typename T, int D>
 constexpr int BQ = 16 * Cfg<T, D>::MT * Cfg<T, D>::WARPS;   // query rows a block
@@ -260,109 +203,6 @@ __device__ __forceinline__ void load_tile(T* tile, const T* g, int64_t r0, int64
     const bool ok = r0 + r < S;
     cp_async16(tile + r * LD + c * E, ok ? g + (r0 + r) * ss + c * E : g, ok);
   }
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16 products: m16n8k16 fed by ldmatrix
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 in, float32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-
-// S = Q K^T over the warp's 16 MT rows (Qw: its first row) and the tile's
-// keys; each K fragment serves the MT m-tiles.
-template <int D, typename C, int MT, int NT>
-__device__ __forceinline__ void scores(float (&s)[MT][NT][4], const bf16* Qw,
-                                       const bf16* Kt, int lane) {
-  const bf16* Qf = Qw + (lane & 15) * C::LDQ + (lane >> 4) * 8;
-  const bf16* Kf = Kt + ((lane & 7) + ((lane >> 4) << 3)) * C::LDK + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t qa[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(qa[mt], Qf + 16 * mt * C::LDQ + 16 * kc);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t kf[4];
-      ldmatrix_x4(kf, Kf + 16 * np * C::LDK + 16 * kc);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma(s[mt][2 * np], qa[mt], kf[0], kf[1]);
-        mma(s[mt][2 * np + 1], qa[mt], kf[2], kf[3]);
-      }
-    }
-  }
-}
-
-// O += P V (the softmax rescaled O already): P, rounded to bf16, is the A
-// operand straight from the score registers; V comes in by ldmatrix.trans,
-// each fragment serving the MT m-tiles.
-template <int D, typename C, int MT, int NT>
-__device__ __forceinline__ void accumulate_pv(float (&acc)[MT][D / 8][4],
-                                              const float (&p)[MT][NT][4],
-                                              const float (&)[MT][2], const bf16* Vt,
-                                              int lane) {
-  const bf16* Vf = Vt + ((lane & 7) + (((lane >> 3) & 1) << 3)) * C::LDV + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    uint32_t pa[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      pa[mt][0] = pack_bf16(p[mt][2 * kk][0], p[mt][2 * kk][1]);
-      pa[mt][1] = pack_bf16(p[mt][2 * kk][2], p[mt][2 * kk][3]);
-      pa[mt][2] = pack_bf16(p[mt][2 * kk + 1][0], p[mt][2 * kk + 1][1]);
-      pa[mt][3] = pack_bf16(p[mt][2 * kk + 1][2], p[mt][2 * kk + 1][3]);
-    }
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t vf[4];
-      ldmatrix_x4_trans(vf, Vf + 16 * kk * C::LDV + 16 * dp);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma(acc[mt][2 * dp], pa[mt], vf[0], vf[1]);
-        mma(acc[mt][2 * dp + 1], pa[mt], vf[2], vf[3]);
-      }
-    }
-  }
-}
-
-// Row g + 8 i of one m-tile's output (acc: its n-tiles), times inv, as bf16.
-template <int D>
-__device__ __forceinline__ void store_row(bf16* orow, const float (&acc)[D / 8][4], int i,
-                                          float inv, int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
-        pack_bf16(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
 }
 
 // ---------------------------------------------------------------------------
@@ -577,13 +417,13 @@ __device__ __forceinline__ void store_row(float* orow, const float (&acc)[D / 8]
 // FFMA; a tile visible to every pair of the block (full) skips the mask.
 // Updates the running max m_i (log2 units) and l_i (a per-thread partial
 // sum; the quad adds it up at the end) and returns each row's rescale of
-// the output accumulator in alpha, which it applies to acc where C::RESCALE.
-template <typename C, int MT, int NT, int DT>
+// the output accumulator in alpha (accumulate_pv folds it into its FFMA).
+template <typename C, int MT, int NT>
 __device__ __forceinline__ void online_softmax(float (&s)[MT][NT][4], float (&m_i)[2 * MT],
                                                float (&l_i)[2 * MT], float (&alpha)[MT][2],
-                                               float (&acc)[MT][DT][4], bool full, int q_row,
-                                               int k_base, int Skv, int causal, int window,
-                                               float scale_log2, int g, int t) {
+                                               bool full, int q_row, int k_base, int Skv,
+                                               int causal, int window, float scale_log2, int g,
+                                               int t) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     float mx[2] = {-INFINITY, -INFINITY};
@@ -623,15 +463,6 @@ __device__ __forceinline__ void online_softmax(float (&s)[MT][NT][4], float (&m_
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l_i[2 * mt + i] = l_i[2 * mt + i] * alpha[mt][i] + rs[i];
-    if constexpr (C::RESCALE) {
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        acc[mt][j][0] *= alpha[mt][0];
-        acc[mt][j][1] *= alpha[mt][0];
-        acc[mt][j][2] *= alpha[mt][1];
-        acc[mt][j][3] *= alpha[mt][1];
-      }
-    }
   }
 }
 
@@ -708,8 +539,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const bool full = k_base + BK <= Skv && (!causal || k_base + BK - 1 <= q_base) &&
                       (window < 0 || q_base + ROWS - 1 - k_base < window);
     float alpha[MT][2];
-    online_softmax<C>(s, m_i, l_i, alpha, acc, full, q_base + row_w, k_base, Skv, causal,
-                      window, scale_log2, g, t);
+    online_softmax<C>(s, m_i, l_i, alpha, full, q_base + row_w, k_base, Skv, causal, window,
+                      scale_log2, g, t);
     accumulate_pv<D, C>(acc, s, alpha, Vs + buf * BK * C::LDV, lane);
   }
 
@@ -768,7 +599,8 @@ int launch(const Launch& a) {
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a head dim other than 64, 96, 128 or 256 or a grid the
+// cudaErrorInvalidValue for bfloat16 operands (flash_attention_wgmma.cu
+// takes those), a head dim other than 64, 96, 128 or 256 or a grid the
 // card cannot take.  The caller checks everything else (types, shapes,
 // alignment, Sq <= Skv, Hq % Hkv == 0) before calling.  window < 0: none.
 extern "C" int flash_attention_launch(
@@ -777,14 +609,14 @@ extern "C" int flash_attention_launch(
     int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
     int64_t vsb, int64_t vsh, int64_t vss, int64_t osb, int64_t osh,
     int64_t oss, int causal, int64_t window, int is_bf16, void* stream) {
-  if (B * Hq > 65535 || Sq > (int64_t{1} << 30) || Skv > (int64_t{1} << 30))
+  if (is_bf16 || B * Hq > 65535 || Sq > (int64_t{1} << 30) || Skv > (int64_t{1} << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch a{q, k, v, o, B, Hq, Hkv, Sq, Skv,
                  {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
                  causal, window, static_cast<cudaStream_t>(stream)};
-  if (D == 64) return is_bf16 ? launch<bf16, 64>(a) : launch<float, 64>(a);
-  if (D == 96) return is_bf16 ? launch<bf16, 96>(a) : launch<float, 96>(a);
-  if (D == 128) return is_bf16 ? launch<bf16, 128>(a) : launch<float, 128>(a);
-  if (D == 256) return is_bf16 ? launch<bf16, 256>(a) : launch<float, 256>(a);
+  if (D == 64) return launch<float, 64>(a);
+  if (D == 96) return launch<float, 96>(a);
+  if (D == 128) return launch<float, 128>(a);
+  if (D == 256) return launch<float, 256>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

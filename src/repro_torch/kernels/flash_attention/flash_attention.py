@@ -1,16 +1,21 @@
-"""Causal GQA flash attention: the wrapper of the hand-written CUDA kernel
-``csrc/flash_attention.cu``.
+"""Causal GQA flash attention: the wrapper of the hand-written CUDA kernels
+``csrc/flash_attention.cu`` (``mma.sync``: float32 as 3xTF32) and
+``csrc/flash_attention_wgmma.cu`` (bfloat16: ``wgmma`` fed by TMA,
+warp-specialised), one C signature for both.
 
-It replaces the Pallas kernel ``flash_attention`` of
+They replace the Pallas kernel ``flash_attention`` of
 ``repro/kernels/flash_attention/flash_attention.py``.  Layout
 ``[B, H, S, D]``: q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]`` with
 ``Hq % Hkv == 0``; queries are right-aligned at Skv.  The operands may be
 strided views (the models' time-major ``[B, S, H, D]`` tensors transposed)
 as long as the D dim is contiguous; the output has q's strides.
 
-The wrapper takes the plain version (:mod:`.ref`) only for tensors that lie
-on the CPU; for CUDA tensors it launches the kernel on the current stream or
-raises.  ``flash_attention.launches`` counts the launches the device ran.
+:data:`ROUTE` says which kernel serves a (dtype, head dim).  The wrapper
+takes the plain version (:mod:`.ref`) only for tensors that lie on the CPU;
+for CUDA tensors it launches the routed kernel on the current stream or
+raises (no fallback to the other kernel).  ``flash_attention.launches``
+counts the launches the device ran, and ``flash_attention.by_kernel[name]
+.launches`` those of each kernel.
 """
 from __future__ import annotations
 
@@ -22,6 +27,28 @@ from .ref import attention_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (64, 96, 128, 256)
+# The kernel (its name in ``build.KERNELS``) that serves each (dtype, head
+# dim).  float32 runs 3xTF32 on mma.sync; bfloat16 runs the Hopper design at
+# every head dim: an H100 ran it 1.7-2.5x faster than the bfloat16 mma.sync
+# instances it replaced, at each served shape (PERF.md).
+ROUTE = {**{(torch.float32, d): "flash_attention" for d in HEAD_DIMS},
+         **{(torch.bfloat16, d): "flash_attention_wgmma" for d in HEAD_DIMS}}
+
+
+class KernelLaunches:
+    """The launch count of one of the wrapper's kernels (``.launches``,
+    counted by :func:`..launches.note` as a wrapper's is), so that a run
+    shows which kernel served it."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that serves ``dtype`` at ``head_dim``; a head dim outside
+    :data:`HEAD_DIMS` goes to ``flash_attention``, whose C side refuses it."""
+    return ROUTE.get((dtype, head_dim), "flash_attention")
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,8 +88,9 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernel takes head dims "
                          f"{HEAD_DIMS}, got {D}")
-    # rows are read in 16-byte pieces (float32 loads, bfloat16 cp.async
-    # copies), so every row must start 16-byte aligned
+    # rows are read in 16-byte pieces (float32 loads; bfloat16 by TMA, whose
+    # strides and base address must be multiples of 16 bytes), so every row
+    # must start 16-byte aligned
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
@@ -87,16 +115,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0 or Hq == 0 or Sq == 0:
         return out
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    rc = kernel("flash_attention")(
+    name = route(q.dtype, D)
+    rc = kernel(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Hq, Hkv, Sq, Skv, D, *strides, int(causal),
         -1 if window is None else int(window), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
+        raise RuntimeError(f"flash_attention: {name} launch failed with CUDA "
                            f"error {rc}")
     note(flash_attention)
+    note(flash_attention.by_kernel[name])
     return out
 
 
 flash_attention.launches = 0
+flash_attention.by_kernel = {n: KernelLaunches(n) for n in sorted(set(ROUTE.values()))}

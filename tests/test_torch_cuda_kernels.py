@@ -19,7 +19,11 @@ block-smoother PCG on the card against the CPU; degenerate shapes; flash attenti
 (each output row's error over its own max) over ragged lengths, windows,
 decode alignment, head dims 64, 96 (phi-3-vision-4.2b's 32:32), 128 and
 256 (recurrentgemma-9b's 16:1 MQA), float32 and bfloat16, the served prefill shapes, strided time-major views, bfloat16 strides the kernel cannot copy
-and a failed launch; float32 with large scores (q x 8, k + 50) against a
+and a failed launch, each through the kernel the route table names
+(bfloat16: the Hopper design, counted per kernel); bfloat16 edges on the
+Hopper kernel's key tiles and ring stages, its time-major views at head
+dims 96 and 256, and its build (no spills; HGMMA and UTMALDG in its SASS);
+float32 with large scores (q x 8, k + 50) against a
 float64 truth, and no register spills in the float32 instances — a small
 distributed PCG on the
 card against the same solve on the CPU, and small LMs on the card against
@@ -458,11 +462,91 @@ def _qkv(case, dtype, dev, seed=0):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("case", FA_CASES)
 def test_flash_attention(dev, case, causal, dtype):
+    """Each case through the kernel the route table names for its type and
+    head dim (bfloat16: the Hopper design), counted on the wrapper and on
+    that kernel."""
     q, k, v = _qkv(case, dtype, dev)
+    name = fa.route(dtype, case[5])
     before = fa.flash_attention.launches
+    before_kernel = fa.flash_attention.by_kernel[name].launches
     out = fa.flash_attention(q, k, v, causal=causal, window=case[-1])
     assert fa.flash_attention.launches == before + 1
+    assert fa.flash_attention.by_kernel[name].launches == before_kernel + 1
+    if dtype == torch.bfloat16:
+        assert name == "flash_attention_wgmma"
     _close_fa(out, attention_ref(q, k, v, causal=causal, window=case[-1]))
+
+
+def _wgmma_key_tile(head_dim: int) -> int:
+    import re
+    from pathlib import Path
+
+    src = (Path(fa.__file__).parent / "csrc" / "flash_attention_wgmma.cu").read_text()
+    m = re.search(rf"struct Cfg<{head_dim}> \{{\s*static constexpr int BK = (\d+)", src) or \
+        re.search(r"template <int D>\nstruct Cfg \{\s*static constexpr int BK = (\d+)", src)
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim", [64, 96, 128, 256])
+def test_flash_attention_bf16_stage_boundaries(dev, head_dim, causal):
+    """bfloat16 cases whose edges fall on the Hopper kernel's key tiles and
+    ring stages: Skv a whole number of tiles (2 stages, then 3 to wrap the
+    ring), a window of exactly one and two tiles, Sq < Skv ending on a
+    tile, and Skv one key past a stage."""
+    bk = _wgmma_key_tile(head_dim)
+    for B, Hq, Hkv, Sq, Skv, window in ((1, 4, 2, 2 * bk, 2 * bk, None),
+                                        (1, 4, 1, 3 * bk, 3 * bk, bk),
+                                        (2, 2, 2, 4 * bk, 4 * bk, 2 * bk),
+                                        (1, 4, 2, bk, 3 * bk, None),
+                                        (1, 2, 1, 2 * bk + 1, 2 * bk + 1, bk + 1)):
+        case = (B, Hq, Hkv, Sq, Skv, head_dim, window)
+        q, k, v = _qkv(case, torch.bfloat16, dev, seed=3)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        _close_fa(out, attention_ref(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("head_dim,heads", [(96, (32, 32)), (256, (16, 1))])
+def test_flash_attention_bf16_time_major_views(dev, head_dim, heads):
+    """phi-3-vision-4.2b's and recurrentgemma-9b's head dims in bfloat16 as
+    the models pass them: time-major [B, S, H, D] tensors read in place
+    through the tensor maps' strides (their h stride is D, their s stride
+    H D), through the Hopper kernel."""
+    Hq, Hkv = heads
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((2, 301, Hq, head_dim), generator=g, device=dev).bfloat16()
+    k = torch.randn((2, 301, Hkv, head_dim), generator=g, device=dev).bfloat16()
+    v = torch.randn((2, 301, Hkv, head_dim), generator=g, device=dev).bfloat16()
+    before = fa.flash_attention.by_kernel["flash_attention_wgmma"].launches
+    out = fa_ops.attention(q, k, v, causal=True, window=200)
+    assert fa.flash_attention.by_kernel["flash_attention_wgmma"].launches == before + 1
+    assert out.is_contiguous()
+    _close_fa(out, fa_ops.attention(q, k, v, causal=True, window=200, use_kernel=False))
+
+
+def test_flash_attention_wgmma_builds_without_spills_on_hgmma_and_tma(dev):
+    """The Hopper kernel's build: one instance at each head dim, none
+    spilling (ptxas), each running its products on HGMMA (wgmma) and its
+    copies on UTMALDG (TMA) in its SASS, with no HMMA (mma.sync)."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels.build import build_report, kernel, library_path, nvcc_path
+
+    kernel("flash_attention_wgmma")
+    rows = build_report("flash_attention_wgmma")
+    assert len(rows) == 4, rows
+    for name, used in rows:
+        assert "0 bytes spill stores, 0 bytes spill loads" in used, (name, used)
+    sass = subprocess.run([str(Path(nvcc_path()).with_name("cuobjdump")), "-sass",
+                           str(library_path("flash_attention_wgmma"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    assert len(funcs) == 4
+    for f in funcs:
+        assert re.search(r"\bHGMMA\b", f) and re.search(r"\bUTMALDG\b", f), f[:200]
+        assert not re.search(r"\bHMMA\b", f), f[:200]
 
 
 @pytest.mark.parametrize("kind", ["peaked", "offset"])
