@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's paths, after building the six hand-written CUDA
-kernels from this checkout and holding each against its plain PyTorch
+Drives the port's paths, after building the hand-written CUDA kernels
+from this checkout and holding each against its plain PyTorch
 version at the shapes its path gives it:
 
 - the distributed solve, ``AMGSolver(AMGConfig(backend="torch", n_pods=2,
@@ -224,11 +224,26 @@ Phases (any failure exits non-zero):
    one qwen3-1.7b layer's gradient tree on the 2 x 4 stacked ranks and on 8
    gloo processes on this card, bit-equal, with the slow and fast groups'
    elements beside the model's figures;
-16. one JSON line with every kernel's numbers (both flash kernels' instances
+16. the dry-run phase (``scripts/dryrun_phase.py`` alone): ``ert_stream``
+   (16 FMAs an element) and ``ert_gather`` against their plain versions at
+   2^26 elements in f32 and f64, then the roofline's measured ceilings
+   (``launch/roofline.py:ert_sweep``, f32 and f64: the reference's working
+   sets and two past the 50 MB L2, the kernels' launches counted over the
+   sweeps), the AMG cell (the SpMV's halo exchange on 2 x 256 stacked
+   ranks, standard / NAP-2 / NAP-3: halo bit-equal to ``x[need]``, log
+   equal to the plan's signature, bytes a rank and pod-crossing bytes),
+   and the full-width dry-run on the fake 2x16x16 mesh of qwen3-1.7b and
+   qwen2-0.5b train_4k, mixtral-8x22b decode_32k, xlstm-125m long_500k and
+   recurrentgemma-9b prefill_32k (probes at 1 and 2 pattern groups,
+   extrapolated: peak GiB a device, an estimate; FLOPs a device at least
+   the model's,
+   collective and pod-crossing bytes, roofline terms at the documented and
+   measured ceilings); under 150 s;
+17. one JSON line with every kernel's numbers (both flash kernels' instances
    at each head dim with their ptxas lines and cases; the ``wgmma`` kernel's
-   own entry, its main path the bf16 serving runs) and every phase's
-   seconds;
-17. last line: ``{"ok": true, "device": {...}}``.
+   own entry, its main path the bf16 serving runs; the ERT kernels', their
+   main path the sweeps) and every phase's seconds;
+18. last line: ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and refuses to run without one.
@@ -2199,11 +2214,15 @@ def f64_step_check(cfg, batch, remat: bool = False) -> dict:
             "ms_f32": ms32, "ms_f64": ms64, "chunked_attention_calls": [c32, c64]}
 
 
-def plain_attention(q, k, v, causal=True, window=None, chunk=None):
+def plain_attention(q, k, v, causal=True, window=None, chunk=None,
+                    q_offset=0):
     """``chunked_attention``'s signature over the plain softmax attention of
-    all keys at once (q/k/v ``[B, S, H, D]``)."""
+    all keys at once (q/k/v ``[B, S, H, D]``, the queries at the keys'
+    positions: ``q_offset`` 0)."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
+    check(q_offset == 0 and q.shape[1] == k.shape[1],
+          f"plain_attention: queries at offset {q_offset}")
     return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), causal=causal,
                          window=window).transpose(1, 2)
@@ -3564,6 +3583,151 @@ def history_diff(a, b) -> float:
     return max(abs(x - y) / r0 for x, y in zip(a[:n], b[:n]))
 
 
+# the dry-run phase: the five full-width cells on the fake 2x16x16 mesh,
+# each traced at 1 and 2 pattern groups with its production microbatches
+# and extrapolated to full depth (the reference's probes; the CPU tests
+# hold the extrapolation to a full-depth trace), the peak memory too: a
+# full-depth trace takes 40-50 s a train cell on the chip machine's CPU
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen2-0.5b", "train_4k"),
+                ("mixtral-8x22b", "decode_32k"), ("xlstm-125m", "long_500k"),
+                ("recurrentgemma-9b", "prefill_32k"))
+ERT_REPLACES = ("none (the reference's ERT loops are jitted jnp, no Pallas "
+                "kernel): src/repro/launch/roofline.py:223, :237")
+ERT_T = 16                   # the kernel-vs-plain case's FMAs an element
+
+
+def ert_rows() -> dict[str, list]:
+    """``ert_stream`` (t = 16) and ``ert_gather`` against their plain
+    versions past the L2, in f32 and f64; the gather beside ``torch.take``."""
+    from repro_torch.kernels.ert.ert import ert_gather, ert_stream
+    from repro_torch.kernels.ert.ref import ert_gather_ref, ert_stream_ref
+    rows = {"ert_stream": [], "ert_gather": []}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n = 1 << 26
+    for dt in (torch.float32, torch.float64):
+        x = torch.randn(n, generator=gen, device="cuda", dtype=dt)
+        idx = torch.randint(0, n, (n,), generator=gen, device="cuda",
+                            dtype=torch.int64).to(torch.int32)
+        esz = x.element_size()
+        rows["ert_stream"].append(kernel_case(
+            "ert_stream", lambda x: ert_stream(x, ERT_T),
+            lambda x: ert_stream_ref(x, ERT_T, 1.0000001, 0.5), None, (x,),
+            2 * n * esz, 2 * ERT_T * n,
+            peak=67e12 if dt == torch.float32 else 34e12, plain_samples=5))
+        idx64 = idx.long()          # torch.take reads int64 indices
+        rows["ert_gather"].append(kernel_case(
+            "ert_gather", ert_gather, ert_gather_ref,
+            lambda: torch.take(x, idx64), (x, idx), n * (2 * esz + 4), 0,
+            library_name="torch.take", plain_samples=5))
+        del x, idx, idx64
+    return rows
+
+
+def dryrun_phase(smi: str) -> tuple[dict, list]:
+    """The roofline's measured ceilings (the ERT sweep in f32 and f64), the
+    AMG cell on 2 x 256 stacked ranks and the five full-width dry-run
+    cells.  Returns the numbers and the ERT kernels' entries of the kernels
+    line."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.build import source_path
+    from repro_torch.kernels.ert.ert import ert_gather, ert_stream
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_mesh
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    rows = ert_rows()
+    # the main path of the ERT kernels: the sweeps, counted
+    for w in (ert_stream, ert_gather):
+        w.launches = 0
+    sweeps = {str(dt).replace("torch.", ""): roofline.ert_sweep(dtype=dt)
+              for dt in (torch.float32, torch.float64)}
+    torch.cuda.synchronize()
+    ert_launches = {"ert_stream": ert_stream.launches,
+                    "ert_gather": ert_gather.launches}
+    for k, n in ert_launches.items():
+        check(n > 0, f"{k} launched no time in the ERT sweeps")
+    for dt, sw in sweeps.items():
+        log(f"ERT {dt} on {smi}: stream {sw['stream_bw'] / 1e9:.1f} GB/s, "
+            f"gather {sw['gather_bw'] / 1e9:.1f} GB/s, "
+            f"{sw['flops'] / 1e12:.2f} TFLOP/s of one FMA chain a thread "
+            f"(the reference's sets, 2^16-2^23: not an L2 ceiling); "
+            f"past L2 (2^26, 2^28): stream "
+            f"{sw['past_l2_stream_bw'] / 1e9:.1f} GB/s, gather "
+            f"{sw['past_l2_gather_bw'] / 1e9:.1f} GB/s, "
+            f"{sw['past_l2_flops'] / 1e12:.2f} TFLOP/s")
+    out["ert"] = sweeps
+    out["ert_s"] = time.perf_counter() - t0
+
+    # the AMG cell: one logged apply per strategy on 2 x 256 stacked ranks
+    t1 = time.perf_counter()
+    amg = dryrun.run_amg_cell(multi_pod=True, n=24, device="cuda")
+    for r in amg:
+        check(r["halo_bit_equal"] and r["spmv_max_err"] <= 1e-12,
+              f"AMG cell {r['arch']}: halo / SpMV {r['spmv_max_err']:.2e}")
+    out["amg"] = amg
+    out["amg_s"] = time.perf_counter() - t1
+    log(f"ERT {out['ert_s']:.1f} s, AMG cell {out['amg_s']:.1f} s")
+
+    # the production dry-run at full width on the fake 2x16x16 mesh
+    t1 = time.perf_counter()
+    mesh = make_mesh((2, 16, 16), ("pod", "data", "model"), device_type="cuda")
+    hbm = sweeps["float32"]["past_l2_stream_bw"]
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        kw = {k: (dict(v) if isinstance(v, dict) else v) for k, v in
+              dryrun.PROD_CELL_OPTS.get((arch, shape), {}).items()}
+        meta = dryrun.run_cell(arch, shape, mesh=mesh, production=False,
+                               verbose=False, **kw)
+        n_dev = meta["n_devices"]
+        check(meta["flops_per_dev"] * n_dev >= meta["model_flops"],
+              f"{arch} {shape}: {meta['flops_per_dev']:.3e} FLOPs a device x "
+              f"{n_dev} < model FLOPs {meta['model_flops']:.3e}")
+        measured = roofline.roofline_terms(
+            meta["flops_per_dev"], meta["bytes_per_dev"],
+            {"total_bytes": meta["coll_bytes_per_dev"],
+             "cross_slow_bytes": meta["cross_pod_bytes_per_dev"]},
+            n_dev, meta["model_flops"], ceilings={"hbm_bw": hbm})
+        meta["measured_memory_s"] = measured.memory_s
+        log(f"dry-run {arch} x {shape} x 2x16x16: traces {meta['trace_s']:.1f} s, "
+            f"peak {meta['peak_bytes_per_dev'] / 2**30:.2f} GiB a device of "
+            f"80 (an estimate, extrapolated from the probes), "
+            f"{meta['flops_per_dev']:.3e} FLOPs a "
+            f"device (model {meta['model_flops'] / n_dev:.3e}), collective "
+            f"{meta['coll_bytes_per_dev']:.3e} B, pod-crossing "
+            f"{meta['cross_pod_bytes_per_dev']:.3e} B, n {meta['n_collectives']}; "
+            f"terms (documented) compute {meta['compute_s']:.4f} s memory "
+            f"{meta['memory_s']:.4f} s collective {meta['collective_s']:.4f} s "
+            f"cross-pod {meta['cross_pod_s']:.4f} s, memory at the measured "
+            f"{hbm / 1e9:.0f} GB/s {measured.memory_s:.4f} s, dominant "
+            f"{meta['dominant']}")
+        cells.append(meta)
+    out["cells"] = cells
+    out["cells_s"] = time.perf_counter() - t1
+    log(f"dry-run cells {out['cells_s']:.1f} s")
+    # the real sharded step (8 gloo ranks on cuda:0) is not run here: gloo
+    # crashes (SIGSEGV on every rank) on the functional all-gather that
+    # DTensor issues, _c10d_functional.all_gather_into_tensor, on CUDA
+    # tensors (scripts/gloo_cuda_probe.py); the CPU tests run the same step
+    # on 8 gloo CPU ranks against the one-device step and its fake trace
+    dist.destroy_process_group()          # the fake production group
+    out["phase_s"] = time.perf_counter() - t0
+    check(out["phase_s"] < 150, f"dry-run phase took {out['phase_s']:.1f} s")
+    entries = []
+    for k in ("ert_stream", "ert_gather"):
+        top = rows[k][0]
+        entries.append({
+            "name": k, "route": "cuda",
+            "source": str(source_path(k).relative_to(ROOT)),
+            "replaces": ERT_REPLACES, "launches": ert_launches[k],
+            "max_abs_err": top["max_abs_err"], "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "card": smi, "variants": rows[k]})
+    return out, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
@@ -3846,6 +4010,12 @@ def main() -> int:
     log(f"grad-sync phase: {grad_sync['phase_s']:.1f} s in all")
     lap("grad sync")
 
+    # 16. the dry-run: ERT ceilings, the AMG cell, the full-width cells and
+    # a real sharded step
+    dry, ert_entries = dryrun_phase(smi)
+    log(f"dry-run phase: {dry['phase_s']:.1f} s in all")
+    lap("dry-run")
+
     # 16. the kernels line: top-level numbers are the main path's case
     # (sparse kernels: the first float64 case on its operands, BCSR at its
     # block size with one RHS; flash: float32 at the prefill shape, the
@@ -3896,6 +4066,7 @@ def main() -> int:
                    + partitioned["launches_multi"][k]}}),
             **({"ptxas": ptxas[k]} if k in ptxas else {}),
             "variants": rows[k]})
+    kernels.extend(ert_entries)
     print(json.dumps({"kernels": kernels,
                       "path": {"setup_s": t_setup, "lowering_f64_s": t_lower64,
                                "pcg_f64_iterations": res.iterations,
@@ -3932,7 +4103,8 @@ def main() -> int:
                                                     "f32": c_f32}},
                       "lm": f32, "lm_bf16": bf16, "moe": moe,
                       "recurrent": recurrent, "embed": embed, "train": train,
-                      "grad_sync": grad_sync, "phase_s": phase_s}),
+                      "grad_sync": grad_sync, "dryrun": dry,
+                      "phase_s": phase_s}),
           flush=True)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; {sum(phase_s.values()):.1f} s in all")

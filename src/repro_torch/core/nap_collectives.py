@@ -123,9 +123,25 @@ def all_to_all_signature(strategy: str = "nap3") -> tuple[str, ...]:
 # --------------------------------------------------------------------------
 
 
-def _note(log: list | None, name: str) -> None:
+class SizedLog(list):
+    """A collective log (the names, as a plain ``list`` log holds them)
+    that also records, for the stacked halo exchange's collectives, each
+    one's result bytes a rank and whether it runs over the pod axis:
+    ``records`` holds ``(name, bytes a rank, crosses_pod)``."""
+
+    def __init__(self, n_devices: int):
+        super().__init__()
+        self.n_devices = n_devices
+        self.records: list[tuple[str, float, bool]] = []
+
+
+def _note(log: list | None, name: str, out: torch.Tensor | None = None,
+          crosses_pod: bool = False) -> None:
     if log is not None:
         log.append(name)
+        if out is not None and isinstance(log, SizedLog):
+            log.records.append((name, out.numel() * out.element_size()
+                                / log.n_devices, crosses_pod))
 
 
 def _all_to_all(v: torch.Tensor, rank_dim: int, chunk_dim: int,
@@ -133,17 +149,19 @@ def _all_to_all(v: torch.Tensor, rank_dim: int, chunk_dim: int,
     """Untiled all-to-all along one mesh axis: on a view whose ``rank_dim``
     indexes the sender's coordinate on that axis and ``chunk_dim`` the
     destination's, chunk ``c`` of rank ``r`` becomes chunk ``r`` of rank
-    ``c`` — a swap of the two dims."""
-    _note(log, "all_to_all")
-    return v.transpose(rank_dim, chunk_dim)
+    ``c`` — a swap of the two dims (axis 0 of the views is the pod)."""
+    out = v.transpose(rank_dim, chunk_dim)
+    _note(log, "all_to_all", out, crosses_pod=rank_dim == 0)
+    return out
 
 
 def _all_gather_lanes(v: torch.Tensor, log: list | None) -> torch.Tensor:
     """All-gather over the lane axis of a ``[n_pods, lanes, ...]`` view:
     every lane of pod P receives ``[lanes, ...]`` stacked lane-first."""
-    _note(log, "all_gather")
     n_pods, lanes = v.shape[:2]
-    return v.unsqueeze(1).expand((n_pods, lanes) + tuple(v.shape[1:]))
+    out = v.unsqueeze(1).expand((n_pods, lanes) + tuple(v.shape[1:]))
+    _note(log, "all_gather", out)
+    return out
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -157,6 +175,40 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.gather(x, 1, safe)
     out = torch.where((flat >= 0).reshape(bshape), out, 0.0)
     return out.reshape(tuple(idx.shape) + ext)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, ranks, group, tag, log):
+        ctx.args = (ranks, group, tag)
+        return ranks._all_to_all(v, group, tag, log)
+
+    @staticmethod
+    def backward(ctx, g):
+        ranks, group, tag = ctx.args
+        return ranks._all_to_all(g, group, tag, None), None, None, None, None
+
+
+class _GradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, ranks, group, tag):
+        ctx.args = (ranks, group, tag)
+        return v.view_as(v)
+
+    @staticmethod
+    def backward(ctx, g):
+        ranks, group, tag = ctx.args
+        return ranks._all_reduce(g, group, tag, None), None, None, None
+
+
+class _SumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, ranks, group, tag, log):
+        return ranks._all_reduce(v, group, tag, log)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None, None
 
 
 # --------------------------------------------------------------------------
@@ -230,6 +282,46 @@ class RankGroups:
         self.sent: Counter = Counter()
         self.seconds: Counter = Counter()
 
+    @classmethod
+    def from_mesh(cls, mesh, axes) -> "RankGroups":
+        """This process's grid over the axes ``axes`` of a
+        :class:`~torch.distributed.device_mesh.DeviceMesh` (the reference's
+        ``shard_map`` axes): one axis is a ``1 x size`` grid whose ``world``
+        and ``fast`` group are that axis's group; two axes are (slow, fast),
+        ``n_pods x lanes``, with ``world`` their product.  Every process
+        makes every group of a two-axis grid, in the same order."""
+        axes = tuple(axes)
+        if len(axes) not in (1, 2):
+            raise ValueError(f"RankGroups.from_mesh: {len(axes)} axes {axes}")
+        names = mesh.mesh_dim_names
+        sizes = [mesh.size(names.index(a)) for a in axes]
+        coords = [mesh.get_local_rank(a) for a in axes]
+        self = cls.__new__(cls)
+        if len(axes) == 1:
+            (self.lanes,), (self.lane,) = sizes, coords
+            self.n_pods, self.pod = 1, 0
+            g = mesh.get_group(axes[0])
+            self._groups = {"world": (g, self.lanes), "fast": (g, self.lanes)}
+        else:
+            (self.n_pods, self.lanes), (self.pod, self.lane) = sizes, coords
+            dims = [names.index(a) for a in axes]
+            grid = mesh.mesh.movedim(dims, list(range(len(dims))))
+            grid = grid.reshape(self.n_pods * self.lanes, -1)
+            world = None
+            for col in range(grid.shape[1]):    # every process, same order
+                members = grid[:, col].tolist()
+                g = dist.new_group(members)
+                if dist.get_rank() in members:
+                    world = g
+            self._groups = {"world": (world, self.size),
+                            "fast": (mesh.get_group(axes[1]), self.lanes),
+                            "slow": (mesh.get_group(axes[0]), self.n_pods)}
+        self.rank = self.pod * self.lanes + self.lane
+        self.backend = str(dist.get_backend(self._groups["fast"][0]))
+        self.staged = self.backend == "gloo"
+        self.sent, self.seconds = Counter(), Counter()
+        return self
+
     @property
     def size(self) -> int:
         return self.n_pods * self.lanes
@@ -279,7 +371,13 @@ class RankGroups:
     def all_to_all(self, v: torch.Tensor, group: str, tag=None,
                    log: list | None = None) -> torch.Tensor:
         """Chunk ``j`` of ``v``'s dim 0 goes to member ``j`` of ``group``;
-        chunk ``i`` of the result came from member ``i``."""
+        chunk ``i`` of the result came from member ``i``.  Differentiable:
+        its gradient is the same all-to-all of the output's gradient."""
+        if torch.is_grad_enabled() and v.requires_grad:
+            return _AllToAll.apply(v, self, group, tag, log)
+        return self._all_to_all(v, group, tag, log)
+
+    def _all_to_all(self, v, group, tag, log):
         return self._run(
             lambda out, src, pg: dist.all_to_all_single(out, src, group=pg),
             v, group, tag, log, "all_to_all", True,
@@ -306,7 +404,23 @@ class RankGroups:
 
     def all_reduce(self, v: torch.Tensor, group: str, tag=None,
                    log: list | None = None) -> torch.Tensor:
-        """The sum of ``v`` over the group, on every member."""
+        """The sum of ``v`` over the group, on every member.
+        Differentiable for a sum every member then reads whole (a tensor-
+        parallel partial sum): the gradient passes as it is."""
+        if torch.is_grad_enabled() and v.requires_grad:
+            return _SumReplicated.apply(v, self, group, tag, log)
+        return self._all_reduce(v, group, tag, log)
+
+    def grad_sum(self, v: torch.Tensor, group: str, tag=None) -> torch.Tensor:
+        """``v`` as it is, its gradient summed over the group: the input of
+        a tensor-parallel region that every member reads whole and that
+        :meth:`all_reduce` closes (each member's gradient is then the share
+        of its slice of the weights)."""
+        if torch.is_grad_enabled() and v.requires_grad:
+            return _GradSum.apply(v, self, group, tag)
+        return v
+
+    def _all_reduce(self, v, group, tag, log):
         def op(out, src, pg):
             out.copy_(src)
             dist.all_reduce(out, group=pg)
@@ -921,3 +1035,154 @@ def _halo_ranks(x, plan: HaloPlan, send_idx, recv_sel, pool_sel, log,
     else:
         raise ValueError(plan.strategy)
     return _take(pool.reshape((1, plan.pool_len) + ext), recv_sel)
+
+
+# --------------------------------------------------------------------------
+# DTensor on a DeviceMesh (the mesh shardings and the dry-run): the
+# placements, the rank-by-rank regions and the process-group plumbing, so
+# that every torch.distributed call of the port stays in this module.  The
+# collectives DTensor issues under these are not NAP strategies; the
+# dry-run logs them (repro_torch.launch.roofline.CollectiveLog).
+# --------------------------------------------------------------------------
+
+def replicate():
+    """The ``Replicate()`` placement."""
+    from torch.distributed.tensor import Replicate
+    return Replicate()
+
+
+def shard(dim: int):
+    """The ``Shard(dim)`` placement."""
+    from torch.distributed.tensor import Shard
+    return Shard(dim)
+
+
+def partial():
+    """The ``Partial()`` (pending sum) placement."""
+    from torch.distributed.tensor import Partial
+    return Partial()
+
+
+def distribute(t: torch.Tensor, mesh, placements):
+    """``distribute_tensor``: ``t`` (whole on every rank) placed on
+    ``mesh``."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh, list(placements))
+
+
+def from_local(t: torch.Tensor, mesh, placements):
+    """A DTensor of this rank's shard ``t`` (no check, no collective)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, list(placements), run_check=False)
+
+
+def local_region(fn, out_placements, in_placements, mesh,
+                 redistribute_inputs: bool = False, in_grad_placements=None):
+    """``local_map``: ``fn`` runs on each rank's shards (plain tensors);
+    ``out_placements`` a list for one output.  ``in_grad_placements``: each
+    input's gradient placements (by default the input's own; see
+    :func:`summed_grad`)."""
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=in_placements,
+                     in_grad_placements=in_grad_placements, device_mesh=mesh,
+                     redistribute_inputs=redistribute_inputs)
+
+
+def summed_grad(placements, data_placements) -> tuple:
+    """The gradient placements of a ``local_map`` region's input placed by
+    ``placements`` that meets data placed by ``data_placements``: where
+    the input is replicated over a mesh dim that the data is sharded over,
+    each rank there holds the gradient of its own share of the data, so
+    the gradient is ``Partial`` (a pending sum) over that dim, as
+    ``shard_map``'s transpose sums it; elsewhere the input's own."""
+    return tuple(partial() if p.is_replicate() and d.is_shard() else p
+                 for p, d in zip(placements, data_placements))
+
+
+def implicit_replication():
+    """The context in which plain tensors join DTensor operands as
+    replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def start_fake_group(world_size: int) -> None:
+    """Make the default process group a fake one of ``world_size`` ranks
+    (this process rank 0): every collective returns at once, moving
+    nothing.  Any default group of another size or backend is torn down
+    first."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if (dist.get_backend(), dist.get_world_size()) == ("fake",
+                                                          world_size):
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), world_size=world_size,
+                            rank=0)
+
+
+def default_world_size() -> int | None:
+    """The default group's size, ``None`` when none is initialised."""
+    return dist.get_world_size() if dist.is_initialized() else None
+
+
+def end_default_group() -> None:
+    """Tear the default process group down (if there is one)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def device_mesh(device_type: str, shape: tuple[int, ...],
+                names: tuple[str, ...]):
+    """``init_device_mesh`` over the default group."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(names))
+
+
+def group_ranks(arg) -> tuple[int, ...] | None:
+    """The global ranks of a process group given as a group name (a
+    functional collective's argument), a ``ProcessGroup`` or its script
+    object (a c10d op's); ``None`` for anything else."""
+    from torch.distributed import distributed_c10d as c10d
+    pg = None
+    if isinstance(arg, str):
+        try:
+            pg = c10d._resolve_process_group(arg)
+        except (KeyError, RuntimeError, ValueError):
+            return None
+    elif isinstance(arg, dist.ProcessGroup):
+        pg = arg
+    elif isinstance(arg, torch.ScriptObject):
+        pg = dist.ProcessGroup.unbox(arg)
+    if pg is None:
+        return None
+    return tuple(dist.get_process_group_ranks(pg))
+
+
+def group_reduce(x: torch.Tensor, op: str, group=None) -> torch.Tensor:
+    """A functional all-reduce (``op``: "sum", "max") of ``x`` over
+    ``group`` (the default group when ``None``), waited for."""
+    import torch.distributed._functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_reduce(
+        x, op, dist.group.WORLD if group is None else group))
+
+
+class _GroupSum(torch.autograd.Function):
+    """:func:`group_reduce` "sum" of a value every rank then reads whole;
+    backward, each rank's share gets that (replicated) gradient as it
+    is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def group_sum_replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable :func:`group_reduce` "sum" (see :class:`_GroupSum`)."""
+    return _GroupSum.apply(x, group)

@@ -56,6 +56,13 @@ KERNELS = {
                               "flash_attention_launch",
                               [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
                               + [_INT, _I64, _INT, _P]),
+    # the roofline's measured ceilings: x, y; n, t; a, c, f64, stream
+    "ert_stream": ("ert/csrc/ert.cu", "ert_stream_launch",
+                   [_P, _P, _I64, _INT, ctypes.c_double, ctypes.c_double,
+                    _INT, _P]),
+    # x, idx, y; n, f64, stream
+    "ert_gather": ("ert/csrc/ert.cu", "ert_gather_launch",
+                   [_P, _P, _P, _I64, _INT, _P]),
 }
 
 _LOADED: dict[tuple[str, str], ctypes._CFuncPtr] = {}

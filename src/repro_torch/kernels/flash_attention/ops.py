@@ -36,3 +36,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         out = attention_ref(qt, kt, vt, causal=causal, window=window)
     return out.transpose(1, 2)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             window: int | None) -> torch.Tensor:
+    """:func:`attention` through the kernel (causal) as a custom operator,
+    so that a trace under ``FakeTensorMode`` (the dry-run) sees one opaque
+    op with a registered fake instead of the wrapper's launch."""
+    return attention(q, k, v, causal=True, window=window,
+                     use_kernel=True).contiguous()
+
+
+@flash_op.register_fake
+def _flash_op_fake(q, k, v, window):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)

@@ -70,11 +70,14 @@ def _rope_freqs_on(head_dim: int, theta: float, device: torch.device,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """:func:`rope_freqs` as ``dtype`` (float32, or float64 for a float64
     model) on ``device``, made once: a copy from the host per call would
-    stall every decode step on the card."""
+    stall every decode step on the card.  Always a real tensor, also when
+    first asked for under ``FakeTensorMode`` (a traced dry-run)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
     f = rope_freqs(head_dim, theta)
     if dtype == torch.float32:
         f = f.astype(np.float32)
-    return torch.as_tensor(f, dtype=dtype, device=device)
+    with unset_fake_temporarily():
+        return torch.as_tensor(f, dtype=dtype, device=device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

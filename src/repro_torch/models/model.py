@@ -42,11 +42,19 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
 from ..device import resolve_device
+from ..core.nap_collectives import (from_local, group_reduce,
+                                    group_sum_replicated, local_region,
+                                    partial, replicate, shard, summed_grad)
+from .act_sharding import (constrain, constrain_q5, constrain_residual,
+                           constrain_scores, current, settle, settle_heads)
 from .attention import _project_qkv, attn_forward, attn_params
 from .layers import (apply_rope, make_norm, mlp, mlp_params, norm_params,
                      normal_init, wide)
-from .moe import moe_ffn_tp, moe_params
+from .moe import moe_ep_shardmap, moe_ffn_tp, moe_params
 from .ssm import PARAMS as RECURRENT_PARAMS
 from .ssm import recurrent_cache, recurrent_decode, recurrent_forward
 
@@ -120,6 +128,9 @@ def block_params(gen, cfg, kind: str, dtype, device) -> dict:
 
 def _ffn_apply(p, cfg, x, moe_stats: dict | None = None):
     if cfg.is_moe:
+        ep = current("moe_ep")
+        if ep is not None:
+            return moe_ep_shardmap(p["ffn"], cfg, x, **ep)
         return moe_ffn_tp(p["ffn"], cfg, x, moe_stats)
     return mlp(p["ffn"], x, cfg.act)
 
@@ -135,10 +146,11 @@ def block_forward(p, cfg, kind: str, x, positions, use_kernel: bool = True):
         cache = {"k": k, "v": v}
     else:
         out, cache = recurrent_forward(p["core"], cfg, kind, h)
-    x = x + out
+        cache = {k: _batch_only(t) for k, t in cache.items()}
+    x = x + settle(out)
     if _has_ffn(cfg, kind):
-        x = x + _ffn_apply(p, cfg, norm(p["ln2"], x))
-    return x, cache
+        x = x + settle(_ffn_apply(p, cfg, norm(p["ln2"], x)))
+    return constrain_residual(x), cache
 
 
 def attn_decode_cached(p, cfg, x, cache: dict, pos: int):
@@ -155,22 +167,136 @@ def attn_decode_cached(p, cfg, x, cache: dict, pos: int):
     q = apply_rope(q, posn, cfg.rope_theta)
     k = apply_rope(k, posn, cfg.rope_theta)
     slot = pos % clen
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    slot_pos[slot] = pos
+    _write_slot(cache_k, k[:, 0], slot)
+    _write_slot(cache_v, v[:, 0], slot)
+    _write_slot(slot_pos, pos, slot, dim=0)
     group = cfg.n_heads // cfg.n_kv_heads
+    if isinstance(q, DTensor):
+        # split heads into (kv head, group) rank by rank only where the
+        # heads are whole: move a head sharding to q5's head-dim one
+        spec = current("q5_spec")
+        spec = (spec[0], spec[1], None, spec[4]) if spec else ()
+        q = constrain(q, spec) if spec else settle_heads(q)
     q5 = q.reshape(b, 1, cfg.n_kv_heads, group, cfg.head_dim)
+    q5 = constrain_q5(q5)     # reshard the tiny q, never the cache
     # float32 scores (the reference's preferred_element_type)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", q5.float(), cache_k.float()) \
-        * cfg.head_dim ** -0.5
+    s = _decode_scores(q5, cache_k) * cfg.head_dim ** -0.5
+    s = constrain_scores(s)   # the dh contraction completes with a sum
     mask = (slot_pos <= pos) & (slot_pos >= 0)
     if cfg.window is not None:
         mask &= slot_pos > pos - cfg.window
     s = torch.where(mask, s, NEG_INF)
     pr = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", pr.to(cache_v.dtype), cache_v)
+    out = _decode_values(pr.to(cache_v.dtype), cache_v)
     out = out.to(x.dtype).reshape(b, 1, -1)
     return out @ p["wo"]
+
+
+def _copy_state(dst, src):
+    """A recurrent state written into its cache entry in place (a DTensor
+    state first takes the entry's placements)."""
+    if isinstance(dst, DTensor):
+        if not isinstance(src, DTensor):
+            raise TypeError("a DTensor cache entry needs a DTensor state")
+        src = src.redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+        return
+    dst.copy_(src)
+
+
+def _embed_sharded(table, ids):
+    """Embedding lookup from a DTensor table: where its vocab dim is sharded
+    (over one mesh dim) each rank looks up the ids in its slice, zeros
+    elsewhere, and one all-reduce over that dim completes the rows (the
+    vocab-parallel lookup GSPMD makes of the reference's ``jnp.take``).
+    The table's gradient is summed over the dims the ids are sharded
+    over."""
+    from torch.distributed.tensor import Shard
+    mesh = table.device_mesh
+    tp = tuple(table.placements)
+    v_dims = [i for i, p in enumerate(tp)
+              if isinstance(p, Shard) and p.dim == 0]
+    ip = tuple(ids.placements) if isinstance(ids, DTensor) else \
+        tuple(replicate() for _ in tp)
+    part = tuple(partial() if i in v_dims else p for i, p in enumerate(ip))
+    coord = [mesh.get_local_rank(i) for i in v_dims]
+    if len(v_dims) > 1:
+        raise ValueError(f"embedding: vocab sharded over {len(v_dims)} dims")
+
+    def body(t, i):
+        if not v_dims:
+            return F.embedding(i, t)
+        lo = coord[0] * t.shape[0]
+        li = i.long() - lo
+        mine = (li >= 0) & (li < t.shape[0])
+        rows = F.embedding(li.clamp(0, t.shape[0] - 1), t)
+        return torch.where(mine[..., None], rows,
+                           torch.zeros((), dtype=t.dtype, device=t.device))
+
+    x = local_region(body, list(part), (tp, ip), mesh,
+                     redistribute_inputs=True,
+                     in_grad_placements=(summed_grad(tp, ip), ip))(table, ids)
+    return x.redistribute(mesh, list(ip))
+
+
+def _write_slot(cache, value, slot: int, dim: int = 1):
+    """``cache``'s slot ``slot`` along ``dim`` set to ``value`` in place.  A
+    DTensor cache is written rank by rank: ``value`` is first
+    redistributed to the cache's placements (the slot dim dropped), which
+    for a replicated value is a local slice."""
+    if not isinstance(cache, DTensor):
+        dst = cache.select(dim, slot)
+        dst.copy_(value) if torch.is_tensor(value) else dst.fill_(value)
+        return
+    from torch.distributed.tensor import Shard
+    place = tuple(shard(p.dim - (p.dim > dim)) if isinstance(p, Shard)
+                  else replicate() for p in cache.placements)
+    if not isinstance(value, DTensor):
+        value = torch.as_tensor(value, dtype=cache.dtype)
+        cache.to_local().select(dim, slot).fill_(value)
+        return
+    value = value.redistribute(cache.device_mesh, place)
+    cache.to_local().select(dim, slot).copy_(value.to_local())
+
+
+def _decode_scores(q5, cache_k):
+    """``einsum("bqhgd,bkhd->bhgqk")`` in float32.  On DTensors with the
+    head dim sharded over a mesh dim (the cache's layout) each rank
+    contracts its share and the scores are a pending sum over that dim."""
+    if not isinstance(q5, DTensor):
+        return torch.einsum("bqhgd,bkhd->bhgqk", q5.float(), cache_k.float())
+    from torch.distributed.tensor import Shard
+    kp = tuple(cache_k.placements)
+    qp = tuple(shard(4) if isinstance(p, Shard) and p.dim == 3 else p
+               for p in kp)
+    out = tuple(partial() if isinstance(p, Shard) and p.dim == 3
+                else p if isinstance(p, Shard) and p.dim == 0 else replicate()
+                for p in kp)
+    def body(a, c):
+        return torch.einsum("bqhgd,bkhd->bhgqk", a.float(), c.float())
+
+    return local_region(body, list(out), (qp, kp), q5.device_mesh,
+                        redistribute_inputs=True)(q5, cache_k)
+
+
+def _decode_values(pr, cache_v):
+    """``einsum("bhgqk,bkhd->bqhgd")``; on DTensors the output keeps the
+    cache's head-dim sharding, then is gathered whole over it (a small
+    [B, 1, H, dh] tensor) for the output projection."""
+    if not isinstance(pr, DTensor):
+        return torch.einsum("bhgqk,bkhd->bqhgd", pr, cache_v)
+    from torch.distributed.tensor import Shard
+    kp = tuple(cache_v.placements)
+    pp = tuple(p if isinstance(p, Shard) and p.dim == 0 else replicate()
+               for p in kp)
+    op = tuple(shard(4) if isinstance(p, Shard) and p.dim == 3 else p
+               for p in kp)
+    def body(a, c):
+        return torch.einsum("bhgqk,bkhd->bqhgd", a, c)
+
+    out = local_region(body, list(op), (pp, kp), pr.device_mesh,
+                       redistribute_inputs=True)(pr, cache_v)
+    return out.redistribute(out.device_mesh, pp)
 
 
 def block_decode(p, cfg, kind: str, x, cache: dict, pos: int,
@@ -180,14 +306,14 @@ def block_decode(p, cfg, kind: str, x, cache: dict, pos: int,
     norm = make_norm(cfg.norm)
     h = norm(p["ln1"], x)
     if kind == "attn":
-        x = x + attn_decode_cached(p["core"], cfg, h, cache, pos)
+        x = x + settle(attn_decode_cached(p["core"], cfg, h, cache, pos))
     else:
         out, new = recurrent_decode(p["core"], cfg, kind, h, cache)
         for name, t in new.items():
-            cache[name].copy_(t)
-        x = x + out
+            _copy_state(cache[name], t)
+        x = x + settle(out)
     if _has_ffn(cfg, kind):
-        x = x + _ffn_apply(p, cfg, norm(p["ln2"], x), moe_stats)
+        x = x + settle(_ffn_apply(p, cfg, norm(p["ln2"], x), moe_stats))
     return x
 
 
@@ -249,7 +375,9 @@ class LM(nn.Module):
         go on in the weights' type (the reference's type promotion would
         widen the activations instead; torch's products want one type)."""
         if self.cfg.embed_input:
-            return self.embed[inputs]
+            if isinstance(self.embed, DTensor):
+                return _embed_sharded(self.embed, inputs)
+            return F.embedding(inputs, self.embed)
         return inputs.to(self.dtype)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
@@ -331,10 +459,33 @@ def _stack_caches(cfg, caches: list[dict]):
     entries as they are."""
     L = len(cfg.pattern)
     n_groups = len(caches) // L
-    groups = tuple({name: torch.stack([caches[g * L + j][name]
-                                       for g in range(n_groups)])
+    groups = tuple({name: _stack([caches[g * L + j][name]
+                                  for g in range(n_groups)])
                     for name in caches[j]} for j in range(L))
     return groups, tuple(caches[n_groups * L:])
+
+
+def _batch_only(t):
+    """A DTensor recurrent state in its cache layout (the cache specs':
+    batch over dp, whole otherwise); anything else as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [
+        p if getattr(p, "dim", None) == 0 else replicate()
+        for p in t.placements])
+
+
+def _stack(ts: list):
+    """``torch.stack``; DTensors of one layout are stacked rank by rank (a
+    new leading dim, their shardings one dim on), with no collective."""
+    if not isinstance(ts[0], DTensor) or any(
+            tuple(t.placements) != tuple(ts[0].placements) for t in ts):
+        return torch.stack(ts)
+    from torch.distributed.tensor import Shard
+    pl = [shard(p.dim + 1) if isinstance(p, Shard) else p
+          for p in ts[0].placements]
+    return from_local(torch.stack([t.to_local() for t in ts]),
+                      ts[0].device_mesh, pl)
 
 
 def init_lm(cfg, seed: int = 0, dtype=torch.bfloat16, device="cuda",
@@ -347,9 +498,47 @@ def init_lm(cfg, seed: int = 0, dtype=torch.bfloat16, device="cuda",
     return LM(cfg, init_params(cfg, gen, dtype, dev)).requires_grad_(trainable)
 
 
+def _xent_sharded(logits, tgt):
+    """:func:`_xent` on DTensor logits whose vocab dim is sharded over one
+    mesh dim (a vocab-parallel head): each rank's max, sum of exponentials
+    and target logit over its vocab slice, each completed by one all-reduce
+    over that dim (``[B, S]`` floats), as GSPMD lowers the reference's."""
+    from torch.distributed.tensor import Shard
+
+    mesh, vd = logits.device_mesh, logits.ndim - 1
+    lp = tuple(logits.placements)
+    v_dims = [i for i, p in enumerate(lp)
+              if isinstance(p, Shard) and p.dim == vd]
+    if len(v_dims) > 1:
+        raise ValueError(f"_xent: vocab sharded over {len(v_dims)} mesh dims")
+    out_pl = tuple(p if isinstance(p, Shard) and p.dim < vd else replicate()
+                   for p in lp)
+    group = mesh.get_group(v_dims[0]) if v_dims else None
+    coord = mesh.get_local_rank(v_dims[0]) if v_dims else 0
+
+    def body(lg, t):
+        lg = wide(lg)
+        if group is None:
+            return _xent(lg, t)
+        off = coord * lg.shape[-1]
+        m = group_reduce(lg.detach().amax(-1), "max", group)
+        se = group_sum_replicated(torch.exp(lg - m[..., None]).sum(-1), group)
+        lt = t.long() - off
+        mine = (lt >= 0) & (lt < lg.shape[-1])
+        gold = torch.gather(lg, -1, lt.clamp(0, lg.shape[-1] - 1)[..., None])
+        gold = group_sum_replicated(torch.where(mine, gold[..., 0], 0.0),
+                                    group)
+        return m + torch.log(se) - gold
+
+    return local_region(body, list(out_pl), (lp, out_pl), mesh,
+                        redistribute_inputs=True)(logits, tgt)
+
+
 def _xent(logits: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
     """Per-position negative log-likelihood of ``tgt`` in float32 (float64
     for a float64 model)."""
+    if isinstance(logits, DTensor):
+        return _xent_sharded(logits, tgt)
     logits = wide(logits)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, tgt[..., None].long())[..., 0]

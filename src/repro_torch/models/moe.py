@@ -13,10 +13,14 @@ capacity_factor), 1)`` tokens; a token past that is dropped in token order
   :func:`~repro_torch.core.nap_collectives.hier_all_to_all` — the paper's
   NAP-3 applied to MoE dispatch when ``nap`` is set.
 
+* :func:`moe_ep_shardmap` — the reference's ``shard_map`` region on a
+  :class:`~torch.distributed.device_mesh.DeviceMesh`: a ``local_map``
+  around :func:`moe_ffn_ep` on DTensor activations and weights, experts
+  over the EP axes, d_ff over the TP axis (the down projection's partial
+  sums all-reduced over it).
+
 The experts' three batched products are ``torch.matmul`` (the reference's
-are ``jnp.einsum`` outside any Pallas kernel).  The training-time sharding
-of the reference (``moe_ep_shardmap`` with d_ff sharded over a TP axis, the
-``act_sharding`` constraints) is not ported (ROADMAP queue 1 item 13).
+are ``jnp.einsum`` outside any Pallas kernel).
 """
 from __future__ import annotations
 
@@ -24,8 +28,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from ..core.nap_collectives import hier_all_to_all
+from ..core.nap_collectives import (RankGroups, from_local, hier_all_to_all,
+                                    local_region, replicate, summed_grad)
+from .act_sharding import (constrain, constrain_moe_buf, current,
+                           placements_of)
 from .layers import dense_init
 
 
@@ -55,7 +63,12 @@ def _dispatch_indices(sel: torch.Tensor, n_experts: int, capacity: int):
     flat_e = sel.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(sorted_e, minlength=n_experts)
+    # bincount's length depends on the data; a scatter-add of ones into
+    # n_experts slots counts the same with a static shape (a traced dry-run
+    # needs one)
+    counts = torch.zeros(n_experts, dtype=sorted_e.dtype,
+                         device=sel.device).scatter_add_(
+        0, sorted_e, torch.ones_like(sorted_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(T * k, device=sel.device) - starts[sorted_e]
     pos = torch.empty_like(pos_sorted)
@@ -100,10 +113,54 @@ def _combine(out_buf, e_id, safe_pos, keep, probs, top_k: int):
     return y.reshape(-1, top_k, y.shape[-1]).sum(dim=1)
 
 
+def _moe_tp_sharded(p, cfg, x):
+    """:func:`moe_ffn_tp` on DTensors (the reference's TP regime under
+    GSPMD).  The dispatch is over the global token order (its capacity
+    from all T tokens, as the reference's), and DTensor has no rule for
+    its stable sort and scatter-add, so every rank gathers the tokens and
+    builds the ``[E, cap, d]`` buffer alike; then, as the reference's
+    ``constrain_moe_buf`` lays it out, each rank runs the experts on its
+    share of the capacity dim (over dp) with d_ff over the model axis (the
+    weights' FSDP ``data`` sharding gathered at use), the down projection's
+    partial sums are reduce-scattered over d, and the buffer is gathered
+    back for each rank's combine of its own rows."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    rep = [replicate()] * mesh.ndim
+    b, s, d = x.shape
+    x_all = x.redistribute(mesh, rep).to_local().reshape(-1, d)
+    router = p["router"].redistribute(mesh, rep).to_local()
+    probs, sel = _route(x_all, router, cfg.top_k)
+    cap = _capacity(x_all.shape[0], cfg)
+    e_id, pos = _dispatch_indices(sel, cfg.n_experts, cap)
+    buf, safe_pos, keep = _scatter(x_all, e_id, pos, cap, cfg.n_experts,
+                                   cfg.top_k)
+    spec = current("moe_buf_spec")
+    buf = from_local(buf, mesh, rep)
+    if spec is not None:   # the capacity dim over dp (d stays whole here)
+        buf = constrain(buf, (spec[0], spec[1], None))
+
+    def keep_f(w, f_dim):
+        return w.redistribute(mesh, [
+            pl if isinstance(pl, Shard) and pl.dim == f_dim else replicate()
+            for pl in w.placements])
+
+    w = {"gate": keep_f(p["gate"], 2), "up": keep_f(p["up"], 2),
+         "down": keep_f(p["down"], 1)}
+    out_buf = constrain_moe_buf(_expert_ffn(w, buf, cfg.act))
+    out_buf = out_buf.redistribute(mesh, rep).to_local()
+    y = _combine(out_buf, e_id, safe_pos, keep, probs, cfg.top_k)
+    y = from_local(y.reshape(b, s, d), mesh, rep)
+    return y.redistribute(mesh, x.placements)
+
+
 def moe_ffn_tp(p, cfg, x: torch.Tensor, stats: dict | None = None):
     """All experts on this card.  x: [B, S, d] → [B, S, d].  ``stats``, when
     given, gains the (token, slot) selections (``"selected"``) and the ones
-    the capacity dropped (``"dropped"``)."""
+    the capacity dropped (``"dropped"``).  DTensor operands: see
+    :func:`_moe_tp_sharded`."""
+    if isinstance(x, DTensor):
+        return _moe_tp_sharded(p, cfg, x)
     b, s, d = x.shape
     x2 = x.reshape(-1, d)
     probs, sel = _route(x2, p["router"], cfg.top_k)
@@ -114,7 +171,8 @@ def moe_ffn_tp(p, cfg, x: torch.Tensor, stats: dict | None = None):
     if stats is not None:     # the dropped count stays on the device
         stats["selected"] = stats.get("selected", 0) + keep.numel()
         stats["dropped"] = stats.get("dropped", 0) + (~keep).sum()
-    out_buf = _expert_ffn(p, buf, cfg.act)
+    buf = constrain_moe_buf(buf)        # keep the capacity dim dp-sharded
+    out_buf = constrain_moe_buf(_expert_ffn(p, buf, cfg.act))
     return _combine(out_buf, e_id, safe_pos, keep, probs,
                     cfg.top_k).reshape(b, s, d)
 
@@ -134,12 +192,14 @@ def moe_ffn_ep(p, cfg, x: torch.Tensor, mesh: tuple[int, ...],
     else ``"flat"``; one axis: one all-to-all); the outputs come back the
     same way.  ``log`` gains both shuffles' steps.  With ``ranks`` (one
     process per rank), ``x`` and the slabs are this process's ``[1, ...]``
-    and the shuffles run between the processes."""
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "moe_ffn_ep: d_ff sharded over a TP axis inside EP "
-            "(moe_ep_shardmap's tp_axis) is not ported yet (ROADMAP queue 1 "
-            "item 13)")
+    and the shuffles run between the processes.  ``tp_axis``: the
+    :class:`~repro_torch.core.nap_collectives.RankGroups` of a TP group
+    over which this rank's slabs hold a share of d_ff (one process per
+    rank); the down projection's partial sums are all-reduced over it,
+    and the gradient of the slabs' input likewise in the backward."""
+    if tp_axis is not None and ranks is None:
+        raise ValueError("moe_ffn_ep: tp_axis (d_ff over a TP group) needs "
+                         "ranks= (one process per rank)")
     if len(mesh) == 2:
         (n_pods, lanes), strategy = mesh, ("nap3" if nap else "flat")
     elif len(mesh) == 1:
@@ -172,8 +232,50 @@ def moe_ffn_ep(p, cfg, x: torch.Tensor, mesh: tuple[int, ...],
 
     recv = shuffle(send).reshape(R, m, e_loc, cap, d)    # [.., peers, e_loc]
     h = recv.transpose(1, 2).reshape(R, e_loc, m * cap, d)
+    if tp_axis is not None:     # each member's gradient: its d_ff slice's
+        h = tp_axis.grad_sum(h, "world")
     y = _expert_ffn(p, h, cfg.act)                      # [R, e_loc, m*cap, d]
+    if tp_axis is not None:     # one axis: the flat sum is the strategy
+        y = tp_axis.all_reduce(y, "world", log=log)
     y = y.reshape(R, e_loc, m, cap, d).transpose(1, 2)
     back = shuffle(y).reshape(R * E, cap, d)            # the send layout
     return _combine(back, e_id, safe_pos, keep, probs,
                     cfg.top_k).reshape(R, T, d)
+
+
+def moe_ep_shardmap(p, cfg, x, mesh, dp_axes=("data",), ep_axes=("data",),
+                    tp_axis="model", nap: bool = False, seq_axis=None):
+    """Expert-parallel MoE as a ``local_map`` region (the reference's
+    ``shard_map`` production path) on a
+    :class:`~torch.distributed.device_mesh.DeviceMesh`.  Experts are
+    sharded over ``ep_axes`` (by default the intra-pod "data" axis: the
+    dispatch never crosses pods), d_ff over ``tp_axis``; x ``[B, S, d]``
+    has its batch over ``dp_axes`` (and S over ``seq_axis``).  Inside, each
+    rank runs :func:`moe_ffn_ep` on its tokens with its slabs, the shuffles
+    between the ranks of its EP group
+    (:meth:`~repro_torch.core.nap_collectives.RankGroups.from_mesh`)."""
+
+    B, S, d = x.shape
+    ep = ep_axes if len(ep_axes) > 1 else ep_axes[0]
+    x_pl = placements_of(mesh, (dp_axes if dp_axes else None, seq_axis, None))
+    w_pl = placements_of(mesh, (ep, None, tp_axis))
+    wd_pl = placements_of(mesh, (ep, tp_axis, None))
+    ranks = RankGroups.from_mesh(mesh, ep_axes)
+    tp = RankGroups.from_mesh(mesh, (tp_axis,)) if tp_axis else None
+    ep_mesh = (ranks.n_pods, ranks.lanes) if len(ep_axes) == 2 else \
+        (ranks.lanes,)
+
+    def body(xl, router, gate, up, down):
+        pl = {"router": router, "gate": gate[None], "up": up[None],
+              "down": down[None]}
+        out = moe_ffn_ep(pl, cfg, xl.reshape(1, -1, d), ep_mesh, nap=nap,
+                         tp_axis=tp, ranks=ranks)
+        return out.reshape(xl.shape)
+
+    rep = placements_of(mesh, ())
+    ins = (x_pl, rep, w_pl, w_pl, wd_pl)
+    # a weight whole over a dim that shards the tokens: summed gradients
+    return local_region(body, list(x_pl), ins, mesh, redistribute_inputs=True,
+                        in_grad_placements=tuple(summed_grad(pl, x_pl)
+                                                 for pl in ins))(
+        x, p["router"], p["gate"], p["up"], p["down"])

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from .layers import dense_init, normal_init
 
@@ -206,7 +207,10 @@ def _rg_gates(p, u: torch.Tensor):
     acc = _acc(u.dtype)
     r = torch.sigmoid((u @ p["wa"]).to(acc))
     i = torch.sigmoid((u @ p["wi"]).to(acc))
-    log_a = RG_C * r * F.logsigmoid(p["lam"].to(acc))
+    lam = p["lam"]
+    if isinstance(lam, DTensor):   # replicated: the local copy is the whole
+        lam = lam.to_local()
+    log_a = RG_C * r * F.logsigmoid(lam.to(acc))
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
     return a, beta * i * u.to(acc)

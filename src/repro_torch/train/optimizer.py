@@ -15,12 +15,15 @@ reference would see (:func:`reference_ndim`), not to the tensor's own.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..core.nap_collectives import group_reduce, implicit_replication
 from ..models.layers import wide
 from ..models.model import layer_slot
 
@@ -84,8 +87,21 @@ def init_opt_state(params: dict, moment_dtype=torch.float32) -> dict:
 
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32 (float64 for
-    float64 leaves)."""
-    return torch.sqrt(sum(torch.sum(wide(t) ** 2) for t in tree.values()))
+    float64 leaves).  DTensor leaves are summed rank by rank (a leaf's
+    local sum divided by the ranks it is replicated over) and the total is
+    reduced once over the whole group: one all-reduce for the whole tree,
+    a plain 0-d tensor on every rank."""
+    leaves = list(tree.values())
+    if not any(isinstance(t, DTensor) for t in leaves):
+        return torch.sqrt(sum(torch.sum(wide(t) ** 2) for t in leaves))
+    total = None
+    for t in leaves:
+        loc = torch.sum(wide(t.to_local()) ** 2)
+        reps = math.prod(t.device_mesh.size(i) for i, p in
+                         enumerate(t.placements) if p.is_replicate())
+        loc = loc / reps
+        total = loc if total is None else total + loc
+    return torch.sqrt(group_reduce(total, "sum"))
 
 
 @torch.no_grad()
@@ -95,7 +111,12 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
     returns new arrays); ``decay`` says which parameters decay (default:
     the reference's ``ndim >= 2`` on each tensor's own shape; an LM's
     parameters need :func:`decay_mask`).  Returns (params, new state,
-    ``{"grad_norm", "lr"}``)."""
+    ``{"grad_norm", "lr"}``).
+
+    DTensor leaves: each parameter is updated where its moments live (the
+    gradient and the parameter redistributed to the moments' placements: a
+    local slice where ZeRO shards the moments) and gathered back to its
+    own placements."""
     count = int(state["count"]) + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -104,18 +125,27 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
     c1 = float(f(1) - f(cfg.b1) ** f(count))
     c2 = float(f(1) - f(cfg.b2) ** f(count))
     new_m, new_v = {}, {}
-    for name, p in params.items():
-        m, v = state["m"][name], state["v"][name]
-        pw = p.to(torch.promote_types(wide(p).dtype, m.dtype))
-        g = grads[name].to(pw.dtype) * scale.to(pw.dtype)
-        m32 = cfg.b1 * m.to(pw.dtype) + (1 - cfg.b1) * g
-        v32 = cfg.b2 * v.to(pw.dtype) + (1 - cfg.b2) * g * g
-        step = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
-        decays = p.ndim >= 2 if decay is None else decay[name]
-        if decays:
-            step = step + cfg.weight_decay * pw
-        p.copy_((pw - lr * step).to(p.dtype))
-        new_m[name], new_v[name] = m32.to(m.dtype), v32.to(v.dtype)
+    sharded = any(isinstance(p, DTensor) for p in params.values())
+    with implicit_replication() if sharded else contextlib.nullcontext():
+        for name, p in params.items():
+            m, v = state["m"][name], state["v"][name]
+            pw = p.to(torch.promote_types(wide(p).dtype, m.dtype))
+            g = grads[name]
+            if isinstance(m, DTensor):     # where the moments live
+                pw = pw.redistribute(m.device_mesh, m.placements)
+                g = g.redistribute(m.device_mesh, m.placements)
+            g = g.to(pw.dtype) * scale.to(pw.dtype)
+            m32 = cfg.b1 * m.to(pw.dtype) + (1 - cfg.b1) * g
+            v32 = cfg.b2 * v.to(pw.dtype) + (1 - cfg.b2) * g * g
+            step = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
+            decays = p.ndim >= 2 if decay is None else decay[name]
+            if decays:
+                step = step + cfg.weight_decay * pw
+            new_p = (pw - lr * step).to(p.dtype)
+            if isinstance(new_p, DTensor):
+                new_p = new_p.redistribute(p.device_mesh, p.placements)
+            p.copy_(new_p)
+            new_m[name], new_v[name] = m32.to(m.dtype), v32.to(v.dtype)
     new_state = {"m": new_m, "v": new_v,
                  "count": torch.tensor(count, dtype=torch.int32)}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -29,7 +29,9 @@ distributed PCG on the
 card against the same solve on the CPU, and small LMs on the card against
 the CPU (qwen3; recurrentgemma and xlstm, their recurrent states carried on
 the card; two train steps of qwen3 and phi-3-vision with remat through
-``chunked_attention``).
+``chunked_attention``); the ERT micro-kernels (``ert_stream`` over
+ragged lengths and 1-64 FMAs an element, ``ert_gather``) against their
+plain versions in float32 and float64, and a smoke ``ert_sweep``.
 
 Run on a machine with an NVIDIA card::
 
@@ -1059,3 +1061,33 @@ def test_block_smoother_pcg_on_the_card_matches_the_cpu(dev, smoother):
     assert np.abs(np.subtract(s_gpu.residuals, s_cpu.residuals)).max() <= 1e-7 * r0
     assert m_gpu.converged and not m_gpu.x[:, 2].any()
     assert np.abs(m_gpu.x - m_cpu.x).max() <= 1e-7 * np.abs(m_cpu.x).max()
+
+
+# ------------------------------------------------ ERT micro-kernels
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 255, 257, 1 << 20, (1 << 22) + 3])
+def test_ert_kernels_match_plain_on_the_card(dev, dtype, n):
+    from repro_torch.kernels.ert.ert import ert_gather, ert_stream
+    from repro_torch.kernels.ert.ref import ert_gather_ref, ert_stream_ref
+
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n, generator=gen, device=dev, dtype=dtype)
+    idx = torch.randint(0, n, (2 * n + 1,), generator=gen, device=dev,
+                        dtype=torch.int64).to(torch.int32)
+    for t in (1, 16, 64):
+        got, want = ert_stream(x, t), ert_stream_ref(x, t, 1.0000001, 0.5)
+        torch.cuda.synchronize()
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        assert float((got - want).abs().max()) <= tol * float(
+            want.abs().max())
+    n0 = ert_gather.launches
+    assert torch.equal(ert_gather(x, idx), ert_gather_ref(x, idx))
+    assert ert_gather.launches == n0 + 1
+
+
+def test_ert_sweep_on_the_card(dev):
+    from repro_torch.launch import roofline
+    sw = roofline.ert_sweep(smoke=True, reps=2)
+    assert sw["device"] == torch.cuda.get_device_name(0)
+    assert sw["stream_bw"] > 0 and sw["gather_bw"] > 0 and sw["flops"] > 0
+    assert np.isfinite([p["seconds"] for p in sw["points"]]).all()

@@ -45,6 +45,7 @@ EP_CASES = [(arch, mesh, nap) for arch in ARCHS
             for mesh, nap in (((2, 4), True), ((2, 4), False),
                               ((4, 2), True), ((8,), False))]
 EP_CAPACITY = (1.25, 16.0)     # the reference's default drops; 16 drops none
+TP_MESH = (4, 2)               # moe_ep_shardmap's ("data", "model") mesh
 
 
 def _ep_id(case):
@@ -109,6 +110,26 @@ def _jax_reference(out_path, in_path):
             out[f"{_ep_id(case)}_{cf}"] = np.asarray(f(
                 *(d[f"{arch}_{k}"] for k in ("x", "router", "gate", "up",
                                               "down"))))
+    # moe_ep_shardmap: experts over "data" (4), d_ff over "model" (2), the
+    # batch over "data"; Auto axes (jax.make_mesh's default Explicit ones
+    # refuse the reference's sharding constraints under jax 0.9)
+    from jax.sharding import AxisType
+
+    from repro.models.moe import moe_ep_shardmap as jmoe_ep_shardmap
+    tmesh = jax.make_mesh(TP_MESH, ("data", "model"),
+                          axis_types=(AxisType.Auto,) * 2)
+    for arch in ARCHS:
+        cfg = _cfg(jget_arch, arch, capacity_factor=16.0)
+
+        def f(x, router, gate, up, down, cfg=cfg):
+            return jmoe_ep_shardmap({"router": router, "gate": gate,
+                                     "up": up, "down": down}, cfg, x, tmesh,
+                                    dp_axes=("data",), ep_axes=("data",),
+                                    tp_axis="model")
+
+        out[f"tp_{arch}"] = np.asarray(jax.jit(f)(
+            d[f"{arch}_x"].reshape(8, T_LOC, -1),
+            *(d[f"{arch}_{k}"] for k in ("router", "gate", "up", "down"))))
     np.savez(out_path, **out)
 
 
@@ -336,10 +357,103 @@ def test_moe_ffn_ep_equals_tp_where_nothing_drops(ep_ref, arch, dtype, tol):
         assert err <= tol * float(tp.float().abs().max()), err
 
 
-def test_moe_ffn_ep_refuses_what_is_not_ported():
+def _cotangent(shape):
+    """A fixed cotangent for ``moe_ep_shardmap``'s output (the same on
+    every rank)."""
+    return torch.from_numpy(np.random.default_rng(7).standard_normal(
+        tuple(shape)).astype(np.float32))
+
+
+def _tp_rank(ranks, inputs):
+    """One gloo rank of ``moe_ep_shardmap`` on a (4, 2) ("data", "model")
+    mesh (runs in the spawned processes): the arch's weights and tokens as
+    DTensors, experts over "data", d_ff over "model", the batch over
+    "data"."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.act_sharding import (activation_sharding,
+                                                 placements_of)
+    from repro_torch.models.moe import moe_ep_shardmap
+
+    mesh = make_mesh(TP_MESH, ("data", "model"), device_type="cpu",
+                     fake=False)
+    specs = {"router": (), "gate": ("data", None, "model"),
+             "up": ("data", None, "model"), "down": ("data", "model", None)}
+    out = {}
+    for arch in ARCHS:
+        cfg = _cfg(get_arch, arch, capacity_factor=16.0)
+        p = {k: distribute_tensor(torch.from_numpy(inputs[f"{arch}_{k}"]),
+                                  mesh, placements_of(mesh, spec))
+             for k, spec in specs.items()}
+        x = distribute_tensor(
+            torch.from_numpy(inputs[f"{arch}_x"]).reshape(8, T_LOC, -1), mesh,
+            placements_of(mesh, ("data", None, None)))
+        y = moe_ep_shardmap(p, cfg, x, mesh, dp_axes=("data",),
+                            ep_axes=("data",), tp_axis="model")
+        out[arch] = y.full_tensor().numpy()
+        # the gradients of <y, cot> for every operand, gathered whole
+        leaves = {k: v.detach().requires_grad_()
+                  for k, v in dict(p, x=x).items()}
+        y = moe_ep_shardmap(leaves, cfg, leaves["x"], mesh,
+                            dp_axes=("data",), ep_axes=("data",),
+                            tp_axis="model")
+        cot = distribute_tensor(_cotangent(y.shape), mesh, y.placements)
+        (y * cot).sum().full_tensor().backward()
+        out[f"grad_{arch}"] = {k: v.grad.full_tensor().numpy()
+                               for k, v in leaves.items()}
+        # the TP regime on DTensors (the reference's GSPMD path): d_model
+        # over "data" (FSDP), d_ff over "model", the dispatch buffer's
+        # capacity over "data"
+        tp = {k: distribute_tensor(torch.from_numpy(inputs[f"{arch}_{k}"]),
+                                   mesh, placements_of(mesh, spec))
+              for k, spec in (("router", ()),
+                              ("gate", (None, "data", "model")),
+                              ("up", (None, "data", "model")),
+                              ("down", (None, "model", "data")))}
+        with activation_sharding(moe_buf_spec=(None, "data", "model")):
+            y = moe_ffn_tp(tp, cfg, x)
+        out[f"tp_{arch}"] = y.full_tensor().numpy()
+    return out if ranks.rank == 0 else None
+
+
+def test_moe_ffn_ep_refuses_what_is_not_ported(ep_ref):
+    """``moe_ffn_ep`` with d_ff over a TP group runs: ``moe_ep_shardmap``
+    (a ``local_map`` around it, the shuffles between the ranks of the EP
+    group, the down projection summed over the TP group) on 8 gloo ranks
+    against the reference's ``moe_ep_shardmap`` on 8 host devices, at 1e-4;
+    its gradients (the router's summed over the token shards, the slabs'
+    input's over the TP group) against the one-device ``moe_ffn_tp``'s
+    (nothing drops), at 1e-4 of each one's max.  ``moe_ffn_tp`` on DTensors (the TP regime: FSDP and d_ff sharded
+    weights, the capacity dim over "data") against the one-device
+    ``moe_ffn_tp``, at 1e-4.  What stays refused: a TP group without one
+    process per rank, three mesh axes, and ranks of another grid."""
+    from repro_torch.launch.ranks import spawn
+
+    inputs, ref = ep_ref
+    got = spawn(_tp_rank, 2, 4, (inputs,), deadline=180.0)[0]
+    for arch in ARCHS:
+        _close(torch.from_numpy(got[arch]), ref[f"tp_{arch}"])
+        # moe_ffn_tp on DTensors against the one-device moe_ffn_tp
+        cfg = _cfg(get_arch, arch, capacity_factor=16.0)
+        want = moe_ffn_tp({k: torch.from_numpy(inputs[f"{arch}_{k}"])
+                           for k in ("router", "gate", "up", "down")}, cfg,
+                          torch.from_numpy(inputs[f"{arch}_x"]).reshape(
+                              8, T_LOC, -1))
+        _close(torch.from_numpy(got[f"tp_{arch}"]), want.numpy())
+        leaves = {k: torch.from_numpy(inputs[f"{arch}_{k}"]).requires_grad_()
+                  for k in ("router", "gate", "up", "down")}
+        leaves["x"] = torch.from_numpy(inputs[f"{arch}_x"]).reshape(
+            8, T_LOC, -1).requires_grad_()
+        y = moe_ffn_tp(leaves, cfg, leaves["x"])
+        (y * _cotangent(y.shape)).sum().backward()
+        for k, v in leaves.items():
+            want = v.grad.numpy()
+            err = float(np.abs(got[f"grad_{arch}"][k] - want).max())
+            assert err <= TOL * float(np.abs(want).max()), (arch, k, err)
     cfg = _cfg(get_arch, "mixtral-8x22b")
     x = torch.zeros(8, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+    with pytest.raises(ValueError, match="needs ranks="):
         moe_ffn_ep({}, cfg, x, (2, 4), tp_axis="model")
     with pytest.raises(ValueError, match="3 axes"):
         moe_ffn_ep({}, cfg, x, (2, 2, 2))

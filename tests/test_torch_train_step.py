@@ -20,8 +20,11 @@ float32, the same parameters carried over by ``lm_params_from_arrays``:
   recurrentgemma at 5 layers (one group of 3, 2 remainder layers);
 - microbatches 2 against 1, remat against none, ``loss_chunk`` against the
   full loss (the port against itself: 1e-6 for loss, 1e-5 of max for m);
-- the refusals: ``use_kernel=True`` (the kernel has no backward), a mesh
-  and ZeRO-2 (ROADMAP item 13.6).
+- the refusal of ``use_kernel=True`` (the kernel has no backward), and a
+  ZeRO-2 step through ``build_train_step(mesh=)`` on 8 gloo ranks against
+  the one-device step (:func:`assert_step_matches`: loss and grad_norm at
+  1e-5, m and v at 1e-4 of their max, the parameters at 0.01 lr where the
+  gradient stands clear of its rounding).
 """
 import dataclasses
 
@@ -223,18 +226,106 @@ def test_masked_loss_matches_reference():
         loss_fn(model, cfg, _tensors(batch), loss_chunk=5)
 
 
+def _zero2_rank(ranks, cfg, inp, tgt):
+    """One gloo rank of a ZeRO-2 step through ``build_train_step(mesh=)``
+    on a (2, 2, 2) mesh (runs in the spawned processes)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import shard_state
+
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device_type="cpu",
+                     fake=False)
+    model = init_lm(cfg, 0, torch.float32, "cpu", trainable=True)
+    opts = TrainOptions(remat=False, microbatches=2, dp_axes=("pod", "data"),
+                        zero2=True)
+    step, (p_sh, o_sh, b_sh) = build_train_step(
+        cfg, AdamWConfig(**ADAMW), opts, mesh=mesh,
+        params_shape=dict(model.named_parameters()))
+    opt = shard_state(model, init_opt_state(dict(model.named_parameters())),
+                      mesh, p_sh, o_sh)
+    batch = {"inputs": distribute_tensor(torch.as_tensor(inp), mesh,
+                                         b_sh["inputs"]),
+             "targets": distribute_tensor(torch.as_tensor(tgt), mesh,
+                                          b_sh["targets"])}
+    _, opt, om = step(model, opt, batch)
+    sharded = sum(1 for pl in o_sh["m"].values()
+                  if any(p.is_shard() for p in pl))
+
+    def whole(t):                                  # every rank gathers
+        return t.full_tensor().detach().numpy()
+
+    out = {"params": {n: whole(p) for n, p in model.named_parameters()},
+           "m": {n: whole(t) for n, t in opt["m"].items()},
+           "v": {n: whole(t) for n, t in opt["v"].items()},
+           "grad_norm": float(om["grad_norm"])}
+    loss = om["loss"]
+    out["loss"] = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                        else loss)
+    return (out, sharded) if ranks.rank == 0 else None
+
+
+def assert_step_matches(got: dict, model, opt: dict, om: dict, lr: float):
+    """A sharded step's gathered state (``got``: loss, grad_norm, and the
+    parameters and AdamW moments by name) against the one-device step's
+    (``model`` after it, its ``opt`` state and metrics ``om``): loss and
+    grad_norm at 1e-5 relative; m = (1 - b1)·g, so m gives the clipped
+    gradient itself, held at ``MOMENT_TOL`` of its leaf's max, and v at the
+    same; the parameters at 0.01 lr (1e-4 lr seen) wherever the gradient
+    stands clear of its rounding (|g| above ``GRAD_TOL`` of its leaf's
+    max).  Below that the first step moves an
+    element by lr·g/(|g| + eps), whose sign the order of the sums decides
+    (0.03 lr seen); the moments hold those elements."""
+    assert abs(got["loss"] - float(om["loss"])) <= \
+        LOSS_RTOL * abs(float(om["loss"]))
+    gnorm = float(om["grad_norm"])
+    assert abs(got["grad_norm"] - gnorm) <= 1e-5 * gnorm, \
+        (got["grad_norm"], gnorm)
+    for key in ("m", "v"):
+        for n, t in opt[key].items():
+            want = t.detach().numpy()
+            scale = float(np.abs(want).max())
+            assert scale > 0, (key, n)
+            err = float(np.abs(got[key][n] - want).max())
+            assert err <= MOMENT_TOL * scale, (key, n, err / scale)
+    for n, p in model.named_parameters():
+        g = np.abs(opt["m"][n].detach().numpy())
+        clear = g > GRAD_TOL * g.max()
+        err = np.abs(got["params"][n] - p.detach().numpy())[clear]
+        assert err.max() <= 0.01 * lr, (n, err.max() / lr)
+
+
 def test_refusals():
+    """The flash kernel still refuses to train (no backward); ZeRO-2 and a
+    mesh run: on 8 gloo ranks the ZeRO-2 step through
+    ``build_train_step(mesh=)`` equals the plain one-device step
+    (:func:`assert_step_matches`: loss, grad_norm, both moments and the
+    parameters)."""
+    from repro_torch.launch.ranks import spawn
+    from repro_torch.train.optimizer import init_opt_state, schedule
+
     _, cfg, _, model = _setup("qwen3-1.7b")
-    acfg = AdamWConfig()
+    acfg = AdamWConfig(**ADAMW)
     with pytest.raises(NotImplementedError, match="no backward"):
         make_step_fn(cfg, acfg, TrainOptions(use_kernel=True))
-    with pytest.raises(NotImplementedError, match="13.6"):
-        make_step_fn(cfg, acfg, TrainOptions(zero2=True))
-    with pytest.raises(NotImplementedError, match="13.6"):
-        build_train_step(cfg, acfg, TrainOptions(), mesh=object())
     # the forward through the kernel refuses to differentiate
     batch = _tensors(_batch(cfg, np.random.default_rng(5)))
     with pytest.raises(NotImplementedError, match="no backward"):
         loss_fn(model, cfg, batch, use_kernel=True)
     step, sh = build_train_step(cfg, acfg, TrainOptions())
     assert sh is None and callable(step)
+    with pytest.raises(ValueError, match="params_shape"):
+        build_train_step(cfg, acfg, TrainOptions(), mesh=object())
+    rng = np.random.default_rng(6)
+    inp = rng.integers(0, cfg.vocab, (8, 16))
+    tgt = rng.integers(0, cfg.vocab, (8, 16))
+    got, n_sharded = spawn(_zero2_rank, 2, 4, (cfg, inp, tgt))[0]
+    assert n_sharded > 0
+    one = init_lm(cfg, 0, torch.float32, "cpu", trainable=True)
+    plain = make_step_fn(cfg, acfg, TrainOptions(remat=False, microbatches=2,
+                                                 zero2=True))
+    _, opt, om = plain(one, init_opt_state(dict(one.named_parameters())),
+                       {"inputs": torch.as_tensor(inp),
+                        "targets": torch.as_tensor(tgt)})
+    assert_step_matches(got, one, opt, om, schedule(acfg, 1))
