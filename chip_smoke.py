@@ -82,7 +82,20 @@ Phases (any failure exits non-zero):
    before it, 10 BCSR applies of each BCSR level profiled alone: 10 device
    kernels, all ``bcsr_spmm``'s;
 5. multi-RHS PCG on ``[n, 8]``, each column against its single-RHS run;
-6. f32 PCG to 1e-5; then the block smoothers, each session sharing the
+6. f32 PCG to 1e-5; then the bfloat16 phase: the same host hierarchy
+   lowered in bfloat16 (``AMGConfig(dtype="bfloat16")``), ``ell_spmv``
+   and ``ell_spmm`` (k = 8) at level 0's ``A_on`` and ``bcsr_spmm`` at
+   each BCSR level (k = 1 and 8) in bfloat16 against their plain versions
+   (|kernel − plain| ≤ 2^-7 |plain| + 2^-16 Σ|a·x| an entry: both sum in
+   float32 and round once, in another order), with ``torch.sparse.mm`` on a
+   bfloat16 CSR where the install has it ("none" and its error where it
+   raises); PCG to 1e-5 through the captured graphs (one replay a program
+   call), its launches per iteration those of the f64 solve, its x within
+   2^-5 of the f64 x, ms an iteration, the float64 true residual and the
+   busy share; and a k = 8 bfloat16 solve through ``AMGService`` (8
+   requests coalesced into one chunk, each x within 2^-5 of the f64
+   [n, 8] solve's column);
+   then the block smoothers, each session sharing the
    f64 (f32) lowering: PCG to 1e-8 with ``block_jacobi`` and with
    ``hybrid_gs_sym``, the stationary solve with ``hybrid_gs`` to 1e-8,
    ``hybrid_gs_sym`` PCG on ``[n, 8]`` (each column against its single-RHS
@@ -373,6 +386,13 @@ REPLACES = {
 # carries that difference forward over its iterations)
 STATIONARY_MAXITER = 100
 F32_HIST_TOL = 1e-4
+# the bfloat16 phase: PCG's tolerance, its x against the f64 x, and each
+# kernel against its plain version (both sum in float32 and round once, in
+# another order: an entry may differ by one bfloat16 ulp at a tie)
+BF16_TOL = 1e-5
+BF16_X_BAR = 2.0**-5
+BF16_WARM = 5
+BF16_REL, BF16_ABS = 2.0**-7, 2.0**-16
 # LM serving: qwen3-1.7b at full width, 8 requests, prompts of 512-2048
 LM_ARCH, LM_REQUESTS, LM_BATCH, LM_NEW = "qwen3-1.7b", 8, 4, 32
 LM_PROMPT = (512, 2048)
@@ -2773,6 +2793,196 @@ def service_phase(cfg, A, rng) -> dict:
             "pool_bytes": pool, "stats": dict(svc.stats)}
 
 
+def bf16_rel(plain, args):
+    """``kernel_case``'s ``rel_err`` for a bfloat16 case: the largest ratio
+    of |kernel − plain| to BF16_REL·|plain| + BF16_ABS·Σ|a·x| over the
+    entries (Σ|a·x| from the plain version on |A| and |x| in float64); it
+    passes at ≤ 1."""
+    idx, vals, x = args
+    absum = plain(idx, vals.double().abs(), x.double().abs())
+
+    def rel(y, ref):
+        bar = BF16_REL * ref.double().abs() + BF16_ABS * absum
+        return float(((y.double() - ref.double()).abs()
+                      / bar.clamp_min(1e-300)).max())
+    return rel
+
+
+def bf16_library(csr, xf):
+    """``torch.sparse.mm`` on the bfloat16 CSR operator, or None and the
+    error where the install has no bfloat16 sparse product."""
+    try:
+        torch.sparse.mm(csr, xf)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+    return (lambda: torch.sparse.mm(csr, xf)), None
+
+
+def bf16_kernel_rows(dh16, rng) -> dict[str, list]:
+    """The three sparse kernels in bfloat16 at the bfloat16 lowering's own
+    operands: ``ell_spmv`` and ``ell_spmm`` (k = K_RHS) at level 0's
+    ``A_on``, ``bcsr_spmm`` at each BCSR level's on-process block (k = 1
+    and K_RHS), each against its plain version at the card bar."""
+    from repro_torch.kernels.spmv import bcsr as kb
+    from repro_torch.kernels.spmv import ref
+    from repro_torch.kernels.spmv import spmv as ks
+
+    out: dict[str, list] = {n: [] for n in SPMV_KERNELS}
+    dev, dt = dh16.device, dh16.dtype
+    cols, vals, m = ell_operands(dh16)["L0 A_on"]
+    D, n, K = cols.shape
+    nnz = int((cols >= 0).sum())
+    csr = ell_to_csr(cols, vals, m)
+    for name, k in (("ell_spmv", None), ("ell_spmm", K_RHS)):
+        x = torch.as_tensor(rng.standard_normal((D, m) + ((k,) if k else ())),
+                            dtype=dt, device=dev)
+        kk = k or 1
+        library, err = bf16_library(csr, x.reshape(D * m, -1))
+        plain = getattr(ref, f"{name}_ref")
+        args = (cols, vals, x)
+        # bytes: every slot's int32 column id, the stored bfloat16 values,
+        # x and y once; the products and sums are float32 FMAs
+        row = kernel_case(f"{name} L0 A_on" + (f" k{k}" if k else ""),
+                          getattr(ks, name), plain, library, args,
+                          D * n * K * 4 + nnz * 2 + D * (m + n) * kk * 2,
+                          2 * nnz * kk, rtol=1.0, rel_err=bf16_rel(plain, args),
+                          peak=PEAK_FLOPS[torch.float32])
+        row.update(k=kk, operand="L0 A_on", main_path=True, library_error=err,
+                   fill=nnz / max(D * n * K, 1),
+                   col_id_share=D * n * K * 4 / (D * n * K * 4 + nnz * 2
+                                                 + D * (m + n) * kk * 2))
+        out[name].append(row)
+    for l, (dl, a) in enumerate(zip(dh16.levels, dh16._arrs)):
+        if dl.A.local_kernel != "bcsr":
+            continue
+        bcols, bvals = a["A"]["on_bcols"], a["A"]["on_bvals"]
+        D, mb, Kb, bs, _ = bvals.shape
+        ml, rows = dl.A.plan.local_n, dl.A.rows_local
+        nblk = int((bcols >= 0).sum())
+        bcsr = bcsr_to_csr(bcols, bvals, ml, rows)
+        for k in (1, K_RHS):
+            xb = torch.as_tensor(rng.standard_normal((D, ml, k)), dtype=dt,
+                                 device=dev)
+            library, err = bf16_library(bcsr, xb.reshape(-1, k))
+
+            def plain(a_, v, x, r=rows):
+                return ref.bcsr_apply_ref(a_, v, x, r)
+            args = (bcols, bvals, xb)
+            row = kernel_case(
+                f"bcsr_spmm L{l} bs{bs} k{k}",
+                lambda a_, v, x, r=rows: kb.bcsr_spmm(a_, v, x, rows=r),
+                plain, library, args,
+                D * mb * Kb * 4 + nblk * bs * bs * 2 + D * (ml + rows) * k * 2,
+                2 * nblk * bs * bs * k, rtol=1.0, rel_err=bf16_rel(plain, args),
+                peak=PEAK_FLOPS[torch.float32])
+            row.update(level=l, bs=bs, k=k, rows=rows, main_path=True,
+                       library_error=err)
+            out["bcsr_spmm"].append(row)
+    check(out["bcsr_spmm"], "no level of the bfloat16 lowering is BCSR")
+    return out
+
+
+def bf16_phase(cfg64, A, b, B, res64, resm64, c64) -> tuple[dict, dict, dict]:
+    """The bfloat16 session on the host setup the f64 one shares: its
+    lowering, the three kernels in bfloat16 at its operands, PCG through
+    its graphs, and a k = K_RHS solve through ``AMGService``.  Returns the
+    kernel rows, the launches of its counted runs and its numbers.  The
+    session has a store of its own, and its lowering leaves the host
+    hierarchy's ``dist_cache`` at the end, so the later phases' refresh of
+    that hierarchy does not re-lower it."""
+    from repro_torch.amg import AMGService, AMGSolver
+    from repro_torch.amg.api import SessionStore
+
+    cfg16 = dataclasses.replace(cfg64, dtype="bfloat16", tol=BF16_TOL)
+    t0 = time.perf_counter()
+    bound16 = AMGSolver(cfg16, store=SessionStore()).setup(A)
+    dh16 = bound16.dist_hierarchy
+    t_lower = time.perf_counter() - t0
+    check(dh16.dtype == torch.bfloat16, f"bf16 lowering is {dh16.dtype}")
+    log(f"bf16: lowering {t_lower:.2f} s (the f64 session's host setup), "
+        f"layouts {[r['kernel'] + (str(r['block_size']) if r['block_size'] else '') for r in dh16.kernel_table()]}")
+    rows = bf16_kernel_rows(dh16, np.random.default_rng(SEED + 5))
+    res, c16 = counted(lambda: bound16.pcg(b))
+    check(res.converged, f"bf16 PCG did not converge: {res.residuals[-3:]}")
+    progs = [p for p in dh16.programs.values() if p.key.k is None]
+    calls = sum(p.replays for p in progs)
+    check(all(p.graph is not None for p in progs) and calls == res.iterations + 1,
+          f"bf16 PCG: {calls} graph replays for {res.iterations + 1} program "
+          f"calls")
+    per_iter = {}
+    for k in SPMV_KERNELS:
+        check(c16[k] * (res64.iterations + 1) == c64[k] * (res.iterations + 1),
+              f"bf16 PCG launched {k} {c16[k]} times in {res.iterations + 1} "
+              f"calls, the f64 one {c64[k]} in {res64.iterations + 1}")
+        per_iter[k] = c16[k] / (res.iterations + 1)
+    check(c16["ell_spmv"] > 0 and (c16["bcsr_spmm"] > 0 or not any(
+        dl.A.block_size for dl in dh16.levels)), f"bf16 launches {c16}")
+    x64 = res64.x
+    xdiff = float(np.linalg.norm(res.x.astype(np.float64) - x64)
+                  / np.linalg.norm(x64))
+    check(xdiff <= BF16_X_BAR, f"bf16 x is {xdiff:.3e} from the f64 x")
+    true_rel = float(np.linalg.norm(b - A.matvec(res.x.astype(np.float64)))
+                     / np.linalg.norm(b))
+    # ms an iteration: the median of BF16_WARM warm solves (the whole call
+    # over its iterations; one solve's host time moves by a third or more)
+    walls = []
+    for _ in range(BF16_WARM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = bound16.pcg(b)
+        walls.append((time.perf_counter() - t0) * 1e3 / max(warm.iterations, 1))
+    ms_iter = float(np.median(walls))
+    prof = device_profile(lambda: bound16.pcg(b))
+    dev_ms = sum(v[0] for v in prof.values())
+    busy = dev_ms / (ms_iter * max(warm.iterations, 1)) if prof else None
+    top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"pcg bf16 (tol {BF16_TOL:g}): {res.iterations} iterations (f64 to "
+        f"1e-8: {res64.iterations}), converged, {ms_iter:.3f} ms/iteration "
+        f"warm (median of {BF16_WARM}: {[round(w, 3) for w in walls]}), device {dev_ms / max(warm.iterations, 1):.3f} ms/iteration, "
+        f"busy share " + ("not measured" if busy is None else f"{busy:.3f}")
+        + f", float64 true residual {true_rel:.3e}, |x - x_f64| / |x_f64| "
+        f"{xdiff:.3e}; launches {c16} ({per_iter} a program call, as f64)")
+    for kname, (kms, kcount) in top:
+        log(f"    {kms:9.3f} ms {kcount:6d}x  {kname[:100]}")
+    # k = K_RHS requests through the service: one coalesced chunk
+    svc = AMGService(cfg16, max_rhs=K_RHS, coalesce_window=SERVICE_WINDOW)
+    svc.register("m", A)
+    check(svc.bound_for("m").dist_hierarchy is dh16,
+          "the bf16 service did not share the bf16 lowering")
+    tickets = [svc.submit("m", B[:, j], method="pcg") for j in range(K_RHS)]
+    _, csvc = counted(svc.drain)
+    worst = 0.0
+    widths = set()
+    for j, t in enumerate(tickets):
+        d = t.diagnostics
+        widths.add(d["batch_cols"])
+        check(d["converged"], f"bf16 service request {j} did not converge")
+        xj = resm64.columns[j].x
+        worst = max(worst, float(np.linalg.norm(t.result(timeout=0) - xj)
+                                 / np.linalg.norm(xj)))
+    check(widths == {K_RHS} and csvc["ell_spmm"] > 0,
+          f"bf16 service chunks {widths}, launches {csvc}")
+    check(worst <= BF16_X_BAR, f"bf16 service x is {worst:.3e} from f64's")
+    log(f"bf16 service: {K_RHS} requests in one chunk of {K_RHS}, worst "
+        f"|x - x_f64| / |x_f64| {worst:.3e}, launches {csvc}")
+    info = {"lowering_s": t_lower, "iterations": res.iterations,
+            "ms_per_iteration": ms_iter, "ms_per_iteration_runs": walls,
+            "device_ms_per_iteration": dev_ms / max(warm.iterations, 1)
+            if prof else None, "device_busy_share": busy,
+            "true_residual": true_rel, "x_rel_diff_f64": xdiff,
+            "launches": c16, "launches_per_call": per_iter,
+            "service_worst_x_rel_diff": worst, "service_launches": csvc,
+            "top_device": [[kn[:100], km, kc] for kn, (km, kc) in top]}
+    launches = {k: c16[k] + csvc[k] for k in SPMV_KERNELS}
+    cache = bound16.hierarchy.dist_cache
+    for key in [key for key, v in cache.items() if v is dh16]:
+        del cache[key]
+    del svc, bound16, dh16
+    torch.cuda.empty_cache()
+    return rows, launches, info
+
+
 def refresh_phase(bound, host, A, b, t_lower) -> dict:
     """``bound.update(delta=ΔA)`` beneath the captured graphs: a refresh (of
     every lowering of the hierarchy, with the block smoothers' factors placed
@@ -3885,6 +4095,14 @@ def main() -> int:
     res32, c_f32 = counted(lambda: bound32.pcg(b))
     check(res32.converged, f"f32 PCG did not converge: {res32.residuals[-3:]}")
     log(f"pcg f32 (tol 1e-5): {res32.iterations} iterations, launches {c_f32}")
+    lap("solves (f64, multi-RHS, f32, graphs)")
+
+    # 6b. the bfloat16 session on the same host setup
+    bf16_rows, c_bf16, amg_bf16 = bf16_phase(cfg64, A, b, B, res, resm,
+                                             c_single)
+    for k in SPMV_KERNELS:
+        rows[k].extend(bf16_rows[k])
+    lap("bf16")
 
     # the block smoothers through the same sessions' lowerings
     t0 = time.perf_counter()
@@ -3892,9 +4110,10 @@ def main() -> int:
     block["phase_s"] = time.perf_counter() - t0
     log(f"block-smoother phase: {block['phase_s']:.1f} s in all")
 
-    lap("solves (f64, multi-RHS, f32, graphs, block smoothers)")
+    lap("block smoothers")
     # 7. launch counts over the solve runs
-    launches = {k: c_single[k] + c_multi[k] + c_f32[k] for k in SPMV_KERNELS}
+    launches = {k: c_single[k] + c_multi[k] + c_f32[k] + c_bf16[k]
+                for k in SPMV_KERNELS}
     launches.update({k: block["launches"].get(k, 0) for k in SMOOTHER_KERNELS})
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the main path")
@@ -4061,7 +4280,7 @@ def main() -> int:
                    if k == "tri_solve" else {})}
                if k in SMOOTHER_KERNELS else
                {"launches_per_path": {
-                   "solve": launches[k],
+                   "solve": launches[k], "solve_bf16": c_bf16[k],
                    "partitioned_setup": partitioned["launches"][k]
                    + partitioned["launches_multi"][k]}}),
             **({"ptxas": ptxas[k]} if k in ptxas else {}),
@@ -4098,6 +4317,8 @@ def main() -> int:
                                "true_residual": true_rel,
                                "multi_rhs_worst": worst,
                                "pcg_f32_iterations": res32.iterations,
+                               **{f"pcg_bf16_{key}": v
+                                  for key, v in amg_bf16.items()},
                                "launches_per_run": {"f64": c_single,
                                                     "f64_multi": c_multi,
                                                     "f32": c_f32}},

@@ -241,9 +241,12 @@ class AMGConfig:
                     f"smoother {self.opts.smoother!r} {PROCESS_TODO}")
         if self.backend == "torch":
             if self.dtype == "bfloat16":
-                raise NotImplementedError(
-                    "dtype='bfloat16' is not ported yet; the kernels take "
-                    "float32 and float64")
+                from ..dist_solve import BF16_BLOCK_TODO, BF16_PROCESS_TODO
+                if self.ranks == "process":
+                    raise NotImplementedError(BF16_PROCESS_TODO)
+                if self.opts.smoother in BLOCK_SMOOTHERS:
+                    raise NotImplementedError(
+                        f"smoother {self.opts.smoother!r} {BF16_BLOCK_TODO}")
             resolve_device(self.device)
 
     def replace(self, **changes) -> "AMGConfig":
@@ -310,7 +313,8 @@ class AMGConfig:
     def dist_build_kwargs(self) -> dict:
         """Kwargs for ``DistHierarchy.build`` (resolves machine + dtype)."""
         from ...core import MACHINES
-        dtype = {"float32": torch.float32, "float64": torch.float64}[self.dtype]
+        dtype = {"float32": torch.float32, "float64": torch.float64,
+                 "bfloat16": torch.bfloat16}[self.dtype]
         return dict(n_pods=self.n_pods, lanes=self.lanes,
                     params=MACHINES[self.machine], strategy=self.strategy,
                     dtype=dtype, device=self.device,

@@ -45,6 +45,13 @@ rank's lower / upper triangle of its local square block, applied by the
 ``block_diag_apply`` and ``tri_solve`` kernels
 (:mod:`repro_torch.kernels.smoother`).
 
+The compute dtype is float64, float32 or bfloat16 (:data:`DTYPES`).  A
+bfloat16 hierarchy lowers its value planes, ``dinv`` and ``cinv`` to
+bfloat16 as the reference's ``astype(jnp.bfloat16)`` does, and runs dots,
+norms and the coarse ``cinv @ x`` in bfloat16; only the local products
+sum in float32 (their kernels round once).  It refuses the block
+smoothers (ROADMAP item 14) and one process per rank (item 15).
+
 :meth:`DistHierarchy.refresh_values` takes a value-only update beneath the
 captured graphs: every value plane is copied into the tensor already in
 place (the block smoothers' factors too), and only the Chebyshev programs,
@@ -83,8 +90,18 @@ from .solve import (CYCLE_CHILDREN, MultiSolveResult, SolveOptions,
                     SolveResult, level_visits)
 
 SOLVE_STRATEGIES = ("standard", "nap2", "nap3")
-# compute dtypes the kernels take, and the numpy dtype each lowers with
-DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+# compute dtypes the kernels take, and the numpy dtype each lowers and
+# stages with: numpy has no bfloat16, so a bfloat16 lowering stages its
+# value planes in float32 and rounds them once on their way to the device
+# (float64 -> float32 -> bfloat16, the conversion the reference's
+# ``astype(jnp.bfloat16)`` makes too)
+DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
+          torch.bfloat16: np.float32}
+# what a bfloat16 hierarchy does not run yet (the ROADMAP queue 1 items)
+BF16_BLOCK_TODO = ("is not ported to dtype='bfloat16' yet (ROADMAP queue 1, "
+                   "item 14: bf16 block smoothers)")
+BF16_PROCESS_TODO = ("dtype='bfloat16' is not ported to ranks='process' yet "
+                     "(ROADMAP queue 1, item 15: bf16 in process mode)")
 
 
 @dataclasses.dataclass
@@ -257,7 +274,7 @@ def _check_dtype(dtype: torch.dtype) -> None:
     if dtype not in DTYPES:
         raise NotImplementedError(
             f"dtype {dtype} is not ported yet; the kernels take "
-            f"torch.float32 and torch.float64")
+            f"torch.float32, torch.float64 and torch.bfloat16")
 
 
 def _rank_dinv(A, part: Partition, D: int) -> np.ndarray:
@@ -421,6 +438,8 @@ class DistHierarchy:
         :attr:`timings` holds rank 0's ``lower_s`` and this rank's
         ``scatter_s`` (on the other ranks the wait for rank 0 included)."""
         _check_dtype(dtype)
+        if dtype == torch.bfloat16:
+            raise NotImplementedError(BF16_PROCESS_TODO)
         n_pods, lanes = ranks.n_pods, ranks.lanes
         device = ranks.device(device)
         t0 = time.perf_counter()
@@ -679,7 +698,7 @@ class DistHierarchy:
         (one process per rank: its own ``[1, local(, k)]``)."""
         arr = self.levels[level].A.scatter_x(np.asarray(x),
                                              dtype=DTYPES[self.dtype])
-        return torch.from_numpy(arr).to(self.device)
+        return torch.from_numpy(arr).to(device=self.device, dtype=self.dtype)
 
     def gather(self, x_dev: torch.Tensor, level: int = 0) -> np.ndarray:
         """Rank-stacked ``[D, local(, k)]`` → global ``[n(, k)]``; one
@@ -687,7 +706,7 @@ class DistHierarchy:
         returns the whole vector."""
         if self.ranks is not None:
             x_dev = self.ranks.all_gather(x_dev[0], "world", tag=("gather",))
-        return self.levels[level].A.gather_y(x_dev.cpu().numpy())
+        return self.levels[level].A.gather_y(_numpy(x_dev))
 
     def load(self, buf: torch.Tensor, x: np.ndarray) -> None:
         """Global ``[n(, k)]`` → the rank-stacked buffer ``buf`` in place
@@ -732,6 +751,9 @@ class DistHierarchy:
         key = smoother_arrays_key(opts)
         if key is None:
             return self._arrs
+        if self.dtype == torch.bfloat16:
+            raise NotImplementedError(f"smoother {opts.smoother!r} "
+                                      f"{BF16_BLOCK_TODO}")
         if self.ranks is not None:
             raise NotImplementedError(f"smoother {opts.smoother!r} "
                                       f"{PROCESS_TODO}")
@@ -1050,10 +1072,17 @@ def _norms(b: np.ndarray):
     return np.where(nb == 0, 1.0, nb)
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as numpy; bfloat16, which numpy lacks, as the
+    float32 of the same values."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def _host(v: torch.Tensor):
     """Rank 0's copy of a replicated norm: a float, or a float64 [k] array."""
     v = v[0]
-    return float(v) if v.ndim == 0 else v.cpu().numpy().astype(np.float64)
+    return float(v) if v.ndim == 0 else _numpy(v).astype(np.float64)
 
 
 def cycle_comm_stats(dh: DistHierarchy, opts=None) -> dict:

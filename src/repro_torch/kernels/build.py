@@ -5,8 +5,8 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface, which is loaded with :mod:`ctypes`.
 Builds happen at first use (or through :func:`build`), into
 ``build/repro_torch/`` at the root of the checkout; a library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is reused; the compiler's output (``ptxas -v``: registers,
+carries a hash of its source, the headers beside it and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused; the compiler's output (``ptxas -v``: registers,
 stack and spills of every kernel instance) is kept beside it.  Several
 sources build concurrently, one ``nvcc`` process each.
 """
@@ -28,11 +28,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # kernel name -> (source relative to this package, C entry point, argtypes)
 KERNELS = {
+    # cols, vals, x, y; D, n, K, m (ell_spmm: and k); dtype code, stream
     "ell_spmv": ("spmv/csrc/ell_spmv.cu", "ell_spmv_launch",
                  [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P]),
     "ell_spmm": ("spmv/csrc/ell_spmm.cu", "ell_spmm_launch",
                  [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _P]),
-    # bcols, bvals, x, y; D, mb, Kb, m, bs, k, rows; f64, stream
+    # bcols, bvals, x, y; D, mb, Kb, m, bs, k, rows; dtype code, stream
     "bcsr_spmm": ("spmv/csrc/bcsr_spmm.cu", "bcsr_spmm_launch",
                   [_P, _P, _P, _P] + [_I64] * 7 + [_INT, _P]),
     # binv, r, x, y; D, m, nb, bs, k; w, f64, stream
@@ -85,7 +86,12 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source_path(name).read_bytes()
+    """Where kernel ``name``'s library goes: its file name hashes the source,
+    the headers beside it (``*.cuh``, which a source may include) and the
+    flags."""
+    src = source_path(name)
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

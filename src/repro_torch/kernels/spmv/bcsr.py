@@ -5,7 +5,8 @@ It replaces the Pallas kernel ``bcsr_spmm`` of ``repro/kernels/spmv/bcsr.py``
 and its k = 1 wrapper ``bcsr_spmv``.  Layout (from :func:`~repro_torch.amg.
 csr.csr_to_bcsr`, stacked over ranks): ``bcols`` ``[D, mb, Kb]`` int32
 block-column ids (-1 pad), ``bvals`` ``[D, mb, Kb, bs, bs]`` dense blocks with
-bs in :data:`BLOCK_SIZES`.  The source ``[D, m, k]`` goes to the kernel as
+bs in :data:`BLOCK_SIZES`, in float32, float64 or bfloat16 (summed in
+float32, rounded once).  The source ``[D, m, k]`` goes to the kernel as
 it is (rows past ``m`` read as zero); the result has the first ``rows`` rows
 of the ``mb·bs``-row product (all of them by default), so a caller with
 fewer true rows than whole blocks asks for those and needs no slice.
@@ -21,7 +22,7 @@ import torch
 from ..build import kernel
 from ..launches import note
 from .ref import bcsr_apply_ref, block_rows
-from .spmv import check_operands, raise_on_error
+from .spmv import DTYPE_CODES, check_operands, raise_on_error
 
 BLOCK_SIZES = (8, 16)
 
@@ -44,7 +45,7 @@ def bcsr_spmm(bcols: torch.Tensor, bvals: torch.Tensor, x: torch.Tensor,
     y = torch.empty((D, rows, k), dtype=bvals.dtype, device=x.device)
     rc = kernel("bcsr_spmm")(bcols.data_ptr(), bvals.data_ptr(), x.data_ptr(),
                              y.data_ptr(), D, mb, Kb, m, bs, k, rows,
-                             int(bvals.dtype == torch.float64),
+                             DTYPE_CODES[bvals.dtype],
                              torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error("bcsr_spmm", rc)
     note(bcsr_spmm)

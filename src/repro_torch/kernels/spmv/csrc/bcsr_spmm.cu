@@ -7,6 +7,10 @@
 // X [D, m, k] as it is (not padded to whole blocks) -> Y [D, rows, k], the
 // first rows <= mb*bs rows of the product, for bs in {8, 16}.
 //
+// Value types: float32, float64 and bfloat16.  A bfloat16 instance loads
+// bfloat16 blocks and X, widens them to float32, sums in float32 (the
+// shuffles too) and rounds once, at the store; no tensor cores.
+//
 // Bound on an H100 SXM (80 GB HBM3 at 3.35 TB/s): every block id is read
 // (padding included), the stored blocks once (a padded slot's block is never
 // loaded), and X and Y once each; with nblk = the count of bcols >= 0:
@@ -33,6 +37,8 @@
 
 #include <cstdint>
 
+#include "value_types.cuh"
+
 namespace {
 
 constexpr int MAX_THREADS = 512;
@@ -42,6 +48,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
 bcsr_spmm_kernel(const int* __restrict__ bcols, const T* __restrict__ bvals,
                  const T* __restrict__ x, T* __restrict__ y, int64_t mb,
                  int Kb, int64_t m, int k, int rows, int JT, int G) {
+  using A = typename Acc<T>::type;
   constexpr int NS = 16 / BS;     // slots a thread loads before its FMAs
   const int64_t brow = blockIdx.x;                  // d * mb + r
   const int64_t d = brow / mb;
@@ -54,7 +61,7 @@ bcsr_spmm_kernel(const int* __restrict__ bcols, const T* __restrict__ bvals,
   const int* bc = bcols + brow * Kb;
   const T* a = bvals + (brow * Kb * BS + i) * BS;   // row i of slot 0's block
   const T* xd = x + d * m * k + j;
-  T acc = T(0);
+  A acc = A(0);
   if (live) {
     for (int s0 = g; s0 < Kb; s0 += NS * G) {
       int c[NS];
@@ -63,15 +70,15 @@ bcsr_spmm_kernel(const int* __restrict__ bcols, const T* __restrict__ bvals,
         const int s = s0 + t * G;
         c[t] = s < Kb ? __ldg(bc + s) : -1;
       }
-      T av[NS][BS], xv[NS][BS];
+      A av[NS][BS], xv[NS][BS];
 #pragma unroll
       for (int t = 0; t < NS; ++t) {
         const int64_t s = s0 + t * G;
 #pragma unroll
         for (int q = 0; q < BS; ++q) {
           const int64_t xr = static_cast<int64_t>(c[t]) * BS + q;
-          av[t][q] = c[t] >= 0 ? __ldg(a + s * BS * BS + q) : T(0);
-          xv[t][q] = c[t] >= 0 && xr < m ? __ldg(xd + xr * k) : T(0);
+          av[t][q] = c[t] >= 0 ? widen(__ldg(a + s * BS * BS + q)) : A(0);
+          xv[t][q] = c[t] >= 0 && xr < m ? widen(__ldg(xd + xr * k)) : A(0);
         }
       }
 #pragma unroll
@@ -85,7 +92,7 @@ bcsr_spmm_kernel(const int* __restrict__ bcols, const T* __restrict__ bvals,
   for (int off = G / 2; off > 0; off /= 2)
     acc += __shfl_xor_sync(0xffffffffu, acc, off, G);
   const int row = r * BS + i;
-  if (live && g == 0 && row < rows) y[(d * rows + row) * k + j] = acc;
+  if (live && g == 0 && row < rows) store(y + (d * rows + row) * k + j, acc);
 }
 
 int pow2_at_least(int v) {
@@ -122,20 +129,31 @@ int launch(const int* bcols, const T* bvals, const T* x, T* y, int64_t D,
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a block size other than 8 or 16.  The caller
-// guarantees D, mb, Kb, m, k, rows > 0, rows <= mb*bs, contiguous operands on
-// one device, and 0 <= bcols*bs < m wherever bcols != -1.
+// cudaErrorInvalidValue for a block size other than 8 or 16 or an unknown
+// dtype code.  dtype: 0 float32, 1 float64, 2 bfloat16.  The caller
+// guarantees D, mb, Kb, m, k, rows > 0, rows <= mb*bs, contiguous operands
+// on one device, and 0 <= bcols*bs < m wherever bcols != -1.
 extern "C" int bcsr_spmm_launch(const void* bcols, const void* bvals,
                                 const void* x, void* y, int64_t D, int64_t mb,
                                 int64_t Kb, int64_t m, int64_t bs, int64_t k,
-                                int64_t rows, int is_f64, void* stream) {
+                                int64_t rows, int dtype, void* stream) {
   const auto* c = static_cast<const int*>(bcols);
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_f64)
-    return launch<double>(c, static_cast<const double*>(bvals),
-                          static_cast<const double*>(x), static_cast<double*>(y),
-                          D, mb, Kb, m, bs, k, rows, s);
-  return launch<float>(c, static_cast<const float*>(bvals),
-                       static_cast<const float*>(x), static_cast<float*>(y),
-                       D, mb, Kb, m, bs, k, rows, s);
+  switch (dtype) {
+    case 0:
+      return launch<float>(c, static_cast<const float*>(bvals),
+                           static_cast<const float*>(x), static_cast<float*>(y),
+                           D, mb, Kb, m, bs, k, rows, s);
+    case 1:
+      return launch<double>(c, static_cast<const double*>(bvals),
+                            static_cast<const double*>(x), static_cast<double*>(y),
+                            D, mb, Kb, m, bs, k, rows, s);
+    case 2:
+      return launch<__nv_bfloat16>(c, static_cast<const __nv_bfloat16*>(bvals),
+                                   static_cast<const __nv_bfloat16*>(x),
+                                   static_cast<__nv_bfloat16*>(y), D, mb, Kb, m,
+                                   bs, k, rows, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -4,6 +4,10 @@
 // (_spmm_kernel), the native multi-RHS form, with the rank dim stacked in
 // front: cols/vals [D, n, K], X [D, m, k] -> Y [D, n, k].
 //
+// Value types: float32, float64 and bfloat16.  A bfloat16 instance loads
+// bfloat16 values and X rows (a row of k = 8 is one 16-byte load), widens
+// them to float32, sums in float32 and rounds once, at the store.
+//
 // Bound on an H100 SXM (80 GB HBM3 at 3.35 TB/s): A is needed once for all k
 // columns (every slot's column id, padding included, and the value of every
 // stored entry only), X once and Y once; with nnz = the count of cols >= 0:
@@ -23,8 +27,9 @@
 //     the values of each 16-byte group that holds a stored entry (padding,
 //     which the lowering packs at the row's end, costs no value bytes).
 //   - Then one thread per (row, vector of W right-hand-side columns), the
-//     vector fastest (W = 2 in float64, 4 in float32, 16 bytes, where k and
-//     the alignment of X and Y allow; else W = 1), walks its row's slots in
+//     vector fastest (W = 2 in float64, 4 in float32, 8 in bfloat16: 16
+//     bytes, where k and the alignment of X and Y allow; else W = 1), walks
+//     its row's slots in
 //     order, summing in registers: a fixed order, so results repeat bit for
 //     bit.  The lanes of a warp take consecutive rows at the same slot,
 //     which on a stencil gather neighbouring X rows: 16-byte pieces of a
@@ -37,6 +42,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "value_types.cuh"
 
 namespace {
 
@@ -50,23 +58,55 @@ struct alignas(sizeof(T) * W) Vec {
   T v[W];
 };
 
-template <typename T, int W>
-__device__ __forceinline__ Vec<T, W> load_vec(const T* p) {
-  Vec<T, W> r;
+// W entries of X from p, widened to the sum type A (one 16-byte load
+// where W > 1)
+template <typename T, int W, typename A = typename Acc<T>::type>
+__device__ __forceinline__ void load_vec(const T* p, A* v) {
   if constexpr (W == 1) {
-    r.v[0] = __ldg(p);
+    v[0] = widen(__ldg(p));
   } else if constexpr (sizeof(T) == 8) {
     const double2 t = __ldg(reinterpret_cast<const double2*>(p));
-    r.v[0] = t.x;
-    r.v[1] = t.y;
-  } else {
+    v[0] = t.x;
+    v[1] = t.y;
+  } else if constexpr (sizeof(T) == 4) {
     const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    r.v[0] = t.x;
-    r.v[1] = t.y;
-    r.v[2] = t.z;
-    r.v[3] = t.w;
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {                                   // bfloat16, W == 8
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned u[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
   }
-  return r;
+}
+
+// W sums to p, in T (bfloat16: each rounded once from float32)
+template <typename T, int W, typename A = typename Acc<T>::type>
+__device__ __forceinline__ void store_vec(T* p, const A* v) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if constexpr (W == 1) {
+      *p = __float2bfloat16_rn(v[0]);
+    } else {                                 // W == 8: one 16-byte store
+      unsigned u[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+        u[i] = *reinterpret_cast<const unsigned*>(&h);
+      }
+      *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+    }
+  } else {
+    Vec<T, W> r;
+#pragma unroll
+    for (int w = 0; w < W; ++w) r.v[w] = v[w];
+    *reinterpret_cast<Vec<T, W>*>(p) = r;
+  }
 }
 
 // The values of one chunk of 4 slots into shared memory, a 16-byte load for
@@ -84,8 +124,16 @@ __device__ __forceinline__ void stage_vals4(const double* p, const int4 c, doubl
     *reinterpret_cast<double2*>(s + 2) = __ldg(reinterpret_cast<const double2*>(p + 2));
 }
 
-// Shared memory: scol int[min(R*K, ROUND)], sval T[min(R*K, ROUND)] (one
-// round of the block's slots).
+// bfloat16: the chunk's 4 values are one 8-byte group
+__device__ __forceinline__ void stage_vals4(const __nv_bfloat16* p, const int4 c,
+                                            __nv_bfloat16* s) {
+  if ((c.x & c.y & c.z & c.w) >= 0)
+    *reinterpret_cast<uint2*>(s) = __ldg(reinterpret_cast<const uint2*>(p));
+}
+
+// Shared memory: scol int[min(R*K, ROUND)], then sval T[min(R*K, ROUND)]
+// (one round of the block's slots).  The span is a multiple of 4, so sval
+// starts 16-byte aligned whatever T is.
 template <typename T, int W>
 __global__ void __launch_bounds__(THREADS)
 ell_spmm_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
@@ -94,9 +142,10 @@ ell_spmm_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
   extern __shared__ __align__(16) unsigned char smem[];
   // slot counts of a block are int64 (R * K passes 2^31 for K above
   // 2^31 / R); offsets within one round are ints
+  using A = typename Acc<T>::type;
   const int span = static_cast<int64_t>(R) * K < ROUND ? R * K : ROUND;
-  T* sval = reinterpret_cast<T*>(smem);
-  int* scol = reinterpret_cast<int*>(sval + span);
+  int* scol = reinterpret_cast<int*>(smem);
+  T* sval = reinterpret_cast<T*>(scol + span);
 
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * R;
   const int nr = static_cast<int>(rows - row0 < R ? rows - row0 : R);
@@ -137,9 +186,9 @@ ell_spmm_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
       : row / n;
   const T* xd = X + d * m * k + col0;
 
-  Vec<T, W> acc;
+  A acc[W];
 #pragma unroll
-  for (int w = 0; w < W; ++w) acc.v[w] = T(0);
+  for (int w = 0; w < W; ++w) acc[w] = A(0);
   for (int64_t jr = 0; jr < ns; jr += span) {
     const int len = ns - jr < span ? static_cast<int>(ns - jr) : span;
     if (jr > 0) {
@@ -156,15 +205,16 @@ ell_spmm_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
       for (int j = a; j < e; ++j) {
         const int c = scol[j];
         if (c >= 0) {
-          const T v = sval[j];
-          const Vec<T, W> x = load_vec<T, W>(xd + static_cast<int64_t>(c) * k);
+          const A v = widen(sval[j]);
+          A x[W];
+          load_vec<T, W>(xd + static_cast<int64_t>(c) * k, x);
 #pragma unroll
-          for (int w = 0; w < W; ++w) acc.v[w] += v * x.v[w];
+          for (int w = 0; w < W; ++w) acc[w] += v * x[w];
         }
       }
     }
   }
-  if (active) *reinterpret_cast<Vec<T, W>*>(Y + row * k + col0) = acc;
+  if (active) store_vec<T, W>(Y + row * k + col0, acc);
 }
 
 template <typename T, int W>
@@ -199,19 +249,29 @@ int launch(const int* cols, const T* vals, const T* X, T* Y, int64_t D,
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for K above 2^31 - 1 or a grid the card cannot
-// take.  The caller guarantees D, n, K, m, k > 0,
+// cudaErrorInvalidValue for K above 2^31 - 1, a grid the card cannot take
+// or an unknown dtype code.  dtype: 0 float32, 1 float64, 2 bfloat16.
+// The caller guarantees D, n, K, m, k > 0,
 // contiguous operands on one device, and 0 <= cols < m wherever cols != -1.
 extern "C" int ell_spmm_launch(const void* cols, const void* vals, const void* X,
                                void* Y, int64_t D, int64_t n, int64_t K,
-                               int64_t m, int64_t k, int is_f64, void* stream) {
+                               int64_t m, int64_t k, int dtype, void* stream) {
   const auto* c = static_cast<const int*>(cols);
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_f64)
-    return launch<double>(c, static_cast<const double*>(vals),
-                          static_cast<const double*>(X), static_cast<double*>(Y),
-                          D, n, K, m, k, s);
-  return launch<float>(c, static_cast<const float*>(vals),
-                       static_cast<const float*>(X), static_cast<float*>(Y),
-                       D, n, K, m, k, s);
+  switch (dtype) {
+    case 0:
+      return launch<float>(c, static_cast<const float*>(vals),
+                           static_cast<const float*>(X), static_cast<float*>(Y),
+                           D, n, K, m, k, s);
+    case 1:
+      return launch<double>(c, static_cast<const double*>(vals),
+                            static_cast<const double*>(X), static_cast<double*>(Y),
+                            D, n, K, m, k, s);
+    case 2:
+      return launch<__nv_bfloat16>(c, static_cast<const __nv_bfloat16*>(vals),
+                                   static_cast<const __nv_bfloat16*>(X),
+                                   static_cast<__nv_bfloat16*>(Y), D, n, K, m, k, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -4,11 +4,17 @@
 // (_spmv_kernel), with the rank dim of the distributed solve stacked in front
 // so that one launch serves all D ranks: cols/vals [D, n, K], x [D, m] -> y [D, n].
 //
+// Value types: float32, float64 and bfloat16.  A bfloat16 instance loads
+// bfloat16 values and x, widens them to float32, takes products and row
+// sums in float32 and rounds once, at the store (__float2bfloat16_rn).
+//
 // Bound on an H100 SXM (80 GB HBM3 at 3.35 TB/s): the kernel has to read
 // every slot's column id (4 B, padding included), the value of every stored
 // entry (sizeof(T); padded slots' values are never loaded), x once and write
 // y once; with nnz = the count of cols >= 0:
-//   t >= (D*n*K*4 + nnz*sizeof(T) + D*(m + n)*sizeof(T)) / 3.35e12 s.
+//   t >= (D*n*K*4 + nnz*sizeof(T) + D*(m + n)*sizeof(T)) / 3.35e12 s,
+// in bfloat16 (D*n*K*4 + nnz*2 + D*(m + n)*2) / 3.35e12 s, where the int32
+// column ids are most of the bytes.
 // Two flops per slot is far below the card's float32/float64 rates, so the
 // bytes bound it.
 //
@@ -25,9 +31,11 @@
 //     Small blocks (128 threads; 1 chunk a thread in float64, 4 in float32)
 //     keep the registers low and many blocks on each SM, so one block's sums
 //     overlap the others' loads.
-//   - A 16-byte group of values is loaded only where one of its column ids is
-//     >= 0: the card moves 32-byte sectors, so padding that fills a group (the
-//     lowering packs it at the row's end) costs no value bytes.
+//   - A group of values is loaded only where one of its column ids is >= 0:
+//     the card moves 32-byte sectors, so padding that fills a group (the
+//     lowering packs it at the row's end) costs no value bytes.  A group is
+//     16 bytes in float32 and float64 (4 values, or 2), and in bfloat16 the
+//     8 bytes of a chunk's 4 values: the 16-byte load of 4 ids decides it.
 //   - x is gathered through the read-only path (__ldg); at the solve's sizes
 //     it stays in the 50 MB L2.
 //   - Products land in shared memory (rows at an odd stride), and one thread
@@ -47,6 +55,8 @@
 
 #include <cstdint>
 
+#include "value_types.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -54,7 +64,8 @@ constexpr int MAX_ROWS = 1024;                     // rows a block takes at most
 constexpr int64_t MAX_K = int64_t{1} << 28;        // a block's slots fit an int
 
 // chunks of 4 slots a thread carries a round (the fastest at the AMG path's
-// level-0 A_on on an H100; PERF.md)
+// level-0 A_on on an H100; PERF.md): 1 in float64, 4 in float32 and in
+// bfloat16 (whose sums are float32 too)
 template <typename T>
 __host__ __device__ constexpr int unroll() { return sizeof(T) == 8 ? 1 : 4; }
 
@@ -84,10 +95,20 @@ __device__ __forceinline__ void load_vals4(const double* p, const int* c, double
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
+// bfloat16: the chunk's 4 values are one 8-byte group, widened to float32
+__device__ __forceinline__ void load_vals4(const __nv_bfloat16* p, const int* c, float* v) {
+  uint2 t = make_uint2(0u, 0u);
+  if ((c[0] & c[1] & c[2] & c[3]) >= 0) t = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
 // Shared memory: xoff int64[R] (d * m of each row, when a block spans
-// ranks), prod T[min(R*K, SPAN) + R] (a round's products; row r - rf of the
-// round at offset (r - rf) * pad, pad = 1 for even K: an odd row stride),
-// carry T[2] (a row's partial sum across rounds, by the round's parity).
+// ranks), prod A[min(R*K, SPAN) + R] (a round's products in the sum type A;
+// row r - rf of the round at offset (r - rf) * pad, pad = 1 for even K: an
+// odd row stride), carry A[2] (a row's partial sum across rounds, by the
+// round's parity).
 // (prod right after xoff, 16-byte aligned, was 5% faster in float32 on an
 // H100 than behind the carry; PERF.md.)
 // ROUNDS is false where a block's slots fit one round (every K up to a
@@ -99,12 +120,13 @@ __global__ void __launch_bounds__(THREADS)
 ell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
                 const T* __restrict__ x, T* __restrict__ y, int64_t rows,
                 int64_t n, int K, int pad, int R, int64_t m, bool vec) {
+  using A = typename Acc<T>::type;
   constexpr int UNROLL = unroll<T>();
   constexpr int SPAN = span<T>();
   extern __shared__ __align__(16) unsigned char smem[];
   int64_t* xoff = reinterpret_cast<int64_t*>(smem);
-  T* prod = reinterpret_cast<T*>(smem + R * sizeof(int64_t));
-  T* carry = prod + (R * K < SPAN ? R * K : SPAN) + R;
+  A* prod = reinterpret_cast<A*>(smem + R * sizeof(int64_t));
+  A* carry = prod + (R * K < SPAN ? R * K : SPAN) + R;
 
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * R;
   const int nr = static_cast<int>(rows - row0 < R ? rows - row0 : R);
@@ -149,7 +171,7 @@ ell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
   // one round's products into prod (jr: its first slot, rf: its first row)
   auto products = [&](int jr, int rf) {
     if (jr + static_cast<int>(threadIdx.x) * 4 >= ns) return;   // no slot here
-    T v[UNROLL][4];
+    A v[UNROLL][4];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int j = jr + (static_cast<int>(threadIdx.x) + u * THREADS) * 4;
@@ -157,10 +179,11 @@ ell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
         load_vals4(vals + s0 + j, c[u], v[u]);
       } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) v[u][q] = c[u][q] >= 0 ? __ldg(vals + s0 + j + q) : T(0);
+        for (int q = 0; q < 4; ++q)
+          v[u][q] = c[u][q] >= 0 ? widen(__ldg(vals + s0 + j + q)) : A(0);
       }
     }
-    T xv[UNROLL][4];
+    A xv[UNROLL][4];
     int at[UNROLL][4];                    // where each product goes in prod
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -171,15 +194,15 @@ ell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
                                : j / K;
         at[u][q] = j < ns ? (j - jr) + (r - rf) * pad : -1;
         const int cj = c[u][q];
-        xv[u][q] = T(0);
-        if (cj >= 0) xv[u][q] = __ldg((one_rank ? xd : x + xoff[r]) + cj);
+        xv[u][q] = A(0);
+        if (cj >= 0) xv[u][q] = widen(__ldg((one_rank ? xd : x + xoff[r]) + cj));
       }
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        if (at[u][q] >= 0) prod[at[u][q]] = c[u][q] >= 0 ? v[u][q] * xv[u][q] : T(0);
+        if (at[u][q] >= 0) prod[at[u][q]] = c[u][q] >= 0 ? v[u][q] * xv[u][q] : A(0);
     }
   };
 
@@ -187,10 +210,10 @@ ell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
     products(0, 0);
     __syncthreads();
     for (int r = threadIdx.x; r < nr; r += THREADS) {
-      const T* p = prod + r * (K + pad);
-      T acc = T(0);
+      const A* p = prod + r * (K + pad);
+      A acc = A(0);
       for (int k = 0; k < K; ++k) acc += p[k];
-      y[row0 + r] = acc;
+      store(y + row0 + r, acc);
     }
   } else {
     for (int jr = 0, pass = 0; jr < ns; jr += SPAN, ++pass) {
@@ -209,12 +232,12 @@ ell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
       for (int r = rf + static_cast<int>(threadIdx.x); r < re; r += THREADS) {
         const int a = r * K > jr ? r * K : jr;
         const int e = r * K + K < je ? r * K + K : je;
-        const T* p = prod + (a - jr) + (r - rf) * pad;
-        T acc = T(0);
+        const A* p = prod + (a - jr) + (r - rf) * pad;
+        A acc = A(0);
         for (int k = 0; k < e - a; ++k) acc += p[k];
         if (r * K < jr) acc = carry[(pass + 1) & 1] + acc;
         if (r * K + K > je) carry[pass & 1] = acc;
-        else y[row0 + r] = acc;
+        else store(y + row0 + r, acc);
       }
     }
   }
@@ -226,7 +249,8 @@ int launch(const int* cols, const T* vals, const T* x, T* y, int64_t D,
   if (K > MAX_K) return static_cast<int>(cudaErrorInvalidValue);
   const int R = rows_per_block<T>(K);
   const int64_t slots = R * K < span<T>() ? R * K : span<T>();   // a round's
-  const int64_t smem = R * static_cast<int64_t>(sizeof(int64_t)) + (2 + slots + R) * sizeof(T);
+  const int64_t smem = R * static_cast<int64_t>(sizeof(int64_t)) +
+                       (2 + slots + R) * sizeof(typename Acc<T>::type);
   const int64_t rows = D * n;
   const int64_t blocks = (rows + R - 1) / R;
   const bool vec =
@@ -244,19 +268,29 @@ int launch(const int* cols, const T* vals, const T* x, T* y, int64_t D,
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for K above 2^28 (a row of 1 GiB of column ids).
+// cudaErrorInvalidValue for K above 2^28 (a row of 1 GiB of column ids) or
+// an unknown dtype code.  dtype: 0 float32, 1 float64, 2 bfloat16.
 // The caller guarantees D, n, K, m > 0, contiguous operands on one device,
 // and 0 <= cols < m wherever cols != -1.
 extern "C" int ell_spmv_launch(const void* cols, const void* vals, const void* x,
                                void* y, int64_t D, int64_t n, int64_t K,
-                               int64_t m, int is_f64, void* stream) {
+                               int64_t m, int dtype, void* stream) {
   const auto* c = static_cast<const int*>(cols);
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_f64)
-    return launch<double>(c, static_cast<const double*>(vals),
-                          static_cast<const double*>(x), static_cast<double*>(y),
-                          D, n, K, m, s);
-  return launch<float>(c, static_cast<const float*>(vals),
-                       static_cast<const float*>(x), static_cast<float*>(y),
-                       D, n, K, m, s);
+  switch (dtype) {
+    case 0:
+      return launch<float>(c, static_cast<const float*>(vals),
+                           static_cast<const float*>(x), static_cast<float*>(y),
+                           D, n, K, m, s);
+    case 1:
+      return launch<double>(c, static_cast<const double*>(vals),
+                            static_cast<const double*>(x), static_cast<double*>(y),
+                            D, n, K, m, s);
+    case 2:
+      return launch<__nv_bfloat16>(c, static_cast<const __nv_bfloat16*>(vals),
+                                   static_cast<const __nv_bfloat16*>(x),
+                                   static_cast<__nv_bfloat16*>(y), D, n, K, m, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -6,6 +6,13 @@ computes, so the CPU tests and ``chip_smoke.py`` hold the kernels against
 them.  They follow the Pallas kernels' oracles in
 ``repro/kernels/spmv/ref.py`` and ``repro/kernels/spmv/bcsr.py``
 (``bcsr_apply_ref``); summation order may differ from the kernels.
+
+bfloat16 operands follow one rule in all three: the gather is in bfloat16,
+the operands are widened to float32, products and row sums are float32,
+and the result is rounded to bfloat16 once.  (The reference's Pallas
+kernels round along the row in bfloat16; a float32 sum rounded once is
+closer to the exact sum of the same products.)  float32 and float64
+compute in their own type.
 """
 from __future__ import annotations
 
@@ -23,6 +30,12 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return g.reshape(tuple(idx.shape) + ext)
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """The type products and sums are taken in: float32 for bfloat16
+    operands, the operands' own type otherwise."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def ell_spmv_ref(cols: torch.Tensor, vals: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
     """``y[d, i] = Σ_k vals[d, i, k] · x[d, cols[d, i, k]]`` (``cols == -1``
@@ -30,8 +43,9 @@ def ell_spmv_ref(cols: torch.Tensor, vals: torch.Tensor,
     D, n, K = cols.shape
     if n == 0 or K == 0 or x.shape[1] == 0:
         return torch.zeros((D, n), dtype=vals.dtype, device=vals.device)
-    contrib = torch.where(cols >= 0, vals * _gather_rows(x, cols), 0.0)
-    return contrib.sum(dim=2)
+    contrib = torch.where(cols >= 0,
+                          _wide(vals) * _wide(_gather_rows(x, cols)), 0.0)
+    return contrib.sum(dim=2).to(vals.dtype)
 
 
 def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
@@ -43,8 +57,9 @@ def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
     if n == 0 or K == 0 or x.shape[1] == 0 or k == 0:
         return torch.zeros((D, n, k), dtype=vals.dtype, device=vals.device)
     g = _gather_rows(x, cols)                             # [D, n, K, k]
-    contrib = torch.where((cols >= 0)[..., None], vals[..., None] * g, 0.0)
-    return contrib.sum(dim=2)
+    contrib = torch.where((cols >= 0)[..., None],
+                          _wide(vals)[..., None] * _wide(g), 0.0)
+    return contrib.sum(dim=2).to(vals.dtype)
 
 
 def block_x(x: torch.Tensor, bs: int) -> torch.Tensor:
@@ -85,6 +100,6 @@ def bcsr_apply_ref(bcols: torch.Tensor, bvals: torch.Tensor,
     else:
         g = _gather_rows(block_x(x, bs), bcols)           # [D, mb, Kb, bs, k]
         g = torch.where((bcols >= 0)[..., None, None], g, 0.0)
-        y = torch.matmul(bvals, g).sum(dim=2).reshape(D, mb * bs, k)
-        y = y[:, :rows].contiguous()
+        y = torch.matmul(_wide(bvals), _wide(g)).sum(dim=2)
+        y = y.to(bvals.dtype).reshape(D, mb * bs, k)[:, :rows].contiguous()
     return y[..., 0] if single else y

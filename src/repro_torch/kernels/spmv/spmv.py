@@ -5,7 +5,8 @@ They replace the Pallas kernels ``ell_spmv`` / ``ell_spmm`` of
 ``repro/kernels/spmv/spmv.py``.  Operands carry the distributed solve's rank
 dim in front, so one launch serves every rank: ``cols``/``vals``
 ``[D, n, K]`` (``cols == -1`` is padding) against ``x`` ``[D, m]`` or
-``X`` ``[D, m, k]``.
+``X`` ``[D, m, k]``, in float32, float64 or bfloat16 (loaded in bfloat16,
+summed in float32, rounded once).
 
 A wrapper takes the plain version (:mod:`.ref`) only for tensors that lie on
 the CPU; for CUDA tensors it launches its kernel on the current stream or
@@ -20,6 +21,11 @@ from ..build import kernel
 from ..launches import note
 from .ref import ell_spmm_ref, ell_spmv_ref
 
+# the value types the sparse kernels take, and the code each C entry point
+# reads for one (0 float32, 1 float64, 2 bfloat16: float32 sums, one
+# rounding); FLOAT_DTYPES, the two full-precision ones, are what the
+# smoother and ERT kernels take
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 FLOAT_DTYPES = (torch.float32, torch.float64)
 
 
@@ -30,9 +36,10 @@ def check_operands(name: str, idx: torch.Tensor, vals: torch.Tensor,
     (the kernel runs), False when on the CPU (the plain version runs)."""
     if idx.dtype != torch.int32:
         raise TypeError(f"{name}: column ids must be int32, got {idx.dtype}")
-    if vals.dtype not in FLOAT_DTYPES or x.dtype != vals.dtype:
-        raise TypeError(f"{name}: values and source must share float32 or "
-                        f"float64, got {vals.dtype} and {x.dtype}")
+    if vals.dtype not in DTYPE_CODES or x.dtype != vals.dtype:
+        raise TypeError(f"{name}: values and source must share float32, "
+                        f"float64 or bfloat16, got {vals.dtype} and "
+                        f"{x.dtype}")
     if idx.ndim != idx_ndim or vals.ndim != vals_ndim or x.ndim not in x_ndims:
         raise ValueError(f"{name}: bad ranks {idx.ndim}/{vals.ndim}/{x.ndim}")
     if vals.shape[:3] != idx.shape or x.shape[0] != idx.shape[0]:
@@ -67,7 +74,7 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor,
     y = torch.empty((D, n), dtype=vals.dtype, device=x.device)
     rc = kernel("ell_spmv")(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
                             y.data_ptr(), D, n, K, m,
-                            int(vals.dtype == torch.float64),
+                            DTYPE_CODES[vals.dtype],
                             torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error("ell_spmv", rc)
     note(ell_spmv)
@@ -87,7 +94,7 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
     y = torch.empty((D, n, k), dtype=vals.dtype, device=x.device)
     rc = kernel("ell_spmm")(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
                             y.data_ptr(), D, n, K, m, k,
-                            int(vals.dtype == torch.float64),
+                            DTYPE_CODES[vals.dtype],
                             torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error("ell_spmm", rc)
     note(ell_spmm)

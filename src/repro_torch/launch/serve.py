@@ -45,6 +45,9 @@ import argparse
 import dataclasses
 import time
 
+# the AMG harness's bar on a bfloat16 session's float64 true residual
+BF16_TRUE_RESIDUAL = 2.0**-5
+
 
 def run_lm(args):
     import numpy as np
@@ -148,7 +151,12 @@ def run_amg(args) -> dict:
           f"{s['setups']} setups, {s['unconverged']} unconverged, "
           f"worst rel residual {worst:.2e}")
     print("[serve/amg] " + svc.report().summary().replace("\n", "\n[serve/amg] "))
-    if worst > cfg.tol * 100:
+    # a bfloat16 x holds 8 bits, so its float64 true residual sits near 1e-2
+    # whatever the tolerance (the reference's bf16 sessions: 8e-3 to 1.2e-2)
+    bar = cfg.tol * 100
+    if args.amg_backend == "torch" and cfg.dtype == "bfloat16":
+        bar = max(bar, BF16_TRUE_RESIDUAL)
+    if worst > bar:
         raise SystemExit(f"residual check failed: {worst:.2e}")
     return {**s, "worst_rel_residual": worst}
 
@@ -230,7 +238,7 @@ def main(argv=None):
                     default="torch",
                     help="AMG backend: torch (default; the card, or the CPU "
                          "with --device cpu) or host (numpy)")
-    ap.add_argument("--dtype", choices=("float32", "float64"),
+    ap.add_argument("--dtype", choices=("float32", "float64", "bfloat16"),
                     default="float32", help="torch backend compute dtype")
     ap.add_argument("--n", type=int, default=8,
                     help="largest Laplacian grid size for --solver amg")

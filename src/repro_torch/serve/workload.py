@@ -25,11 +25,14 @@ def default_tol(backend: str, tol: float | None = None,
     """The torch backend computes in ``dtype``, float32 by default, whose
     residual floor (~1e-7 relative) sits above the host default tol — don't
     let every solve burn maxiter chasing an unreachable tolerance (the
-    reference's 1e-6 for its fp32 ``dist``).  A float64 torch session and
-    the host backend default to 1e-8."""
+    reference's 1e-6 for its fp32 ``dist``).  A bfloat16 session defaults
+    to 1e-5, which its PCG reaches (8 bits of mantissa); a float64 torch
+    session and the host backend to 1e-8."""
     if tol is not None:
         return float(tol)
-    return 1e-6 if backend == "torch" and dtype == "float32" else 1e-8
+    if backend == "torch" and dtype in ("float32", "bfloat16"):
+        return 1e-6 if dtype == "float32" else 1e-5
+    return 1e-8
 
 
 def json_hop(obj: dict) -> dict:

@@ -40,3 +40,21 @@ def test_build_report_reads_the_log_beside_the_library(tmp_path, monkeypatch):
     build.library_path("ell_spmm").with_suffix(".log").write_text(LOG)
     assert [n for n, _ in build.build_report("ell_spmm")] == ["_Z5firstPKf",
                                                              "_Z6secondPKd"]
+
+
+def test_library_name_hashes_the_headers_beside_a_source(tmp_path, monkeypatch):
+    """A kernel's library is rebuilt when a header its source may include
+    (a ``*.cuh`` beside it) changes, and not for a file of another kind;
+    the sparse kernels' sources include their value-type header."""
+    for name in ("ell_spmv", "ell_spmm", "bcsr_spmm"):
+        assert '#include "value_types.cuh"' in build.source_path(name).read_text()
+    csrc = tmp_path / "spmv" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "ell_spmv.cu").write_text('#include "value_types.cuh"\n')
+    (csrc / "value_types.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "KERNELS_DIR", tmp_path)
+    first = build.library_path("ell_spmv")
+    (csrc / "notes.txt").write_text("not a header\n")
+    assert build.library_path("ell_spmv") == first
+    (csrc / "value_types.cuh").write_text("// two\n")
+    assert build.library_path("ell_spmv") != first

@@ -6,7 +6,11 @@ counts that fill no whole block, ranks shorter than a block, operands that
 are not 16-byte aligned, rows of up to 20,001 slots and of 2^24 + 1; BCSR
 sources that are not a multiple of the block size and results cut to the
 true rows, one launch per BCSR apply (counted from a captured graph's
-nodes); the block smoothers' block-diagonal apply (block sizes 1-8, rows
+nodes); the three sparse kernels' bfloat16 instances at the same edges
+(K = 1, all-padding rows, m not a multiple of bs, k = 1-33, unaligned
+operands, rows over several rounds) and at a bfloat16 lowering's own
+operands, each entry within 2^-7 |plain| + 2^-16 Σ|a·x| of the plain
+version; the block smoothers' block-diagonal apply (block sizes 1-8, rows
 that fill no whole block, 1-33 right-hand sides) and sync-free triangular
 solve on each route (block, L2: both triangles, rows longer than a warp,
 a chain as deep as the rows, bit-equal run to run, in another valid order
@@ -279,6 +283,169 @@ def test_bcsr(dev, bs, k, shape, cut, dtype):
     want = ref.bcsr_apply_ref(bcols, bvals, x, rows)
     assert want.shape[1] == (mb * bs if rows is None else rows)
     _close(got, want)
+
+
+# bfloat16: the kernels and their plain versions both widen to float32,
+# sum in float32 and round once, in another order, so a row may differ by
+# one bfloat16 ulp where the float32 sums fall on either side of a tie:
+# |kernel - plain| <= 2^-7 |plain| + 2^-16 sum_k |a_ik x_k| a row.
+BF16 = torch.bfloat16
+
+
+def _close_bf16(got, want, absum):
+    """The bfloat16 bar above; ``absum`` is Σ|a·x| of each output entry
+    (float64, from the plain version on |A| and |x|)."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == BF16 and got.shape == want.shape
+    assert got.device == want.device
+    err = (got.double() - want.double()).abs()
+    bar = 2.0**-7 * want.double().abs() + 2.0**-16 * absum
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= bar).all()), float((err - bar).max())
+
+
+def _absum(fn, idx, vals, x, *args):
+    """Σ|a·x| of each entry of ``fn``'s result, in float64."""
+    return fn(idx, vals.double().abs().nan_to_num(), x.double().abs(), *args)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("fill", [0.04, 0.25, 0.9, 1.0])
+@pytest.mark.parametrize("K", PATH_K)
+def test_ell_spmv_bf16(dev, K, fill, packed):
+    """bfloat16 at every row length the path has (K = 1 among them), fills
+    up to whole rows, padding packed and scattered (its values NaN), ranks
+    of 37 rows (blocks span ranks) and of 1000 + K, and a rank whose rows
+    are all padding."""
+    rng = np.random.default_rng(K + 7)
+    m = 777
+    for n in (37, 1000 + K):
+        cols, vals = _ell_path(rng, n, m, K, fill, packed, BF16, dev)
+        cols[1, : n // 2] = -1                   # rows of padding only
+        x = torch.as_tensor(rng.standard_normal((D, m)), dtype=BF16, device=dev)
+        before = spmv.ell_spmv.launches
+        got = spmv.ell_spmv(cols, vals, x)
+        assert spmv.ell_spmv.launches == before + 1
+        assert not got[1, : n // 2].any()
+        _close_bf16(got, ref.ell_spmv_ref(cols, vals, x),
+                    _absum(ref.ell_spmv_ref, cols, vals, x))
+
+
+def test_ell_spmv_bf16_unaligned_and_long_rows(dev):
+    """bfloat16 operands that start one element into their storage (the
+    kernel's scalar loads), and rows that run over several rounds."""
+    rng = np.random.default_rng(8)
+    for n, K, m in ((1001, 27, 50), (9, 3000, 50), (9, 20001, 5000)):
+        cols0, vals0 = _ell_path(rng, n, m, K, 0.9, True, BF16, dev)
+        x = torch.as_tensor(rng.standard_normal((D, m)), dtype=BF16, device=dev)
+        want = ref.ell_spmv_ref(cols0, vals0, x)
+        absum = _absum(ref.ell_spmv_ref, cols0, vals0, x)
+        _close_bf16(spmv.ell_spmv(_offset(cols0), _offset(vals0), x), want, absum)
+        _close_bf16(spmv.ell_spmv(cols0, vals0, x), want, absum)
+
+
+@pytest.mark.parametrize("k", SPMM_K)
+@pytest.mark.parametrize("fill", [0.04, 0.9, 1.0])
+@pytest.mark.parametrize("K", [1, 8, 27, 66])
+def test_ell_spmm_bf16(dev, K, fill, k):
+    """bfloat16 SpMM at 1-33 right-hand sides (8 and 16 take 16-byte X
+    rows, the rest scalar ones), the path's A_on / P_on / coarse row
+    lengths, ranks of 37 and 1000 + K rows, all-padding rows."""
+    rng = np.random.default_rng(K * 100 + k + 1)
+    m = 777
+    for n, packed in ((37, True), (1000 + K, False)):
+        cols, vals = _ell_path(rng, n, m, K, fill, packed, BF16, dev)
+        cols[2, : n // 3] = -1
+        X = torch.as_tensor(rng.standard_normal((D, m, k)), dtype=BF16, device=dev)
+        before = spmv.ell_spmm.launches
+        got = spmv.ell_spmm(cols, vals, X)
+        assert spmv.ell_spmm.launches == before + 1
+        _close_bf16(got, ref.ell_spmm_ref(cols, vals, X),
+                    _absum(ref.ell_spmm_ref, cols, vals, X))
+
+
+@pytest.mark.parametrize("which", ["A", "X"])
+def test_ell_spmm_bf16_unaligned_and_long_rows(dev, which):
+    rng = np.random.default_rng(9)
+    for n, K, k in ((1001, 27, 8), (9, 3000, 8), (9, 2049, 3)):
+        cols0, vals0 = _ell_path(rng, n, 50, K, 0.9, True, BF16, dev)
+        X0 = torch.as_tensor(rng.standard_normal((D, 50, k)), dtype=BF16, device=dev)
+        cols, vals = (_offset(cols0), _offset(vals0)) if which == "A" else (cols0, vals0)
+        X = _offset(X0) if which == "X" else X0
+        _close_bf16(spmv.ell_spmm(cols, vals, X), ref.ell_spmm_ref(cols0, vals0, X0),
+                    _absum(ref.ell_spmm_ref, cols0, vals0, X0))
+
+
+@pytest.mark.parametrize("bs", bcsr.BLOCK_SIZES)
+@pytest.mark.parametrize("k", [None, 1, 8, 40])
+@pytest.mark.parametrize("shape", ["wide", "level3", "level4"])
+@pytest.mark.parametrize("cut", [None, 7])
+def test_bcsr_bf16(dev, bs, k, shape, cut):
+    """bfloat16 BCSR at both block sizes: sources m that are not a multiple
+    of bs, results cut to the true rows, the path's level-3 and level-4
+    shapes, k = 1 and 8 and a k of several column tiles."""
+    rng = np.random.default_rng(bs + (k or 0) + 3)
+    mb, Kb, m = {"wide": (37, 40, 29 * bs - 5), "level3": (-(-57 // bs), 8, 57),
+                 "level4": (-(-13 // bs), 2, 13)}[shape]
+    rows = None if cut is None else max(mb * bs - cut, m)
+    nb = -(-m // bs)
+    bcols = rng.integers(0, nb, size=(D, mb, Kb)).astype(np.int32)
+    bcols[rng.random((D, mb, Kb)) < 0.25] = -1
+    bcols[0, 0] = -1                              # a block row of padding
+    bcols = torch.as_tensor(bcols, device=dev)
+    bvals = torch.as_tensor(rng.standard_normal((D, mb, Kb, bs, bs)),
+                            dtype=BF16, device=dev)
+    x = torch.as_tensor(rng.standard_normal((D, m) + (() if k is None else (k,))),
+                        dtype=BF16, device=dev)
+    fn = bcsr.bcsr_spmv if k is None else bcsr.bcsr_spmm
+    before = bcsr.bcsr_spmm.launches
+    got = fn(bcols, bvals, x, rows=rows)
+    assert bcsr.bcsr_spmm.launches == before + 1
+    _close_bf16(got, ref.bcsr_apply_ref(bcols, bvals, x, rows),
+                _absum(ref.bcsr_apply_ref, bcols, bvals, x, rows))
+
+
+@pytest.mark.parametrize("k", [None, 8])
+def test_spmv_bf16_at_the_amg_operands(dev, k):
+    """Each bfloat16 kernel at the operands a bfloat16 lowering of
+    laplace_3d(24) on 2x4 ranks gives it: every level's A (fused and on
+    part, ELL or BCSR), P and R, against the plain version."""
+    from repro_torch.amg.dist_solve import DistHierarchy
+    from repro_torch.amg.hierarchy import setup
+    from repro_torch.amg.problems import laplace_3d
+
+    dh = DistHierarchy.build(setup(laplace_3d(24), max_coarse=30), 2, 4,
+                             dtype=BF16, device=dev)
+    rng = np.random.default_rng(4)
+    seen = set()
+    for dl, a in zip(dh.levels, dh._arrs):
+        for name in ("A", "P", "R"):
+            op = getattr(dl, name)
+            if op is None:
+                continue
+            arrs = a[name]
+            pairs = [("on_cols", "on_vals", op.plan.local_n),
+                     ("cols", "vals", op.plan.local_n + op.plan.halo_len)]
+            if "bcols" in arrs:
+                pairs = [("on_bcols", "on_bvals", op.plan.local_n),
+                         ("bcols", "bvals", op.plan.local_n + op.plan.halo_len)]
+            for ci, vi, m in pairs:
+                shape = (8, m) + (() if k is None else (k,))
+                x = torch.as_tensor(rng.standard_normal(shape), dtype=BF16, device=dev)
+                idx, vals = arrs[ci], arrs[vi]
+                if vi.endswith("bvals"):
+                    seen.add("bcsr")
+                    args = (op.rows_local,)
+                    fn, plain = ((bcsr.bcsr_spmv if k is None else bcsr.bcsr_spmm),
+                                 ref.bcsr_apply_ref)
+                else:
+                    seen.add("ell")
+                    args = ()
+                    fn, plain = ((spmv.ell_spmv, ref.ell_spmv_ref) if k is None
+                                 else (spmv.ell_spmm, ref.ell_spmm_ref))
+                _close_bf16(fn(idx, vals, x, *args), plain(idx, vals, x, *args),
+                            _absum(plain, idx, vals, x, *args))
+    assert seen == {"ell", "bcsr"}
 
 
 # the node types cudaGraphDebugDotPrint writes into a node's label
