@@ -86,8 +86,8 @@ Phases (any failure exits non-zero):
    lowered in bfloat16 (``AMGConfig(dtype="bfloat16")``), ``ell_spmv``
    and ``ell_spmm`` (k = 8) at level 0's ``A_on`` and ``bcsr_spmm`` at
    each BCSR level (k = 1 and 8) in bfloat16 against their plain versions
-   (|kernel − plain| ≤ 2^-7 |plain| + 2^-16 Σ|a·x| an entry: both sum in
-   float32 and round once, in another order), with ``torch.sparse.mm`` on a
+   (|kernel − plain| ≤ one bfloat16 ulp of plain + 2^-16 Σ|a·x| an entry:
+   both sum in float32 and round once, in another order), with ``torch.sparse.mm`` on a
    bfloat16 CSR where the install has it ("none" and its error where it
    raises); PCG to 1e-5 through the captured graphs (one replay a program
    call), its launches per iteration those of the f64 solve, its x within
@@ -103,7 +103,18 @@ Phases (any failure exits non-zero):
    the same session run eagerly through the plain versions (≤ 1e-7 of r0 in
    f64, 1e-4 in f32), its true residual, ms an iteration, device time by
    kernel and busy share, one ``cudaGraphLaunch`` a program call; the
-   factors' bytes beside the reference's dense factors';
+   factors' bytes beside the reference's dense factors'; then the block
+   smoothers in bfloat16 on the bfloat16 lowering: ``block_diag_apply`` at
+   level 0 and ``tri_solve`` on both triangles at every level that smooths
+   (each route where it can take the case, k = 1 and 8, bit-equal across
+   routes and orders) against their plain versions at the bfloat16 bar,
+   each row saying whether it is bit-equal, with its bytes bound, depth ×
+   the one-step floor of a bfloat16 chain, the plain version's ms and
+   batched bf16 ``torch.matmul`` / cuSPARSE's refusal of bf16; PCG to 1e-5
+   with ``block_jacobi`` and ``hybrid_gs_sym`` through the graphs (x
+   within 2^-5 of the f64 block-smoother runs' x, ms an iteration as the
+   median of 5 warm solves, device ms) and a k = 8 ``hybrid_gs_sym`` chunk
+   through ``AMGService``;
 7. launch counts of the solve runs (each counter set to 0 just before a
    run and read just after; a graph's launches count once per replay):
    every sparse kernel launched; then the partitioned setup
@@ -157,7 +168,9 @@ Phases (any failure exits non-zero):
    the collectives' host ms) under ``auto`` and each forced strategy,
    beside the model's messages; one ``hier_all_to_all`` of each strategy
    (flat, nap3) between the ranks bit-equal to the stacked form, its log the
-   strategy's signature;
+   strategy's signature; a bfloat16 PCG of ``b`` to 1e-5 on the ranks,
+   identical on every rank and bit-equal to the stacked bfloat16 session
+   (or else within the bfloat16 bars), ms an iteration;
 8. flash attention at the serving runs' prefill shape, with a 256-key
    window, with fewer queries than keys, at head dim 64, and at
    recurrentgemma-9b's head dim 256 (16:1, S 1819, its 2048-key window,
@@ -388,11 +401,16 @@ STATIONARY_MAXITER = 100
 F32_HIST_TOL = 1e-4
 # the bfloat16 phase: PCG's tolerance, its x against the f64 x, and each
 # kernel against its plain version (both sum in float32 and round once, in
-# another order: an entry may differ by one bfloat16 ulp at a tie)
+# another order: an entry may differ by one bfloat16 ulp at a tie, and by
+# the float32 round-off of its sum, BF16_ABS of Σ|a·x|)
 BF16_TOL = 1e-5
 BF16_X_BAR = 2.0**-5
 BF16_WARM = 5
-BF16_REL, BF16_ABS = 2.0**-7, 2.0**-16
+BF16_ABS = 2.0**-16
+# the bfloat16 session tests' bar on |log(r_i / r_i^ref)| (twice the
+# reference's own bf16-against-f32 gap): the process ranks' bf16 PCG against
+# the stacked one, where they are not bit-equal
+BF16_LOG_BAR = 0.6
 # LM serving: qwen3-1.7b at full width, 8 requests, prompts of 512-2048
 LM_ARCH, LM_REQUESTS, LM_BATCH, LM_NEW = "qwen3-1.7b", 8, 4, 32
 LM_PROMPT = (512, 2048)
@@ -836,20 +854,25 @@ def another_order(f, route: str) -> tuple:
     return torch.as_tensor(order, device=f.diag.device), f.starts
 
 
-def tri_cases(label, f, k, dt, rng, sched, extra, timed=None) -> list[dict]:
+def tri_cases(label, f, k, dt, rng, sched, extra, timed=None,
+              plain_samples: int = 3) -> list[dict]:
     """``tri_solve`` on factor ``f`` with ``k`` right-hand sides on the
     route the rule takes and on the other route where it can take the case
     (the block route where the rank fits a block's shared memory); each
     against the plain version at RTOL, repeated, in another valid order
     (``another_order``) and across routes bit for bit; µs a dependent step
-    (kernel ms over the DAG's depth).  The plain version and cuSPARSE are
-    timed once (``timed``: their times given, none taken)."""
+    (kernel ms over the DAG's depth).  The plain version (over
+    ``plain_samples`` bursts) and cuSPARSE are timed once (``timed``: their
+    times given, none taken).  bfloat16 is
+    held to the bfloat16 bar (``bf16_bar``, Σ|·| from ``tri_solve_absum``),
+    each row saying whether it equals the plain version bit for bit; a rank
+    fits a block by its float32 z."""
     from repro_torch.kernels.smoother import ref as sref
     from repro_torch.kernels.smoother import smoother as ks
 
     dev = f.cols.device
     D, m, _ = f.cols.shape
-    s = torch.finfo(dt).bits // 8
+    s, zs = dt.itemsize, ks.z_dtype(dt).itemsize
     nnz = int((f.cols >= 0).sum())
     shape = (D, m) + ((k,) if k > 1 else ())
     r, x = (torch.as_tensor(rng.standard_normal(shape), dtype=dt, device=dev)
@@ -857,9 +880,15 @@ def tri_cases(label, f, k, dt, rng, sched, extra, timed=None) -> list[dict]:
     library, lib_name = tri_library(f, r)
     smem = ks.tri_smem(dev)
     depth = len(sched)
-    rule = ks.tri_plan(m, f.depth(), k, s, smem)
+    rule = ks.tri_plan(m, f.depth(), k, zs, smem)
     routes = [rule] + [o for o in ks.TRI_ROUTES if o != rule
-                       and (o == "l2" or m * k * s <= smem)]
+                       and (o == "l2" or m * k * zs <= smem)]
+    bf16 = dt == torch.bfloat16
+    bar = dict(rtol=1.0, peak=PEAK_FLOPS[torch.float32], rel_err=bf16_bar(
+        sref.tri_solve_absum(f.cols, f.vals, f.diag, r, x, 1.0, sched))) \
+        if bf16 else {}
+    plain_y = sref.tri_solve_ref(f.cols, f.vals, f.diag, r, x, 1.0, sched) \
+        if bf16 else None
     rows, outs = [], []
     for name in routes:
         route = None if name == rule else name
@@ -875,11 +904,13 @@ def tri_cases(label, f, k, dt, rng, sched, extra, timed=None) -> list[dict]:
             # the stored entries' column ids and values, diag, r and x read
             # once, y written once
             nnz * (4 + s) + D * m * s + 3 * D * m * k * s,
-            2 * (nnz + D * m) * k, library_name=lib_name, plain_samples=3,
-            timed=timed)
+            2 * (nnz + D * m) * k, library_name=lib_name,
+            plain_samples=plain_samples, timed=timed, **bar)
         timed = row
         args = (f.cols, f.vals, f.diag, r, x)
         y = fn(*args)
+        if bf16:
+            row["bit_equal_plain"] = bool(torch.equal(y, plain_y))
         other = ks.tri_solve(*args, 1.0, upper=f.upper,
                              order=another_order(f, name), route=name)
         check(torch.equal(y, fn(*args)) and torch.equal(y, other),
@@ -1014,7 +1045,7 @@ def dense_factor_bytes(dh, keys) -> int:
     return per * len(keys) * (torch.finfo(dh.dtype).bits // 8)
 
 
-def block_smoother_phase(cfg64, A, b, B, dh64, dh32) -> dict:
+def block_smoother_phase(cfg64, A, b, B, dh64, dh32, xs: dict) -> dict:
     """The block smoothers on the main path's problem through the captured
     graphs, each session sharing the f64 (or f32) lowering: PCG to 1e-8
     with ``block_jacobi`` and with ``hybrid_gs_sym``, the stationary solve
@@ -1026,7 +1057,8 @@ def block_smoother_phase(cfg64, A, b, B, dh64, dh32) -> dict:
     versions, its true residual in numpy, ms an iteration warm, the warm
     solve's device time by kernel and busy share, one ``cudaGraphLaunch``
     a program call, and the factors' bytes beside the reference's dense
-    factors'."""
+    factors'.  ``xs`` receives each f64 PCG's x by smoother (``[n, K_RHS]``
+    under ``(smoother, K_RHS)``), the bfloat16 block phase's reference."""
     from repro_torch.amg import AMGSolver
     from repro_torch.amg.solve import SolveOptions
 
@@ -1083,6 +1115,8 @@ def block_smoother_phase(cfg64, A, b, B, dh64, dh32) -> dict:
             check(cols <= HIST_TOL, f"{label}: columns vs single runs {cols:.2e}")
         elif f64:
             single[(smoother, method)] = res
+        if f64 and method == "pcg":
+            xs[smoother if rhs.ndim == 1 else (smoother, rhs.shape[1])] = res.x
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         warm = getattr(bound, method)(rhs, **kw)
@@ -1122,6 +1156,191 @@ def block_smoother_phase(cfg64, A, b, B, dh64, dh32) -> dict:
             f"{out[f'dense_bytes_{name}']} bytes")
     out["launches"] = dict(out["launches"])
     return out
+
+
+def bf16_smoother_rows(dh16, rng) -> tuple[dict[str, list], dict]:
+    """The block smoothers' bfloat16 instances on the bfloat16 lowering's
+    own factors, each against its plain version at the bfloat16 bar (and
+    whether it equals it bit for bit): ``block_diag_apply`` at level 0 (bs
+    4, the main path's) beside batched ``torch.matmul`` in bfloat16, and
+    ``tri_solve`` on both triangles at every non-coarsest level, on the
+    route the rule takes and on the other where a rank's float32 z fits a
+    block (:func:`tri_cases`; the plain version timed over one burst), k = 1
+    and K_RHS, each with its bytes bound and depth × its route's one-step
+    floor, measured on a bfloat16 chain of TRI_CHAIN_ROWS rows (a step
+    waits on a float32 z, whose floor is not f64's).  Returns the rows and
+    the floors."""
+    from repro_torch.amg.solve import SolveOptions
+    from repro_torch.kernels.smoother import ref as sref
+    from repro_torch.kernels.smoother import smoother as ks
+    from repro_torch.kernels.spmv.ref import block_x
+
+    omega = SolveOptions().omega
+    bs = SolveOptions().block_size
+    dev, dt = dh16.device, dh16.dtype
+    out: dict[str, list] = {n: [] for n in SMOOTHER_KERNELS}
+    bj = dh16._factor(0, "bj", bs)
+    D, nb = bj.binv.shape[:2]
+    m = dh16.levels[0].A.rows_local
+    for k in (1, K_RHS):
+        shape = (D, m) + ((k,) if k > 1 else ())
+        r, x = (torch.as_tensor(rng.standard_normal(shape), dtype=dt,
+                                device=dev) for _ in range(2))
+        rb = block_x(r, bs)
+
+        def fn(B, r, x):
+            return ks.block_diag_apply(B, r, x, omega)
+
+        def plain(B, r, x):
+            return sref.block_diag_apply_ref(B, r, x, omega)
+        row = kernel_case(
+            f"block_diag_apply L0 bs{bs} k{k}", fn, plain,
+            lambda B=bj.binv, rb=rb: torch.matmul(B, rb), (bj.binv, r, x),
+            (D * nb * bs * bs + 3 * D * m * k) * dt.itemsize,
+            2 * bs * D * m * k, rtol=1.0, peak=PEAK_FLOPS[torch.float32],
+            rel_err=bf16_bar(sref.block_diag_apply_absum(bj.binv, r, x, omega)),
+            library_name="torch.matmul (batched, bf16)")
+        row.update(level=0, bs=bs, k=k, main_path=True,
+                   bit_equal_plain=bool(torch.equal(fn(bj.binv, r, x),
+                                                    plain(bj.binv, r, x))))
+        out["block_diag_apply"].append(row)
+    for l, dl in enumerate(dh16.levels):
+        if dl.coarse_inv is not None:
+            continue
+        for kind in ("gs", "gsu"):
+            f = dh16._factor(l, kind, 0)
+            sched = f.schedule()
+            label = f"L{l} {'upper' if f.upper else 'lower'}"
+            for k in (1, K_RHS):
+                for row in tri_cases(label, f, k, dt, rng, sched,
+                                     {"level": l, "triangle": kind},
+                                     plain_samples=1):
+                    row["main_path"] = (l == 0 and kind == "gs"
+                                        and row["main_path_route"])
+                    out["tri_solve"].append(row)
+    chain = tri_chain(dh16.n_pods * dh16.lanes, TRI_CHAIN_ROWS, dt, dev)
+    floors = {}
+    for row in tri_cases("chain", chain, 1, dt, rng, chain.schedule(),
+                         {"level": None, "triangle": "chain"},
+                         {"plain_ms": None, "library_ms": None}):
+        row["main_path"] = False
+        floors[row["route"]] = row["us_per_step"]
+        out["tri_solve"].append(row)
+    for row in out["tri_solve"]:
+        row["step_bound_ms"] = row["depth"] * floors[row["route"]] / 1e3
+    equal = {n: sum(r["bit_equal_plain"] for r in rows) for n, rows in out.items()}
+    log(f"  bf16 smoother rows bit-equal to their plain versions: "
+        f"{equal} of { {n: len(v) for n, v in out.items()} }; one-step floor "
+        f"(a {TRI_CHAIN_ROWS}-row bf16 chain): " + ", ".join(
+            f"{k} {v:.3f} us" for k, v in floors.items()))
+    return out, floors
+
+
+def bf16_block_phase(bound16, A, b, B, x64: dict) -> tuple[dict, dict]:
+    """The block smoothers in bfloat16 on the bfloat16 session's lowering
+    (the f64 sessions' host setup): their kernel rows
+    (:func:`bf16_smoother_rows`), then PCG to BF16_TOL with
+    ``block_jacobi`` and with ``hybrid_gs_sym`` through the captured graphs
+    (launch counters set to 0 just before each, read just after; one
+    replay a program call), each x within BF16_X_BAR of the f64
+    block-smoother phase's x (``x64``), its float64 true residual, ms an
+    iteration as the median of BF16_WARM warm solves and the device ms of
+    one; then a k = K_RHS chunk through ``AMGService`` with
+    ``hybrid_gs_sym``, each column against the f64 k = K_RHS run's.
+    Returns the kernel rows and the numbers (launches by run)."""
+    from repro_torch.amg import AMGService, AMGSolver
+    from repro_torch.amg.api import SessionStore
+    from repro_torch.amg.solve import SolveOptions
+
+    dh16 = bound16.dist_hierarchy
+    rows, floors = bf16_smoother_rows(dh16, np.random.default_rng(SEED + 6))
+    out = {"runs": [], "launches": collections.Counter(),
+           "step_floor_us": floors}
+    store = SessionStore()
+    for smoother in ("block_jacobi", "hybrid_gs_sym"):
+        cfg = dataclasses.replace(bound16.config,
+                                  opts=SolveOptions(smoother=smoother))
+        bound = AMGSolver(cfg, store=store).setup(A)
+        check(bound.dist_hierarchy is dh16,
+              f"the bf16 {smoother} session does not share the bf16 lowering")
+        res, counts = counted(lambda: bound.pcg(b))
+        want = "block_diag_apply" if smoother == "block_jacobi" else "tri_solve"
+        check(res.converged and counts[want] > 0,
+              f"bf16 {smoother} PCG: converged {res.converged}, launches "
+              f"{dict(counts)}")
+        progs = [p for p in dh16.programs.values() if p.key.k is None
+                 and p.key.smoother == smoother]
+        calls = sum(p.replays for p in progs)
+        check(all(p.graph is not None for p in progs)
+              and calls == res.iterations + 1,
+              f"bf16 {smoother}: {calls} graph replays for "
+              f"{res.iterations + 1} program calls")
+        x = res.x.astype(np.float64)
+        xdiff = float(np.linalg.norm(x - x64[smoother]) / np.linalg.norm(x64[smoother]))
+        check(xdiff <= BF16_X_BAR, f"bf16 {smoother} x is {xdiff:.3e} from "
+              f"the f64 x")
+        true_rel = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
+        walls = []
+        for _ in range(BF16_WARM):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            warm = bound.pcg(b)
+            walls.append((time.perf_counter() - t0) * 1e3
+                         / max(warm.iterations, 1))
+        ms_iter = float(np.median(walls))
+        prof = device_profile(lambda: bound.pcg(b))
+        dev_ms = sum(v[0] for v in prof.values())
+        top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:5]
+        launches = {k: counts[k] for k in SMOOTHER_KERNELS + SPMV_KERNELS}
+        out["launches"].update({k: counts[k] for k in SMOOTHER_KERNELS})
+        row = {"run": f"pcg bfloat16 {smoother}", "iterations": res.iterations,
+               "x_rel_diff_f64": xdiff, "true_residual": true_rel,
+               "ms_per_iteration": ms_iter, "ms_per_iteration_runs": walls,
+               "device_ms_per_iteration": dev_ms / max(warm.iterations, 1)
+               if prof else None,
+               "busy_share": dev_ms / (ms_iter * max(warm.iterations, 1))
+               if prof else None, "launches": launches,
+               "top_device": [[n[:80], ms, c] for n, (ms, c) in top]}
+        out["runs"].append(row)
+        log(f"pcg bf16 {smoother} (tol {BF16_TOL:g}): {res.iterations} "
+            f"iterations, |x - x_f64| / |x_f64| {xdiff:.3e}, float64 true "
+            f"residual {true_rel:.3e}, {ms_iter:.3f} ms/iteration (median of "
+            f"{[round(w, 3) for w in walls]}), device "
+            + ("not measured" if not prof else
+               f"{row['device_ms_per_iteration']:.3f} ms/iteration, busy "
+               f"{row['busy_share']:.3f}") + f"; launches {launches}")
+        for n, ms, c in row["top_device"]:
+            log(f"    {ms:9.3f} ms {c:6d}x  {n}")
+    cfg = dataclasses.replace(bound16.config,
+                              opts=SolveOptions(smoother="hybrid_gs_sym"))
+    svc = AMGService(cfg, max_rhs=K_RHS, coalesce_window=SERVICE_WINDOW,
+                     store=store)
+    svc.register("m", A)
+    check(svc.bound_for("m").dist_hierarchy is dh16,
+          "the bf16 hybrid_gs_sym service did not share the bf16 lowering")
+    tickets = [svc.submit("m", B[:, j], method="pcg") for j in range(K_RHS)]
+    _, csvc = counted(svc.drain)
+    X64 = x64[("hybrid_gs_sym", K_RHS)]
+    worst, widths = 0.0, set()
+    for j, t in enumerate(tickets):
+        widths.add(t.diagnostics["batch_cols"])
+        check(t.diagnostics["converged"],
+              f"bf16 hybrid_gs_sym service request {j} did not converge")
+        worst = max(worst, float(np.linalg.norm(t.result(timeout=0) - X64[:, j])
+                                 / np.linalg.norm(X64[:, j])))
+    check(widths == {K_RHS} and csvc["tri_solve"] > 0,
+          f"bf16 hybrid_gs_sym service chunks {widths}, launches {dict(csvc)}")
+    check(worst <= BF16_X_BAR, f"bf16 hybrid_gs_sym service x is {worst:.3e} "
+          f"from f64's")
+    out["launches"].update({k: csvc[k] for k in SMOOTHER_KERNELS})
+    out["service"] = {"worst_x_rel_diff": worst,
+                      "launches": {k: csvc[k] for k in SMOOTHER_KERNELS + SPMV_KERNELS}}
+    log(f"bf16 hybrid_gs_sym service: {K_RHS} requests in one chunk of "
+        f"{K_RHS}, worst |x - x_f64| / |x_f64| {worst:.3e}, launches "
+        f"{out['service']['launches']}")
+    out["launches"] = dict(out["launches"])
+    del svc
+    return rows, out
 
 
 def block_refresh_phase(cfg64, bound64, b) -> dict:
@@ -2793,19 +3012,32 @@ def service_phase(cfg, A, rng) -> dict:
             "pool_bytes": pool, "stats": dict(svc.stats)}
 
 
-def bf16_rel(plain, args):
-    """``kernel_case``'s ``rel_err`` for a bfloat16 case: the largest ratio
-    of |kernel − plain| to BF16_REL·|plain| + BF16_ABS·Σ|a·x| over the
-    entries (Σ|a·x| from the plain version on |A| and |x| in float64); it
-    passes at ≤ 1."""
-    idx, vals, x = args
-    absum = plain(idx, vals.double().abs(), x.double().abs())
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at each entry of the bfloat16 ``v``, from its
+    exponent (float64; 0 where ``v`` is 0): 2^-7 on [1, 2)."""
+    m, e = torch.frexp(v.double())
+    return torch.where(v == 0, 0.0, torch.ldexp(torch.ones_like(m), e - 8))
 
+
+def bf16_bar(absum):
+    """``kernel_case``'s ``rel_err`` for a bfloat16 case: the largest ratio
+    of |kernel − plain| to one bfloat16 ulp of plain + BF16_ABS·``absum``
+    over the entries (``absum``: Σ|a·x| of each entry, float64); it passes
+    at ≤ 1.  Both round a float32 sum once, in another order: where the two
+    sums straddle a rounding boundary the results differ by one ulp, which
+    reads just under 1; more fails unless the float32 term covers it."""
     def rel(y, ref):
-        bar = BF16_REL * ref.double().abs() + BF16_ABS * absum
+        bar = bf16_ulp(ref) + BF16_ABS * absum
         return float(((y.double() - ref.double()).abs()
                       / bar.clamp_min(1e-300)).max())
     return rel
+
+
+def bf16_rel(plain, args):
+    """:func:`bf16_bar` for a sparse kernel, Σ|a·x| from the plain version
+    on |A| and |x| in float64."""
+    idx, vals, x = args
+    return bf16_bar(plain(idx, vals.double().abs(), x.double().abs()))
 
 
 def bf16_library(csr, xf):
@@ -2883,14 +3115,13 @@ def bf16_kernel_rows(dh16, rng) -> dict[str, list]:
     return out
 
 
-def bf16_phase(cfg64, A, b, B, res64, resm64, c64) -> tuple[dict, dict, dict]:
+def bf16_phase(cfg64, A, b, B, res64, resm64, c64) -> tuple:
     """The bfloat16 session on the host setup the f64 one shares: its
     lowering, the three kernels in bfloat16 at its operands, PCG through
     its graphs, and a k = K_RHS solve through ``AMGService``.  Returns the
-    kernel rows, the launches of its counted runs and its numbers.  The
-    session has a store of its own, and its lowering leaves the host
-    hierarchy's ``dist_cache`` at the end, so the later phases' refresh of
-    that hierarchy does not re-lower it."""
+    kernel rows, the launches of its counted runs, its numbers, the session
+    (a store of its own; :func:`bf16_block_phase` runs the block smoothers
+    on its lowering and then releases it) and its PCG result."""
     from repro_torch.amg import AMGService, AMGSolver
     from repro_torch.amg.api import SessionStore
 
@@ -2975,12 +3206,18 @@ def bf16_phase(cfg64, A, b, B, res64, resm64, c64) -> tuple[dict, dict, dict]:
             "service_worst_x_rel_diff": worst, "service_launches": csvc,
             "top_device": [[kn[:100], km, kc] for kn, (km, kc) in top]}
     launches = {k: c16[k] + csvc[k] for k in SPMV_KERNELS}
-    cache = bound16.hierarchy.dist_cache
-    for key in [key for key, v in cache.items() if v is dh16]:
+    del svc
+    return rows, launches, info, bound16, res
+
+
+def release_lowering(bound) -> None:
+    """Take ``bound``'s lowering out of its host hierarchy's ``dist_cache``
+    (the later phases' refresh of that hierarchy then does not re-lower it)
+    and free its memory."""
+    cache = bound.hierarchy.dist_cache
+    dh = bound.dist_hierarchy
+    for key in [key for key, v in cache.items() if v is dh]:
         del cache[key]
-    del svc, bound16, dh16
-    torch.cuda.empty_cache()
-    return rows, launches, info
 
 
 def refresh_phase(bound, host, A, b, t_lower) -> dict:
@@ -3587,8 +3824,10 @@ def process_rank(ranks) -> dict:
     with ``ranks="process"`` on ``laplace_3d(SIZE)``, f64 PCG to 1e-8 with
     one RHS (launch counters set to 0 just before, read just after) and
     with ``[n, K_RHS]``, a warm solve timed, the audit of (V, Jacobi)'s ten
-    programs, and the elements one PCG iteration sends over the slow and
-    the fast group under ``auto`` and each forced strategy."""
+    programs, the elements one PCG iteration sends over the slow and
+    the fast group under ``auto`` and each forced strategy, and a bfloat16
+    PCG to BF16_TOL (its own lowering of the same host setup; counted, a
+    warm solve timed)."""
     from repro_torch.amg import AMGConfig, AMGSolver
     from repro_torch.amg.problems import laplace_3d
     from repro_torch.analysis.comm_audit import audit_hierarchy, rank_traffic
@@ -3619,7 +3858,18 @@ def process_rank(ranks) -> dict:
     for strategy in ("standard", "nap2", "nap3"):
         other = AMGSolver(cfg.replace(strategy=strategy)).setup(A)
         traffic[strategy] = rank_traffic(other.dist_hierarchy)
-    return {"rank": ranks.rank, "backend": ranks.backend,
+    del other
+    bound16 = AMGSolver(cfg.replace(dtype="bfloat16", tol=BF16_TOL)).setup(A)
+    res16, c16 = counted(lambda: bound16.pcg(b))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm16 = bound16.pcg(b)
+    bf16 = {"iterations": res16.iterations, "converged": res16.converged,
+            "hist": list(res16.residuals), "x": res16.x,
+            "launches": c16, "dtype": str(bound16.dist_hierarchy.dtype),
+            "ms_iter": (time.perf_counter() - t0) * 1e3
+            / max(warm16.iterations, 1), **bound16.dist_hierarchy.timings}
+    return {"rank": ranks.rank, "backend": ranks.backend, "bf16": bf16,
             "all_to_all": process_all_to_all(ranks),
             "devices": sorted({str(t.device) for t in tensors}),
             "iterations": res.iterations, "converged": res.converged,
@@ -3652,7 +3902,8 @@ def process_all_to_all(ranks) -> dict:
     return out
 
 
-def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter) -> dict:
+def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter,
+                  res16) -> dict:
     """``AMGConfig(ranks="process")``: 8 gloo processes on this card, each
     holding its rank of the 2×4 grid (:func:`process_rank`), against the
     stacked session's f64 runs of phases 4-5: every rank's tensors on
@@ -3660,8 +3911,12 @@ def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter) -> dict:
     same iterations; the same iterations (a difference of one only where
     the stacked run's residual lies within 1e-12 of r0 of the tolerance);
     histories within ``HIST_TOL`` of r0 of the stacked ones and identical
-    on every rank; 0 audit violations on every rank.  The kernels were
-    built by phase 2, so no rank runs ``nvcc``."""
+    on every rank; 0 audit violations on every rank.  Each rank's bfloat16
+    PCG is held to ``res16``, the stacked bfloat16 session's PCG of ``b``:
+    bit for bit, or else within the bfloat16 bars (iterations ±1,
+    |log(r_i / r_i^stacked)| ≤ BF16_LOG_BAR, x within BF16_X_BAR of the
+    f64 x), identical on every rank either way.  The
+    kernels were built by phase 2, so no rank runs ``nvcc``."""
     from repro_torch.core.nap_collectives import all_to_all_signature
     from repro_torch.launch.ranks import spawn
 
@@ -3717,6 +3972,7 @@ def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter) -> dict:
                   and tuple(a2a["log"]) == all_to_all_signature(strategy),
                   f"rank {r}: hier_all_to_all {strategy} {a2a}")
     o0 = outs[0]
+    bf16 = process_bf16(outs, res16, res.x)
     log(f"process ranks ({N_PODS} x {LANES} {o0['backend']} processes on "
         f"cuda:0, laplace_3d({SIZE}) f64): {o0['iterations']} iterations "
         f"(stacked {res.iterations}; last residuals {margin:.2e} of r0 from "
@@ -3761,8 +4017,65 @@ def process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter) -> dict:
             "scatter_s": [o["scatter_s"] for o in outs],
             "launches": o0["launches"], "launches_multi": o0["launches_multi"],
             "audits_per_rank": o0["audits"],
-            "all_to_all": o0["all_to_all"],
+            "all_to_all": o0["all_to_all"], "bf16": bf16,
             "traffic": [o["traffic"] for o in outs]}
+
+
+def process_bf16(outs, res16, x64) -> dict:
+    """The process ranks' bfloat16 PCG against the stacked bfloat16
+    session's (``res16``) and the f64 x: see :func:`process_phase`."""
+    o0 = outs[0]["bf16"]
+    ref = list(res16.residuals)
+    for out in outs:
+        r, got = out["rank"], out["bf16"]
+        check(got["converged"] and got["dtype"] == "torch.bfloat16"
+              and got["launches"]["ell_spmv"] > 0,
+              f"rank {r}: bf16 PCG converged {got['converged']}, "
+              f"{got['dtype']}, launches {got['launches']}")
+        check(got["hist"] == o0["hist"] and np.array_equal(got["x"], o0["x"]),
+              f"rank {r}'s bf16 history or x differs from rank 0's")
+    bit_equal = o0["hist"] == ref and np.array_equal(o0["x"], res16.x)
+    n = min(len(ref), len(o0["hist"]))
+    gap = float(np.abs(np.log(np.divide(o0["hist"][:n], ref[:n]))).max())
+    xdiff = float(np.linalg.norm(o0["x"].astype(np.float64) - x64)
+                  / np.linalg.norm(x64))
+    check(bit_equal or (abs(o0["iterations"] - res16.iterations) <= 1
+                        and gap <= BF16_LOG_BAR and xdiff <= BF16_X_BAR),
+          f"process bf16 PCG: {o0['iterations']} iterations (stacked "
+          f"{res16.iterations}), |log(r_i / r_i^stacked)| {gap:.3e}, x "
+          f"{xdiff:.3e} from the f64 x")
+    log(f"  bf16 PCG (tol {BF16_TOL:g}) on the ranks: {o0['iterations']} "
+        f"iterations (stacked {res16.iterations}), "
+        + ("bit-equal to the stacked bf16 session" if bit_equal else
+           f"not bit-equal to the stacked session: |log(r_i / r_i^stacked)| "
+           f"{gap:.3e}") + f", identical on every rank, x {xdiff:.3e} from "
+        f"the f64 x; ms an iteration (warm) "
+        f"{[round(o['bf16']['ms_iter'], 3) for o in outs]}; rank 0 lowering "
+        f"{o0['lower_s']:.2f} s, scatter {o0['scatter_s']:.2f} s; launches "
+        f"{o0['launches']}")
+    return {"iterations": o0["iterations"],
+            "stacked_iterations": res16.iterations, "bit_equal": bit_equal,
+            "log_gap": gap, "x_rel_diff_f64": xdiff,
+            "ms_per_iteration": [o["bf16"]["ms_iter"] for o in outs],
+            "lowering_s": o0["lower_s"], "scatter_s": o0["scatter_s"],
+            "launches": o0["launches"]}
+
+
+def smoother_bf16_top(rows: list, bf16: dict, name: str) -> dict:
+    """A block-smoother kernel's bfloat16 main-path case for the kernels
+    line (level 0, k = 1, the route the rule takes): its times, bounds,
+    check and launches in the bfloat16 solves."""
+    top = next(r for r in rows if r["dtype"] == "bfloat16" and r["k"] == 1
+               and r["main_path"])
+    return {"ms": top["ms"], "plain_ms": top["plain_ms"],
+            "library_ms": top["library_ms"],
+            "library": top.get("library", "torch.matmul (batched, bf16)"),
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "step_bound_ms": top.get("step_bound_ms"),
+            "route": top.get("route"), "max_abs_err": top["max_abs_err"],
+            "bar_ratio": top["rel_err"],
+            "bit_equal_plain": top["bit_equal_plain"],
+            "launches": bf16["launches"].get(name, 0)}
 
 
 def flash_instances(rows, ptxas, head_dim: int) -> dict:
@@ -4098,23 +4411,34 @@ def main() -> int:
     lap("solves (f64, multi-RHS, f32, graphs)")
 
     # 6b. the bfloat16 session on the same host setup
-    bf16_rows, c_bf16, amg_bf16 = bf16_phase(cfg64, A, b, B, res, resm,
-                                             c_single)
+    bf16_rows, c_bf16, amg_bf16, bound16, res16 = bf16_phase(
+        cfg64, A, b, B, res, resm, c_single)
     for k in SPMV_KERNELS:
         rows[k].extend(bf16_rows[k])
     lap("bf16")
 
     # the block smoothers through the same sessions' lowerings
     t0 = time.perf_counter()
-    block = block_smoother_phase(cfg64, A, b, B, dh64, dh32)
+    x64: dict = {}
+    block = block_smoother_phase(cfg64, A, b, B, dh64, dh32, xs=x64)
     block["phase_s"] = time.perf_counter() - t0
     log(f"block-smoother phase: {block['phase_s']:.1f} s in all")
-
     lap("block smoothers")
+
+    # the block smoothers in bfloat16 on the bfloat16 session's lowering
+    bf16_smoother, block["bf16"] = bf16_block_phase(bound16, A, b, B, x64)
+    for k in SMOOTHER_KERNELS:
+        rows[k].extend(bf16_smoother[k])
+    release_lowering(bound16)
+    del bound16, x64
+    torch.cuda.empty_cache()
+    lap("bf16 block smoothers")
     # 7. launch counts over the solve runs
     launches = {k: c_single[k] + c_multi[k] + c_f32[k] + c_bf16[k]
                 for k in SPMV_KERNELS}
-    launches.update({k: block["launches"].get(k, 0) for k in SMOOTHER_KERNELS})
+    launches.update({k: block["launches"].get(k, 0)
+                     + block["bf16"]["launches"].get(k, 0)
+                     for k in SMOOTHER_KERNELS})
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the main path")
     log(f"launches on the solve path: {launches}")
@@ -4150,7 +4474,8 @@ def main() -> int:
     wire = wire_phase(cfg64)
     torch.cuda.empty_cache()
     lap("wire")
-    process = process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter)
+    process = process_phase(A, b, B, res, resm, c_single, c_multi, ms_iter,
+                            res16)
     lap("process ranks")
 
     # 8. flash attention at the serving run's shapes
@@ -4273,7 +4598,8 @@ def main() -> int:
                if k == "flash_attention_wgmma" else
                {"pallas": False,
                 "launches_per_run": {r["run"]: r["launches"][k]
-                                     for r in block["runs"]},
+                                     for r in block["runs"] + block["bf16"]["runs"]},
+                "bf16": smoother_bf16_top(rows[k], block["bf16"], k),
                 **({"tri_route": top["route"],
                     "us_per_step": top["us_per_step"],
                     "step_bound_ms": top["step_bound_ms"], **tri_summary}

@@ -9,8 +9,14 @@ against), then ``chip_smoke.bf16_phase``: the bfloat16 lowering of the
 same host setup, ``ell_spmv`` / ``ell_spmm`` / ``bcsr_spmm`` in bfloat16
 at its operands against their plain versions (device ms, bound, plain ms,
 ``torch.sparse.mm`` where it takes bfloat16), PCG to 1e-5 through the
-graphs and a k = 8 solve through ``AMGService``.  The same checks and
-prints as the smoke; its numbers as one JSON line, then ``OK``::
+graphs and a k = 8 solve through ``AMGService``; then the f64
+``block_jacobi`` and ``hybrid_gs_sym`` PCG (one RHS, and ``[n, 8]`` with
+``hybrid_gs_sym``), and ``chip_smoke.bf16_block_phase``: the block
+smoothers' bfloat16 kernels against their plain versions (``tri_solve``'s
+one-step floors from a bfloat16 chain), their PCG through the
+graphs held to the f64 x, and a k = 8 ``hybrid_gs_sym`` chunk through
+``AMGService``.  The same checks and prints as the smoke; its numbers as
+one JSON line, then ``OK``::
 
     python3 scripts/bf16_phase.py
 """
@@ -33,6 +39,7 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.amg import AMGConfig, AMGSolver
     from repro_torch.amg.problems import laplace_3d
+    from repro_torch.amg.solve import SolveOptions
     from repro_torch.kernels.build import build, build_report
 
     if not torch.cuda.is_available():
@@ -43,7 +50,7 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     build()
-    for k in cs.SPMV_KERNELS:
+    for k in cs.SPMV_KERNELS + cs.SMOOTHER_KERNELS:
         for inst, used in build_report(k):
             print(f"ptxas {inst}: {used}", flush=True)
     A = laplace_3d(cs.SIZE)
@@ -60,11 +67,24 @@ def main() -> int:
     cs.check(resm.converged, "f64 [n, 8] PCG did not converge")
     print(f"pcg f64: {res.iterations} iterations, launches {c64}", flush=True)
     t0 = time.perf_counter()
-    rows, launches, info = cs.bf16_phase(cfg64, A, b, B, res, resm, c64)
+    rows, launches, info, bound16, _ = cs.bf16_phase(cfg64, A, b, B, res,
+                                                     resm, c64)
     info["phase_s"] = time.perf_counter() - t0
     print(f"bf16 phase: {info['phase_s']:.1f} s", flush=True)
-    print(json.dumps({"card": smi, "kernels": rows, "launches": launches,
-                      "pcg_bf16": info}), flush=True)
+    x64 = {}
+    for smoother, rhs in (("block_jacobi", b), ("hybrid_gs_sym", b),
+                          ("hybrid_gs_sym", B)):
+        r = AMGSolver(cfg64.replace(opts=SolveOptions(smoother=smoother))) \
+            .setup(A).pcg(rhs)
+        cs.check(r.converged, f"f64 {smoother} PCG did not converge")
+        x64[smoother if rhs.ndim == 1 else (smoother, rhs.shape[1])] = r.x
+    t0 = time.perf_counter()
+    smoother_rows, block = cs.bf16_block_phase(bound16, A, b, B, x64)
+    block["phase_s"] = time.perf_counter() - t0
+    print(f"bf16 block-smoother phase: {block['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"card": smi, "kernels": {**rows, **smoother_rows},
+                      "launches": launches, "pcg_bf16": info,
+                      "block_bf16": block}), flush=True)
     print("OK", flush=True)
     return 0
 

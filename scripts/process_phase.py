@@ -5,7 +5,8 @@ there.
 Builds the kernels, sets up the main path's f64 stacked session on
 ``laplace_3d(64)`` (2 x 4 ranks, captured graphs), runs its PCG on ``b``
 and on ``[n, 8]`` with the launch counters set to 0 just before each and
-read just after, times a warm solve, then runs
+read just after, times a warm solve, runs the stacked bfloat16 session's
+PCG of ``b`` (what the ranks' bfloat16 PCG is held to), then runs
 ``chip_smoke.process_phase`` against those numbers (8 gloo processes on
 ``cuda:0``; the same checks and prints as the smoke).  Prints the phase's
 numbers as one JSON line, then ``OK``::
@@ -52,7 +53,9 @@ def main() -> int:
     warm = bound.pcg(b)
     torch.cuda.synchronize()
     ms_iter = (time.perf_counter() - t0) * 1e3 / max(warm.iterations, 1)
-    out = cs.process_phase(A, b, B, res, resm, c1, cm, ms_iter)
+    res16 = AMGSolver(bound.config.replace(dtype="bfloat16",
+                                           tol=cs.BF16_TOL)).setup(A).pcg(b)
+    out = cs.process_phase(A, b, B, res, resm, c1, cm, ms_iter, res16)
     print(json.dumps(out), flush=True)
     print("OK", flush=True)
     return 0

@@ -240,13 +240,6 @@ class AMGConfig:
                 raise NotImplementedError(
                     f"smoother {self.opts.smoother!r} {PROCESS_TODO}")
         if self.backend == "torch":
-            if self.dtype == "bfloat16":
-                from ..dist_solve import BF16_BLOCK_TODO, BF16_PROCESS_TODO
-                if self.ranks == "process":
-                    raise NotImplementedError(BF16_PROCESS_TODO)
-                if self.opts.smoother in BLOCK_SMOOTHERS:
-                    raise NotImplementedError(
-                        f"smoother {self.opts.smoother!r} {BF16_BLOCK_TODO}")
             resolve_device(self.device)
 
     def replace(self, **changes) -> "AMGConfig":

@@ -46,11 +46,14 @@ rank's lower / upper triangle of its local square block, applied by the
 (:mod:`repro_torch.kernels.smoother`).
 
 The compute dtype is float64, float32 or bfloat16 (:data:`DTYPES`).  A
-bfloat16 hierarchy lowers its value planes, ``dinv`` and ``cinv`` to
-bfloat16 as the reference's ``astype(jnp.bfloat16)`` does, and runs dots,
+bfloat16 hierarchy lowers its value planes, ``dinv``, ``cinv`` and the
+block smoothers' factors to bfloat16 as the reference's
+``astype(jnp.bfloat16)`` does, and runs dots,
 norms and the coarse ``cinv @ x`` in bfloat16; only the local products
-sum in float32 (their kernels round once).  It refuses the block
-smoothers (ROADMAP item 14) and one process per rank (item 15).
+and the block smoothers' applies sum in float32 (their kernels round once),
+and ``tri_solve`` keeps its solution in float32 between level sets.  One
+process per rank scatters the float32 staging of the lowering; each rank
+rounds its slice on its own device.
 
 :meth:`DistHierarchy.refresh_values` takes a value-only update beneath the
 captured graphs: every value plane is copied into the tensor already in
@@ -97,11 +100,6 @@ SOLVE_STRATEGIES = ("standard", "nap2", "nap3")
 # ``astype(jnp.bfloat16)`` makes too)
 DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
           torch.bfloat16: np.float32}
-# what a bfloat16 hierarchy does not run yet (the ROADMAP queue 1 items)
-BF16_BLOCK_TODO = ("is not ported to dtype='bfloat16' yet (ROADMAP queue 1, "
-                   "item 14: bf16 block smoothers)")
-BF16_PROCESS_TODO = ("dtype='bfloat16' is not ported to ranks='process' yet "
-                     "(ROADMAP queue 1, item 15: bf16 in process mode)")
 
 
 @dataclasses.dataclass
@@ -277,6 +275,14 @@ def _check_dtype(dtype: torch.dtype) -> None:
             f"torch.float32, torch.float64 and torch.bfloat16")
 
 
+def _staged(host: dict, dtype: torch.dtype) -> dict:
+    """The host smoother factor ``host`` with its float64 values in
+    ``dtype``'s staging type (:data:`DTYPES`), the rounding the value planes
+    take: a bfloat16 factor's values go float64 -> float32 -> bfloat16."""
+    return {k: (v.astype(DTYPES[dtype]) if getattr(v, "dtype", None)
+                == np.float64 else v) for k, v in host.items()}
+
+
 def _rank_dinv(A, part: Partition, D: int) -> np.ndarray:
     """``1 / diag(A)`` (1 where the diagonal is 0) as ``[D, rows_local]``,
     0 on padded rows.  ``A`` is a global CSR or a born-partitioned
@@ -434,12 +440,13 @@ class DistHierarchy:
         ranks) once, as :meth:`build` does, and every rank receives its own
         slice of the lowering through ``ranks``; the arrays then move to
         this rank's device (:meth:`RankGroups.device
-        <repro_torch.core.nap_collectives.RankGroups.device>`).
+        <repro_torch.core.nap_collectives.RankGroups.device>`).  The slices
+        travel in their numpy staging type (:data:`DTYPES`: float32 for a
+        bfloat16 lowering, which numpy lacks) and each rank rounds its own
+        on its device, as a stacked lowering does.
         :attr:`timings` holds rank 0's ``lower_s`` and this rank's
         ``scatter_s`` (on the other ranks the wait for rank 0 included)."""
         _check_dtype(dtype)
-        if dtype == torch.bfloat16:
-            raise NotImplementedError(BF16_PROCESS_TODO)
         n_pods, lanes = ranks.n_pods, ranks.lanes
         device = ranks.device(device)
         t0 = time.perf_counter()
@@ -689,7 +696,9 @@ class DistHierarchy:
             for (l, kind, bs), f in self._factors.items():
                 host = fresh[l][(kind, bs)]
                 for name in f.VALUES:
-                    copy_into(getattr(f, name), host[name], self.dtype, name)
+                    copy_into(getattr(f, name),
+                              host[name].astype(DTYPES[self.dtype]),
+                              self.dtype, name)
             self.programs.drop(lambda key: key.smoother == "chebyshev")
 
     # ----------------------------------------------------------- host layout
@@ -731,8 +740,8 @@ class DistHierarchy:
         key = (level, kind, block_size)
         f = self._factors.get(key)
         if f is None:
-            f = place_factor(self.levels[level].smoother_factor(kind, block_size),
-                             self.device, self.dtype)
+            f = place_factor(_staged(self.levels[level].smoother_factor(
+                kind, block_size), self.dtype), self.device, self.dtype)
             self._factors[key] = f
         return f
 
@@ -751,9 +760,6 @@ class DistHierarchy:
         key = smoother_arrays_key(opts)
         if key is None:
             return self._arrs
-        if self.dtype == torch.bfloat16:
-            raise NotImplementedError(f"smoother {opts.smoother!r} "
-                                      f"{BF16_BLOCK_TODO}")
         if self.ranks is not None:
             raise NotImplementedError(f"smoother {opts.smoother!r} "
                                       f"{PROCESS_TODO}")

@@ -185,7 +185,8 @@ def audit_solve(dh, log, calls: dict[str, int], opts=None,
 def rank_traffic(dh, opts=None) -> dict:
     """What one PCG iteration (one ``pcg_step``) of ``opts`` makes this
     process send, on a hierarchy with one process per rank:
-    elements (and bytes, and the collectives' host seconds) by group
+    elements (and bytes at the type sent, and the collectives' host
+    seconds) by group
     (``slow`` / ``fast`` / ``world``), and elements by the
     strategy of the step that sent them (an operator's selected halo
     strategy, ``reduce:<strategy>`` for the dots, ``coarse`` for the
@@ -201,9 +202,12 @@ def rank_traffic(dh, opts=None) -> dict:
     dh.ranks.reset_tally()
     dh.trace_program("pcg_step", opts)
     by_group: Counter = Counter()
+    nbytes: Counter = Counter()
     seconds: Counter = Counter()
     for (group, _), t in dh.ranks.seconds.items():
         seconds[group] += t
+    for (group, _), b in dh.ranks.sent_bytes.items():
+        nbytes[group] += b
     by_strategy: dict[str, Counter] = {}
     for (group, tag), n in dh.ranks.sent.items():
         if tag == ("dot",):
@@ -217,7 +221,7 @@ def rank_traffic(dh, opts=None) -> dict:
     model = cycle_comm_stats(dh, opts)
     return {"rank": dh.ranks.rank,
             "elements": dict(by_group),
-            "bytes": {g: n * dh.dtype.itemsize for g, n in by_group.items()},
+            "bytes": dict(nbytes),
             "seconds": dict(seconds),
             "by_strategy": {s: dict(c) for s, c in by_strategy.items()},
             "modeled_cycle": {key: model[key] for key in (

@@ -224,6 +224,8 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single",
 #: rule), so a mesh is made once and shared
 _MESHES: dict[tuple[int, int], "RankGroups"] = {}
 DEFAULT_TIMEOUT = 120.0          # seconds a collective may wait for a peer
+#: the collectives that sum (their canonical names)
+_SUMS = ("psum", "psum_scatter")
 #: how everything one process per rank does not run yet refuses
 PROCESS_TODO = ("is not ported to ranks='process' yet (ROADMAP queue 1, "
                 "item 12)")
@@ -245,7 +247,8 @@ class RankGroups:
     element counts once for every other rank whose result it reaches (an
     all-to-all chunk for its one receiver, a gathered or all-reduced
     element for each peer, a reduce-scattered element for the one rank
-    whose piece it is in), padding included.  ``seconds`` holds the
+    whose piece it is in), padding included; ``sent_bytes`` the same at
+    the type sent (a bfloat16 sum travels as float32).  ``seconds`` holds the
     collectives' host wall time likewise (on a staged group from after the
     card's queued work to the result back on the card; on NCCL the enqueue
     alone).
@@ -280,6 +283,7 @@ class RankGroups:
                         "fast": (fast[self.pod], lanes),
                         "slow": (slow[self.lane], n_pods)}
         self.sent: Counter = Counter()
+        self.sent_bytes: Counter = Counter()
         self.seconds: Counter = Counter()
 
     @classmethod
@@ -319,7 +323,7 @@ class RankGroups:
         self.rank = self.pod * self.lanes + self.lane
         self.backend = str(dist.get_backend(self._groups["fast"][0]))
         self.staged = self.backend == "gloo"
-        self.sent, self.seconds = Counter(), Counter()
+        self.sent, self.sent_bytes, self.seconds = Counter(), Counter(), Counter()
         return self
 
     @property
@@ -339,6 +343,7 @@ class RankGroups:
 
     def reset_tally(self) -> None:
         self.sent.clear()
+        self.sent_bytes.clear()
         self.seconds.clear()
 
     # -- the collectives (each logs its canonical name and tallies) --------
@@ -348,12 +353,17 @@ class RankGroups:
         tally what it sends (``chunked``: each peer receives one ``1/size``
         chunk of ``v``, else all of it), stage a card tensor through the
         host on gloo, and time it.  ``out_shape(src, size)`` is the output's
-        shape."""
+        shape.  A sum of bfloat16 runs in float32 and rounds once, as the
+        stacked ranks' ``.sum`` over the rank dim does (gloo's bfloat16 sum
+        rounds after each add, and NCCL's may)."""
         _note(log, name)
         pg, size = self._groups[group]
         n = v.numel() // size if chunked else v.numel()
-        self.sent[(group, tag)] += n * (size - 1)
         src = v.contiguous()
+        if name in _SUMS and src.dtype == torch.bfloat16:
+            src = src.float()
+        self.sent[(group, tag)] += n * (size - 1)
+        self.sent_bytes[(group, tag)] += n * (size - 1) * src.element_size()
         if self.staged and src.is_cuda:
             # the copy to the host waits for the card anyway: wait first,
             # so the clock starts with the collective
@@ -363,8 +373,7 @@ class RankGroups:
             src = src.cpu()
         out = src.new_empty(out_shape(src, size))
         op(out, src, pg)
-        if out.device != v.device:
-            out = out.to(v.device)
+        out = out.to(device=v.device, dtype=v.dtype)
         self.seconds[(group, tag)] += time.perf_counter() - t0
         return out
 

@@ -5,8 +5,10 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface, which is loaded with :mod:`ctypes`.
 Builds happen at first use (or through :func:`build`), into
 ``build/repro_torch/`` at the root of the checkout; a library's file name
-carries a hash of its source, the headers beside it and the flags, so an
-edited source or header is rebuilt and an unchanged one is reused; the compiler's output (``ptxas -v``: registers,
+carries a hash of its source, the headers it may include (``*.cuh`` beside
+it and in the shared ``csrc/`` of this package, which is on the include
+path) and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused; the compiler's output (``ptxas -v``: registers,
 stack and spills of every kernel instance) is kept beside it.  Several
 sources build concurrently, one ``nvcc`` process each.
 """
@@ -36,13 +38,13 @@ KERNELS = {
     # bcols, bvals, x, y; D, mb, Kb, m, bs, k, rows; dtype code, stream
     "bcsr_spmm": ("spmv/csrc/bcsr_spmm.cu", "bcsr_spmm_launch",
                   [_P, _P, _P, _P] + [_I64] * 7 + [_INT, _P]),
-    # binv, r, x, y; D, m, nb, bs, k; w, f64, stream
+    # binv, r, x, y; D, m, nb, bs, k; w, dtype code, stream
     "block_diag_apply": ("smoother/csrc/block_diag_apply.cu",
                          "block_diag_apply_launch",
                          [_P, _P, _P, _P] + [_I64] * 5
                          + [ctypes.c_double, _INT, _P]),
     # cols, vals, diag, r, x, order, starts, z, y; D, m, K, k, levels; w,
-    # f64, block, stream
+    # dtype code, block, stream
     "tri_solve": ("smoother/csrc/tri_solve.cu", "tri_solve_launch",
                   [_P] * 9 + [_I64] * 5 + [ctypes.c_double, _INT, _INT, _P]),
     # q, k, v, o; B, Hq, Hkv, Sq, Skv, D; (b, h, s) strides of q, k, v, o;
@@ -85,12 +87,20 @@ def source_path(name: str) -> Path:
     return KERNELS_DIR / KERNELS[name][0]
 
 
+def shared_headers() -> Path:
+    """The headers every kernel family may include (``value_types.cuh``:
+    the value-type rule of the bfloat16 instances), on nvcc's include
+    path."""
+    return KERNELS_DIR / "csrc"
+
+
 def library_path(name: str) -> Path:
     """Where kernel ``name``'s library goes: its file name hashes the source,
-    the headers beside it (``*.cuh``, which a source may include) and the
-    flags."""
+    the headers it may include (``*.cuh`` beside it and in
+    :func:`shared_headers`) and the flags."""
     src = source_path(name)
-    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    headers = b"".join(h.read_bytes() for d in (src.parent, shared_headers())
+                       for h in sorted(d.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
@@ -111,7 +121,8 @@ def build(names=None) -> dict[str, float]:
     for n in todo:
         out = library_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(n))]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(shared_headers()), "-o", str(tmp),
+               str(source_path(n))]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)

@@ -1,5 +1,7 @@
-// The value types of the sparse kernels (ell_spmv.cu, ell_spmm.cu,
-// bcsr_spmm.cu): float32, float64 and bfloat16.  Products and sums are
+// The value types of the sparse kernels (spmv/csrc: ell_spmv.cu,
+// ell_spmm.cu, bcsr_spmm.cu) and the block smoothers' (smoother/csrc:
+// block_diag_apply.cu, tri_solve.cu): float32, float64 and bfloat16.
+// Products and sums are
 // taken in Acc<T>::type, T itself for float32 and float64 and float32 for
 // bfloat16, whose loads are widened by the bf16 intrinsics and whose
 // results are rounded once, at the store (__float2bfloat16_rn).

@@ -21,20 +21,27 @@
 // neighbouring rows of one block read the same r entries, which the L1 serves.
 // The sum runs over the block's columns in order, so results repeat bit for
 // bit.  Index arithmetic is 32-bit where the operand fits, as the solve's do.
+//
+// Value types (value_types.cuh): float32 and float64 compute in their own
+// type; bfloat16 loads Binv, r and x as bfloat16, widens them, takes the
+// products, the block row's sum, w and x + w * sum in float32, and rounds
+// once, at the store of y.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "value_types.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int64_t MAX_BLOCKS = int64_t{1} << 20;
 
-template <typename T, typename I>
+template <typename T, typename I, typename A = typename Acc<T>::type>
 __global__ void __launch_bounds__(THREADS)
 block_diag_apply_kernel(const T* __restrict__ binv, const T* __restrict__ r,
                         const T* __restrict__ x, T* __restrict__ y, I total,
-                        I m, I nb, I bs, I k, T w) {
+                        I m, I nb, I bs, I k, A w) {
   for (I t = static_cast<I>(blockIdx.x) * THREADS + threadIdx.x; t < total;
        t += static_cast<I>(gridDim.x) * THREADS) {
     const I row = t / k;                     // d * m + i
@@ -47,15 +54,16 @@ block_diag_apply_kernel(const T* __restrict__ binv, const T* __restrict__ r,
     const I nc = m - c0 < bs ? m - c0 : bs;
     const T* bp = binv + ((d * nb + b) * bs + ib) * bs;
     const T* rp = r + (d * m + c0) * k + j;
-    T acc = T(0);
-    for (I c = 0; c < nc; ++c) acc += __ldg(bp + c) * __ldg(rp + c * k);
-    y[t] = __ldg(x + t) + w * acc;
+    A acc = A(0);
+    for (I c = 0; c < nc; ++c) acc += widen(__ldg(bp + c)) * widen(__ldg(rp + c * k));
+    store(y + t, widen(__ldg(x + t)) + w * acc);
   }
 }
 
 template <typename T>
 int launch(const T* binv, const T* r, const T* x, T* y, int64_t D, int64_t m,
            int64_t nb, int64_t bs, int64_t k, double w, cudaStream_t stream) {
+  using A = typename Acc<T>::type;
   const int64_t total = D * m * k;
   int64_t blocks = (total + THREADS - 1) / THREADS;
   if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
@@ -64,30 +72,43 @@ int launch(const T* binv, const T* r, const T* x, T* y, int64_t D, int64_t m,
     block_diag_apply_kernel<T, uint32_t><<<blocks, THREADS, 0, stream>>>(
         binv, r, x, y, static_cast<uint32_t>(total), static_cast<uint32_t>(m),
         static_cast<uint32_t>(nb), static_cast<uint32_t>(bs),
-        static_cast<uint32_t>(k), static_cast<T>(w));
+        static_cast<uint32_t>(k), static_cast<A>(w));
   else
     block_diag_apply_kernel<T, int64_t><<<blocks, THREADS, 0, stream>>>(
-        binv, r, x, y, total, m, nb, bs, k, static_cast<T>(w));
+        binv, r, x, y, total, m, nb, bs, k, static_cast<A>(w));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success).  The caller
-// guarantees D, m, bs, k > 0, nb = ceil(m / bs), contiguous operands on one
-// device, and that y does not alias r or x.
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for an unknown dtype code (0 float32, 1 float64, 2
+// bfloat16).  The caller guarantees D, m, bs, k > 0, nb = ceil(m / bs),
+// contiguous operands on one device, and that y does not alias r or x.
 extern "C" int block_diag_apply_launch(const void* binv, const void* r,
                                        const void* x, void* y, int64_t D,
                                        int64_t m, int64_t nb, int64_t bs,
-                                       int64_t k, double w, int is_f64,
+                                       int64_t k, double w, int dtype,
                                        void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_f64)
-    return launch<double>(static_cast<const double*>(binv),
-                          static_cast<const double*>(r),
-                          static_cast<const double*>(x), static_cast<double*>(y),
-                          D, m, nb, bs, k, w, s);
-  return launch<float>(static_cast<const float*>(binv),
-                       static_cast<const float*>(r), static_cast<const float*>(x),
-                       static_cast<float*>(y), D, m, nb, bs, k, w, s);
+  switch (dtype) {
+    case 0:
+      return launch<float>(static_cast<const float*>(binv),
+                           static_cast<const float*>(r),
+                           static_cast<const float*>(x), static_cast<float*>(y),
+                           D, m, nb, bs, k, w, s);
+    case 1:
+      return launch<double>(static_cast<const double*>(binv),
+                            static_cast<const double*>(r),
+                            static_cast<const double*>(x),
+                            static_cast<double*>(y), D, m, nb, bs, k, w, s);
+    case 2:
+      return launch<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(binv),
+                                   static_cast<const __nv_bfloat16*>(r),
+                                   static_cast<const __nv_bfloat16*>(x),
+                                   static_cast<__nv_bfloat16*>(y), D, m, nb, bs,
+                                   k, w, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -67,9 +67,18 @@
 // k > 1: lane j sums column j over the slots in turn), so results repeat bit
 // for bit whatever order the rows of a level set come in, and the two
 // routes give the same bits.
+//
+// Value types (value_types.cuh): float32 and float64 compute and keep z in
+// their own type.  bfloat16 loads vals, diag, r and x as bfloat16 and widens
+// them; the products, the row's sum, the division by the diagonal and z
+// itself are float32 on both routes (z in shared memory and in the L2
+// scratch, its ready flag a float32's bits), so no level set rounds what
+// the next one reads; y = x + w * z is rounded once, at its store.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "value_types.cuh"
 
 namespace {
 
@@ -196,8 +205,10 @@ __device__ __forceinline__ typename Bits<T>::U publish_bits(T v) {
   return u == Bits<T>::EMPTY ? Bits<T>::CANONICAL_NAN : u;
 }
 
+// the operands in the value type T; z, the sums and w in A = Acc<T>::type
 template <typename T>
 struct Args {
+  using A = typename Acc<T>::type;
   const int* __restrict__ cols;
   const T* __restrict__ vals;
   const T* __restrict__ diag;
@@ -207,7 +218,7 @@ struct Args {
   int64_t m;
   int K;
   int64_t k;
-  T w;
+  A w;
 };
 
 struct Pos {
@@ -225,17 +236,18 @@ __device__ __forceinline__ unsigned group_mask() {
 }
 
 // ---------------------------------------------------- one right-hand side
-template <typename T, int S>
+// a row's operands, widened to A
+template <typename A, int S>
 struct RowK1 {
   Pos at;
   int c[S];
-  T v[S];
-  T ri, xi, dg;
+  A v[S];
+  A ri, xi, dg;
 };
 
-template <typename T, int G, int S>
+template <typename T, int G, int S, typename A = typename Acc<T>::type>
 __device__ __forceinline__ void fetch_k1(const Args<T>& a, Pos at, int g,
-                                         RowK1<T, S>& row) {
+                                         RowK1<A, S>& row) {
   row.at = at;
   const int64_t flat = at.d * a.m + at.i;
   const int* rc = a.cols + flat * a.K;
@@ -244,20 +256,20 @@ __device__ __forceinline__ void fetch_k1(const Args<T>& a, Pos at, int g,
   for (int t = 0; t < S; ++t) {
     const int e = g + t * G;
     row.c[t] = e < a.K ? __ldg(rc + e) : -1;
-    row.v[t] = e < a.K ? __ldg(rv + e) : T(0);
+    row.v[t] = e < a.K ? widen(__ldg(rv + e)) : A(0);
   }
   if (g == 0) {
-    row.ri = __ldg(a.r + flat);
-    row.xi = __ldg(a.x + flat);
-    row.dg = __ldg(a.diag + flat);
+    row.ri = widen(__ldg(a.r + flat));
+    row.xi = widen(__ldg(a.x + flat));
+    row.dg = widen(__ldg(a.diag + flat));
   }
 }
 
-template <typename T, int G, int S, class Z>
+template <typename T, int G, int S, class Z, typename A = typename Acc<T>::type>
 __device__ __forceinline__ void solve_k1(const Args<T>& a, const Z& z,
-                                         const RowK1<T, S>& row, int g,
+                                         const RowK1<A, S>& row, int g,
                                          unsigned mask) {
-  using U = typename Bits<T>::U;
+  using U = typename Bits<A>::U;
   const int d = row.at.d;
   // every slot's load in flight at once, then each summed in turn
   decltype(z.at(0, 0, 0)) at[S];
@@ -269,26 +281,26 @@ __device__ __forceinline__ void solve_k1(const Args<T>& a, const Z& z,
       bits[t] = z.load(at[t]);
     }
   }
-  T acc = T(0);
+  A acc = A(0);
 #pragma unroll
   for (int t = 0; t < S; ++t)
-    if (row.c[t] >= 0) acc += row.v[t] * settle<T>(z, at[t], bits[t]);
+    if (row.c[t] >= 0) acc += row.v[t] * settle<A>(z, at[t], bits[t]);
   if (a.K > S * G) {   // rows longer than the fetched slots
     const int64_t flat = d * a.m + row.at.i;
     for (int e = S * G + g; e < a.K; e += G) {
       const int c = __ldg(a.cols + flat * a.K + e);
       if (c >= 0) {
         const auto ce = z.at(d, c, 0);
-        acc += __ldg(a.vals + flat * a.K + e) * settle<T>(z, ce, z.load(ce));
+        acc += widen(__ldg(a.vals + flat * a.K + e)) * settle<A>(z, ce, z.load(ce));
       }
     }
   }
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(mask, acc, o);
   if (g == 0) {
-    const auto bits = publish_bits<T>((row.ri - acc) / row.dg);
+    const auto bits = publish_bits<A>((row.ri - acc) / row.dg);
     z.store(z.at(d, row.at.i, 0), bits);
-    a.y[d * a.m + row.at.i] = row.xi + a.w * Bits<T>::value(bits);
+    store(a.y + d * a.m + row.at.i, row.xi + a.w * Bits<A>::value(bits));
   }
 }
 
@@ -299,27 +311,28 @@ __device__ __forceinline__ void solve_k1(const Args<T>& a, const Z& z,
 template <typename T, int G, class Z>
 __device__ void solve_multi(const Args<T>& a, const Z& z, Pos at, int g,
                             unsigned mask) {
-  using U = typename Bits<T>::U;
+  using A = typename Acc<T>::type;
+  using U = typename Bits<A>::U;
   constexpr int W = G < 8 ? G : 8;
   const int64_t flat = at.d * a.m + at.i;
   const int* rc = a.cols + flat * a.K;
   const T* rv = a.vals + flat * a.K;
-  const T dg = __ldg(a.diag + flat);
+  const A dg = widen(__ldg(a.diag + flat));
   for (int64_t j0 = 0; j0 < a.k; j0 += G) {
     const int j = static_cast<int>(j0) + g;
     const bool live = j < a.k;
-    const T rj = live ? __ldg(a.r + flat * a.k + j) : T(0);
-    const T xj = live ? __ldg(a.x + flat * a.k + j) : T(0);
-    T acc = T(0);
+    const A rj = live ? widen(__ldg(a.r + flat * a.k + j)) : A(0);
+    const A xj = live ? widen(__ldg(a.x + flat * a.k + j)) : A(0);
+    A acc = A(0);
     for (int e0 = 0; e0 < a.K; e0 += G) {
       const bool has = e0 + g < a.K;
       const int cl = has ? __ldg(rc + e0 + g) : -1;
-      const T vl = has ? __ldg(rv + e0 + g) : T(0);
+      const A vl = has ? widen(__ldg(rv + e0 + g)) : A(0);
       const int n = a.K - e0 < G ? a.K - e0 : G;
       for (int e = 0; e < n; e += W) {
         decltype(z.at(0, 0, 0)) ad[W];
         U bits[W];
-        T ve[W];
+        A ve[W];
         bool use[W];
 #pragma unroll
         for (int u = 0; u < W; ++u) {
@@ -334,13 +347,13 @@ __device__ void solve_multi(const Args<T>& a, const Z& z, Pos at, int g,
         }
 #pragma unroll
         for (int u = 0; u < W; ++u)
-          if (use[u]) acc += ve[u] * settle<T>(z, ad[u], bits[u]);
+          if (use[u]) acc += ve[u] * settle<A>(z, ad[u], bits[u]);
       }
     }
     if (live) {
-      const auto bits = publish_bits<T>((rj - acc) / dg);
+      const auto bits = publish_bits<A>((rj - acc) / dg);
       z.store(z.at(at.d, at.i, j), bits);
-      a.y[flat * a.k + j] = xj + a.w * Bits<T>::value(bits);
+      store(a.y + flat * a.k + j, xj + a.w * Bits<A>::value(bits));
     }
   }
 }
@@ -350,8 +363,8 @@ __device__ void solve_multi(const Args<T>& a, const Z& z, Pos at, int g,
 // with one right-hand side row p + stride is fetched, and position
 // p + 2 stride read, while row p waits on its dependencies
 template <typename T, int G, bool MULTI, class P>
-__device__ void run_l2(const Args<T>& a, const GlobalZ<T>& z, P pos, int64_t p,
-                       int64_t stride, int64_t end) {
+__device__ void run_l2(const Args<T>& a, const GlobalZ<typename Acc<T>::type>& z,
+                       P pos, int64_t p, int64_t stride, int64_t end) {
   const int g = static_cast<int>(threadIdx.x % G);
   const unsigned mask = group_mask<G>();
   if constexpr (MULTI) {
@@ -359,7 +372,7 @@ __device__ void run_l2(const Args<T>& a, const GlobalZ<T>& z, P pos, int64_t p,
   } else {
     constexpr int S = SLOTS<G>;
     if (p >= end) return;
-    RowK1<T, S> cur, nxt;
+    RowK1<typename Acc<T>::type, S> cur, nxt;
     fetch_k1<T, G, S>(a, pos(p), g, nxt);
     Pos ahead = p + stride < end ? pos(p + stride) : Pos{0, 0};
     for (; p < end; p += stride) {
@@ -375,8 +388,8 @@ __device__ void run_l2(const Args<T>& a, const GlobalZ<T>& z, P pos, int64_t p,
 template <typename T, int G, bool MULTI>
 __global__ void __launch_bounds__(L2_THREADS)
 tri_solve_l2_kernel(Args<T> a, const int* __restrict__ order,
-                    typename Bits<T>::U* z, int64_t D) {
-  const GlobalZ<T> zg{z, a.m, a.k};
+                    typename Bits<typename Acc<T>::type>::U* z, int64_t D) {
+  const GlobalZ<typename Acc<T>::type> zg{z, a.m, a.k};
   const int64_t groups = static_cast<int64_t>(gridDim.x) * (blockDim.x / G);
   const int64_t q = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
   const int64_t m = a.m;
@@ -417,8 +430,9 @@ tri_solve_block_kernel(Args<T> a, const int* __restrict__ order,
                        const int* __restrict__ starts, int nlev) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int d = static_cast<int>(blockIdx.x);
-  const BlockZ<T> z{static_cast<uint32_t>(__cvta_generic_to_shared(smem)),
-                    static_cast<uint32_t>(a.k)};
+  const BlockZ<typename Acc<T>::type> z{
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem)),
+      static_cast<uint32_t>(a.k)};
   const int* ord = order + d * a.m;
   const int* st = starts + static_cast<int64_t>(d) * (nlev + 1);
   const int g = static_cast<int>(threadIdx.x % G);
@@ -437,7 +451,7 @@ tri_solve_block_kernel(Args<T> a, const int* __restrict__ order,
     // `ahead`: the row after the one fetched, its index read a row early
     Walk ahead{st, nlev, q, groups, 0, q};
     ahead.settle();
-    RowK1<T, S> cur, nxt;
+    RowK1<typename Acc<T>::type, S> cur, nxt;
     int idx = ahead.live() ? __ldg(ord + ahead.p) : 0;
     if (ahead.live()) {
       fetch_k1<T, G, S>(a, Pos{d, idx}, g, nxt);
@@ -501,8 +515,9 @@ int launch_block(const Args<T>& a, const int* order, const int* starts,
   const unsigned threads =
       static_cast<unsigned>(lanes < BLOCK_THREADS ? lanes : BLOCK_THREADS);
   tri_solve_block_kernel<T, G, MULTI>
-      <<<static_cast<unsigned>(D), threads, static_cast<size_t>(a.m * a.k) * sizeof(T),
-         stream>>>(a, order, starts, static_cast<int>(nlev));
+      <<<static_cast<unsigned>(D), threads,
+         static_cast<size_t>(a.m * a.k) * sizeof(typename Acc<T>::type), stream>>>(
+          a, order, starts, static_cast<int>(nlev));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -524,14 +539,15 @@ int resident_l2_blocks() {
 template <typename T, int G, bool MULTI>
 int launch_l2(const Args<T>& a, const int* order, void* z, int64_t D,
               cudaStream_t stream) {
-  const size_t bytes = static_cast<size_t>(D * a.m * a.k) * sizeof(T);
+  using A = typename Acc<T>::type;
+  const size_t bytes = static_cast<size_t>(D * a.m * a.k) * sizeof(A);
   cudaError_t err = cudaMemsetAsync(z, 0xff, bytes, stream);   // all empty
   if (err != cudaSuccess) return static_cast<int>(err);
   int64_t blocks = (D * a.m * G + L2_THREADS - 1) / L2_THREADS;
   const int resident = resident_l2_blocks<T, G, MULTI>();
   if (blocks > resident) blocks = resident;
   tri_solve_l2_kernel<T, G, MULTI><<<static_cast<unsigned>(blocks), L2_THREADS, 0, stream>>>(
-      a, order, static_cast<typename Bits<T>::U*>(z), D);
+      a, order, static_cast<typename Bits<A>::U*>(z), D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -548,7 +564,7 @@ int launch(const int* cols, const T* vals, const T* diag, const T* r, const T* x
            int64_t m, int64_t K, int64_t k, int64_t nlev, double w, int block,
            cudaStream_t stream) {
   const Args<T> a{cols, vals, diag, r, x, y, m, static_cast<int>(K), k,
-                  static_cast<T>(w)};
+                  static_cast<typename Acc<T>::type>(w)};
   if (k == 1)
     return launch_route<T, LANES, false>(a, order, starts, nlev, z, D, block, stream);
   if (k <= 8) return launch_route<T, 8, true>(a, order, starts, nlev, z, D, block, stream);
@@ -561,39 +577,52 @@ int launch(const int* cols, const T* vals, const T* diag, const T* r, const T* x
 // y = x + w * T^-1 r.  `order` [D, m] lists each rank's rows by level set
 // (ref.rank_level_order), `starts` [D, nlev + 1] where each of the nlev level
 // sets begins in it (ref.rank_level_starts; nlev the most level sets of any
-// rank).  `block` != 0 takes the block route (m*k*sizeof(T) bytes of shared
-// memory at most the card's opt-in limit, tri_solve_smem; z unused), 0 the
-// L2 route (z: scratch of D*m*k elements, 8-byte aligned; starts and nlev
+// rank).  dtype: 0 float32, 1 float64, 2 bfloat16 (z in float32).  `block`
+// != 0 takes the block route (m*k*sizeof(z) bytes of shared memory at most
+// the card's opt-in limit, tri_solve_smem; z unused), 0 the L2 route (z:
+// scratch of D*m*k elements of z's type, 8-byte aligned; starts and nlev
 // unused).  Returns the memset's error, else the launch's, else
-// cudaGetLastError() (0 on success).  The caller guarantees D, m, k > 0,
-// K >= 0, contiguous operands on one device, D * m < 2^31, cols != -1 only
-// for columns of the row's rank that it depends on, and y apart from every
-// input.
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for an unknown
+// dtype code.  The caller guarantees D, m, k > 0, K >= 0, contiguous
+// operands on one device, D * m < 2^31, cols != -1 only for columns of the
+// row's rank that it depends on, and y apart from every input.
 extern "C" int tri_solve_launch(const void* cols, const void* vals,
                                 const void* diag, const void* r, const void* x,
                                 const void* order, const void* starts, void* z,
                                 void* y, int64_t D, int64_t m, int64_t K,
-                                int64_t k, int64_t nlev, double w, int is_f64,
+                                int64_t k, int64_t nlev, double w, int dtype,
                                 int block, void* stream) {
   const auto* c = static_cast<const int*>(cols);
   const auto* o = static_cast<const int*>(order);
   const auto* st = static_cast<const int*>(starts);
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_f64)
-    return launch<double>(c, static_cast<const double*>(vals),
-                          static_cast<const double*>(diag),
-                          static_cast<const double*>(r),
-                          static_cast<const double*>(x), o, st, z,
-                          static_cast<double*>(y), D, m, K, k, nlev, w, block, s);
-  return launch<float>(c, static_cast<const float*>(vals),
-                       static_cast<const float*>(diag),
-                       static_cast<const float*>(r), static_cast<const float*>(x),
-                       o, st, z, static_cast<float*>(y), D, m, K, k, nlev, w,
-                       block, s);
+  switch (dtype) {
+    case 0:
+      return launch<float>(c, static_cast<const float*>(vals),
+                           static_cast<const float*>(diag),
+                           static_cast<const float*>(r), static_cast<const float*>(x),
+                           o, st, z, static_cast<float*>(y), D, m, K, k, nlev, w,
+                           block, s);
+    case 1:
+      return launch<double>(c, static_cast<const double*>(vals),
+                            static_cast<const double*>(diag),
+                            static_cast<const double*>(r),
+                            static_cast<const double*>(x), o, st, z,
+                            static_cast<double*>(y), D, m, K, k, nlev, w, block, s);
+    case 2:
+      return launch<__nv_bfloat16>(c, static_cast<const __nv_bfloat16*>(vals),
+                                   static_cast<const __nv_bfloat16*>(diag),
+                                   static_cast<const __nv_bfloat16*>(r),
+                                   static_cast<const __nv_bfloat16*>(x), o, st, z,
+                                   static_cast<__nv_bfloat16*>(y), D, m, K, k,
+                                   nlev, w, block, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The opt-in shared memory a block may have on the current device (bytes):
-// the block route's limit on m*k*sizeof(T).  Returns a CUDA error (0 on
+// the block route's limit on m*k*sizeof(z).  Returns a CUDA error (0 on
 // success).
 extern "C" int tri_solve_smem(int* bytes) {
   int dev = 0;

@@ -7,6 +7,14 @@ them.  They stand for the reference's dense ``minv @ r``
 (``repro/amg/dist_solve.py``, ``DistHierarchy._relax``); summation order
 may differ from the kernels.
 
+bfloat16 operands follow the sparse kernels' rule (:mod:`..spmv.ref`):
+they are widened to float32, products and sums are float32, and the result
+``x + w·…`` is rounded to bfloat16 once.  The triangular solve keeps its
+solution ``z = T⁻¹ r`` in float32 from one level set to the next, as the
+kernel does: a z rounded to bfloat16 at every set would carry a rounding
+through each of the DAG's levels.  float32 and float64 compute in their
+own type.
+
 The triangular solve runs level by level over the triangle's dependency
 DAG: :func:`dag_levels` gives every row its level set on the host,
 :func:`level_order` every rank's rows sorted by level set as flat
@@ -20,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..spmv.ref import wide
+
 
 def block_diag_apply_ref(binv: torch.Tensor, r: torch.Tensor,
                          x: torch.Tensor, w: float) -> torch.Tensor:
@@ -28,14 +38,32 @@ def block_diag_apply_ref(binv: torch.Tensor, r: torch.Tensor,
     first row); ``r``, ``x`` ``[D, m]`` or ``[D, m, k]``."""
     D, nb, bs, _ = binv.shape
     m = r.shape[1]
-    rk = r if r.ndim == 3 else r[..., None]
+    rk = wide(r if r.ndim == 3 else r[..., None])
     pad = nb * bs - m
     if pad:
         rk = torch.nn.functional.pad(rk, (0, 0, 0, pad))
     rb = rk.reshape(D, nb, 1, bs, -1)                    # [D, nb, 1, bs, k]
-    z = (binv[..., None] * rb).sum(dim=3)                # [D, nb, bs, k]
+    z = (wide(binv)[..., None] * rb).sum(dim=3)         # [D, nb, bs, k]
     z = z.reshape(D, nb * bs, -1)[:, :m]
-    return x + w * (z if r.ndim == 3 else z[..., 0])
+    return (wide(x) + w * (z if r.ndim == 3 else z[..., 0])).to(x.dtype)
+
+
+def block_diag_apply_absum(binv, r, x, w: float) -> torch.Tensor:
+    """``|x| + |w| · |Binv| |r|`` in float64: the sum of the magnitudes
+    each output entry of :func:`block_diag_apply_ref` adds up, the scale of
+    its float32 round-off in bfloat16."""
+    return block_diag_apply_ref(binv.double().abs(), r.double().abs(),
+                                x.double().abs(), abs(w))
+
+
+def tri_solve_absum(cols, vals, diag, r, x, w: float,
+                    schedule: list[torch.Tensor]) -> torch.Tensor:
+    """``|x| + |w| · z̄`` in float64, ``z̄ = |D|⁻¹ (|r| + |L| z̄)`` the
+    solve on magnitudes: a bound on every partial sum of ``z`` that
+    :func:`tri_solve_ref` forms, the scale of its float32 round-off in
+    bfloat16."""
+    return tri_solve_ref(cols, -vals.double().abs(), diag.double().abs(),
+                         r.double().abs(), x.double().abs(), abs(w), schedule)
 
 
 def dag_levels(cols: np.ndarray, upper: bool) -> np.ndarray:
@@ -105,16 +133,16 @@ def tri_solve_ref(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
     ``r``, ``x`` ``[D, m]`` or ``[D, m, k]``; ``schedule`` the level sets
     of :func:`level_schedule`."""
     D, m, K = cols.shape
-    R = r.reshape(D * m, -1)
-    z = torch.zeros_like(R)
+    R = wide(r.reshape(D * m, -1))
+    z = torch.zeros_like(R)              # float32 for bfloat16 operands
     keep = (cols >= 0).reshape(D * m, K)
     offs = (torch.arange(D, device=cols.device) * m).reshape(D, 1, 1)
     fc = torch.where(cols >= 0, cols.long() + offs, 0).reshape(D * m, K)
-    fv = vals.reshape(D * m, K)
-    dg = diag.reshape(D * m, 1)
+    fv = wide(vals.reshape(D * m, K))
+    dg = wide(diag.reshape(D * m, 1))
     for rows in schedule:
         g = z[fc[rows]]                                   # [n, K, k]
         s = torch.where(keep[rows][..., None], fv[rows][..., None] * g,
                         0.0).sum(dim=1)
         z[rows] = (R[rows] - s) / dg[rows]
-    return x + w * z.reshape(r.shape)
+    return (wide(x) + w * z.reshape(r.shape)).to(x.dtype)

@@ -14,7 +14,10 @@ compute from sparse factors:
   local square block, its strict part in ELL (``cols``/``vals``
   ``[D, m, K]``) and its diagonal apart (``diag`` ``[D, m]``).
 
-``r`` and ``x`` are ``[D, m]`` or ``[D, m, k]``.  A wrapper takes the plain
+``r`` and ``x`` are ``[D, m]`` or ``[D, m, k]``, in float32, float64 or
+bfloat16 (the sparse kernels' rule: bfloat16 loads, float32 products and
+sums, one rounding at the store; ``tri_solve`` keeps its solution ``T⁻¹ r``
+in float32 between level sets).  A wrapper takes the plain
 version (:mod:`.ref`) only for tensors that lie on the CPU; for CUDA tensors
 it launches its kernel on the current stream or raises.
 ``<wrapper>.launches`` counts the launches the device ran, replays of a
@@ -31,7 +34,7 @@ import torch
 
 from ..build import entry, kernel
 from ..launches import note
-from ..spmv.spmv import FLOAT_DTYPES, raise_on_error
+from ..spmv.spmv import DTYPE_CODES, raise_on_error
 from .ref import block_diag_apply_ref, level_schedule, tri_solve_ref
 
 
@@ -40,8 +43,9 @@ def _on_card(name: str, tensors: dict[str, torch.Tensor],
     """Validate the operands shared by both kernels; True when they lie on
     a CUDA device (the kernel runs), False on the CPU (the plain version)."""
     dt = r.dtype
-    if dt not in FLOAT_DTYPES:
-        raise TypeError(f"{name}: float32 or float64 operands, got {dt}")
+    if dt not in DTYPE_CODES:
+        raise TypeError(f"{name}: float32, float64 or bfloat16 operands, "
+                        f"got {dt}")
     for what, t in tensors.items():
         if t.dtype != (torch.int32 if what == "cols" else dt):
             raise TypeError(f"{name}: {what} is {t.dtype}, the source {dt}")
@@ -80,7 +84,7 @@ def block_diag_apply(binv: torch.Tensor, r: torch.Tensor, x: torch.Tensor,
         return y
     rc = kernel("block_diag_apply")(
         binv.data_ptr(), r.data_ptr(), x.data_ptr(), y.data_ptr(), D, m, nb,
-        bs, k, float(w), int(r.dtype == torch.float64),
+        bs, k, float(w), DTYPE_CODES[r.dtype],
         torch.cuda.current_stream(r.device).cuda_stream)
     raise_on_error("block_diag_apply", rc)
     note(block_diag_apply)
@@ -96,7 +100,10 @@ TRI_ROUTES = ("block", "l2")
 # --kernel tri_solve --size 0 --cube N), the block route won up to 43.5
 # rows a set in f64 and lost from 48.6; in f32 it won up to 29.8 and lost
 # from 34.1, but lost at level 1 of laplace_3d(64) on 2 x 4 (28.3 rows a
-# set, chip_smoke.py) and won at 25.8.
+# set, chip_smoke.py) and won at 25.8.  bfloat16 operands keep a float32
+# z and take f32's width, which was not measured for them: at level 2 of
+# laplace_3d(64) the rule picks the block route where the L2 route ran
+# faster (PERF.md section 7).
 BLOCK_MAX_WIDTH = {4: 26, 8: 44}
 _SMEM: dict[int, int] = {}
 
@@ -116,11 +123,19 @@ def tri_smem(device) -> int:
     return got
 
 
+def z_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type ``tri_solve`` keeps its solution ``z = T⁻¹ r`` in, between
+    level sets: float32 for bfloat16 operands, the operands' own type
+    otherwise."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def tri_plan(m: int, nlev: int, k: int, itemsize: int, smem: int,
              route: str | None = None) -> str:
     """The route of a ``tri_solve`` launch for ranks of ``m`` rows in
-    ``nlev`` level sets and ``k`` right-hand sides of ``itemsize`` bytes,
-    decided before the launch: ``"block"`` or ``"l2"``.
+    ``nlev`` level sets and ``k`` right-hand sides whose solution ``z``
+    takes ``itemsize`` bytes an element (:func:`z_dtype`'s: 4 for bfloat16
+    operands), decided before the launch: ``"block"`` or ``"l2"``.
 
     The rule: the block route (one thread block a rank, its solution in
     shared memory) where the rank's solution fits the block, m·k·itemsize
@@ -202,15 +217,16 @@ def tri_solve(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
     _check_index("order", o, (D, m), r.device)
     _check_index("starts", starts, (D, None), r.device)
     nlev = starts.shape[1] - 1
-    block = tri_plan(m, nlev, k, r.element_size(), tri_smem(r.device),
+    zt = z_dtype(r.dtype)
+    block = tri_plan(m, nlev, k, zt.itemsize, tri_smem(r.device),
                      route) == "block"
     # the L2 route's solution in device memory, set empty by the launch
-    z = None if block else torch.empty_like(r)
+    z = None if block else torch.empty_like(r, dtype=zt)
     rc = kernel("tri_solve")(
         cols.data_ptr(), vals.data_ptr(), diag.data_ptr(), r.data_ptr(),
         x.data_ptr(), o.data_ptr(), starts.data_ptr(),
         None if z is None else z.data_ptr(), y.data_ptr(), D, m, K, k, nlev,
-        float(w), int(r.dtype == torch.float64), int(block),
+        float(w), DTYPE_CODES[r.dtype], int(block),
         torch.cuda.current_stream(r.device).cuda_stream)
     raise_on_error("tri_solve", rc)
     note(tri_solve)

@@ -30,7 +30,7 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return g.reshape(tuple(idx.shape) + ext)
 
 
-def _wide(t: torch.Tensor) -> torch.Tensor:
+def wide(t: torch.Tensor) -> torch.Tensor:
     """The type products and sums are taken in: float32 for bfloat16
     operands, the operands' own type otherwise."""
     return t.float() if t.dtype == torch.bfloat16 else t
@@ -44,7 +44,7 @@ def ell_spmv_ref(cols: torch.Tensor, vals: torch.Tensor,
     if n == 0 or K == 0 or x.shape[1] == 0:
         return torch.zeros((D, n), dtype=vals.dtype, device=vals.device)
     contrib = torch.where(cols >= 0,
-                          _wide(vals) * _wide(_gather_rows(x, cols)), 0.0)
+                          wide(vals) * wide(_gather_rows(x, cols)), 0.0)
     return contrib.sum(dim=2).to(vals.dtype)
 
 
@@ -58,7 +58,7 @@ def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
         return torch.zeros((D, n, k), dtype=vals.dtype, device=vals.device)
     g = _gather_rows(x, cols)                             # [D, n, K, k]
     contrib = torch.where((cols >= 0)[..., None],
-                          _wide(vals)[..., None] * _wide(g), 0.0)
+                          wide(vals)[..., None] * wide(g), 0.0)
     return contrib.sum(dim=2).to(vals.dtype)
 
 
@@ -100,6 +100,6 @@ def bcsr_apply_ref(bcols: torch.Tensor, bvals: torch.Tensor,
     else:
         g = _gather_rows(block_x(x, bs), bcols)           # [D, mb, Kb, bs, k]
         g = torch.where((bcols >= 0)[..., None, None], g, 0.0)
-        y = torch.matmul(_wide(bvals), _wide(g)).sum(dim=2)
+        y = torch.matmul(wide(bvals), wide(g)).sum(dim=2)
         y = y.to(bvals.dtype).reshape(D, mb * bs, k)[:, :rows].contiguous()
     return y[..., 0] if single else y

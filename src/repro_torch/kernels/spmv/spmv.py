@@ -21,10 +21,10 @@ from ..build import kernel
 from ..launches import note
 from .ref import ell_spmm_ref, ell_spmv_ref
 
-# the value types the sparse kernels take, and the code each C entry point
-# reads for one (0 float32, 1 float64, 2 bfloat16: float32 sums, one
-# rounding); FLOAT_DTYPES, the two full-precision ones, are what the
-# smoother and ERT kernels take
+# the value types the sparse and block-smoother kernels take, and the code
+# each C entry point reads for one (0 float32, 1 float64, 2 bfloat16:
+# float32 sums, one rounding); FLOAT_DTYPES, the two full-precision ones,
+# are what the ERT kernels take
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 FLOAT_DTYPES = (torch.float32, torch.float64)
 

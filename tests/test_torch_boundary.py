@@ -89,19 +89,20 @@ def test_torch_backend_refuses_cuda_without_a_card(monkeypatch):
 
 
 def test_unported_parts_raise():
-    # bfloat16 is ported on the torch backend, but for the block smoothers
-    # and one process per rank, each refused naming its ROADMAP item
+    # bfloat16 is ported on the torch backend with every smoother, and on
+    # process ranks with Jacobi and Chebyshev; a block smoother on process
+    # ranks is refused in every type, naming its ROADMAP item
     assert AMGConfig(backend="torch", dtype="bfloat16",
                      device="cpu").dtype == "bfloat16"
+    assert AMGConfig(backend="torch", dtype="bfloat16", device="cpu",
+                     ranks="process").ranks == "process"
     for sm in ("block_jacobi", "hybrid_gs", "hybrid_gs_sym"):
-        with pytest.raises(NotImplementedError,
-                           match="item 14: bf16 block smoothers"):
-            AMGConfig(backend="torch", dtype="bfloat16", device="cpu",
-                      opts=SolveOptions(smoother=sm))
-    with pytest.raises(NotImplementedError,
-                       match="item 15: bf16 in process mode"):
-        AMGConfig(backend="torch", dtype="bfloat16", device="cpu",
-                  ranks="process")
+        assert AMGConfig(backend="torch", dtype="bfloat16", device="cpu",
+                         opts=SolveOptions(smoother=sm)).opts.smoother == sm
+        for dtype in ("bfloat16", "float32"):
+            with pytest.raises(NotImplementedError, match="item 12"):
+                AMGConfig(backend="torch", dtype=dtype, device="cpu",
+                          ranks="process", opts=SolveOptions(smoother=sm))
     # the partitioned setup is ported: accepted on the torch backend, and
     # refused, as the reference refuses it, on another backend or for SA
     assert AMGConfig(backend="torch", setup_backend="dist",
@@ -125,12 +126,15 @@ def test_unported_parts_raise():
         res = AMGSolver(cfg.replace(opts=SolveOptions(smoother=sm))) \
             .setup(A).solve(b, tol=0.0, maxiter=1)
         assert len(res.residuals) == 2 and res.residuals[1] < res.residuals[0]
-    # a bfloat16 lowering runs a sweep; a type the kernels lack is refused
+    # a bfloat16 lowering runs a sweep of every smoother; a type the
+    # kernels lack is refused
     dh = DistHierarchy.build(bound.hierarchy, 2, 4, dtype=torch.bfloat16,
                              device="cpu")
     assert dh.dtype == torch.bfloat16
-    res = dist_solve(dh, b, tol=0.0, maxiter=1)
-    assert len(res.residuals) == 2 and res.residuals[1] < res.residuals[0]
+    for sm in ("jacobi", "block_jacobi", "hybrid_gs", "hybrid_gs_sym"):
+        res = dist_solve(dh, b, tol=0.0, maxiter=1,
+                         opts=SolveOptions(smoother=sm))
+        assert len(res.residuals) == 2 and res.residuals[1] < res.residuals[0]
     with pytest.raises(NotImplementedError, match="not ported yet"):
         DistHierarchy.build(bound.hierarchy, 2, 4, dtype=torch.float16,
                             device="cpu")

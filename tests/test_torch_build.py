@@ -58,3 +58,45 @@ def test_library_name_hashes_the_headers_beside_a_source(tmp_path, monkeypatch):
     assert build.library_path("ell_spmv") == first
     (csrc / "value_types.cuh").write_text("// two\n")
     assert build.library_path("ell_spmv") != first
+
+
+def test_shared_headers_are_hashed_and_on_the_include_path(tmp_path,
+                                                           monkeypatch):
+    """``value_types.cuh`` lives in the package's shared ``csrc/`` and every
+    kernel with a bfloat16 instance includes it (the sparse kernels and both
+    block smoothers); an edit there renames every library that may include
+    it, and each ``nvcc`` is given that directory to search."""
+    assert (build.shared_headers() / "value_types.cuh").exists()
+    for name in ("ell_spmv", "ell_spmm", "bcsr_spmm", "block_diag_apply",
+                 "tri_solve"):
+        src = build.source_path(name)
+        assert '#include "value_types.cuh"' in src.read_text()
+        assert not (src.parent / "value_types.cuh").exists()
+    csrc = tmp_path / "smoother" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "tri_solve.cu").write_text('#include "value_types.cuh"\n')
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "value_types.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "KERNELS_DIR", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    first = build.library_path("tri_solve")
+    (tmp_path / "csrc" / "value_types.cuh").write_text("// two\n")
+    assert build.library_path("tri_solve") != first
+
+    seen = []
+
+    class Done:
+        returncode = 1
+
+        def __init__(self, cmd, **kw):
+            seen.append(cmd)
+
+        def communicate(self):
+            return "stopped before compiling", None
+
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "Popen", Done)
+    with pytest.raises(RuntimeError, match="stopped before compiling"):
+        build.build(["tri_solve"])
+    cmd = seen[0]
+    assert cmd[cmd.index("-I") + 1] == str(tmp_path / "csrc")

@@ -18,7 +18,9 @@ and across routes, a forced block refused past its shared memory; a
 level-0-sized rank; the route rule's edges; a 20,000-row chain; a NaN in r;
 no row order refused; one kernel node in a graph on the block route, a
 memset node and a kernel node on the L2 route, each replaying correctly
-with new values) and the
+with new values); both smoothers' bfloat16 instances at the same edges
+(each route, bit-equal across routes and orders, a level-0-sized rank;
+the bfloat16 bar above with Σ|a·x| the magnitudes an entry adds up) and the
 block-smoother PCG on the card against the CPU; degenerate shapes; flash attention
 (each output row's error over its own max) over ragged lengths, windows,
 decode alignment, head dims 64, 96 (phi-3-vision-4.2b's 32:32), 128 and
@@ -1021,8 +1023,9 @@ def _solve_checked(cols, vals, diag, r, x, w, upper, route):
 
 
 def _fits(m, k, dtype, dev):
-    """Whether a rank of m rows and k right-hand sides fits a block."""
-    return m * (k or 1) * (torch.finfo(dtype).bits // 8) <= sm.tri_smem(dev)
+    """Whether a rank of m rows and k right-hand sides fits a block (its
+    solution z in ``sm.z_dtype(dtype)``)."""
+    return m * (k or 1) * sm.z_dtype(dtype).itemsize <= sm.tri_smem(dev)
 
 
 @pytest.mark.parametrize("route", sm.TRI_ROUTES)
@@ -1228,6 +1231,93 @@ def test_block_smoother_pcg_on_the_card_matches_the_cpu(dev, smoother):
     assert np.abs(np.subtract(s_gpu.residuals, s_cpu.residuals)).max() <= 1e-7 * r0
     assert m_gpu.converged and not m_gpu.x[:, 2].any()
     assert np.abs(m_gpu.x - m_cpu.x).max() <= 1e-7 * np.abs(m_cpu.x).max()
+
+
+# bfloat16 block smoothers: the kernels and their plain versions widen to
+# float32, sum in float32 (tri_solve keeps z in float32 between level sets)
+# and round y once, so an entry may differ by one bfloat16 ulp where the two
+# float32 values fall on either side of a tie: the sparse kernels' bar, with
+# Σ|a·x| the magnitudes each entry adds up (``ref.*_absum``)
+@pytest.mark.parametrize("k", [None, 1, 3, 33])
+@pytest.mark.parametrize("bs,m", [(1, 13), (3, 13), (4, 64), (4, 1001),
+                                  (8, 1), (8, 4097)])
+def test_block_diag_apply_bf16(dev, bs, m, k):
+    rng = np.random.default_rng(bs * m + 1)
+    nb = -(-m // bs)
+    binv = torch.as_tensor(rng.standard_normal((D, nb, bs, bs)), dtype=BF16,
+                           device=dev)
+    r, x = _rhs(rng, D, m, k, BF16, dev), _rhs(rng, D, m, k, BF16, dev)
+    before = sm.block_diag_apply.launches
+    got = sm.block_diag_apply(binv, r, x, 0.7)
+    assert sm.block_diag_apply.launches == before + 1
+    _close_bf16(got, sref.block_diag_apply_ref(binv, r, x, 0.7),
+                sref.block_diag_apply_absum(binv, r, x, 0.7))
+    assert torch.equal(got, sm.block_diag_apply(binv, r, x, 0.7))
+
+
+def _solve_checked_bf16(cols, vals, diag, r, x, w, upper, route):
+    """``_solve_checked`` in bfloat16: one launch on ``route`` against the
+    plain version at the bfloat16 bar, repeated bit for bit."""
+    order = _order(cols, upper)
+    before = sm.tri_solve.launches
+    got = sm.tri_solve(cols, vals, diag, r, x, w, upper=upper, order=order,
+                       route=route)
+    assert sm.tri_solve.launches == before + 1
+    sched = sref.level_schedule(cols.cpu().numpy(), upper, cols.device)
+    _close_bf16(got, sref.tri_solve_ref(cols, vals, diag, r, x, w, sched),
+                sref.tri_solve_absum(cols, vals, diag, r, x, w, sched))
+    assert torch.equal(got, sm.tri_solve(cols, vals, diag, r, x, w,
+                                         upper=upper, order=order,
+                                         route=route))
+    return got
+
+
+@pytest.mark.parametrize("route", sm.TRI_ROUTES)
+@pytest.mark.parametrize("k", [None, 1, 8, 33])
+@pytest.mark.parametrize("upper", [False, True], ids=["lower", "upper"])
+@pytest.mark.parametrize("Dn,m,K,chain", [(1, 1, 0, False), (3, 37, 5, False),
+                                          (8, 1000, 27, False),
+                                          (2, 3000, 3, True)])
+def test_tri_solve_bf16(dev, Dn, m, K, chain, upper, k, route):
+    """bfloat16 on each route: against the plain version at the bar, bit
+    for bit run to run, in another valid order and across routes (z is
+    float32 on both, so a rank fits a block at 4 bytes a value)."""
+    rng = np.random.default_rng(m + K + 1)
+    cols, vals, diag = _triangle(rng, Dn, m, K, upper, BF16, dev, chain)
+    r, x = _rhs(rng, Dn, m, k, BF16, dev), _rhs(rng, Dn, m, k, BF16, dev)
+    if route == "block" and not _fits(m, k, BF16, dev):
+        with pytest.raises(ValueError, match="do not fit"):
+            sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper,
+                         order=_order(cols, upper), route=route)
+        return
+    got = _solve_checked_bf16(cols, vals, diag, r, x, 0.9, upper, route)
+    assert torch.equal(got, sm.tri_solve(
+        cols, vals, diag, r, x, 0.9, upper=upper,
+        order=_another_order(cols, upper, route), route=route))
+    if _fits(m, k, BF16, dev):
+        assert torch.equal(got, sm.tri_solve(
+            cols, vals, diag, r, x, 0.9, upper=upper, order=_order(cols, upper),
+            route="block" if route == "l2" else "l2"))
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("upper", [False, True], ids=["lower", "upper"])
+def test_tri_solve_bf16_at_the_level_0_rank_size(dev, upper, k):
+    """Level 0's rank size (32,768 rows, 218 level sets) in bfloat16: the
+    rule takes the L2 route at k = 1 (z's 4 bytes a value, about 150 rows a
+    set), the block route fits at k = 1 only (128 KiB of float32 z), and
+    the two routes agree bit for bit."""
+    rng = np.random.default_rng(k + 2)
+    Dn, m = 2, 32_768
+    cols, vals, diag = _stencil_triangle(rng, Dn, m, 32, 32, upper, BF16, dev)
+    kk = None if k == 1 else k
+    r, x = _rhs(rng, Dn, m, kk, BF16, dev), _rhs(rng, Dn, m, kk, BF16, dev)
+    assert sm.tri_plan(m, 218, k, 4, sm.tri_smem(dev)) == "l2"
+    got = _solve_checked_bf16(cols, vals, diag, r, x, 1.0, upper, None)
+    assert _fits(m, k, BF16, dev) == (k == 1)
+    if k == 1:
+        assert torch.equal(got, _solve_checked_bf16(cols, vals, diag, r, x,
+                                                    1.0, upper, "block"))
 
 
 # ------------------------------------------------ ERT micro-kernels

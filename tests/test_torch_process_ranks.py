@@ -12,6 +12,13 @@ results to an ``.npz`` and the assertions run here in the parent:
 * reductions — ``hier_psum`` (flat, nap3) within 1e-13 of the stacked total
   in float64 and bit-identical on every rank; ``hier_all_gather`` bit-equal
   to the stacked one;
+* bfloat16 — the same halos on bfloat16 data bit-equal to ``x[need]`` and
+  to the stacked halo, each rank's log the signature; ``hier_psum`` (flat,
+  nap3) of bfloat16 partials bit-equal to the stacked one (a bfloat16 sum
+  between the processes runs in float32 and rounds once, as the stacked
+  ``.sum`` does); a bfloat16 PCG with Jacobi and one with Chebyshev
+  (``laplace_3d(8)``, tol 1e-5) bit-equal to the stacked bfloat16 session
+  on every rank;
 * the slice — ``AMGSolver(AMGConfig(backend="torch", ranks="process", ...))``
   on float64 ``laplace_3d(8)``, PCG and the stationary solve over V/W/F ×
   Jacobi/Chebyshev, k = 1 and 3, strategy ``auto`` and ``nap3``: residual
@@ -53,6 +60,9 @@ CASES = [
     ("pcg", "F", "chebyshev", 3, "auto"), ("solve", "F", "chebyshev", 1, "nap3"),
 ]
 SETUP = dict(max_coarse=30)          # 3 levels: W and F differ from V
+BF16_TOL = 1e-5
+# (smoother, strategy, k) of the bfloat16 PCG runs
+BF16_CASES = [("jacobi", "auto", 1), ("chebyshev", "nap3", 3)]
 
 
 def _case_id(case):
@@ -135,6 +145,20 @@ def _battery(ranks, out_dir):
                 out[f"need_{key}"] = xg[need, 0] if k == 1 else xg[need]
                 out[f"log_{key}"] = np.array(log)
                 out[f"total_{key}"] = np.array(plan.total_halo)
+                # the same exchange on bfloat16 data
+                xb = x.to(torch.bfloat16)
+                stacked = halo_exchange(xb, plan, send, recv, psel)
+                log = []
+                mine = halo_exchange(
+                    xb[d:d + 1], plan, send[d:d + 1], recv[d:d + 1],
+                    None if psel is None else psel[d:d + 1], log=log,
+                    ranks=ranks)
+                assert mine.dtype == torch.bfloat16
+                need_b = torch.from_numpy(out[f"need_{key}"]).to(torch.bfloat16)
+                out[f"bf16_halo_{key}"] = mine[0].float().numpy()
+                out[f"bf16_stacked_{key}"] = stacked[d].float().numpy()
+                out[f"bf16_need_{key}"] = need_b.float().numpy()
+                out[f"bf16_log_{key}"] = np.array(log)
 
     # reductions
     rng = np.random.default_rng(9)
@@ -150,6 +174,14 @@ def _battery(ranks, out_dir):
                 v[d:d + 1], N_PODS, LANES, strategy, ranks=ranks)[0].numpy()
             out[f"gather_stacked_{strategy}_{tag}"] = hier_all_gather(
                 v, N_PODS, LANES, strategy)[d].numpy()
+            # bfloat16 partials of mixed magnitudes
+            vb = (v * torch.from_numpy(
+                10.0 ** rng.integers(-3, 3, shape))).to(torch.bfloat16)
+            got = hier_psum(vb[d:d + 1], N_PODS, LANES, strategy, ranks=ranks)
+            assert got.dtype == torch.bfloat16
+            out[f"bf16_psum_{strategy}_{tag}"] = got[0].float().numpy()
+            out[f"bf16_psum_stacked_{strategy}_{tag}"] = hier_psum(
+                vb, N_PODS, LANES, strategy)[d].float().numpy()
 
     # the slice through the session entry point
     A = laplace_3d(8)
@@ -166,6 +198,37 @@ def _battery(ranks, out_dir):
         out[f"case{i}_hist"] = np.array([c.residuals for c in cols])
         out[f"case{i}_x"] = res.x[:, None] if k == 1 else res.x
     dh = bound.dist_hierarchy
+
+    # bfloat16 PCG against the stacked bfloat16 session, on every rank
+    rhs = A.matvec(1.0 + 0.5 * np.random.default_rng(4).random(A.nrows))
+    Bb = np.stack([rhs, B[:, 1], B[:, 2]], axis=1)
+    for i, (smoother, strategy, k) in enumerate(BF16_CASES):
+        cfg = AMGConfig(backend="torch", ranks="process", n_pods=N_PODS,
+                        lanes=LANES, dtype="bfloat16", device="cpu",
+                        strategy=strategy, tol=BF16_TOL, **SETUP,
+                        opts=SolveOptions(smoother=smoother))
+        rk = Bb[:, 0] if k == 1 else Bb[:, :k]
+        bound16 = AMGSolver(cfg).setup(A)
+        runs = {"": bound16.pcg(rk),
+                "stacked_": AMGSolver(cfg.replace(ranks="stacked")).setup(
+                    A).pcg(rk)}
+        for pre, res in runs.items():
+            cols = [res] if k == 1 else res.columns
+            for j, c in enumerate(cols):
+                out[f"bf16_{pre}case{i}_col{j}"] = np.asarray(c.residuals)
+                out[f"bf16_{pre}case{i}_conv{j}"] = np.array(c.converged)
+            out[f"bf16_{pre}case{i}_x"] = np.asarray(res.x, dtype=np.float32)
+        if i == 0:
+            # one iteration's tally: the dots' sums travel as float32
+            traffic = rank_traffic(bound16.dist_hierarchy)
+            ranks16 = bound16.dist_hierarchy.ranks
+            for part, pick in (("dot", lambda t: t == ("dot",)),
+                               ("halo", lambda t: t != ("dot",))):
+                out[f"bf16_{part}_elements"] = np.array(sum(
+                    n for (_, t), n in ranks16.sent.items() if pick(t)))
+                out[f"bf16_{part}_bytes"] = np.array(sum(
+                    n for (_, t), n in ranks16.sent_bytes.items() if pick(t)))
+            out["bf16_traffic_bytes"] = np.array(sum(traffic["bytes"].values()))
     out["devices"] = np.array(sorted({str(t.device) for a in dh._arrs
                                       for v in a.values()
                                       for t in (v.values() if isinstance(
@@ -324,6 +387,67 @@ def test_reductions_match_stacked(ranks_run, strategy, shape):
                               out[f"gather_stacked_{strategy}_{shape}"])
 
 
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("matrix", MATRICES)
+def test_bf16_halo_is_bit_equal_to_need_and_to_stacked(ranks_run, matrix,
+                                                       strategy, k):
+    """bfloat16 halos move as float32 ones do, by index steps: rank d's
+    is ``x[need]`` bit for bit (zeros past it) and the stacked halo's row
+    d, and each rank logs the strategy's signature."""
+    from repro_torch.core.nap_collectives import HALO_SIGNATURES
+
+    key = f"{matrix}_{strategy}_{k}"
+    for out in ranks_run[0]:
+        halo, need = out[f"bf16_halo_{key}"], out[f"bf16_need_{key}"]
+        assert np.array_equal(halo, out[f"bf16_stacked_{key}"])
+        assert np.array_equal(halo[: len(need)], need)
+        assert not halo[len(need):].any()
+        assert tuple(out[f"bf16_log_{key}"]) == HALO_SIGNATURES[strategy]
+
+
+@pytest.mark.parametrize("shape", ["5", "3x2"])
+@pytest.mark.parametrize("strategy", ["flat", "nap3"])
+def test_bf16_reductions_equal_stacked(ranks_run, strategy, shape):
+    """``hier_psum`` of bfloat16 partials of mixed magnitudes between the
+    processes equals the stacked sum bit for bit on every rank."""
+    for out in ranks_run[0]:
+        assert np.array_equal(out[f"bf16_psum_{strategy}_{shape}"],
+                              out[f"bf16_psum_stacked_{strategy}_{shape}"])
+
+
+def test_bf16_traffic_counts_the_bytes_sent(ranks_run):
+    """One bfloat16 PCG iteration's tally on process ranks: the halos send
+    2 bytes an element; the dots' sums 4 (they travel as float32), so the
+    dots' bytes exceed 2 an element (their gathers of summed pieces move
+    bfloat16); ``rank_traffic``'s bytes are the total."""
+    for out in ranks_run[0]:
+        assert out["bf16_dot_elements"] > 0 and out["bf16_halo_elements"] > 0
+        assert (2 * out["bf16_dot_elements"] < out["bf16_dot_bytes"]
+                <= 4 * out["bf16_dot_elements"])
+        assert out["bf16_halo_bytes"] == 2 * out["bf16_halo_elements"]
+        assert out["bf16_traffic_bytes"] == (out["bf16_dot_bytes"]
+                                             + out["bf16_halo_bytes"])
+
+
+@pytest.mark.parametrize("i", range(len(BF16_CASES)),
+                         ids=["-".join(map(str, c)) for c in BF16_CASES])
+def test_bf16_pcg_equals_the_stacked_session_on_every_rank(ranks_run, i):
+    """A bfloat16 PCG on process ranks converges to 1e-5 with the stacked
+    bfloat16 session's history and x, bit for bit, on every rank."""
+    k = BF16_CASES[i][2]
+    first = ranks_run[0][0]
+    for out in ranks_run[0]:
+        for j in range(k):
+            hist = out[f"bf16_case{i}_col{j}"]
+            assert bool(out[f"bf16_case{i}_conv{j}"])
+            assert hist[-1] / hist[0] < BF16_TOL
+            assert np.array_equal(hist, out[f"bf16_stacked_case{i}_col{j}"])
+            assert np.array_equal(hist, first[f"bf16_case{i}_col{j}"])
+        assert np.array_equal(out[f"bf16_case{i}_x"],
+                              out[f"bf16_stacked_case{i}_x"])
+
+
 @pytest.mark.parametrize("i", range(len(CASES)),
                          ids=[_case_id(c) for c in CASES])
 def test_histories_match_jax_dist_on_every_rank(ranks_run, i):
@@ -372,8 +496,13 @@ def test_refusals_without_ranks():
     for bad in (dict(setup_backend="dist"),
                 *(dict(opts=SolveOptions(smoother=s)) for s in (
                     "block_jacobi", "hybrid_gs", "hybrid_gs_sym"))):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            cfg.replace(**bad)
+        for dtype in ("float32", "bfloat16"):
+            with pytest.raises(NotImplementedError, match="item 12"):
+                cfg.replace(dtype=dtype, **bad)
+    # bfloat16 runs on process ranks with Jacobi and Chebyshev
+    for smoother in ("jacobi", "chebyshev"):
+        assert cfg.replace(dtype="bfloat16", opts=SolveOptions(
+            smoother=smoother)).dtype == "bfloat16"
     with pytest.raises(NotImplementedError, match="item 12"):
         AMGService(cfg)
     with pytest.raises(NotImplementedError, match="item 12"):

@@ -185,6 +185,61 @@ def test_tri_plan_of_the_main_path():
     assert sm.tri_plan(*MAIN_PATH[0], 1, 4, H100_SMEM, "block") == "block"
 
 
+@pytest.mark.parametrize("dtype,code,zbytes", [
+    (torch.float32, 0, 4), (torch.float64, 1, 8), (torch.bfloat16, 2, 4)])
+def test_tri_plan_reads_the_bytes_of_z(monkeypatch, dtype, code, zbytes):
+    """The launch plans its route on the bytes of z, the solution it keeps
+    between level sets: float32's 4 for bfloat16 operands (no rule keyed
+    by 2 bytes, and the block's shared memory counted as the block route
+    uses it); it passes the type's dtype code and, on the L2 route, a
+    scratch z of that type (the kernel itself stubbed: no card here)."""
+    planned, launched, scratch = [], [], []
+    monkeypatch.setattr(sm, "_on_card", lambda *a: True)
+    monkeypatch.setattr(sm, "tri_smem", lambda dev: H100_SMEM)
+    monkeypatch.setattr(sm, "note", lambda fn: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0})())
+    real_plan, real_empty = sm.tri_plan, torch.empty_like
+
+    def plan(*args):
+        planned.append(args)
+        return real_plan(*args)
+
+    def empty_like(t, **kw):
+        z = real_empty(t, **kw)
+        scratch.append(z)
+        return z
+
+    monkeypatch.setattr(sm, "tri_plan", plan)
+    monkeypatch.setattr(torch, "empty_like", empty_like)
+    monkeypatch.setattr(sm, "kernel", lambda name: (
+        lambda *args: launched.append(args) or 0))
+    rng = np.random.default_rng(3)
+    m, nlev = MAIN_PATH[0]
+    for k, route in ((1, "l2"), (8, "l2"), (1, "block")):
+        cols = torch.as_tensor(np.full((2, m, 1), -1, dtype=np.int32))
+        vals = torch.zeros((2, m, 1), dtype=dtype)
+        diag = torch.ones((2, m), dtype=dtype)
+        shape = (2, m) + ((k,) if k > 1 else ())
+        r = torch.as_tensor(rng.standard_normal(shape)).to(dtype)
+        starts = torch.zeros((2, nlev + 1), dtype=torch.int32)
+        order = (torch.zeros((2, m), dtype=torch.int32), starts)
+        del scratch[:]
+        if route == "block" and m * k * zbytes > H100_SMEM:
+            with pytest.raises(ValueError, match="do not fit"):
+                sm.tri_solve(cols, vals, diag, r, r, upper=False, order=order,
+                             route=route)
+            continue
+        sm.tri_solve(cols, vals, diag, r, r, upper=False, order=order,
+                     route=None if route == "l2" else route)
+        assert planned[-1][:4] == (m, nlev, k, zbytes)
+        assert launched[-1][15:17] == (code, int(route == "block"))
+        # y, then (on the L2 route) the scratch z
+        assert [z.dtype for z in scratch] == (
+            [dtype, sm.z_dtype(dtype)] if route == "l2" else [dtype])
+    assert sm.z_dtype(torch.bfloat16) == torch.float32
+
+
 # The routes' times at each main-path level (lower triangle, ms): the block
 # route, the L2 route (None where a rank does not fit a block).  chip_smoke.py
 # on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
