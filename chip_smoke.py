@@ -36,7 +36,12 @@ version at the shapes its path gives it:
   in f32 and bf16, and ``recurrentgemma-9b`` (38 layers: RG-LRU blocks and
   local attention, 16 query heads on one KV head of 256 dims, 10.4 B
   parameters) in bf16, its prefill attention through ``flash_attention``'s
-  head-dim-256 instance.
+  head-dim-256 instance;
+- training in f32, ``make_step_fn`` (loss, autograd, AdamW) at full width:
+  qwen3-1.7b whole through ``launch/train.py``, xlstm-125m, and the MoE and
+  hybrid-recurrent archs cut in depth (mixtral-8x22b and
+  qwen3-moe-235b-a22b at 1 layer, recurrentgemma-9b at 5), each against
+  the same step in float64 on the card.
 
 Phases (any failure exits non-zero):
 
@@ -246,11 +251,23 @@ Phases (any failure exits non-zero):
    the loss falling on a periodic token file, seq 2048 with remat through
    ``chunked_attention``, the step against float64 at 2 layers, and
    xlstm-125m trained 3 steps;
-15. the grad-sync phase: ``hier_grad_sync`` (flat, nap3, nap3 + int8) over
+15. the training-families phase (``train_families_phase``; f32, TF32
+   off, full width, moments donated): mixtral-8x22b and qwen3-moe-235b-a22b
+   at 1 layer, recurrentgemma-9b at 5, each depth refused where its
+   training state (16 B a parameter, counted under ``FakeTensorMode``)
+   leaves too little of the card; timed steps at batch 8 x seq 256 (ms,
+   tokens/s, device ms, busy share, peak GiB, the MoE capacity-dropped
+   share), the loss falling on a periodic token file, and one step against
+   float64 (1 layer, 1 layer, 3 layers) with the float64 run's experts
+   forced to the float32 run's (the picks its own top-k would have moved
+   counted), loss, grad norm, m and v at ``F64_RTOL``; recurrentgemma-9b
+   also at batch 1 x seq 4096 with remat (its window of 2048 binds), and 3
+   layers of it there against float64;
+16. the grad-sync phase: ``hier_grad_sync`` (flat, nap3, nap3 + int8) over
    one qwen3-1.7b layer's gradient tree on the 2 x 4 stacked ranks and on 8
    gloo processes on this card, bit-equal, with the slow and fast groups'
    elements beside the model's figures;
-16. the dry-run phase (``scripts/dryrun_phase.py`` alone): ``ert_stream``
+17. the dry-run phase (``scripts/dryrun_phase.py`` alone): ``ert_stream``
    (16 FMAs an element) and ``ert_gather`` against their plain versions at
    2^26 elements in f32 and f64, then the roofline's measured ceilings
    (``launch/roofline.py:ert_sweep``, f32 and f64: the reference's working
@@ -265,11 +282,11 @@ Phases (any failure exits non-zero):
    the model's,
    collective and pod-crossing bytes, roofline terms at the documented and
    measured ceilings); under 150 s;
-17. one JSON line with every kernel's numbers (both flash kernels' instances
+18. one JSON line with every kernel's numbers (both flash kernels' instances
    at each head dim with their ptxas lines and cases; the ``wgmma`` kernel's
    own entry, its main path the bf16 serving runs; the ERT kernels', their
    main path the sweeps) and every phase's seconds;
-18. last line: ``{"ok": true, "device": {...}}``.
+19. last line: ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and refuses to run without one.
@@ -280,6 +297,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -477,6 +495,41 @@ RESUME_RTOL, MOMENT_RTOL = 1e-5, 1e-4
 # norm and the moments go through the backward's longer chains, 1e-4 of the
 # norm and of each leaf's max
 F64_RTOL = {"loss": 1e-5, "grad_norm": 1e-4, "m": 1e-4, "v": 1e-4}
+# the training-families phase: the MoE and hybrid-recurrent archs trained
+# at full width in f32 (TF32 off) through make_step_fn at the launcher's
+# batch 8 x seq 256, the moments donated (updated in place), each cut to
+# the depth named here: the MoE archs' 1 layer is the most one card holds
+# (2 layers' training state is 80.6 GiB for mixtral, 92.7 for qwen3-moe),
+# recurrentgemma-9b's 5 are one (rglru, rglru, attn) group and two
+# remainder layers.  :func:`train_fits` counts the state (16 B a
+# parameter: f32 weights, gradients, m and v) and the phase refuses a
+# depth whose state leaves less than TRAIN_HEADROOM_GIB of the card for
+# activations and temporaries (CARD_GIB where no card is asked): on an
+# H100 80GB the f32 steps peaked 4.2-7.9 GiB above their state, and the
+# float64 checks, whose weights and gradients are the same 16 B a
+# parameter, 13.2-15.7 GiB above it at 8 x 256.  FAMILY_TIMED steps on random tokens, timed as TRAIN_TIMED's;
+# PERIODIC_STEPS on the periodic file, whose loss must fall by LOSS_FALL
+FAMILY_RUNS = (("mixtral-8x22b", 1), ("qwen3-moe-235b-a22b", 1),
+               ("recurrentgemma-9b", 5))
+FAMILY_TIMED = 5
+TRAIN_BYTES_PER_PARAM, TRAIN_HEADROOM_GIB, CARD_GIB = 16, 16.0, 79.6
+# None of the reference's memory options (loss_chunk, remat, microbatches,
+# to be taken in that order) is needed at 8 x 256: the steps peak at
+# 47.5-60.3 GiB (the largest logits, recurrentgemma's 256,000-word
+# vocabulary, are 1.95 GiB in f32).  The float64 checks stream the loss
+# over FAMILY_F64_CHUNK positions a chunk on both sides (8 x 256 float64
+# logits are 2.3 GiB for qwen3-moe, 3.9 for recurrentgemma)
+FAMILY_F64_CHUNK = 64
+# the step against float64 (F64_RTOL, the routes of the float64 run forced
+# to the float32 run's): the MoE archs at their 1 layer, recurrentgemma-9b
+# at 3, its smallest depth with both block kinds
+FAMILY_F64_LAYERS = {"mixtral-8x22b": 1, "qwen3-moe-235b-a22b": 1,
+                     "recurrentgemma-9b": 3}
+# recurrentgemma-9b at batch 1 x seq 4096 with remat: its local window of
+# 2048 binds (chunked_attention's windowed backward) and RG-LRU's scan takes
+# 12 doubling passes; the loss streamed over 512-position chunks (4096 f32
+# logits are 3.9 GiB); then 3 layers of it against float64 without remat
+LONG_FAMILY_ARCH, LONG_FAMILY_SEQ, LONG_FAMILY_CHUNK = "recurrentgemma-9b", 4096, 512
 # one seq-LONG_SEQ step carried on from the periodic run's state with
 # chunked_attention and remat against the same step with the plain
 # attention: the two sum each softmax in another order (online over two
@@ -2721,6 +2774,406 @@ def train_phase() -> dict:
     return res
 
 
+def train_fits(cfg, card_gib: float = CARD_GIB) -> tuple[bool, float]:
+    """(whether ``cfg``'s training state leaves TRAIN_HEADROOM_GIB of a
+    ``card_gib`` card, the state's GiB): f32 weights, gradients, m and v,
+    TRAIN_BYTES_PER_PARAM a parameter, counted on an
+    ``init_lm(trainable=True)`` made under ``FakeTensorMode`` (no memory)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import init_lm
+
+    with FakeTensorMode():
+        model = init_lm(cfg, seed=SEED, dtype=torch.float32, device="cpu",
+                        trainable=True)
+        gib = sum(p.numel() for p in model.parameters()) * TRAIN_BYTES_PER_PARAM / 2**30
+    return gib + TRAIN_HEADROOM_GIB <= card_gib, gib
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Hand a stats dict to every ``moe_ffn_tp`` call the LM makes while the
+    block runs (``repro_torch.models.model``'s name for it); yields the
+    dict: (token, slot) selections (``"selected"``) and the ones the
+    capacity dropped (``"dropped"``, on the device)."""
+    import repro_torch.models.model as lm_model
+
+    stats: dict = {}
+    plain = lm_model.moe_ffn_tp
+
+    def counting(p, cfg, x, moe_stats=None):
+        return plain(p, cfg, x, stats)
+
+    lm_model.moe_ffn_tp = counting
+    try:
+        yield stats
+    finally:
+        lm_model.moe_ffn_tp = plain
+
+
+def dropped_share(stats: dict) -> float | None:
+    return (float(stats["dropped"]) / stats["selected"] if stats.get("selected")
+            else None)
+
+
+@contextlib.contextmanager
+def moe_routes(model, replay: dict | None = None):
+    """Record the experts each MoE layer of ``model`` picks while the block
+    runs (``repro_torch.models.moe._route`` wrapped: the selections ``sel``
+    [T, k] by router name), or, given ``replay`` (such a record), make each
+    layer take the recorded experts: its own router's probabilities at them,
+    renormalised, as :func:`moe_forced` takes them, the capacity then
+    applied in token order by ``moe_ffn_tp`` itself.  Yields the record
+    ``{"sel", "flips", "picks"}``: in a replay, ``flips`` counts the
+    (token, expert) picks the layer's own top-k would have made that the
+    record does not hold, out of ``picks``.  A layer routed again (remat's
+    recompute) keeps its first record and count."""
+    import repro_torch.models.moe as moe
+
+    names = {id(p): n for n, p in model.named_parameters()
+             if n.endswith(".router")}
+    plain = moe._route
+    rec = {"sel": {}, "flips": 0, "picks": 0}
+
+    def route(x2, router, top_k):
+        name = names[id(router)]
+        if replay is None:
+            probs, sel = plain(x2, router, top_k)
+        else:
+            sel = replay["sel"][name].to(x2.device)
+            full = torch.softmax(x2.float() @ router, dim=-1)
+            probs = full.gather(1, sel)
+            probs = probs / probs.sum(-1, keepdim=True).clamp_min(1e-9)
+            if name not in rec["sel"]:
+                own = torch.topk(full.detach(), top_k, dim=-1).indices
+                rec["flips"] += int((own[:, :, None] != sel[:, None, :]).all(-1).sum())
+                rec["picks"] += own.numel()
+        rec["sel"].setdefault(name, sel.detach().clone())
+        return probs, sel
+
+    moe._route = route
+    try:
+        yield rec
+    finally:
+        moe._route = plain
+
+
+def free_memory() -> None:
+    """Collect garbage (tensors held only by reference cycles) and return
+    the card's cached blocks: a full-width training state leaves little
+    of the card to an earlier phase's leftovers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def widened_model(cfg, device=DEVICE):
+    """``init_lm(cfg, seed=SEED)``'s float32 weights in a float64 model
+    (``init_lm(dtype=float64)``: the routers stay float32, as the port keeps
+    them in every type), widened exactly."""
+    from repro_torch.models import init_lm
+
+    m64 = init_lm(cfg, seed=SEED, dtype=torch.float64, device=device,
+                  trainable=True)
+    src = init_lm(cfg, seed=SEED, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        for (n, p), (n2, q) in zip(m64.named_parameters(), src.named_parameters()):
+            check(n == n2, f"widened_model: {n} against {n2}")
+            p.copy_(q)
+    return m64
+
+
+def f64_family_check(cfg, batch, remat: bool = False, loss_chunk: int | None = None,
+                     device=DEVICE) -> dict:
+    """One train step of ``cfg`` from ``init_lm(seed=SEED)``'s weights in
+    float32 against the same code in float64, one after the other (both
+    models and both moment sets do not fit the card at once): the float32
+    step (donated moments, ``remat`` and ``loss_chunk`` as given) records
+    its MoE routes and leaves its loss, grad norm, m and v on the host; the
+    float64 model (:func:`widened_model`) takes the float32 run's routes
+    (:func:`moe_routes`) and its loss and gradients through ``loss_fn``
+    without remat, ``global_norm`` and the clip; from zero moments one
+    AdamW step makes m = (1-b1)·ĝ and v = (1-b2)·ĝ² of the clipped gradient
+    ĝ, so each float64 leaf's m and v are made so, leaf by leaf, beside the
+    float32 step's own.  Held at F64_RTOL: loss, grad norm, and every m and
+    v leaf over its max; the routers' leaves (float32 in both models) are
+    also reported alone.  Past 1024 positions ``chunked_attention`` must
+    run in both."""
+    from repro_torch.models import init_lm
+    from repro_torch.models.model import layer_kind, loss_fn
+    from repro_torch.train import AdamWConfig, TrainOptions, init_opt_state, make_step_fn
+    from repro_torch.train.optimizer import global_norm
+
+    acfg = AdamWConfig()
+    seq = int(batch["targets"].shape[1])
+    t_start = time.perf_counter()
+    m32 = init_lm(cfg, seed=SEED, dtype=torch.float32, device=device, trainable=True)
+    opt = init_opt_state(dict(m32.named_parameters()))
+    step = make_step_fn(cfg, acfg, TrainOptions(remat=remat, loss_chunk=loss_chunk),
+                        donate=True)
+    _sync(device)
+    t0 = time.perf_counter()
+    with moe_routes(m32) as routes, counting_chunked() as calls:
+        _, opt, met = step(m32, opt, batch)
+    _sync(device)
+    ms32 = (time.perf_counter() - t0) * 1e3
+    l32, g32, c32 = float(met["loss"]), float(met["grad_norm"]), calls["chunked_attention"]
+    host = {k: {n: t.to("cpu") for n, t in opt[k].items()} for k in ("m", "v")}
+    del m32, opt, met, step
+    free_memory()
+
+    m64 = widened_model(cfg, device)
+    names, leaves = zip(*m64.named_parameters())
+    _sync(device)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with moe_routes(m64, replay=routes) as forced, counting_chunked() as calls:
+        loss = loss_fn(m64, cfg, batch, use_kernel=False, remat=False,
+                       loss_chunk=loss_chunk)
+        grads = dict(zip(names, torch.autograd.grad(loss, list(leaves))))
+    l64 = float(loss.detach())
+    del loss, m64, leaves       # the gradients stay, the weights (held by the graph too) go
+    gnorm = global_norm(grads)
+    scale = torch.clamp(acfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    _sync(device)
+    ms64 = (time.perf_counter() - t0) * 1e3
+    g64, c64 = float(gnorm), calls["chunked_attention"]
+    errs = {"loss": abs(l32 - l64) / abs(l64), "grad_norm": abs(g32 - g64) / g64,
+            "m": 0.0, "v": 0.0}
+    router = {"m": 0.0, "v": 0.0}
+
+    def absmax(t) -> float:
+        lo, hi = torch.aminmax(t)
+        return max(-float(lo), float(hi))
+
+    with torch.no_grad():
+        for n in names:         # three float64 temporaries the size of a leaf
+            g = grads.pop(n).to(torch.float64).mul_(scale.to(torch.float64))
+            for k, b in (("m", acfg.b1), ("v", acfg.b2)):
+                want = (1 - b) * g
+                if k == "v":
+                    want.mul_(g)
+                got = host[k].pop(n).to(device).double().sub_(want)
+                e = absmax(got) / (absmax(want) or 1.0)
+                errs[k] = max(errs[k], e)
+                if n.endswith(".router"):
+                    router[k] = max(router[k], e)
+                del got, want
+            del g
+    del grads
+    free_memory()
+    n_attn = sum(layer_kind(cfg, i) == "attn" for i in range(cfg.n_layers))
+    if seq > 1024 and n_attn:
+        check(c32 >= n_attn and c64 >= n_attn,
+              f"{cfg.name} f32 vs f64 at seq {seq}: chunked_attention ran {c32} / {c64} times")
+    res = {**errs, "router": router, "seq": seq, "batch": int(batch["targets"].shape[0]),
+           "layers": cfg.n_layers, "remat": remat, "loss_chunk": loss_chunk,
+           "loss_f32": l32, "loss_f64": l64, "grad_norm_f32": g32, "ms_f32": ms32,
+           "ms_f64": ms64, "chunked_attention_calls": [c32, c64],
+           "route_flips": forced["flips"], "route_picks": forced["picks"],
+           "peak_gb_f64": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+           "s": time.perf_counter() - t_start}
+    for k, e in errs.items():
+        check(e <= F64_RTOL[k], f"{cfg.name} train step f32 vs f64 at {cfg.n_layers} "
+              f"layers, seq {seq}: {k} {e:.3e} above {F64_RTOL[k]:g} (router m "
+              f"{router['m']:.3e}, v {router['v']:.3e})")
+    return res
+
+
+def family_long_step(cfg) -> dict:
+    """One step of ``cfg`` (recurrentgemma-9b at its training depth) at
+    batch 1 x LONG_FAMILY_SEQ with remat and the loss streamed over
+    LONG_FAMILY_CHUNK positions, on random tokens from a fresh model:
+    wall ms, peak GiB, the loss finite, ``chunked_attention`` run by every
+    attention layer in the forward and again in remat's recompute."""
+    from repro_torch.models import init_lm
+    from repro_torch.models.model import layer_kind
+    from repro_torch.train import (AdamWConfig, DataConfig, TokenPipeline,
+                                   TrainOptions, init_opt_state, make_step_fn)
+    from repro_torch.train.train_step import to_device
+
+    model = init_lm(cfg, seed=SEED, dtype=torch.float32, device=DEVICE, trainable=True)
+    opt = init_opt_state(dict(model.named_parameters()))
+    step = make_step_fn(cfg, AdamWConfig(warmup_steps=1, total_steps=1),
+                        TrainOptions(remat=True, loss_chunk=LONG_FAMILY_CHUNK),
+                        donate=True)
+    batch = to_device(TokenPipeline(DataConfig(
+        seq_len=LONG_FAMILY_SEQ, global_batch=1, vocab=cfg.vocab)).batch_at(0), DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counting_chunked() as calls:
+        _, opt, m = step(model, opt, batch)
+    loss = float(m["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    n_attn = sum(layer_kind(cfg, i) == "attn" for i in range(cfg.n_layers))
+    res = {"layers": cfg.n_layers, "batch": 1, "seq": LONG_FAMILY_SEQ, "ms": ms,
+           "loss": loss, "grad_norm": float(m["grad_norm"]),
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "chunked_attention_calls": calls["chunked_attention"]}
+    del model, opt, m
+    torch.cuda.empty_cache()
+    check(np.isfinite(loss) and calls["chunked_attention"] >= 2 * n_attn,
+          f"{cfg.name} seq {LONG_FAMILY_SEQ} with remat: loss {loss}, "
+          f"chunked_attention ran {calls['chunked_attention']} times "
+          f"({n_attn} attention layers, forward and recompute)")
+    return res
+
+
+def train_family(arch: str, layers: int, tmp: str) -> dict:
+    """``arch`` at full width cut to ``layers``, f32 on the card (see
+    :func:`train_families_phase`)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_lm
+    from repro_torch.train import (AdamWConfig, DataConfig, TokenPipeline,
+                                   TrainOptions, init_opt_state, make_step_fn)
+    from repro_torch.train.train_step import to_device
+
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    fits, state_gib = train_fits(cfg, card_gib)
+    check(fits, f"{arch} at {layers} layers: training state {state_gib:.1f} GiB "
+          f"+ {TRAIN_HEADROOM_GIB:g} GiB headroom above the card's {card_gib:.1f}")
+    opts = TrainOptions(remat=False)
+    res = {"arch": arch, "layers": layers, "d_model": cfg.d_model,
+           "state_gib": state_gib, "card_gib": card_gib}
+    log(f"train {arch} f32 at {layers} layer{'s' * (layers > 1)}, full width "
+        f"(training state {state_gib:.1f} GiB of the card's {card_gib:.1f}; no "
+        f"remat, microbatches or loss chunks; moments donated)")
+
+    def fresh():
+        free_memory()
+        model = init_lm(cfg, seed=SEED, dtype=torch.float32, device=DEVICE,
+                        trainable=True)
+        return model, init_opt_state(dict(model.named_parameters()))
+
+    # 1. timed steps on random tokens at the launcher's shape
+    pipe = TokenPipeline(DataConfig(seq_len=256, global_batch=8, vocab=cfg.vocab))
+    model, opt = fresh()
+    res["params"] = sum(p.numel() for p in model.parameters())
+    step = make_step_fn(cfg, AdamWConfig(warmup_steps=1, total_steps=FAMILY_TIMED),
+                        opts, donate=True)
+    with moe_drops() as drops:
+        res["timed"], opt, losses = timed_steps(step, model, opt, [
+            to_device(pipe.batch_at(i), DEVICE) for i in range(FAMILY_TIMED)])
+    check(np.isfinite(losses).all(), f"{arch} losses {losses}")
+    t = res["timed"]
+    t.update(losses=losses, dropped_share=dropped_share(drops))
+    log(f"  timed: {t['ms_per_step']:.1f} ms a step (median of {t['timed_steps']}; "
+        f"batch 8 x seq 256), {t['tokens_per_s']:.0f} tokens/s, device "
+        + (f"{t['device_ms_per_step']:.1f} ms a step, busy share {t['busy_share']:.3f}"
+           if t["device_ms_per_step"] is not None else "time not measured")
+        + f", peak {t['peak_gb']:.1f} GiB"
+        + (f", capacity dropped {t['dropped_share']:.4f} of the (token, slot) "
+           f"selections" if t["dropped_share"] is not None else "")
+        + f"; losses {[round(x, 4) for x in losses]}")
+    for kn, km, kc in t["top_device"]:
+        log(f"    {km:9.3f} ms {kc:6d}x  {kn}")
+    del model, opt, step
+
+    # 2. the loss falls on the periodic token file
+    model, opt = fresh()
+    ppipe = TokenPipeline(DataConfig(
+        seq_len=256, global_batch=8, vocab=cfg.vocab,
+        token_file=periodic_tokens(f"{tmp}/{arch}.bin", cfg.vocab)))
+    pstep = make_step_fn(cfg, AdamWConfig(warmup_steps=1, total_steps=PERIODIC_STEPS),
+                         opts, donate=True)
+    with moe_drops() as pdrops:
+        res["periodic"], opt, plosses = timed_steps(pstep, model, opt, [
+            to_device(ppipe.batch_at(i), DEVICE) for i in range(PERIODIC_STEPS)])
+    res["periodic"].update(losses=plosses, dropped_share=dropped_share(pdrops))
+    check(np.isfinite(plosses).all() and plosses[-1] < (1 - LOSS_FALL) * plosses[0],
+          f"{arch} periodic tokens: losses {plosses} do not fall by {LOSS_FALL:g} "
+          f"of the first")
+    log(f"  periodic token file (period {PERIOD}): losses "
+        f"{[round(x, 4) for x in plosses]}, {res['periodic']['ms_per_step']:.1f} ms a step"
+        + (f", capacity dropped {res['periodic']['dropped_share']:.4f}"
+           if res["periodic"]["dropped_share"] is not None else ""))
+    del model, opt, pstep
+    torch.cuda.empty_cache()
+
+    # 3. the step against float64 at FAMILY_F64_LAYERS, the routes forced alike
+    free_memory()
+    cfg64 = dataclasses.replace(cfg, n_layers=FAMILY_F64_LAYERS[arch])
+    res["f64"] = f64_family_check(cfg64, to_device(pipe.batch_at(0), DEVICE),
+                                  loss_chunk=FAMILY_F64_CHUNK)
+    log_f64(res["f64"])
+
+    # 4. recurrentgemma-9b at seq 4096 with remat, then against float64 there
+    if arch == LONG_FAMILY_ARCH:
+        res["long"] = family_long_step(cfg)
+        t = res["long"]
+        log(f"  batch 1 x seq {t['seq']} with remat: {t['ms']:.1f} ms (one step, cold), "
+            f"loss {t['loss']:.4f}, peak {t['peak_gb']:.1f} GiB, chunked_attention "
+            f"{t['chunked_attention_calls']} calls (forward and the remat recompute)")
+        lbatch = to_device(TokenPipeline(DataConfig(
+            seq_len=LONG_FAMILY_SEQ, global_batch=1, vocab=cfg.vocab)).batch_at(1), DEVICE)
+        res["f64_long"] = f64_family_check(cfg64, lbatch, remat=True,
+                                           loss_chunk=LONG_FAMILY_CHUNK)
+        log_f64(res["f64_long"])
+    res["s"] = time.perf_counter() - t_start
+    log(f"  {arch}: {res['s']:.1f} s")
+    return res
+
+
+def log_f64(r: dict) -> None:
+    log(f"  step f32{' (remat)' if r['remat'] else ''} vs f64 ({r['layers']} "
+        f"layer{'s' * (r['layers'] > 1)}, full width, batch {r['batch']} x seq "
+        f"{r['seq']}, loss chunk {r['loss_chunk']}): loss {r['loss']:.2e}, grad norm "
+        f"{r['grad_norm']:.2e}, m {r['m']:.2e}, v {r['v']:.2e}"
+        + (f" (router m {r['router']['m']:.2e}, v {r['router']['v']:.2e}; routes "
+           f"forced, the float64 run's own top-k would have moved {r['route_flips']} "
+           f"of {r['route_picks']} picks)" if r["route_picks"] else "")
+        + f" (loss {r['loss_f32']:.6f} / {r['loss_f64']:.6f}; {r['ms_f32']:.1f} / "
+        f"{r['ms_f64']:.1f} ms; chunked_attention {r['chunked_attention_calls'][0]} / "
+        f"{r['chunked_attention_calls'][1]} calls; float64 peak {r['peak_gb_f64']:.1f} GiB; "
+        f"{r['s']:.1f} s in all)")
+
+
+def train_families_phase() -> dict:
+    """The MoE and hybrid-recurrent archs trained on the card (f32, TF32
+    off, full width), each at the depth FAMILY_RUNS names, refused where
+    its training state (:func:`train_fits`) would not leave the headroom:
+
+    1. FAMILY_TIMED steps of random tokens at batch 8 x seq 256
+       (:func:`timed_steps`: ms, tokens/s, device ms, busy share, peak GiB),
+       with the MoE archs' capacity-dropped share of (token, slot)
+       selections (:func:`moe_drops`);
+    2. PERIODIC_STEPS on a periodic token file from a fresh model: the loss
+       falls by LOSS_FALL of its first;
+    3. one step against float64 at FAMILY_F64_LAYERS
+       (:func:`f64_family_check`, F64_RTOL; the float64 run takes the
+       float32 run's experts, and the picks its own top-k would have moved
+       are counted);
+    4. recurrentgemma-9b: one step at batch 1 x seq 4096 with remat
+       (:func:`family_long_step`), and 3 layers of it at that shape with
+       remat against float64 without, ``chunked_attention`` counted.
+
+    The AMG phases' cached sessions (``AMGSolver``'s module-level stores)
+    are dropped first, and each model is freed before the next.  Returns
+    the runs' numbers."""
+    from repro_torch.amg.api.sessions import clear_sessions
+
+    held = torch.cuda.memory_allocated() / 2**30
+    clear_sessions()            # the AMG phases' cached sessions and setups
+    free_memory()
+    res = {"gib_held_before": [held, torch.cuda.memory_allocated() / 2**30]}
+    log(f"training families: {held:.2f} GiB held by earlier phases, "
+        f"{res['gib_held_before'][1]:.2f} after the AMG session stores are "
+        f"cleared and garbage is collected")
+    with tempfile.TemporaryDirectory(prefix="families-") as tmp:
+        for arch, layers in FAMILY_RUNS:
+            res[arch] = train_family(arch, layers, tmp)
+    return res
+
+
 def grad_tree(cfg, rank: int) -> dict:
     """Rank ``rank``'s gradients for one layer of ``cfg`` (its shapes,
     float32 on the card): small integers over 2^10 from a generator seeded
@@ -4547,20 +5000,28 @@ def main() -> int:
     log(f"training phase: {train['phase_s']:.1f} s in all")
     lap("training")
 
-    # 15. the node-aware gradient sync, stacked and over gloo ranks
+    # 15. the MoE and hybrid-recurrent archs trained at full width, cut in
+    # depth, each against float64
+    t0 = time.perf_counter()
+    families = train_families_phase()
+    families["phase_s"] = time.perf_counter() - t0
+    log(f"training-families phase: {families['phase_s']:.1f} s in all")
+    lap("training families")
+
+    # 16. the node-aware gradient sync, stacked and over gloo ranks
     t0 = time.perf_counter()
     grad_sync = grad_sync_phase()
     grad_sync["phase_s"] = time.perf_counter() - t0
     log(f"grad-sync phase: {grad_sync['phase_s']:.1f} s in all")
     lap("grad sync")
 
-    # 16. the dry-run: ERT ceilings, the AMG cell, the full-width cells and
+    # 17. the dry-run: ERT ceilings, the AMG cell, the full-width cells and
     # a real sharded step
     dry, ert_entries = dryrun_phase(smi)
     log(f"dry-run phase: {dry['phase_s']:.1f} s in all")
     lap("dry-run")
 
-    # 16. the kernels line: top-level numbers are the main path's case
+    # 18. the kernels line: top-level numbers are the main path's case
     # (sparse kernels: the first float64 case on its operands, BCSR at its
     # block size with one RHS; flash: float32 at the prefill shape, the
     # wgmma kernel bf16 at recurrentgemma-9b's prefill shape); every dtype /
@@ -4650,13 +5111,13 @@ def main() -> int:
                                                     "f32": c_f32}},
                       "lm": f32, "lm_bf16": bf16, "moe": moe,
                       "recurrent": recurrent, "embed": embed, "train": train,
-                      "grad_sync": grad_sync, "dryrun": dry,
+                      "train_families": families, "grad_sync": grad_sync, "dryrun": dry,
                       "phase_s": phase_s}),
           flush=True)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; {sum(phase_s.values()):.1f} s in all")
     log(smi)
-    # 17. result
+    # 19. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -106,12 +106,19 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
-                 decay: dict[str, bool] | None = None):
+                 decay: dict[str, bool] | None = None, donate: bool = False):
     """One AdamW step.  ``params`` are updated in place (the reference
     returns new arrays); ``decay`` says which parameters decay (default:
     the reference's ``ndim >= 2`` on each tensor's own shape; an LM's
     parameters need :func:`decay_mask`).  Returns (params, new state,
     ``{"grad_norm", "lr"}``).
+
+    ``donate``: the reference's buffer donation (``build_train_step``'s
+    ``donate_argnums``).  The moments are updated in place, so ``state``
+    is the new state and the old one is gone, and each gradient leaf is
+    taken out of ``grads`` as it is used, so the step holds at most two
+    temporaries the size of a leaf.  The arithmetic is the same either
+    way, rounding for rounding.
 
     DTensor leaves: each parameter is updated where its moments live (the
     gradient and the parameter redistributed to the moments' placements: a
@@ -130,22 +137,32 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
         for name, p in params.items():
             m, v = state["m"][name], state["v"][name]
             pw = p.to(torch.promote_types(wide(p).dtype, m.dtype))
-            g = grads[name]
+            g = grads.pop(name) if donate else grads[name]
             if isinstance(m, DTensor):     # where the moments live
                 pw = pw.redistribute(m.device_mesh, m.placements)
                 g = g.redistribute(m.device_mesh, m.placements)
-            g = g.to(pw.dtype) * scale.to(pw.dtype)
-            m32 = cfg.b1 * m.to(pw.dtype) + (1 - cfg.b1) * g
-            v32 = cfg.b2 * v.to(pw.dtype) + (1 - cfg.b2) * g * g
-            step = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
-            decays = p.ndim >= 2 if decay is None else decay[name]
-            if decays:
-                step = step + cfg.weight_decay * pw
-            new_p = (pw - lr * step).to(p.dtype)
-            if isinstance(new_p, DTensor):
-                new_p = new_p.redistribute(p.device_mesh, p.placements)
-            p.copy_(new_p)
-            new_m[name], new_v[name] = m32.to(m.dtype), v32.to(v.dtype)
+            # each operation in place where its operand is not read again:
+            # a donated gradient and donated moments are such operands
+            g = g.to(pw.dtype)
+            g = g.mul_(scale.to(pw.dtype)) if donate else g * scale.to(pw.dtype)
+            m32 = m.to(pw.dtype, copy=not donate).mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            gg = (1 - cfg.b2) * g
+            v32 = v.to(pw.dtype, copy=not donate).mul_(cfg.b2).add_(gg.mul_(g))
+            del g, gg
+            den = (v32 / c2).sqrt_().add_(cfg.eps)
+            step = (m32 / c1).div_(den)
+            del den
+            if p.ndim >= 2 if decay is None else decay[name]:
+                step.add_(cfg.weight_decay * pw)
+            new_p = pw.sub_(step.mul_(lr))
+            del step
+            if new_p is not p:
+                new_p = new_p.to(p.dtype)
+                if isinstance(new_p, DTensor):
+                    new_p = new_p.redistribute(p.device_mesh, p.placements)
+                p.copy_(new_p)
+            new_m[name] = m.copy_(m32) if donate and m32 is not m else m32.to(m.dtype)
+            new_v[name] = v.copy_(v32) if donate and v32 is not v else v32.to(v.dtype)
     new_state = {"m": new_m, "v": new_v,
                  "count": torch.tensor(count, dtype=torch.int32)}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -83,12 +83,19 @@ def _to(t, placements):
 
 
 def make_step_fn(cfg, acfg: AdamWConfig, opts: TrainOptions,
-                 grad_spec_tree=None):
+                 grad_spec_tree=None, donate: bool = False):
     """The step function ``step(model, opt_state, batch) -> (model,
     opt_state, {"loss", "grad_norm", "lr"})``: ``model`` a trainable
     :class:`~repro_torch.models.model.LM` (updated in place), ``batch``
     tensors on its device.  With ``microbatches > 1`` the batch splits on
     dim 0 and the gradients add up in float32 before the mean.
+
+    ``donate``: ``opt_state`` is donated, as the reference's jitted step
+    donates it (:func:`~repro_torch.train.optimizer.adamw_update` with
+    ``donate``): its moments become the returned ones, updated in place,
+    and each gradient is freed as the update consumes it.  The old moments
+    and a second copy of them are never held at once, which a model whose
+    training state fills most of the card needs.
 
     On DTensor parameters each gradient is redistributed as it is made:
     with ``zero2`` to ``grad_spec_tree[name]`` (placements: the moments'
@@ -146,7 +153,7 @@ def make_step_fn(cfg, acfg: AdamWConfig, opts: TrainOptions,
             loss = loss / mb
         grads = dict(zip(names, grads))
         _, opt_state, om = adamw_update(acfg, params, grads, opt_state,
-                                        masks["decay"])
+                                        masks["decay"], donate=donate)
         return model, opt_state, {"loss": loss.detach(), **om}
 
     return step

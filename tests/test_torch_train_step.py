@@ -20,6 +20,9 @@ float32, the same parameters carried over by ``lm_params_from_arrays``:
   recurrentgemma at 5 layers (one group of 3, 2 remainder layers);
 - microbatches 2 against 1, remat against none, ``loss_chunk`` against the
   full loss (the port against itself: 1e-6 for loss, 1e-5 of max for m);
+  an MoE arch's microbatches against the reference's step with the same
+  microbatches (each routes with its own capacity), at the same bars; the
+  donated step (moments updated in place) bit-equal to the plain one;
 - the refusal of ``use_kernel=True`` (the kernel has no backward), and a
   ZeRO-2 step through ``build_train_step(mesh=)`` on 8 gloo ranks against
   the one-device step (:func:`assert_step_matches`: loss and grad_norm at
@@ -193,14 +196,27 @@ def _one_step(model, cfg, batch, **opts):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "xlstm-125m",
-                                  "phi-3-vision-4.2b"])
+                                  "phi-3-vision-4.2b", "mixtral-8x22b",
+                                  "qwen3-moe-235b-a22b", "recurrentgemma-9b"])
 @pytest.mark.parametrize("variant", [dict(microbatches=2), dict(remat=True),
                                      dict(loss_chunk=4)])
 def test_step_variants_equal_the_plain_step(arch, variant):
-    _, cfg, jparams, model = _setup(arch)
+    jcfg, cfg, jparams, model = _setup(arch)
     state = {k: v.clone() for k, v in model.state_dict().items()}
     batch = _batch(cfg, np.random.default_rng(2), B=4)
-    base_loss, base = _one_step(model, cfg, batch, remat=False)
+    if cfg.is_moe and variant.get("microbatches", 1) > 1:
+        # each microbatch routes with its own capacity (from its T / mb
+        # tokens), as the reference's scan over microbatches does, so a
+        # token the whole batch drops may be kept in a split: the step to
+        # equal is the reference's own with the same microbatches
+        jnew, jopt, jm = jax.jit(jmake_step_fn(
+            jcfg, JAdamWConfig(**ADAMW), JTrainOptions(remat=False, **variant)))(
+            jparams, jinit_opt(jparams), jax.tree.map(jnp.asarray, batch))
+        base_loss = float(jm["loss"])
+        base = {k: lm_params_from_arrays(cfg, jax.tree.map(np.asarray, jopt[k]))
+                for k in ("m", "v")}
+    else:
+        base_loss, base = _one_step(model, cfg, batch, remat=False)
     model.load_state_dict(state)
     loss, opt = _one_step(model, cfg, batch, **{"remat": False, **variant})
     assert abs(loss - base_loss) <= 1e-6 * abs(base_loss)
@@ -209,6 +225,39 @@ def test_step_variants_equal_the_plain_step(arch, variant):
             want = base[key][name]
             assert float((t - want).abs().max()) <= \
                 1e-5 * float(want.abs().max()), (key, name)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mixtral-8x22b",
+                                  "recurrentgemma-9b"])
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+def test_donated_step_is_the_plain_step_bit_for_bit(arch, moments):
+    """``make_step_fn(donate=True)`` over three steps: the same loss, grad
+    norm, parameters and moments, bit for bit, the moments updated in the
+    very tensors passed in (bfloat16 ones too: the update runs in float32
+    and is copied back)."""
+    _, cfg, _, model = _setup(arch)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(5)
+    batches = [_tensors(_batch(cfg, rng)) for _ in range(3)]
+    runs = []
+    for donate in (False, True):
+        model.load_state_dict(state)
+        opt = init_opt_state(dict(model.named_parameters()), moment_dtype=moments)
+        given = opt["m"]["final_norm.scale"]
+        step = make_step_fn(cfg, AdamWConfig(**ADAMW), TrainOptions(remat=False),
+                            donate=donate)
+        for batch in batches:
+            model, opt, m = step(model, opt, batch)
+        assert (opt["m"]["final_norm.scale"] is given) == donate
+        runs.append((m, {n: p.detach().clone() for n, p in model.named_parameters()},
+                     opt))
+    (ma, pa, oa), (mb, pb, ob) = runs
+    assert float(ma["loss"]) == float(mb["loss"])
+    assert float(ma["grad_norm"]) == float(mb["grad_norm"])
+    for n in pa:
+        assert torch.equal(pa[n], pb[n]), n
+        for k in ("m", "v"):
+            assert torch.equal(oa[k][n], ob[k][n]), (k, n)
 
 
 def test_masked_loss_matches_reference():
