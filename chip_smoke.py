@@ -425,6 +425,9 @@ BF16_TOL = 1e-5
 BF16_X_BAR = 2.0**-5
 BF16_WARM = 5
 BF16_ABS = 2.0**-16
+L2_FLUSH_BYTES = 256 << 20   # read between cold launches: 5x the 50 MB L2
+COLD_SAMPLES = 25
+BF16_SIDE_SAMPLES = 5         # bursts timing the plain and library calls off level-0 A_on
 # the bfloat16 session tests' bar on |log(r_i / r_i^ref)| (twice the
 # reference's own bf16-against-f32 gap): the process ranks' bf16 PCG against
 # the stacked one, where they are not bit-equal
@@ -584,6 +587,29 @@ def time_ms(fn, samples: int = SAMPLES) -> tuple[float, float]:
     return float(np.median(dev)), float(np.median(host))
 
 
+def time_cold_ms(fn, samples: int = COLD_SAMPLES) -> float:
+    """Device ms of one call of ``fn()`` that finds the L2 cold: the median
+    over ``samples`` calls, each alone between CUDA events behind a read
+    of L2_FLUSH_BYTES (a read, so that the L2 holds no dirty lines for the
+    call to write back; it keeps the card busy while the call is
+    queued)."""
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end))
+    del flush
+    return float(np.median(ts))
+
+
 def ell_to_csr(cols: torch.Tensor, vals: torch.Tensor, m: int) -> torch.Tensor:
     """The rank-stacked ELL operator as one block-diagonal CSR tensor
     ``[D·n, D·m]`` (stored entries only), for ``torch.sparse.mm``."""
@@ -619,11 +645,12 @@ def bcsr_to_csr(bcols: torch.Tensor, bvals: torch.Tensor, m: int,
 
 def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
                 library_name="torch.sparse.mm", rel_err=None, peak=None,
-                plain_samples=SAMPLES, timed=None):
+                plain_samples=SAMPLES, timed=None, library_samples=SAMPLES):
     """Run one kernel against its plain version; time all three (the
     library call only where ``library`` is given; the plain version over
-    ``plain_samples`` bursts; ``timed``: a row of the same inputs whose
-    plain and library times to reuse).  The error is max|kernel - plain| over
+    ``plain_samples`` bursts, the library call over ``library_samples``;
+    ``timed``: a row of the same inputs whose plain and library times to
+    reuse).  The error is max|kernel - plain| over
     max|plain|, or ``rel_err(kernel, plain)`` where given; the flop bound is
     taken at ``peak`` FLOP/s, by default the card's highest dense rate for
     the type."""
@@ -647,7 +674,7 @@ def kernel_case(name, fn, plain, library, args, nbytes, flops, rtol=None,
            "plain_ms": (timed["plain_ms"] if timed else
                         time_ms(lambda: plain(*args), plain_samples)[0]),
            "library_ms": (timed["library_ms"] if timed else None
-                          if library is None else time_ms(library)[0]),
+                          if library is None else time_ms(library, library_samples)[0]),
            "bound_ms": bound_s * 1e3,
            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                         >= flops / peak else "operations")}
@@ -731,10 +758,14 @@ def operand_launches(bound, b, kernel: str = "ell_spmv") -> tuple[dict[str, int]
     return per_solve, res.iterations
 
 
-def ell_case(label, cols, vals, m, rng, launches=None, k=None):
+def ell_case(label, cols, vals, m, rng, launches=None, k=None, cold=False):
     """``ell_spmv`` (``k`` None) or ``ell_spmm`` with ``k`` right-hand sides
-    at one operand, with ``torch.sparse.mm`` on its CSR."""
-    from repro_torch.kernels.spmv import ref
+    at one operand, with ``torch.sparse.mm`` on its CSR.  bfloat16: at the
+    card bar (:func:`bf16_bar`), the design the launch's shape rule takes
+    (``bf16_order.bulk``) recorded, the plain and library calls timed over
+    BF16_SIDE_SAMPLES bursts off level 0's A_on; ``cold``: also the
+    kernel's time with the L2 flushed before each call."""
+    from repro_torch.kernels.spmv import bf16_order, ref
     from repro_torch.kernels.spmv import spmv as ks
 
     dev, dt = vals.device, vals.dtype
@@ -747,15 +778,49 @@ def ell_case(label, cols, vals, m, rng, launches=None, k=None):
     xf = x.reshape(D * m, -1)
     kk = k or 1
     name = "ell_spmm" if k else "ell_spmv"
+    fn, plain, args = getattr(ks, name), getattr(ref, f"{name}_ref"), (cols, vals, x)
+    extra, library, err = {}, (lambda: torch.sparse.mm(csr, xf)), None
+    if dt == torch.bfloat16:
+        library, err = bf16_library(csr, xf)
+        side = SAMPLES if label == "L0 A_on" else BF16_SIDE_SAMPLES
+        # float32 products and sums: the FMA rate bounds the operations
+        extra = dict(rtol=1.0, rel_err=bf16_rel(plain, args),
+                     peak=PEAK_FLOPS[torch.float32], plain_samples=side,
+                     library_samples=side)
     # bytes: every slot's column id, the values of stored entries only
-    # (the kernels never load a padded slot's value), x and y once
-    row = kernel_case(f"{name} {label}" + (f" k{k}" if k else ""),
-                      getattr(ks, name), getattr(ref, f"{name}_ref"),
-                      lambda: torch.sparse.mm(csr, xf), (cols, vals, x),
-                      D * n * K * 4 + nnz * s + D * (m + n) * kk * s, 2 * nnz * kk)
+    # (the float32 / float64 kernels never load a padded slot's value), x
+    # and y once
+    row = kernel_case(f"{name} {label}" + (f" k{k}" if k else ""), fn, plain,
+                      library, args,
+                      D * n * K * 4 + nnz * s + D * (m + n) * kk * s, 2 * nnz * kk,
+                      **extra)
     row.update(k=kk, operand=label, main_path=label == "L0 A_on",
                fill=nnz / max(D * n * K, 1), launches_per_solve=launches)
+    if dt == torch.bfloat16:
+        row.update(library_error=err,
+                   design="bulk" if bf16_order.bulk(name, D * n, K) else "flat",
+                   col_id_share=D * n * K * 4 / (D * n * K * 4 + nnz * 2
+                                                 + D * (m + n) * kk * 2))
+    if cold:
+        row["cold_ms"] = time_cold_ms(lambda: fn(*args))
+        log(f"    L2 flushed before each call: {row['cold_ms']:.4f} ms")
     return row
+
+
+def ell_sums(rows: list, solve: str, kname: str) -> dict:
+    """Over one solve's operands (the rows with launches): the sums of
+    launches x (ms - bound ms) and of launches x ms."""
+    shapes = [r for r in rows if r["launches_per_solve"]]
+    sums = {"excess_ms_per_solve": sum(r["launches_per_solve"] * (r["ms"] - r["bound_ms"])
+                                       for r in shapes),
+            "launch_ms_per_solve": sum(r["launches_per_solve"] * r["ms"] for r in shapes),
+            "launches_per_solve": sum(r["launches_per_solve"] for r in shapes),
+            "operands": len(shapes)}
+    log(f"  {kname} over the {solve} solve's {sums['operands']} operands, "
+        f"{sums['launches_per_solve']} launches per solve: sum of launches x "
+        f"(ms - bound ms) = {sums['excess_ms_per_solve']:.4f} ms, of launches x ms "
+        f"= {sums['launch_ms_per_solve']:.4f} ms per solve")
+    return sums
 
 
 def kernel_phase(dh64, dh32, per_solve: dict[str, dict[str, int]]) -> tuple[dict, dict]:
@@ -815,18 +880,8 @@ def kernel_phase(dh64, dh32, per_solve: dict[str, dict[str, int]]) -> tuple[dict
                                main_path=bs == dl.A.block_size, stored_nnz=bnnz)
                     out["bcsr_spmm"].append(row)
     check(out["bcsr_spmm"], "no level of the main path lowered to BCSR")
-    sums = {}
-    for kname, solve in (("ell_spmv", "f64"), ("ell_spmm", f"f64 k = {K_RHS}")):
-        shapes = [r for r in out[kname] if r["launches_per_solve"]]    # f64
-        sums[kname] = {
-            "excess_ms_per_solve": sum(r["launches_per_solve"] * (r["ms"] - r["bound_ms"])
-                                       for r in shapes),
-            "launch_ms_per_solve": sum(r["launches_per_solve"] * r["ms"] for r in shapes)}
-        log(f"  {kname} over the {solve} solve's {len(shapes)} operands, "
-            f"{sum(r['launches_per_solve'] for r in shapes)} launches per solve: "
-            f"sum of launches x (ms - bound ms) = "
-            f"{sums[kname]['excess_ms_per_solve']:.4f} ms, of launches x ms = "
-            f"{sums[kname]['launch_ms_per_solve']:.4f} ms per solve")
+    sums = {kname: ell_sums(out[kname], solve, kname)            # f64 rows
+            for kname, solve in (("ell_spmv", "f64"), ("ell_spmm", f"f64 k = {K_RHS}"))}
     return out, sums
 
 
@@ -3504,40 +3559,28 @@ def bf16_library(csr, xf):
     return (lambda: torch.sparse.mm(csr, xf)), None
 
 
-def bf16_kernel_rows(dh16, rng) -> dict[str, list]:
+def bf16_kernel_rows(dh16, rng, per_solve: dict[str, dict[str, int]]) -> tuple[dict, dict]:
     """The three sparse kernels in bfloat16 at the bfloat16 lowering's own
-    operands: ``ell_spmv`` and ``ell_spmm`` (k = K_RHS) at level 0's
-    ``A_on``, ``bcsr_spmm`` at each BCSR level's on-process block (k = 1
-    and K_RHS), each against its plain version at the card bar."""
+    operands, each against its plain version at the card bar:
+    ``ell_spmv`` at every operand the bfloat16 PCG launches and ``ell_spmm``
+    (k = K_RHS) at every operand the k = K_RHS solve launches (``per_solve``,
+    by kernel; level 0's A_on also with the L2 flushed), ``bcsr_spmm`` at
+    each BCSR level's on-process block (k = 1 and K_RHS).  Returns the rows
+    by kernel and, for the two ELL kernels, the sums over one solve of
+    launches x (ms - bound ms) and of launches x ms."""
     from repro_torch.kernels.spmv import bcsr as kb
     from repro_torch.kernels.spmv import ref
-    from repro_torch.kernels.spmv import spmv as ks
 
     out: dict[str, list] = {n: [] for n in SPMV_KERNELS}
     dev, dt = dh16.device, dh16.dtype
-    cols, vals, m = ell_operands(dh16)["L0 A_on"]
-    D, n, K = cols.shape
-    nnz = int((cols >= 0).sum())
-    csr = ell_to_csr(cols, vals, m)
-    for name, k in (("ell_spmv", None), ("ell_spmm", K_RHS)):
-        x = torch.as_tensor(rng.standard_normal((D, m) + ((k,) if k else ())),
-                            dtype=dt, device=dev)
-        kk = k or 1
-        library, err = bf16_library(csr, x.reshape(D * m, -1))
-        plain = getattr(ref, f"{name}_ref")
-        args = (cols, vals, x)
-        # bytes: every slot's int32 column id, the stored bfloat16 values,
-        # x and y once; the products and sums are float32 FMAs
-        row = kernel_case(f"{name} L0 A_on" + (f" k{k}" if k else ""),
-                          getattr(ks, name), plain, library, args,
-                          D * n * K * 4 + nnz * 2 + D * (m + n) * kk * 2,
-                          2 * nnz * kk, rtol=1.0, rel_err=bf16_rel(plain, args),
-                          peak=PEAK_FLOPS[torch.float32])
-        row.update(k=kk, operand="L0 A_on", main_path=True, library_error=err,
-                   fill=nnz / max(D * n * K, 1),
-                   col_id_share=D * n * K * 4 / (D * n * K * 4 + nnz * 2
-                                                 + D * (m + n) * kk * 2))
-        out[name].append(row)
+    for name, (cols, vals, m) in ell_operands(dh16).items():
+        for kname, k in (("ell_spmv", None), ("ell_spmm", K_RHS)):
+            launches = per_solve[kname].get(name)
+            if name == "L0 A_on" or launches:
+                out[kname].append(ell_case(name, cols, vals, m, rng, launches, k,
+                                           cold=name == "L0 A_on"))
+    sums = {kname: ell_sums(out[kname], solve, kname)
+            for kname, solve in (("ell_spmv", "bf16"), ("ell_spmm", f"bf16 k = {K_RHS}"))}
     for l, (dl, a) in enumerate(zip(dh16.levels, dh16._arrs)):
         if dl.A.local_kernel != "bcsr":
             continue
@@ -3565,14 +3608,16 @@ def bf16_kernel_rows(dh16, rng) -> dict[str, list]:
                        library_error=err)
             out["bcsr_spmm"].append(row)
     check(out["bcsr_spmm"], "no level of the bfloat16 lowering is BCSR")
-    return out
+    return out, sums
 
 
 def bf16_phase(cfg64, A, b, B, res64, resm64, c64) -> tuple:
     """The bfloat16 session on the host setup the f64 one shares: its
-    lowering, the three kernels in bfloat16 at its operands, PCG through
-    its graphs, and a k = K_RHS solve through ``AMGService``.  Returns the
-    kernel rows, the launches of its counted runs, its numbers, the session
+    lowering, PCG through its graphs, a k = K_RHS solve through
+    ``AMGService``, then the ELL kernels' launches by operand in a bfloat16
+    PCG and a k = K_RHS solve and the three kernels in bfloat16 at its
+    operands (:func:`bf16_kernel_rows`).  Returns the kernel rows, the
+    launches of its counted runs, its numbers, the session
     (a store of its own; :func:`bf16_block_phase` runs the block smoothers
     on its lowering and then releases it) and its PCG result."""
     from repro_torch.amg import AMGService, AMGSolver
@@ -3586,7 +3631,6 @@ def bf16_phase(cfg64, A, b, B, res64, resm64, c64) -> tuple:
     check(dh16.dtype == torch.bfloat16, f"bf16 lowering is {dh16.dtype}")
     log(f"bf16: lowering {t_lower:.2f} s (the f64 session's host setup), "
         f"layouts {[r['kernel'] + (str(r['block_size']) if r['block_size'] else '') for r in dh16.kernel_table()]}")
-    rows = bf16_kernel_rows(dh16, np.random.default_rng(SEED + 5))
     res, c16 = counted(lambda: bound16.pcg(b))
     check(res.converged, f"bf16 PCG did not converge: {res.residuals[-3:]}")
     progs = [p for p in dh16.programs.values() if p.key.k is None]
@@ -3650,6 +3694,20 @@ def bf16_phase(cfg64, A, b, B, res64, resm64, c64) -> tuple:
     check(worst <= BF16_X_BAR, f"bf16 service x is {worst:.3e} from f64's")
     log(f"bf16 service: {K_RHS} requests in one chunk of {K_RHS}, worst "
         f"|x - x_f64| / |x_f64| {worst:.3e}, launches {csvc}")
+    # the ELL kernels' launches by operand in a bfloat16 PCG and a k = K_RHS
+    # solve (each captured afresh), then every kernel at those operands
+    per16 = {}
+    for kname, rhs in (("ell_spmv", b), ("ell_spmm", B)):
+        per16[kname], iters16 = operand_launches(bound16, rhs, kname)
+        check(iters16 == res.iterations, f"the counted bf16 {kname} solve took "
+              f"{iters16} iterations, the PCG {res.iterations}")
+        log(f"bf16 {kname} launches of one solve of {list(rhs.shape)} by operand: "
+            + ", ".join(f"{k} {v}" for k, v in per16[kname].items()))
+    check(sum(per16["ell_spmv"].values()) == c16["ell_spmv"],
+          f"bf16 ell_spmv launches by operand {per16['ell_spmv']}, the PCG's {c16}")
+    log(f"bf16 kernels (device time per call: CUDA events, median of {SAMPLES} "
+        f"bursts of {BURST}; plain and library off level-0 A_on {BF16_SIDE_SAMPLES}):")
+    rows, sums16 = bf16_kernel_rows(dh16, np.random.default_rng(SEED + 5), per16)
     info = {"lowering_s": t_lower, "iterations": res.iterations,
             "ms_per_iteration": ms_iter, "ms_per_iteration_runs": walls,
             "device_ms_per_iteration": dev_ms / max(warm.iterations, 1)
@@ -3657,7 +3715,8 @@ def bf16_phase(cfg64, A, b, B, res64, resm64, c64) -> tuple:
             "true_residual": true_rel, "x_rel_diff_f64": xdiff,
             "launches": c16, "launches_per_call": per_iter,
             "service_worst_x_rel_diff": worst, "service_launches": csvc,
-            "top_device": [[kn[:100], km, kc] for kn, (km, kc) in top]}
+            "top_device": [[kn[:100], km, kc] for kn, (km, kc) in top],
+            "ell_launches_per_solve": per16, "ell_sums": sums16}
     launches = {k: c16[k] + csvc[k] for k in SPMV_KERNELS}
     del svc
     return rows, launches, info, bound16, res
@@ -4514,6 +4573,19 @@ def process_bf16(outs, res16, x64) -> dict:
             "launches": o0["launches"]}
 
 
+def ell_bf16_top(rows: list, amg_bf16: dict, name: str) -> dict:
+    """An ELL kernel's bfloat16 numbers for the kernels line: level 0's A_on
+    (back to back and with the L2 flushed) and the sums over the bfloat16
+    solve's operands."""
+    top = next(r for r in rows if r["dtype"] == "bfloat16" and r["operand"] == "L0 A_on")
+    return {"operand": "L0 A_on", "design": top["design"], "ms": top["ms"],
+            "cold_ms": top["cold_ms"], "bound_ms": top["bound_ms"],
+            "plain_ms": top["plain_ms"], "library_ms": top["library_ms"],
+            "max_abs_err": top["max_abs_err"], "bar_ratio": top["rel_err"],
+            "launches_per_solve": amg_bf16["ell_launches_per_solve"][name],
+            **amg_bf16["ell_sums"][name]}
+
+
 def smoother_bf16_top(rows: list, bf16: dict, name: str) -> dict:
     """A block-smoother kernel's bfloat16 main-path case for the kernels
     line (level 0, k = 1, the route the rule takes): its times, bounds,
@@ -4741,7 +4813,7 @@ def main() -> int:
     per = build()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in per.items()) or 'cached'})")
-    ptxas = {k: build_report(k) for k in (*FLASH_KERNELS, "ell_spmm",
+    ptxas = {k: build_report(k) for k in (*FLASH_KERNELS, "ell_spmv", "ell_spmm",
                                           *SMOOTHER_KERNELS)}
     for k, insts in ptxas.items():
         for inst, used in insts:
@@ -5069,7 +5141,9 @@ def main() -> int:
                {"launches_per_path": {
                    "solve": launches[k], "solve_bf16": c_bf16[k],
                    "partitioned_setup": partitioned["launches"][k]
-                   + partitioned["launches_multi"][k]}}),
+                   + partitioned["launches_multi"][k]},
+                **({"bf16": ell_bf16_top(rows[k], amg_bf16, k)}
+                   if k in amg_bf16["ell_sums"] else {})}),
             **({"ptxas": ptxas[k]} if k in ptxas else {}),
             "variants": rows[k]})
     kernels.extend(ert_entries)

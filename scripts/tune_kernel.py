@@ -17,11 +17,14 @@ median of 25, as ``chip_smoke.py`` times), in the order SRC..., kernel,
 kernel, ...SRC; each version reports the mean of its two times.  The cases:
 
 - ``ell_spmv``: on the AMG path of ``laplace_3d(SIZE)`` over 2 x 4 ranks,
-  every operand the f64 solve launches, with its launches per solve counted
-  by operand, and level 0's A_on in float32; ``torch.sparse.mm`` and the
-  byte bound;
-- ``ell_spmm``: the same at the f64 solve of ``[n, 8]`` (8 right-hand
-  sides);
+  every operand the f64 solve launches, then every operand the bfloat16
+  solve (tolerance 1e-5) launches, each with its launches per solve counted
+  by operand and level 0's A_on also with the L2 flushed before every call,
+  and level 0's A_on in float32; ``torch.sparse.mm`` and the byte bound;
+  ``--dtype bfloat16`` runs the bfloat16 pass alone (an earlier commit's
+  source as SRC: ``git show <commit>:src/repro_torch/kernels/spmv/csrc/
+  ell_spmv.cu > build/old_ell_spmv.cu``);
+- ``ell_spmm``: the same at the solves of ``[n, 8]`` (8 right-hand sides);
 - ``flash_attention`` (float32, 3xTF32 on ``mma.sync``): ``chip_smoke.py``'s
   cases at the serving run's longest prompt (qwen3-1.7b: B 4, 16 query / 8
   KV heads of 128, S 1819, causal; with a 256-key window; 128 queries over
@@ -57,7 +60,7 @@ kernel, ...SRC; each version reports the mean of its two times.  The cases:
 Run from the root of a checkout, on a machine with a card::
 
     python3 scripts/tune_kernel.py [SRC ...] [--kernel ell_spmm]
-        [--size 64] [--out results.json]
+        [--dtype bfloat16] [--size 64] [--out results.json]
 """
 from __future__ import annotations
 
@@ -82,13 +85,17 @@ def build_variants(kernel: str, variants: dict[str, Path], out_dir: Path) -> dic
     """name -> source of ``kernel``; builds all at once, prints each
     instance's registers and SASS counts, returns the C entry point of
     each."""
-    from repro_torch.kernels.build import KERNELS, NVCC_FLAGS, nvcc_path, ptxas_report
+    from repro_torch.kernels.build import (KERNELS, NVCC_FLAGS, nvcc_path, ptxas_report,
+                                           shared_headers, source_path)
 
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in variants.items():
         lib = out_dir / f"{kernel}_{name}.so"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(lib), str(src)]
+        # a source's own directory comes first (a variant's edited header
+        # beside it), then the tree's kernel headers
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(source_path(kernel).parent),
+               "-I", str(shared_headers()), "-o", str(lib), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), lib)
     fns = {}
@@ -151,10 +158,14 @@ def hold(cs, fns, order, row, call, error, bar) -> None:
         row[f"{v}_ms"] = float(np.mean(ts))
 
 
-def ell_case(cs, fns, order, name, cols, vals, m, rng, k) -> dict:
+def ell_case(cs, fns, order, name, cols, vals, m, rng, k, cold=False) -> dict:
     """One ELL operand (``k``: None for ``ell_spmv``, else the right-hand
-    sides of ``ell_spmm``)."""
+    sides of ``ell_spmm``); bfloat16 at the card's bar (``chip_smoke.py:
+    bf16_bar``, at most 1), the library call on the bfloat16 CSR where the
+    install has one.  ``cold``: also each version's time with the L2
+    flushed before every call (``chip_smoke.py:time_cold_ms``)."""
     from repro_torch.kernels.spmv import ref
+    from repro_torch.kernels.spmv.spmv import DTYPE_CODES
 
     D, n, K = cols.shape
     dt = vals.dtype
@@ -162,40 +173,59 @@ def ell_case(cs, fns, order, name, cols, vals, m, rng, k) -> dict:
     nnz = int((cols >= 0).sum())
     ext = (k,) if k else ()
     x = torch.as_tensor(rng.standard_normal((D, m) + ext), dtype=dt, device="cuda")
-    want = (ref.ell_spmm_ref if k else ref.ell_spmv_ref)(cols, vals, x)
+    plain = ref.ell_spmm_ref if k else ref.ell_spmv_ref
+    want = plain(cols, vals, x)
     scale = float(want.abs().max()) or 1.0
     csr = cs.ell_to_csr(cols, vals, m)
     xf = x.reshape(D * m, -1)
+    library, library_error = ((lambda: torch.sparse.mm(csr, xf)), None)
+    if dt == torch.bfloat16:
+        library, library_error = cs.bf16_library(csr, xf)
+        rel = cs.bf16_rel(plain, (cols, vals, x))
     row = {"operand": name, "dtype": str(dt).replace("torch.", ""),
            "shape": [D, n, K], "m": m, "k": k or 1, "fill": nnz / (D * n * K),
            "bound_ms": (D * n * K * 4 + nnz * s + D * (m + n) * (k or 1) * s)
            / cs.HBM_BYTES_PER_S * 1e3,
-           "library_ms": cs.time_ms(lambda: torch.sparse.mm(csr, xf))[0]}
+           "library_ms": None if library is None else cs.time_ms(library)[0],
+           "library_error": library_error}
     stream = torch.cuda.current_stream().cuda_stream
     y = torch.empty((D, n) + ext, dtype=dt, device="cuda")
 
     def call(fn):
         rc = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-                D, n, K, m, *ext, int(dt == torch.float64), stream)
+                D, n, K, m, *ext, DTYPE_CODES[dt], stream)
         assert rc == 0, rc
 
     def error(fn):
         y.fill_(float("nan"))
         call(fn)
         torch.cuda.synchronize()
+        if dt == torch.bfloat16:
+            return rel(y, want)
         return float((y - want).abs().max()) / scale
 
-    hold(cs, fns, order, row, call, error, cs.RTOL[dt])
+    hold(cs, fns, order, row, call, error,
+         1.0 if dt == torch.bfloat16 else cs.RTOL[dt])
+    if cold:
+        for v in dict.fromkeys(order):
+            row[f"{v}_cold_ms"] = cs.time_cold_ms(lambda: call(fns[v]))
+    lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
     print(f"{name} {row['dtype']} [{D}, {n}, {K}] k {k or 1} fill {row['fill']:.2f}: bound "
-          f"{row['bound_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms; "
-          + ", ".join(f"{v} {row[f'{v}_ms']:.4f}" for v in dict.fromkeys(order)),
-          flush=True)
+          f"{row['bound_ms']:.4f} ms, torch.sparse.mm {lib}; "
+          + ", ".join(f"{v} {row[f'{v}_ms']:.4f}"
+                      + (f" (L2 flushed {row[f'{v}_cold_ms']:.4f})" if cold else "")
+                      for v in dict.fromkeys(order)), flush=True)
     return row
 
 
-def ell_cases(cs, fns, order, kernel: str, size: int) -> tuple[list, dict]:
-    """Every operand of the f64 solve, then level 0's A_on in float32; and
-    launches x ms per f64 solve of each version."""
+def ell_cases(cs, fns, order, kernel: str, size: int,
+              dtypes=("float64", "float32", "bfloat16"), only=None) -> tuple[list, dict]:
+    """In float64 and in bfloat16, every operand the solve launches (the
+    float64 and the bfloat16 PCG to their tolerances, one right-hand side
+    for ``ell_spmv``, K_RHS for ``ell_spmm``), with launches per solve
+    counted by operand, level 0's A_on also with the L2 flushed; in float32
+    level 0's A_on alone; ``only``: just these operands.  Returns the rows
+    and each version's launches x ms per solve, by type."""
     from repro_torch.amg import AMGConfig, AMGSolver
     from repro_torch.amg.problems import laplace_3d
 
@@ -203,25 +233,33 @@ def ell_cases(cs, fns, order, kernel: str, size: int) -> tuple[list, dict]:
     A = laplace_3d(size)
     rng = np.random.default_rng(0)
     rows, sums = [], {}
-    for dtype in ("float64", "float32"):
+    for dtype in dtypes:
+        tol = cs.BF16_TOL if dtype == "bfloat16" else 1e-8
         bound = AMGSolver(AMGConfig(backend="torch", n_pods=2, lanes=4, dtype=dtype,
-                                    tol=1e-8, device="cuda")).setup(A)
+                                    tol=tol, device="cuda")).setup(A)
         ops = cs.ell_operands(bound.dist_hierarchy)
         per_solve = {}
-        if dtype == "float64":
+        if dtype != "float32":
             rhs = rng.standard_normal((A.nrows,) + ((k,) if k else ()))
-            per_solve, _ = cs.operand_launches(bound, rhs, kernel)
+            per_solve, iters = cs.operand_launches(bound, rhs, kernel)
+            print(f"{dtype} solve ({iters} iterations): {kernel} launches by operand "
+                  f"{per_solve}", flush=True)
         for name in per_solve or ["L0 A_on"]:
-            row = ell_case(cs, fns, order, name, *ops[name], rng, k)
+            if only and name not in only:
+                continue
+            row = ell_case(cs, fns, order, name, *ops[name], rng, k,
+                           cold=dtype != "float32" and name == "L0 A_on")
             row["launches_per_solve"] = per_solve.get(name)
             rows.append(row)
-            for v in fns:
-                if row["launches_per_solve"]:
-                    sums[v] = sums.get(v, 0.0) + row["launches_per_solve"] * row[f"{v}_ms"]
+            if row["launches_per_solve"]:
+                for v in fns:
+                    sums.setdefault(dtype, {}).setdefault(v, 0.0)
+                    sums[dtype][v] += row["launches_per_solve"] * row[f"{v}_ms"]
         del bound
         torch.cuda.empty_cache()
-    print("f64 solve, sum of launches x ms over its operands: "
-          + ", ".join(f"{v} {t:.4f} ms" for v, t in sums.items()))
+    for dtype, by in sums.items():
+        print(f"{dtype} solve, sum of launches x ms over its operands: "
+              + ", ".join(f"{v} {t:.4f} ms" for v, t in by.items()), flush=True)
     return rows, sums
 
 
@@ -456,6 +494,12 @@ def main() -> int:
     ap.add_argument("sources", nargs="*", metavar="SRC",
                     help="other sources of the kernel to hold it against")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--dtype", action="append", dest="dtypes", default=None,
+                    choices=("float64", "float32", "bfloat16"),
+                    help="ell_spmv / ell_spmm: only this type's pass (repeatable)")
+    ap.add_argument("--operand", action="append", dest="operands", default=None,
+                    metavar="NAME", help='ell_spmv / ell_spmm: only this operand, '
+                    'e.g. "L0 A_on" (repeatable)')
     ap.add_argument("--chain", type=int, default=None, metavar="M",
                     help="tri_solve: also a chain of M rows (8 ranks, then 1); "
                          "--size 0 for the chains alone")
@@ -501,7 +545,9 @@ def main() -> int:
         rows = tri_cases(cs, fns, order, args.size, args.chain, args.levels,
                          args.cubes)
     else:
-        rows, sums = ell_cases(cs, fns, order, args.kernel, args.size)
+        rows, sums = ell_cases(cs, fns, order, args.kernel, args.size,
+                               args.dtypes or ("float64", "float32", "bfloat16"),
+                               args.operands)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": smi, "rows": rows,

@@ -7,6 +7,17 @@
 // Value types: float32, float64 and bfloat16.  A bfloat16 instance loads
 // bfloat16 values and X rows (a row of k = 8 is one 16-byte load), widens
 // them to float32, sums in float32 and rounds once, at the store.
+// bfloat16 operands take the design of ell_bf16.cuh instead (a persistent
+// grid, A streamed by 1-D bulk copies into shared memory, lanes of a row
+// summing in registers), except those of rows shorter than FLAT_K with
+// FLAT_SLOTS slots or more, which stay on this file's kernel.  On an H100
+// (NVIDIA H100 80GB HBM3, 700 W; scripts/tune_kernel.py --dtype bfloat16,
+// PERF.md), k = 8: the bulk design took level-0 A_on [8, 32768, 27] from
+// 0.0435 to 0.0396 ms and the coarser levels' operands from 0.0106-0.0291
+// to 0.0039-0.0105 ms, and lost at level 0's A_off, P_on and P_off ([8,
+// 32768, 9 / 8 / 4], fill 0.04-0.25): 0.0144 / 0.0119 / 0.0095 against
+// 0.0084 / 0.0093 / 0.0057 ms (units of little work, whose copies' latency
+// the few summing threads cannot hide).
 //
 // Bound on an H100 SXM (80 GB HBM3 at 3.35 TB/s): A is needed once for all k
 // columns (every slot's column id, padding included, and the value of every
@@ -44,6 +55,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "ell_bf16.cuh"
 #include "value_types.cuh"
 
 namespace {
@@ -52,6 +64,8 @@ constexpr int THREADS = 128;
 constexpr int KT = 32;                             // RHS columns a block takes at most
 constexpr int ROUND = 2048;                        // slots of A in shared memory at once
 constexpr int64_t MAX_K = 0x7fffffff;              // K is an int in the kernel
+constexpr int64_t FLAT_K = 16;                     // bfloat16: rows shorter than this
+constexpr int64_t FLAT_SLOTS = int64_t{1} << 20;   // and this many slots stay here
 
 template <typename T, int W>
 struct alignas(sizeof(T) * W) Vec {
@@ -246,6 +260,17 @@ int launch(const int* cols, const T* vals, const T* X, T* Y, int64_t D,
   return launch_w<T, 1>(cols, vals, X, Y, D, n, K, m, k, stream);
 }
 
+// bfloat16: ell_bf16.cuh's kernel, but this file's for rows shorter than
+// FLAT_K in operands of FLAT_SLOTS slots and more
+int launch_bf16(const int* cols, const __nv_bfloat16* vals, const __nv_bfloat16* X,
+                __nv_bfloat16* Y, int64_t D, int64_t n, int64_t K, int64_t m, int64_t k,
+                cudaStream_t stream) {
+  if (K < FLAT_K && D * n * K >= FLAT_SLOTS)
+    return launch<__nv_bfloat16>(cols, vals, X, Y, D, n, K, m, k, stream);
+  if (K > MAX_K) return static_cast<int>(cudaErrorInvalidValue);
+  return ell_bf16::launch(cols, vals, X, Y, D, n, K, m, k, stream);
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success), or
@@ -268,9 +293,9 @@ extern "C" int ell_spmm_launch(const void* cols, const void* vals, const void* X
                             static_cast<const double*>(X), static_cast<double*>(Y),
                             D, n, K, m, k, s);
     case 2:
-      return launch<__nv_bfloat16>(c, static_cast<const __nv_bfloat16*>(vals),
-                                   static_cast<const __nv_bfloat16*>(X),
-                                   static_cast<__nv_bfloat16*>(Y), D, n, K, m, k, s);
+      return launch_bf16(c, static_cast<const __nv_bfloat16*>(vals),
+                         static_cast<const __nv_bfloat16*>(X),
+                         static_cast<__nv_bfloat16*>(Y), D, n, K, m, k, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -7,6 +7,16 @@
 // Value types: float32, float64 and bfloat16.  A bfloat16 instance loads
 // bfloat16 values and x, widens them to float32, takes products and row
 // sums in float32 and rounds once, at the store (__float2bfloat16_rn).
+// bfloat16 operands of at least BULK_SLOTS slots (the AMG path's level-0
+// A_on) take the design of ell_bf16.cuh instead (a persistent grid, A
+// streamed by 1-D bulk copies into shared memory, one thread a row summing
+// in registers); the rest take this file's kernel.  On an H100 (NVIDIA H100
+// 80GB HBM3, 700 W; scripts/tune_kernel.py --dtype bfloat16, PERF.md) the
+// bulk design took level-0 A_on [8, 32768, 27] from 0.0309 to 0.0242 ms,
+// and lost on every other operand of the bfloat16 solve: 0.0118 against
+// 0.0087 ms at A_off [8, 32768, 9] (fill 0.21), 0.0070 against 0.0055 at
+// the [8, 2689, 18..36] operands of level 1 (work a unit too small for the
+// copy's latency to hide), within 0.0005 ms on the small levels.
 //
 // Bound on an H100 SXM (80 GB HBM3 at 3.35 TB/s): the kernel has to read
 // every slot's column id (4 B, padding included), the value of every stored
@@ -55,6 +65,7 @@
 
 #include <cstdint>
 
+#include "ell_bf16.cuh"
 #include "value_types.cuh"
 
 namespace {
@@ -62,6 +73,7 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int MAX_ROWS = 1024;                     // rows a block takes at most
 constexpr int64_t MAX_K = int64_t{1} << 28;        // a block's slots fit an int
+constexpr int64_t BULK_SLOTS = int64_t{1} << 22;   // bfloat16: ell_bf16.cuh from here on
 
 // chunks of 4 slots a thread carries a round (the fastest at the AMG path's
 // level-0 A_on on an H100; PERF.md): 1 in float64, 4 in float32 and in
@@ -265,6 +277,17 @@ int launch(const int* cols, const T* vals, const T* x, T* y, int64_t D,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bfloat16: ell_bf16.cuh's kernel (x as X of one column) for operands of
+// BULK_SLOTS slots and more, this file's below
+int launch_bf16(const int* cols, const __nv_bfloat16* vals, const __nv_bfloat16* x,
+                __nv_bfloat16* y, int64_t D, int64_t n, int64_t K, int64_t m,
+                cudaStream_t stream) {
+  if (K > MAX_K) return static_cast<int>(cudaErrorInvalidValue);
+  if (D * n * K >= BULK_SLOTS)
+    return ell_bf16::launch_w<1>(ell_bf16::args(cols, vals, x, y, D, n, K, m, 1), stream);
+  return launch<__nv_bfloat16>(cols, vals, x, y, D, n, K, m, stream);
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success), or
@@ -287,9 +310,9 @@ extern "C" int ell_spmv_launch(const void* cols, const void* vals, const void* x
                             static_cast<const double*>(x), static_cast<double*>(y),
                             D, n, K, m, s);
     case 2:
-      return launch<__nv_bfloat16>(c, static_cast<const __nv_bfloat16*>(vals),
-                                   static_cast<const __nv_bfloat16*>(x),
-                                   static_cast<__nv_bfloat16*>(y), D, n, K, m, s);
+      return launch_bf16(c, static_cast<const __nv_bfloat16*>(vals),
+                         static_cast<const __nv_bfloat16*>(x),
+                         static_cast<__nv_bfloat16*>(y), D, n, K, m, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

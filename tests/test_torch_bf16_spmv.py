@@ -14,6 +14,9 @@ products, in float64):
 * against float64 of the same bfloat16 operands: ≤ 2^-8 · |y| + 2^-16 ·
   Σ|a·x| (one rounding of a float32 sum).
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +25,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.spmv import bcsr as jbcsr  # noqa: E402
 from repro.kernels.spmv import spmv as jspmv  # noqa: E402
-from repro_torch.kernels.spmv import bcsr, ops, ref, spmv  # noqa: E402
+from repro_torch.kernels.spmv import bcsr, bf16_order, ops, ref, spmv  # noqa: E402
 
 D = 2
 REF_BAR = 2.0**-6          # of Σ|a·x|, against the reference's kernel
@@ -186,3 +189,150 @@ def test_full_precision_plain_versions_keep_their_type(dtype):
     want = torch.where(c >= 0, v * x.gather(
         1, c.reshape(D, -1).clamp_min(0).long()).reshape(c.shape), 0.0).sum(2)
     assert torch.equal(ref.ell_spmv_ref(c, v, x), want)
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 kernels' own order of sums (kernels/spmv/bf16_order.py), the
+# CPU side of the card tests that hold the kernels to it bit for bit
+
+HEADER = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
+          / "spmv" / "csrc" / "ell_bf16.cuh")
+
+
+def _card_bar(got, plain, absum):
+    """The card's bar (chip_smoke.py:bf16_bar): one bfloat16 ulp of plain
+    + 2^-16 Σ|a·x| an entry."""
+    p = plain.double().numpy()
+    _, e = np.frexp(p)
+    ulp = np.where(p == 0, 0.0, np.ldexp(1.0, e - 8))
+    err = np.abs(got.double().numpy() - p)
+    assert (err <= ulp + F64_ABS * absum).all(), float(
+        (err / np.maximum(ulp + F64_ABS * absum, 1e-300)).max())
+
+
+def test_bf16_order_constants_are_the_kernels():
+    """The emulation's constants are the ones ell_bf16.cuh declares, and
+    its shape rule (which operands take the bulk design) the launches'."""
+    src = HEADER.read_text()
+    for name in ("CONSUMERS", "STAGE_SLOTS", "MAX_LANES", "TARGET_UNITS"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == getattr(bf16_order, name), name
+    assert bf16_order.STAGE_SLOTS % 8 == 0
+    for name, want in (("ell_spmv.cu", {"BULK_SLOTS": bf16_order.SPMV_BULK_SLOTS}),
+                       ("ell_spmm.cu", {"FLAT_K": bf16_order.SPMM_FLAT_K,
+                                        "FLAT_SLOTS": bf16_order.SPMM_FLAT_SLOTS})):
+        text = (HEADER.parent / name).read_text()
+        for const, value in want.items():
+            m = re.search(rf"constexpr int64_t {const} = ([^;]+);", text)
+            got = m.group(1).replace("int64_t{1}", "1")
+            assert m and eval(got) == value, (name, const, got)
+    assert bf16_order.bulk("ell_spmv", 8 * 32768, 27)          # level-0 A_on
+    assert not bf16_order.bulk("ell_spmv", 8 * 2689, 27)
+    assert bf16_order.bulk("ell_spmm", 8 * 32768, 27)
+    assert not bf16_order.bulk("ell_spmm", 8 * 32768, 9)       # level-0 A_off
+    assert bf16_order.bulk("ell_spmm", 8 * 2689, 7)
+
+
+@pytest.mark.parametrize("rows", [6, 21512, 262144])
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 17, 33])
+@pytest.mark.parametrize("K", [1, 2, 8, 9, 18, 27, 33, 36, 46, 66, 3000, 20001])
+def test_bf16_order_plan(K, k, rows):
+    """The launch's rule keeps its promises at every row length of the
+    path and the tests' long rows, at a few rows, at a level-1-sized and at
+    the level-0 operand: R a multiple of 8 (units start 16-byte aligned); a
+    row's V·G lanes inside one warp where G > 1; G above 1 only where a
+    unit of half the lanes would not fit a stage, or where G <= K and the
+    operand still has at most TARGET_UNITS units (one wave of blocks); a
+    unit inside a stage unless G is at its cap; the level-0 A_on (K = 27,
+    262,144 rows) one lane a row in slot order."""
+    C, S = bf16_order.CONSUMERS, bf16_order.STAGE_SLOTS
+    for W in {bf16_order.lane_width(k), 1}:
+        p = bf16_order.plan(rows, K, k, W)
+        V, G, R = p["V"], p["G"], p["R"]
+        assert R >= 8 and R % 8 == 0 and R * V * G <= C
+        assert p["KT"] == V * W and V <= bf16_order.MAX_LANES
+        assert G & (G - 1) == 0
+        if G > 1:
+            half = C // (V * G // 2) // 8 * 8
+            assert 32 % (V * G) == 0
+            assert half * K > S or (G <= K and -(-rows // R) <= bf16_order.TARGET_UNITS)
+        gmax = bf16_order.MAX_LANES // V if V & (V - 1) == 0 else 1
+        assert R * K <= S or G == gmax
+    if K == 27 and k in (1, 8) and rows == 262144:
+        assert bf16_order.plan(rows, 27, k, bf16_order.lane_width(k)) == \
+            {"V": 1, "G": 1, "R": 128, "KT": bf16_order.lane_width(k)}
+
+
+def test_bf16_order_is_the_lane_tree():
+    """A lone row of K = 4 takes G = 4 lanes: (s0 + s2) + (s1 + s3), not the
+    slot-order sum, which loses a small term; the same row among 2^17 rows
+    (1024 units of 128) takes one lane, in slot order.  The emulation
+    follows each."""
+    n, K = 1 << 17, 4
+    cols = torch.full((1, n, K), -1, dtype=torch.int32)
+    vals = torch.full((1, n, K), float("nan")).to(torch.bfloat16)
+    cols[0, 0] = torch.arange(4, dtype=torch.int32)
+    vals[0, 0] = torch.tensor([1.0, 2.0**-24, -1.0, 2.0**-24])
+    x = torch.ones((1, 4), dtype=torch.bfloat16)
+    assert bf16_order.plan(1, K, 1, 1)["G"] == 4
+    assert bf16_order.plan(n, K, 1, 1)["G"] == 1
+    assert float(bf16_order.emulate(cols[:, :1], vals[:, :1], x)) == 2.0**-23
+    # one lane: 1 + 2^-24 rounds to 1, minus 1 is 0, plus 2^-24
+    y = bf16_order.emulate(cols, vals, x)
+    assert float(y[0, 0]) == 2.0**-24 and not y[0, 1:].any()
+    one = bf16_order.emulate(cols[:, :1, :1], vals[:, :1, :1], x)
+    assert one.dtype == torch.bfloat16 and float(one) == 1.0
+
+
+@pytest.mark.parametrize("n,m,K", SHAPES + [(37, 50, 8), (37, 50, 18), (37, 50, 36)])
+def test_bf16_order_spmv_matches_plain_and_pallas(n, m, K):
+    """The kernel's order against the plain version at the card's bar and
+    against the reference's kernel in interpret mode and float64 at this
+    file's bars, padded values NaN (never multiplied)."""
+    rng = np.random.default_rng(3 * n + K)
+    cols, vals = _ell(rng, n, m, K)
+    x = _bf16(rng.standard_normal((D, m)))
+    want = _pallas(jspmv.ell_spmv, cols, vals, x)
+    exact, absum = _f64(ref.ell_spmv_ref, cols, vals, x)
+    c, v, xt = _torch(cols, vals, x)
+    v = torch.where(c >= 0, v, torch.tensor(float("nan"), dtype=torch.bfloat16))
+    got = bf16_order.emulate(c, v, xt)
+    _check(got, want, exact, absum)
+    _card_bar(got, ref.ell_spmv_ref(c, v.nan_to_num(), xt), absum)
+
+
+@pytest.mark.parametrize("W", [8, 4, 1])
+@pytest.mark.parametrize("K", [8, 27])
+def test_bf16_order_spmm_matches_plain_and_pallas(K, W):
+    """k = 8 with 8, 4 or 1 columns a lane (the widths X's alignment
+    gives): G follows V, the results stay within the bars."""
+    rng = np.random.default_rng(K * 10 + W)
+    n, m, k = 100, 64, 8
+    cols, vals = _ell(rng, n, m, K)
+    X = _bf16(rng.standard_normal((D, m, k)))
+    want = _pallas(jspmv.ell_spmm, cols, vals, X)
+    exact, absum = _f64(ref.ell_spmm_ref, cols, vals, X)
+    t = _torch(cols, vals, X)
+    got = bf16_order.emulate(*t, W=W)
+    _check(got, want, exact, absum)
+    _card_bar(got, ref.ell_spmm_ref(*t), absum)
+
+
+@pytest.mark.parametrize("k", [None, 3])
+def test_bf16_order_long_rows(k):
+    """Rows longer than a stage (K = 3000; one RHS: 16 lanes a row; k = 3:
+    one lane a row over three columns, V = 3 being no power of two), the
+    lanes' sums carried over chunks, against float64 and the plain
+    version."""
+    rng = np.random.default_rng(11)
+    n, m, K = 3, 500, 3000
+    cols, vals = _ell(rng, n, m, K)
+    x = _bf16(rng.standard_normal((D, m) + (() if k is None else (k,))))
+    plain = ref.ell_spmv_ref if k is None else ref.ell_spmm_ref
+    exact, absum = _f64(plain, cols, vals, x)
+    t = _torch(cols, vals, x)
+    got = bf16_order.emulate(*t)
+    assert bf16_order.plan(D * n, K, k or 1, 1)["G"] == (16 if k is None else 1)
+    bar = F64_REL * np.abs(exact) + F64_ABS * absum
+    assert (np.abs(got.double().numpy() - exact) <= bar).all()
+    _card_bar(got, plain(*t), absum)

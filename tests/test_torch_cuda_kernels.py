@@ -10,7 +10,12 @@ nodes); the three sparse kernels' bfloat16 instances at the same edges
 (K = 1, all-padding rows, m not a multiple of bs, k = 1-33, unaligned
 operands, rows over several rounds) and at a bfloat16 lowering's own
 operands, each entry within 2^-7 |plain| + 2^-16 Σ|a·x| of the plain
-version; the block smoothers' block-diagonal apply (block sizes 1-8, rows
+version; the bf16 ELL kernels' bulk design (``csrc/ell_bf16.cuh``) bit for
+bit against the emulation of its order of sums (``bf16_order.emulate``) at
+its edges (units crossing ranks, unaligned operands, ragged slot counts,
+rows longer than a stage, more units than resident blocks), repeatable,
+and first launched under CUDA-graph capture in a fresh process; the block
+smoothers' block-diagonal apply (block sizes 1-8, rows
 that fill no whole block, 1-33 right-hand sides) and sync-free triangular
 solve on each route (block, L2: both triangles, rows longer than a warp,
 a chain as deep as the rows, bit-equal run to run, in another valid order
@@ -376,6 +381,127 @@ def test_ell_spmm_bf16_unaligned_and_long_rows(dev, which):
         X = _offset(X0) if which == "X" else X0
         _close_bf16(spmv.ell_spmm(cols, vals, X), ref.ell_spmm_ref(cols0, vals0, X0),
                     _absum(ref.ell_spmm_ref, cols0, vals0, X0))
+
+
+# the bfloat16 ELL kernels' bulk design (csrc/ell_bf16.cuh: persistent
+# blocks walking units of rows, A by bulk copies into shared memory, a row's
+# lanes summing in registers), on the shapes each launch's rule gives it
+# (kernels/spmv/bf16_order.py:bulk): each case bit for bit against the
+# emulation of its order of sums and within the bar of the plain version;
+# a case the rule keeps on the kernel's other design within the bar.
+# (D, n, K, k, fill, A offset, X offset); ell_spmv takes the bulk design
+# from 2^22 slots, so its cases are large: more units than resident blocks
+# (3,072 and 2,048 units of 128 rows: at least 3 a block), units crossing
+# ranks (37 rows a rank), A offset by 1-7 elements (the bulk copies' 16-byte
+# split: the kernel loads A itself), a slot count that is no multiple of 8,
+# K = 1, rows longer than a stage (3000, 20001), D = 1, fill 0.04; then
+# ell_spmm (k = 1 runs ell_spmv's kernel instance) at the same edges, X
+# offset (narrower lanes), k = 3 / 5 / 16 / 33, operands of few units
+# (several lanes a row), and shapes it keeps on its other design.
+BF16_DESIGN_CASES = (
+    [(8, 49152, 27, None, 0.9, 0, 0), (3, 51782, 27, None, 0.9, 0, 0),
+     (4300, 37, 27, None, 0.9, 0, 0), (1, 155346, 27, None, 0.04, 0, 0),
+     (1, 4194304, 1, None, 1.0, 0, 0), (1, 1400, 3000, None, 0.9, 0, 0),
+     (1, 210, 20001, None, 0.9, 0, 0), (3, 37, 27, None, 0.9, 0, 0)]
+    + [(8, 32768, 27, None, 0.9, off, 0) for off in (1, 3, 4, 7)]
+    + [(8, 32768, 27, 8, 0.9, 0, 0), (8, 4096, 8, 8, 0.9, 0, 0),
+       (8, 4096, 8, 1, 0.9, 0, 0), (3, 37, 27, 8, 0.9, 0, 0),
+       (3, 37, 27, 1, 0.9, 0, 0), (1, 5000, 27, 8, 0.9, 0, 0),
+       (3, 37, 1, 1, 1.0, 0, 0), (3, 1001, 1, 8, 0.9, 0, 0),
+       (3, 9, 3000, 8, 0.9, 0, 0), (3, 9, 3000, 1, 0.9, 0, 0),
+       (1, 5, 20001, 3, 0.04, 0, 0), (3, 37, 18, 8, 0.9, 0, 0),
+       (3, 37, 36, 1, 0.25, 0, 0), (3, 37, 66, 16, 0.9, 0, 0),
+       (3, 1001, 9, 5, 0.9, 0, 0), (3, 37, 27, 33, 0.9, 0, 0),
+       (3, 1001, 27, 8, 0.9, 0, 4), (3, 1001, 27, 8, 0.9, 0, 1),
+       (8, 2689, 27, 8, 0.9, 0, 0), (8, 375, 33, 8, 0.6, 0, 0),
+       (8, 32768, 9, 8, 0.2, 0, 0), (8, 32768, 4, 1, 0.04, 0, 0)]
+    + [(3, 1001, 27, k, 0.9, off, 0) for off in range(1, 8) for k in (1, 8)])
+
+
+def _offset_by(t, off):
+    """A contiguous copy of ``t`` that starts ``off`` elements into its
+    storage."""
+    if off == 0:
+        return t
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    buf[off:] = t.reshape(-1)
+    return buf[off:].view(t.shape)
+
+
+@pytest.mark.parametrize("case", BF16_DESIGN_CASES, ids=str)
+def test_ell_bf16_design_matches_its_order(dev, case):
+    """Each case: on the bulk design the kernel bit for bit equal to the
+    emulation of its order of sums; within the bar of the plain version,
+    NaN in padded values never multiplied, and a second launch bit-equal to
+    the first."""
+    from repro_torch.kernels.spmv import bf16_order
+
+    D_, n, K, k, fill, off_a, off_x = case
+    rng = np.random.default_rng(n + K + (k or 0) + 10 * off_a + off_x)
+    m = 777 if K < 3000 else 5000
+    cols = rng.integers(0, m, size=(D_, n, K)).astype(np.int32)
+    keep = np.sort(rng.random((D_, n, K)) < fill, axis=2)[..., ::-1]
+    cols[~keep] = -1
+    vals = rng.standard_normal((D_, n, K))
+    vals[~keep] = np.nan
+    cols = torch.as_tensor(cols, device=dev)
+    vals = torch.as_tensor(vals, dtype=BF16, device=dev)
+    x = torch.as_tensor(rng.standard_normal((D_, m) + (() if k is None else (k,))),
+                        dtype=BF16, device=dev)
+    c, v, xx = _offset_by(cols, off_a), _offset_by(vals, off_a), _offset_by(x, off_x)
+    fn, plain = ((spmv.ell_spmv, ref.ell_spmv_ref) if k is None
+                 else (spmv.ell_spmm, ref.ell_spmm_ref))
+    before = fn.launches
+    got = fn(c, v, xx)
+    again = fn(c, v, xx)
+    assert fn.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if bf16_order.bulk("ell_spmv" if k is None else "ell_spmm", D_ * n, K):
+        W = bf16_order.lane_width(k or 1, xx.data_ptr(), got.data_ptr())
+        want = bf16_order.emulate(cols.cpu(), vals.cpu(), x.cpu(), W=W)
+        assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16)), \
+            int((got.cpu() != want).sum())
+    _close_bf16(got, plain(cols, vals, x), _absum(plain, cols, vals, x))
+
+
+GRAPH_FIRST_USE = """
+import sys, torch
+sys.path.insert(0, "src")
+from repro_torch.kernels.spmv import spmv
+g = torch.Generator().manual_seed(0)
+# 4,320,000 slots: both kernels on the bulk design
+cols = torch.randint(-1, 300, (8, 20000, 27), generator=g, dtype=torch.int32).cuda()
+vals = torch.randn((8, 20000, 27), generator=g).to(torch.bfloat16).cuda()
+x = torch.randn((8, 300), generator=g).to(torch.bfloat16).cuda()
+X = torch.randn((8, 300, 8), generator=g).to(torch.bfloat16).cuda()
+graph = torch.cuda.CUDAGraph()
+with torch.cuda.graph(graph):          # the kernels' first launches
+    y = spmv.ell_spmv(cols, vals, x)
+    Y = spmv.ell_spmm(cols, vals, X)
+for _ in range(2):
+    vals.mul_(-1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, spmv.ell_spmv(cols, vals, x))
+    assert torch.equal(Y, spmv.ell_spmm(cols, vals, X))
+print("GRAPH_OK")
+"""
+
+
+def test_ell_bf16_first_launch_in_a_captured_graph(dev):
+    """In a fresh process, the bfloat16 kernels' first launches (their
+    shared-memory opt-in and resident-block count taken then) are made
+    under CUDA-graph capture; two replays on new values equal eager
+    launches bit for bit."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", GRAPH_FIRST_USE], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and "GRAPH_OK" in out.stdout, out.stderr[-3000:]
 
 
 @pytest.mark.parametrize("bs", bcsr.BLOCK_SIZES)
