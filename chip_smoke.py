@@ -63,10 +63,10 @@ Phases (any failure exits non-zero):
    must equal the launch counter there and in phase 4's / 5's counted run)
    and the sums of launches × (time − bound) and of launches × time over
    them; ``block_diag_apply`` (bs 4) and ``tri_solve`` (both triangles,
-   on the route its rule takes and on the other where it can take the
-   case, bit-equal across routes, run to run and in another valid order:
-   plain row order on the L2 route, each level set reversed on the block
-   route), k = 1 and 8,
+   on the route its rule takes and on every other that can take the case
+   (``smoother.tri_routes``), bit-equal across routes, run to run and in
+   another valid order: plain row order on the L2 route, each level set
+   reversed on the block and staged routes), k = 1 and 8,
    f32 and f64, at
    every non-coarsest level on the lowered hierarchy's own factors, beside
    batched ``torch.matmul`` and ``torch.triangular_solve`` on a sparse CSR
@@ -110,12 +110,15 @@ Phases (any failure exits non-zero):
    kernel and busy share, one ``cudaGraphLaunch`` a program call; the
    factors' bytes beside the reference's dense factors'; then the block
    smoothers in bfloat16 on the bfloat16 lowering: ``block_diag_apply`` at
-   level 0 and ``tri_solve`` on both triangles at every level that smooths
-   (each route where it can take the case, k = 1 and 8, bit-equal across
-   routes and orders) against their plain versions at the bfloat16 bar,
-   each row saying whether it is bit-equal, with its bytes bound, depth ×
-   the one-step floor of a bfloat16 chain, the plain version's ms and
-   batched bf16 ``torch.matmul`` / cuSPARSE's refusal of bf16; PCG to 1e-5
+   level 0 (bit-equal to its order's emulation, ``smoother/bf16_order.py``,
+   a gate) and ``tri_solve`` on both triangles at every level that smooths
+   (each route that can take the case, the staged route at k = 1 among
+   them, k = 1 and 8, bit-equal across routes and orders) against their
+   plain versions at the bfloat16 bar, each row saying whether it is
+   bit-equal to the plain version and (k = 1) to its order's emulation,
+   with its bytes bound, depth × its route's one-step floor on a bfloat16
+   chain, the plain version's ms and batched bf16 ``torch.matmul`` /
+   cuSPARSE on the float32-widened factor; PCG to 1e-5
    with ``block_jacobi`` and ``hybrid_gs_sym`` through the graphs (x
    within 2^-5 of the f64 block-smoother runs' x, ms an iteration as the
    median of 5 warm solves, device ms) and a k = 8 ``hybrid_gs_sym`` chunk
@@ -903,10 +906,11 @@ def bcsr_apply_kernels(dh, reps: int) -> dict[int, dict[str, int]]:
     return found
 
 
-def tri_to_csr(f) -> torch.Tensor:
+def tri_to_csr(f, dtype=None) -> torch.Tensor:
     """A triangle factor (strict part in ELL, diagonal apart) as one
     block-diagonal CSR tensor ``[D·m, D·m]`` over the ranks, diagonal
-    included, for ``torch.triangular_solve``."""
+    included, for ``torch.triangular_solve`` (values in ``dtype`` where
+    given)."""
     D, m, K = f.cols.shape
     dev = f.cols.device
     keep = f.cols >= 0
@@ -915,22 +919,26 @@ def tri_to_csr(f) -> torch.Tensor:
     diag_idx = torch.arange(D * m, device=dev)
     ri = torch.cat([rows[keep], diag_idx])
     ci = torch.cat([(f.cols.long() + offs)[keep], diag_idx])
-    vals = torch.cat([f.vals[keep], f.diag.reshape(-1)])
+    vals = torch.cat([f.vals[keep], f.diag.reshape(-1)]).to(dtype or f.vals.dtype)
     return torch.sparse_coo_tensor(torch.stack([ri, ci]), vals,
                                    (D * m, D * m)).coalesce().to_sparse_csr()
 
 
 def tri_library(f, r):
     """``torch.triangular_solve`` (cuSPARSE) on the factor as a sparse CSR
-    operand, or ``(None, reason)`` where this install has none."""
+    operand, or ``(None, reason)`` where this install has none.  cuSPARSE
+    has no bfloat16 solve: a bfloat16 factor and r go float32-widened (the
+    same float32 z, up to the rounding of y)."""
     D, m = r.shape[:2]
+    wide = torch.float32 if r.dtype == torch.bfloat16 else None
     try:
-        csr = tri_to_csr(f)
-        rf = r.reshape(D * m, -1).contiguous()
+        csr = tri_to_csr(f, wide)
+        rf = r.reshape(D * m, -1).to(wide or r.dtype).contiguous()
         call = lambda: torch.triangular_solve(rf, csr, upper=f.upper)  # noqa: E731
         call()
         torch.cuda.synchronize()
-        return call, "torch.triangular_solve (sparse CSR)"
+        return call, ("torch.triangular_solve (sparse CSR"
+                      + (", float32-widened)" if wide else ")"))
     except (RuntimeError, NotImplementedError, TypeError) as e:
         return None, f"none on this install ({type(e).__name__}: {str(e)[:80]})"
 
@@ -950,7 +958,8 @@ def tri_chain(D: int, m: int, dtype, dev):
 def another_order(f, route: str) -> tuple:
     """Another valid row order for the route: each rank's rows in plain row
     order (descending for the upper triangle) on the L2 route, which reads
-    no level sets; on the block route each level set's rows reversed."""
+    no level sets; on the block and staged routes each level set's rows
+    reversed (the staged route's slab then built for it by the wrapper)."""
     D, m = f.diag.shape
     if route == "l2":
         rows = torch.arange(m, dtype=torch.int32, device=f.diag.device)
@@ -962,25 +971,38 @@ def another_order(f, route: str) -> tuple:
     return torch.as_tensor(order, device=f.diag.device), f.starts
 
 
+def tri_bytes(route: str, nnz: int, D: int, m: int, k: int, s: int) -> int:
+    """The bytes a ``tri_solve`` launch must move on ``route``: the stored
+    entries (an int32 column id and a value of ``s`` bytes each; on the
+    staged route one 32-bit slab word, a 16-bit column and the bfloat16
+    value), the diagonal, r and x read once, y written once."""
+    entry = 4 if route == "staged" else 4 + s
+    return nnz * entry + D * m * s + 3 * D * m * k * s
+
+
 def tri_cases(label, f, k, dt, rng, sched, extra, timed=None,
               plain_samples: int = 3) -> list[dict]:
     """``tri_solve`` on factor ``f`` with ``k`` right-hand sides on the
-    route the rule takes and on the other route where it can take the case
-    (the block route where the rank fits a block's shared memory); each
+    route the rule takes and on every other route that can take the case
+    (``smoother.tri_routes``: the block route where the rank fits a block's
+    shared memory; the staged route for bfloat16 at k = 1 where z, the
+    starts and its smallest ring fit one, reading the factor's slab); each
     against the plain version at RTOL, repeated, in another valid order
     (``another_order``) and across routes bit for bit; µs a dependent step
     (kernel ms over the DAG's depth).  The plain version (over
     ``plain_samples`` bursts) and cuSPARSE are timed once (``timed``: their
     times given, none taken).  bfloat16 is
     held to the bfloat16 bar (``bf16_bar``, Σ|·| from ``tri_solve_absum``),
-    each row saying whether it equals the plain version bit for bit; a rank
-    fits a block by its float32 z."""
+    each row saying whether it equals the plain version bit for bit and, at
+    k = 1 off the chain, the emulation of its order of sums
+    (``smoother/bf16_order.py``); a rank fits a block by its float32 z."""
     from repro_torch.kernels.smoother import ref as sref
     from repro_torch.kernels.smoother import smoother as ks
+    from repro_torch.kernels.smoother.bf16_order import tri_solve_emulate
 
     dev = f.cols.device
-    D, m, _ = f.cols.shape
-    s, zs = dt.itemsize, ks.z_dtype(dt).itemsize
+    D, m, K = f.cols.shape
+    s = dt.itemsize
     nnz = int((f.cols >= 0).sum())
     shape = (D, m) + ((k,) if k > 1 else ())
     r, x = (torch.as_tensor(rng.standard_normal(shape), dtype=dt, device=dev)
@@ -988,30 +1010,35 @@ def tri_cases(label, f, k, dt, rng, sched, extra, timed=None,
     library, lib_name = tri_library(f, r)
     smem = ks.tri_smem(dev)
     depth = len(sched)
-    rule = ks.tri_plan(m, f.depth(), k, zs, smem)
-    routes = [rule] + [o for o in ks.TRI_ROUTES if o != rule
-                       and (o == "l2" or m * k * zs <= smem)]
+    rule = ks.tri_plan(m, f.depth(), k, dt, smem, K=K)
+    routes = [rule] + [o for o in ks.tri_routes(m, f.depth(), k, dt, smem, K=K)
+                       if o != rule]
+    # the factor's slab where the rule gave it one, else one for a forced
+    # staged route, built once before the timing
+    slab = f.slab or (ks.TriSlab(f.cols, f.vals, f.diag, f.order)
+                      if "staged" in routes else None)
     bf16 = dt == torch.bfloat16
     bar = dict(rtol=1.0, peak=PEAK_FLOPS[torch.float32], rel_err=bf16_bar(
         sref.tri_solve_absum(f.cols, f.vals, f.diag, r, x, 1.0, sched))) \
         if bf16 else {}
     plain_y = sref.tri_solve_ref(f.cols, f.vals, f.diag, r, x, 1.0, sched) \
         if bf16 else None
+    emulated = tri_solve_emulate(f.cols, f.vals, f.diag, r, x, 1.0, sched) \
+        if bf16 and k == 1 and label != "chain" else None
     rows, outs = [], []
     for name in routes:
         route = None if name == rule else name
 
         def fn(c, v, d, r, x, route=route):
             return ks.tri_solve(c, v, d, r, x, 1.0, upper=f.upper,
-                                order=(f.order, f.starts), route=route)
+                                order=(f.order, f.starts), route=route,
+                                slab=slab)
 
         row = kernel_case(
             f"tri_solve {label} k{k} {name}", fn,
             lambda c, v, d, r, x: sref.tri_solve_ref(c, v, d, r, x, 1.0, sched),
             library, (f.cols, f.vals, f.diag, r, x),
-            # the stored entries' column ids and values, diag, r and x read
-            # once, y written once
-            nnz * (4 + s) + D * m * s + 3 * D * m * k * s,
+            tri_bytes(name, nnz, D, m, k, s),
             2 * (nnz + D * m) * k, library_name=lib_name,
             plain_samples=plain_samples, timed=timed, **bar)
         timed = row
@@ -1019,6 +1046,8 @@ def tri_cases(label, f, k, dt, rng, sched, extra, timed=None,
         y = fn(*args)
         if bf16:
             row["bit_equal_plain"] = bool(torch.equal(y, plain_y))
+        if emulated is not None:
+            row["bit_equal_emulation"] = bool(torch.equal(y, emulated))
         other = ks.tri_solve(*args, 1.0, upper=f.upper,
                              order=another_order(f, name), route=name)
         check(torch.equal(y, fn(*args)) and torch.equal(y, other),
@@ -1270,7 +1299,8 @@ def bf16_smoother_rows(dh16, rng) -> tuple[dict[str, list], dict]:
     """The block smoothers' bfloat16 instances on the bfloat16 lowering's
     own factors, each against its plain version at the bfloat16 bar (and
     whether it equals it bit for bit): ``block_diag_apply`` at level 0 (bs
-    4, the main path's) beside batched ``torch.matmul`` in bfloat16, and
+    4, the main path's) beside batched ``torch.matmul`` in bfloat16, bit
+    for bit equal to its order's emulation (a gate), and
     ``tri_solve`` on both triangles at every non-coarsest level, on the
     route the rule takes and on the other where a rank's float32 z fits a
     block (:func:`tri_cases`; the plain version timed over one burst), k = 1
@@ -1281,6 +1311,7 @@ def bf16_smoother_rows(dh16, rng) -> tuple[dict[str, list], dict]:
     from repro_torch.amg.solve import SolveOptions
     from repro_torch.kernels.smoother import ref as sref
     from repro_torch.kernels.smoother import smoother as ks
+    from repro_torch.kernels.smoother.bf16_order import block_diag_apply_emulate
     from repro_torch.kernels.spmv.ref import block_x
 
     omega = SolveOptions().omega
@@ -1308,9 +1339,14 @@ def bf16_smoother_rows(dh16, rng) -> tuple[dict[str, list], dict]:
             2 * bs * D * m * k, rtol=1.0, peak=PEAK_FLOPS[torch.float32],
             rel_err=bf16_bar(sref.block_diag_apply_absum(bj.binv, r, x, omega)),
             library_name="torch.matmul (batched, bf16)")
+        y = fn(bj.binv, r, x)
         row.update(level=0, bs=bs, k=k, main_path=True,
-                   bit_equal_plain=bool(torch.equal(fn(bj.binv, r, x),
-                                                    plain(bj.binv, r, x))))
+                   bit_equal_plain=bool(torch.equal(y, plain(bj.binv, r, x))),
+                   bit_equal_emulation=bool(torch.equal(
+                       y, block_diag_apply_emulate(bj.binv, r, x, omega))))
+        check(row["bit_equal_emulation"],
+              f"bf16 block_diag_apply L0 bs{bs} k{k}: not bit-equal to its "
+              f"order's emulation (smoother/bf16_order.py)")
         out["block_diag_apply"].append(row)
     for l, dl in enumerate(dh16.levels):
         if dl.coarse_inv is not None:
@@ -1337,8 +1373,12 @@ def bf16_smoother_rows(dh16, rng) -> tuple[dict[str, list], dict]:
     for row in out["tri_solve"]:
         row["step_bound_ms"] = row["depth"] * floors[row["route"]] / 1e3
     equal = {n: sum(r["bit_equal_plain"] for r in rows) for n, rows in out.items()}
+    emulated = [r["bit_equal_emulation"] for r in out["tri_solve"]
+                if "bit_equal_emulation" in r]
     log(f"  bf16 smoother rows bit-equal to their plain versions: "
-        f"{equal} of { {n: len(v) for n, v in out.items()} }; one-step floor "
+        f"{equal} of { {n: len(v) for n, v in out.items()} }; tri_solve k = 1 "
+        f"rows bit-equal to their order's emulation: {sum(emulated)} of "
+        f"{len(emulated)}; one-step floor "
         f"(a {TRI_CHAIN_ROWS}-row bf16 chain): " + ", ".join(
             f"{k} {v:.3f} us" for k, v in floors.items()))
     return out, floors
@@ -4600,6 +4640,8 @@ def smoother_bf16_top(rows: list, bf16: dict, name: str) -> dict:
             "route": top.get("route"), "max_abs_err": top["max_abs_err"],
             "bar_ratio": top["rel_err"],
             "bit_equal_plain": top["bit_equal_plain"],
+            "bit_equal_emulation": top.get("bit_equal_emulation"),
+            **({"step_floor_us": bf16["step_floor_us"]} if name == "tri_solve" else {}),
             "launches": bf16["launches"].get(name, 0)}
 
 

@@ -2,8 +2,8 @@
 one card.
 
 Builds the kernel's source (``--kernel ell_spmv``, the default,
-``ell_spmm``, ``flash_attention``, ``flash_attention_wgmma`` or
-``tri_solve``; ``repro_torch.kernels.build``) and each
+``ell_spmm``, ``flash_attention``, ``flash_attention_wgmma``, ``tri_solve``
+or ``block_diag_apply``; ``repro_torch.kernels.build``) and each
 source SRC given (same C interface, e.g. an earlier commit's source or an
 edited copy; named by its file stem) into ``build/tune_<kernel>/``, one
 ``nvcc -Xptxas -v`` each, all at once, and prints each build's register and
@@ -46,16 +46,32 @@ kernel, ...SRC; each version reports the mean of its two times.  The cases:
   Python ``str.replace`` of one into ``build/`` makes a variant;
 - ``tri_solve``: both triangles of every non-coarsest level of the f64
   lowering of ``laplace_3d(SIZE)`` over 2 x 4 ranks (its own factors and
-  row orders), k = 1 and 8, and level 0 in float32, on the block route
-  where a rank fits a block and on the L2 route, with the rule's; each with its DAG depth and µs a dependent
-  step, ``torch.triangular_solve`` on a sparse CSR operand (cuSPARSE) and
-  the byte bound; ``--chain M`` adds a chain of M rows (the one-step
-  floor), ``--level L`` keeps level L alone, ``--cube N`` (repeatable, with
-  ``--size 0`` alone) sweeps the 27-point stencil's triangle on an N³ box a
-  rank on both routes, the readings behind the route rule's widths
-  (``smoother.BLOCK_MAX_WIDTH``).  A variant of ``tri_solve.cu`` is a copy
-  with one of its constants edited (``LANES``, ``BLOCK_THREADS``,
-  ``L2_BLOCKS_PER_SM``).
+  row orders), k = 1 and 8, and level 0 in float32, on every route that
+  can take the case (``smoother.tri_routes``: L2; block where a rank fits a
+  block; staged for bfloat16 at k = 1), with the rule's; each with its DAG
+  depth and µs a dependent step, ``torch.triangular_solve`` on a sparse
+  CSR operand (cuSPARSE; float32-widened for bfloat16) and the byte bound;
+  ``--chain M`` adds a chain of M rows (the one-step floor), ``--level L``
+  keeps level L alone, ``--cube N`` (repeatable, with ``--size 0`` alone)
+  sweeps the 27-point stencil's triangle on an N³ box a rank on each route,
+  ``--wide W[:K]`` (repeatable) a triangle of 32,768 rows a rank in level
+  sets of W rows and K slots a row (13 if not given), the readings behind
+  the route rule's widths (``smoother.BLOCK_MAX_WIDTH``,
+  ``smoother.STAGED_MAX_WIDTH``).  ``--dtype bfloat16`` runs the
+  bfloat16 pass instead: the chain, the cubes and both triangles of every
+  non-coarsest level of the bfloat16 lowering, k = 1 and 8, held to the
+  card's bfloat16 bar.  A variant of ``tri_solve.cu`` is a copy with one
+  of its constants edited (``LANES``, ``BLOCK_THREADS``,
+  ``L2_BLOCKS_PER_SM``, ``STAGED_ROWS``, ``STAGED_CONSUMERS``,
+  ``STAGED_MAX_STAGES``);
+- ``block_diag_apply``: the bs = 4 block inverses of every non-coarsest
+  level of the lowering of ``laplace_3d(SIZE)`` over 2 x 4 ranks, k = 1
+  and 8, in each type (``--dtype``), against the plain version (bfloat16
+  at the card's bar, and whether each version equals
+  ``smoother/bf16_order.py``'s emulation bit for bit), beside batched
+  ``torch.matmul`` and the byte bound; an earlier commit's source as SRC
+  (``git show <commit>:src/repro_torch/kernels/smoother/csrc/
+  block_diag_apply.cu > build/old_block_diag_apply.cu``).
 
 Run from the root of a checkout, on a machine with a card::
 
@@ -363,51 +379,59 @@ def flash_large_scores(fns, head_dims=None) -> list:
 
 def tri_case(cs, fns, order, label, f, k, rng, library=True) -> list:
     """``tri_solve`` on factor ``f`` with ``k`` right-hand sides: every
-    version on the block route where the rank fits a block's shared memory
-    and on the L2 route (the C entry point's ``block`` argument), with µs a
-    dependent step and the route the rule takes."""
+    version on every route that can take the case (``smoother.tri_routes``;
+    the C entry point's route code; the staged route reads the factor's
+    slab), with µs a dependent step and the route the rule takes."""
+    from repro_torch.kernels.smoother import ref as sref
     from repro_torch.kernels.smoother import smoother as ks
-    from repro_torch.kernels.smoother.ref import tri_solve_ref
+    from repro_torch.kernels.spmv.spmv import DTYPE_CODES
 
     D, m, K = f.cols.shape
     dt, s = f.vals.dtype, f.vals.element_size()
+    bf16 = dt == torch.bfloat16
     nnz = int((f.cols >= 0).sum())
     ext = (k,) if k > 1 else ()
     r, x = (torch.as_tensor(rng.standard_normal((D, m) + ext), dtype=dt,
                             device="cuda") for _ in range(2))
-    want = tri_solve_ref(f.cols, f.vals, f.diag, r, x, 1.0, f.schedule())
+    want = sref.tri_solve_ref(f.cols, f.vals, f.diag, r, x, 1.0, f.schedule())
     scale = float(want.abs().max()) or 1.0
+    bar = cs.bf16_bar(sref.tri_solve_absum(f.cols, f.vals, f.diag, r, x, 1.0,
+                                           f.schedule())) if bf16 else None
     call_lib, lib_name = cs.tri_library(f, r) if library else (None, "not timed")
     smem = ks.tri_smem(r.device)
-    rule = ks.tri_plan(m, f.depth(), k, s, smem)
+    rule = ks.tri_plan(m, f.depth(), k, dt, smem, K=K)
     lib_ms = None if call_lib is None else cs.time_ms(call_lib)[0]
     rows = []
-    for route in ks.TRI_ROUTES:
-        if route == "block" and m * k * s > smem:
-            continue
+    for route in ks.tri_routes(m, f.depth(), k, dt, smem, K=K):
         row = {"case": label, "dtype": str(dt).replace("torch.", ""), "k": k,
                "route": route, "rule": rule, "shape": [D, m, K],
                "depth": f.depth(), "rows_per_set": m / f.depth(),
-               "bound_ms": (nnz * (4 + s) + D * m * s + 3 * D * m * k * s)
+               "bound_ms": cs.tri_bytes(route, nnz, D, m, k, s)
                / cs.HBM_BYTES_PER_S * 1e3,
                "library": lib_name, "library_ms": lib_ms}
-        y, z = torch.empty_like(x), torch.empty_like(r)
+        y = torch.empty_like(x)
+        # the L2 route's scratch z, the staged route's slab (the factor's
+        # where the rule gave it one)
+        z = ((f.slab or ks.TriSlab(f.cols, f.vals, f.diag, f.order)).data
+             if route == "staged" else torch.empty_like(r, dtype=ks.z_dtype(dt)))
         stream = torch.cuda.current_stream().cuda_stream
 
-        def call(fn, block=int(route == "block")):
+        def call(fn, code=ks.TRI_ROUTE_CODES[route], z=z):
             rc = fn(f.cols.data_ptr(), f.vals.data_ptr(), f.diag.data_ptr(),
                     r.data_ptr(), x.data_ptr(), f.order.data_ptr(),
                     f.starts.data_ptr(), z.data_ptr(), y.data_ptr(), D, m, K, k,
-                    f.depth(), 1.0, int(dt == torch.float64), block, stream)
+                    f.depth(), 1.0, DTYPE_CODES[dt], code, stream)
             assert rc == 0, rc
 
         def error(fn, call=call):
             y.fill_(float("nan"))
             call(fn)
             torch.cuda.synchronize()
+            if bf16:
+                return bar(y, want)
             return float((y - want).abs().max()) / scale
 
-        hold(cs, fns, order, row, call, error, cs.RTOL[dt])
+        hold(cs, fns, order, row, call, error, 1.0 if bf16 else cs.RTOL[dt])
         lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
         print(f"{label} {row['dtype']} [{D}, {m}, {K}] k {k} {route} (rule: {rule}) "
               f"depth {row['depth']}, {row['rows_per_set']:.1f} rows a set: bound "
@@ -439,38 +463,72 @@ def tri_cube(D: int, n: int, dtype, rng):
                             "diag": 1.0 + rng.random((D, n ** 3))}, "cuda", dtype)
 
 
+def tri_wide(D: int, m: int, width: int, K: int, dtype, rng):
+    """A strict lower triangle of ``m`` rows a rank in level sets of
+    ``width`` rows, in level order on each of D ranks: row i of set j > 0
+    needs one random row of set j - 1 and K - 1 random rows of sets 0 … j -
+    1 (depth ceil(m / width)), random values, diagonal in [1, 2), as a
+    factor on the card."""
+    from repro_torch.kernels.smoother.ops import TriFactor
+
+    i = np.arange(m)
+    base = i // width * width                 # where row i's set begins
+    cols = np.full((D, m, K), -1, dtype=np.int32)
+    late = base > 0
+    prev = base[late] - width
+    cols[:, late, 0] = prev + rng.integers(0, width, (D, late.sum()))
+    cols[:, late, 1:] = (rng.random((D, late.sum(), K - 1))
+                         * base[late, None]).astype(np.int32)
+    return TriFactor.place({"cols": cols, "upper": False,
+                            "vals": np.where(cols >= 0, rng.standard_normal(cols.shape)
+                                             * 0.5 / K, 0.0),
+                            "diag": 1.0 + rng.random((D, m))}, "cuda", dtype)
+
+
 def tri_cases(cs, fns, order, size: int, chain=None, levels=None,
-              cubes=()) -> list:
+              cubes=(), bf16=False, wides=()) -> list:
     """Both triangles of every non-coarsest level, k = 1 and K_RHS, in f64,
     and level 0 in f32, on the lowering's own factors (``levels``: only
     those); with ``chain`` a pure chain of that many rows (each row needs
     the one before) on 8 ranks and on 1 first, f64, k = 1; with ``cubes``
     the route rule's sweep first: the 27-point stencil's lower triangle on
     an n³ box a rank for each n, 8 ranks, f32 and f64, k = 1 and K_RHS,
-    wherever a rank fits a block (:func:`tri_case`)."""
+    wherever a rank fits a block (:func:`tri_case`); with ``wides`` (pairs
+    of rows a set and slots a row) triangles of 32,768 rows a rank (level
+    0's) in sets of that width (:func:`tri_wide`), 8 ranks, k = 1.
+    ``bf16``: all of it in bfloat16 instead (the levels of the bfloat16
+    lowering, every level on both triangles; the cubes wherever a rank's
+    float32 z fits a block)."""
     from repro_torch.amg import AMGConfig, AMGSolver
     from repro_torch.amg.problems import laplace_3d
-    from repro_torch.kernels.smoother.smoother import tri_smem
+    from repro_torch.kernels.smoother.smoother import tri_smem, z_dtype
 
     rng = np.random.default_rng(0)
     rows = []
+    types = (torch.bfloat16,) if bf16 else (torch.float64, torch.float32)
     for n in cubes:
-        for dtype in (torch.float64, torch.float32):
+        for dtype in types:
             f = tri_cube(8, n, dtype, rng)
             for k in (1, cs.K_RHS):
-                if n ** 3 * k * f.vals.element_size() <= tri_smem("cuda"):
+                if n ** 3 * k * z_dtype(dtype).itemsize <= tri_smem("cuda"):
                     rows += tri_case(cs, fns, order, f"cube {n}", f, k, rng,
                                      library=False)
+    for width, K in wides:
+        f = tri_wide(8, 32_768, width, K, types[0], rng)
+        rows += tri_case(cs, fns, order, f"wide {width} K{K}", f, 1, rng,
+                         library=False)
+        del f
     if chain:
         for D in (8, 1):
-            f = cs.tri_chain(D, chain, torch.float64, "cuda")
+            f = cs.tri_chain(D, chain, types[0], "cuda")
             rows += tri_case(cs, fns, order, f"chain D{D}", f, 1, rng,
                              library=False)
     if not size:
         return rows
     A = laplace_3d(size)
-    for dtype in ("float64", "float32"):
+    for dtype in ("bfloat16",) if bf16 else ("float64", "float32"):
         dh = AMGSolver(AMGConfig(backend="torch", n_pods=2, lanes=4, dtype=dtype,
+                                 tol=cs.BF16_TOL if bf16 else 1e-8,
                                  device="cuda")).setup(A).dist_hierarchy
         for l, dl in enumerate(dh.levels):
             if (dl.coarse_inv is not None or (dtype == "float32" and l > 0)
@@ -485,18 +543,101 @@ def tri_cases(cs, fns, order, size: int, chain=None, levels=None,
     return rows
 
 
+def bda_cases(cs, fns, order, size: int, dtypes) -> list:
+    """``block_diag_apply`` at bs = 4 (the main path's) on the lowering's
+    own block-Jacobi factors at every non-coarsest level, k = 1 and K_RHS,
+    in each of ``dtypes``: every version against the plain version
+    (bfloat16 at the card's bar, and bit for bit against the order's
+    emulation, ``smoother/bf16_order.py``), beside batched ``torch.matmul``
+    and the byte bound (Binv, r and x read once, y written once)."""
+    from repro_torch.amg import AMGConfig, AMGSolver
+    from repro_torch.amg.problems import laplace_3d
+    from repro_torch.amg.solve import SolveOptions
+    from repro_torch.kernels.smoother import ref as sref
+    from repro_torch.kernels.smoother.bf16_order import block_diag_apply_emulate
+    from repro_torch.kernels.spmv.ref import block_x
+    from repro_torch.kernels.spmv.spmv import DTYPE_CODES
+
+    bs, omega = SolveOptions().block_size, SolveOptions().omega
+    A = laplace_3d(size)
+    rng = np.random.default_rng(0)
+    rows = []
+    for dtype in dtypes:
+        dt = getattr(torch, dtype)
+        bf16 = dt == torch.bfloat16
+        dh = AMGSolver(AMGConfig(backend="torch", n_pods=2, lanes=4, dtype=dtype,
+                                 tol=cs.BF16_TOL if bf16 else 1e-8,
+                                 device="cuda")).setup(A).dist_hierarchy
+        for l, dl in enumerate(dh.levels):
+            if dl.coarse_inv is not None:
+                continue
+            binv = dh._factor(l, "bj", bs).binv
+            D, nb = binv.shape[:2]
+            m = dl.A.rows_local
+            for k in (1, cs.K_RHS):
+                shape = (D, m) + ((k,) if k > 1 else ())
+                r, x = (torch.as_tensor(rng.standard_normal(shape), dtype=dt,
+                                        device="cuda") for _ in range(2))
+                want = sref.block_diag_apply_ref(binv, r, x, omega)
+                emu = block_diag_apply_emulate(binv, r, x, omega) if bf16 else None
+                bar = cs.bf16_bar(sref.block_diag_apply_absum(binv, r, x, omega)) \
+                    if bf16 else None
+                scale = float(want.abs().max()) or 1.0
+                rb = block_x(r, bs)
+                row = {"case": f"L{l} bs{bs}", "dtype": dtype, "k": k,
+                       "shape": [D, m], "bound_ms": (D * nb * bs * bs + 3 * D * m * k)
+                       * dt.itemsize / cs.HBM_BYTES_PER_S * 1e3,
+                       "library_ms": cs.time_ms(lambda: torch.matmul(binv, rb))[0]}
+                y = torch.empty_like(x)
+                stream = torch.cuda.current_stream().cuda_stream
+
+                def call(fn):
+                    rc = fn(binv.data_ptr(), r.data_ptr(), x.data_ptr(), y.data_ptr(),
+                            D, m, nb, bs, k, omega, DTYPE_CODES[dt], stream)
+                    assert rc == 0, rc
+
+                def error(fn):
+                    y.fill_(float("nan"))
+                    call(fn)
+                    torch.cuda.synchronize()
+                    if bf16:
+                        return bar(y, want)
+                    return float((y - want).abs().max()) / scale
+
+                hold(cs, fns, order, row, call, error, 1.0 if bf16 else cs.RTOL[dt])
+                if bf16:
+                    for v in fns:
+                        call(fns[v])
+                        torch.cuda.synchronize()
+                        row[f"{v}_bit_equal_emulation"] = bool(torch.equal(
+                            y.view(torch.int16), emu.view(torch.int16)))
+                print(f"block_diag_apply L{l} {dtype} [{D}, {m}] bs {bs} k {k}: bound "
+                      f"{row['bound_ms']:.4f} ms, torch.matmul {row['library_ms']:.4f}; "
+                      + ", ".join(f"{v} {row[f'{v}_ms']:.4f}"
+                                  + (f" (= emulation: {row[f'{v}_bit_equal_emulation']})"
+                                     if bf16 else "")
+                                  for v in dict.fromkeys(order)), flush=True)
+                rows.append(row)
+        del dh
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=64)
     ap.add_argument("--kernel", choices=("ell_spmv", "ell_spmm", "flash_attention",
-                                         "flash_attention_wgmma", "tri_solve"),
+                                         "flash_attention_wgmma", "tri_solve",
+                                         "block_diag_apply"),
                     default="ell_spmv")
     ap.add_argument("sources", nargs="*", metavar="SRC",
                     help="other sources of the kernel to hold it against")
     ap.add_argument("--out", default=None)
     ap.add_argument("--dtype", action="append", dest="dtypes", default=None,
                     choices=("float64", "float32", "bfloat16"),
-                    help="ell_spmv / ell_spmm: only this type's pass (repeatable)")
+                    help="ell_spmv / ell_spmm / block_diag_apply: only this "
+                         "type's pass (repeatable); tri_solve: bfloat16 runs "
+                         "the bfloat16 pass")
     ap.add_argument("--operand", action="append", dest="operands", default=None,
                     metavar="NAME", help='ell_spmv / ell_spmm: only this operand, '
                     'e.g. "L0 A_on" (repeatable)')
@@ -510,6 +651,11 @@ def main() -> int:
                     default=[], metavar="N",
                     help="tri_solve: also the route rule's sweep at the 27-point "
                          "stencil on an N^3 box a rank (repeatable)")
+    ap.add_argument("--wide", action="append", dest="wides", default=[],
+                    metavar="W[:K]",
+                    help="tri_solve: also a triangle of 32,768 rows a rank in "
+                         "level sets of W rows, K slots a row (13 if not "
+                         "given), k = 1 (repeatable)")
     ap.add_argument("--head-dim", type=int, action="append", dest="head_dims",
                     default=None, metavar="D",
                     help="flash_attention: only the cases at head dim D (repeatable)")
@@ -542,8 +688,14 @@ def main() -> int:
     elif args.kernel == "flash_attention_wgmma":
         rows = flash_cases(cs, fns, order, args.head_dims, dtypes=(torch.bfloat16,))
     elif args.kernel == "tri_solve":
+        wides = [tuple(int(v) for v in (w + ":13").split(":")[:2])
+                 for w in args.wides]
         rows = tri_cases(cs, fns, order, args.size, args.chain, args.levels,
-                         args.cubes)
+                         args.cubes, bf16="bfloat16" in (args.dtypes or ()),
+                         wides=wides)
+    elif args.kernel == "block_diag_apply":
+        rows = bda_cases(cs, fns, order, args.size,
+                         args.dtypes or ("float64", "float32", "bfloat16"))
     else:
         rows, sums = ell_cases(cs, fns, order, args.kernel, args.size,
                                args.dtypes or ("float64", "float32", "bfloat16"),

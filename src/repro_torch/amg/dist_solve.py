@@ -699,6 +699,7 @@ class DistHierarchy:
                     copy_into(getattr(f, name),
                               host[name].astype(DTYPES[self.dtype]),
                               self.dtype, name)
+                f.sync_values()
             self.programs.drop(lambda key: key.smoother == "chebyshev")
 
     # ----------------------------------------------------------- host layout

@@ -26,9 +26,28 @@
 // type; bfloat16 loads Binv, r and x as bfloat16, widens them, takes the
 // products, the block row's sum, w and x + w * sum in float32, and rounds
 // once, at the store of y.
+//
+// bfloat16 at bs = 4 (the main path's block size): a thread an output made
+// nine 2-byte loads, four runtime divisions and one 2-byte store for 16
+// bytes of work, so the kernel ran at a quarter of its bound.  There, where
+// every rank's rows fill whole blocks (m % 4 == 0) and the operands are
+// aligned, one thread takes a block and a group of W columns (W = 1 at
+// k = 1, else 8, 4 or 2, the widest dividing k): the 4 x 4 block of Binv
+// as two 16-byte loads, the block's 4 rows of r and of x as one 8-byte load
+// each at k = 1 (one W * 2-byte load a row otherwise), y stored the same
+// way.  Block b of rank d starts at row 4 (d nb + b), so the flat block
+// index is the row index over 4 and no division by nb is left (one by the
+// column groups where k > W).  Each output sums c = 0..3 in turn (a
+// float32 fused multiply-add each, products of two bfloat16 exact) and
+// stores fma(w, sum, x) rounded once: the order of the thread-an-output
+// kernel, bit for bit (kernels/smoother/bf16_order.py emulates it): 0.0030
+// against 0.0044 ms at level 0 of laplace_3d(64) on 2 x 4, k = 1, and
+// 0.0065 against 0.0163 at k = 8 (PERF.md).  Other shapes keep the
+// thread-an-output kernel, by a rule decided before the launch.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "value_types.cuh"
 
@@ -36,6 +55,9 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int64_t MAX_BLOCKS = int64_t{1} << 20;
+constexpr int BS4 = 4;        // the block size of the bfloat16 vector path
+
+using bf16 = __nv_bfloat16;
 
 template <typename T, typename I, typename A = typename Acc<T>::type>
 __global__ void __launch_bounds__(THREADS)
@@ -60,10 +82,155 @@ block_diag_apply_kernel(const T* __restrict__ binv, const T* __restrict__ r,
   }
 }
 
+// W bfloat16 values at p (W * 2 bytes, as aligned) widened into o
+template <int W>
+__device__ __forceinline__ void load_bf16(const bf16* p, float* o) {
+  if constexpr (W == 1) {
+    o[0] = __bfloat162float(__ldg(p));
+  } else if constexpr (W == 2) {
+    const float2 a = __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+    o[0] = a.x;
+    o[1] = a.y;
+  } else {
+    constexpr int N = W / 2;     // bf16 pairs: 2 (8 bytes) or 4 (16 bytes)
+    unsigned u[N];
+    if constexpr (W == 4) {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+      u[0] = t.x;
+      u[1] = t.y;
+    } else {
+      const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+      u[0] = t.x;
+      u[1] = t.y;
+      u[2] = t.z;
+      u[3] = t.w;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+      o[2 * i] = a.x;
+      o[2 * i + 1] = a.y;
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// the W values v rounded to bfloat16 at p, one store
+template <int W>
+__device__ __forceinline__ void store_bf16(bf16* p, const float* v) {
+  if constexpr (W == 1) {
+    *p = __float2bfloat16_rn(v[0]);
+  } else if constexpr (W == 2) {
+    *reinterpret_cast<unsigned*>(p) = bf16x2_bits(v[0], v[1]);
+  } else if constexpr (W == 4) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]));
+  } else {
+    *reinterpret_cast<uint4*>(p) = make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]),
+                                              bf16x2_bits(v[4], v[5]), bf16x2_bits(v[6], v[7]));
+  }
+}
+
+// bfloat16, bs = 4, m % 4 == 0: thread t takes flat block t / groups (rows
+// 4 (t / groups) ...) and columns (t % groups) * W ... of it.  At k = 1 (W =
+// 1) the block's 4 values of r, x and y are one 8-byte piece each.
+template <int W>
+__global__ void __launch_bounds__(THREADS)
+block_diag_bf16_bs4_kernel(const bf16* __restrict__ binv, const bf16* __restrict__ r,
+                           const bf16* __restrict__ x, bf16* __restrict__ y,
+                           uint32_t total, uint32_t groups, uint32_t k, float w) {
+  for (uint32_t t = blockIdx.x * THREADS + threadIdx.x; t < total;
+       t += gridDim.x * THREADS) {
+    const uint32_t b = groups == 1 ? t : t / groups;   // the flat block
+    const uint32_t col = (t - b * groups) * W;
+    float B[BS4 * BS4];
+    load_bf16<8>(binv + b * (BS4 * BS4), B);
+    load_bf16<8>(binv + b * (BS4 * BS4) + 8, B + 8);
+    float R[BS4][W], X[BS4][W], Y[BS4][W];
+    const uint32_t row0 = b * BS4;
+    if constexpr (W == 1) {
+      float v[BS4];
+      load_bf16<4>(r + row0, v);
+#pragma unroll
+      for (int c = 0; c < BS4; ++c) R[c][0] = v[c];
+      load_bf16<4>(x + row0, v);
+#pragma unroll
+      for (int c = 0; c < BS4; ++c) X[c][0] = v[c];
+    } else {
+#pragma unroll
+      for (int c = 0; c < BS4; ++c) {
+        load_bf16<W>(r + (row0 + c) * k + col, R[c]);
+        load_bf16<W>(x + (row0 + c) * k + col, X[c]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BS4; ++i) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        float acc = 0.f;
+#pragma unroll
+        for (int c = 0; c < BS4; ++c) acc = fmaf(B[i * BS4 + c], R[c][j], acc);
+        Y[i][j] = fmaf(w, acc, X[i][j]);
+      }
+    }
+    if constexpr (W == 1) {
+      const float v[BS4] = {Y[0][0], Y[1][0], Y[2][0], Y[3][0]};
+      store_bf16<4>(y + row0, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < BS4; ++i) store_bf16<W>(y + (row0 + i) * k + col, Y[i]);
+    }
+  }
+}
+
+template <int W>
+int launch_bf16_bs4(const bf16* binv, const bf16* r, const bf16* x, bf16* y,
+                    int64_t blocks, int64_t k, double w, cudaStream_t stream) {
+  const int64_t groups = W == 1 ? 1 : k / W;
+  const int64_t total = blocks * groups;
+  int64_t grid = (total + THREADS - 1) / THREADS;
+  if (grid > MAX_BLOCKS) grid = MAX_BLOCKS;
+  block_diag_bf16_bs4_kernel<W><<<grid, THREADS, 0, stream>>>(
+      binv, r, x, y, static_cast<uint32_t>(total), static_cast<uint32_t>(groups),
+      static_cast<uint32_t>(k), static_cast<float>(w));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// W of the bfloat16 vector path for this launch, or 0 where it cannot take
+// it: bs = 4, whole blocks (m % 4 == 0), 32-bit indices (r's and x's, and
+// Binv's, its last block's largest offset included: D * nb * 16), Binv
+// 16-byte aligned, and r, x, y aligned to their pieces (8 bytes at k = 1;
+// W * 2 at k % W == 0, W the widest of 8, 4, 2)
+int bs4_width(const void* binv, const void* r, const void* x, const void* y,
+              int64_t D, int64_t m, int64_t bs, int64_t k) {
+  if (bs != BS4 || m % BS4 != 0 || D * m * k >= (int64_t{1} << 31) ||
+      D * (m / BS4) * BS4 * BS4 >= (int64_t{1} << 31))
+    return 0;
+  if (reinterpret_cast<uintptr_t>(binv) % 16 != 0) return 0;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(x) |
+                       reinterpret_cast<uintptr_t>(y);
+  if (k == 1) return at % 8 == 0 ? 1 : 0;
+  for (int W = 8; W >= 2; W /= 2)
+    if (k % W == 0 && at % (2 * W) == 0) return W;
+  return 0;
+}
+
 template <typename T>
 int launch(const T* binv, const T* r, const T* x, T* y, int64_t D, int64_t m,
            int64_t nb, int64_t bs, int64_t k, double w, cudaStream_t stream) {
   using A = typename Acc<T>::type;
+  if constexpr (std::is_same_v<T, bf16>) {
+    switch (bs4_width(binv, r, x, y, D, m, bs, k)) {
+      case 1: return launch_bf16_bs4<1>(binv, r, x, y, D * nb, k, w, stream);
+      case 2: return launch_bf16_bs4<2>(binv, r, x, y, D * nb, k, w, stream);
+      case 4: return launch_bf16_bs4<4>(binv, r, x, y, D * nb, k, w, stream);
+      case 8: return launch_bf16_bs4<8>(binv, r, x, y, D * nb, k, w, stream);
+      default: break;
+    }
+  }
   const int64_t total = D * m * k;
   int64_t blocks = (total + THREADS - 1) / THREADS;
   if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;

@@ -31,7 +31,13 @@
 // block (__syncthreads) and 1.4-1.9 on clusters of 2-8 blocks (the cluster
 // barrier), which lost to the L2 route at every size; so a rank is one
 // block or the L2 route, and the wrapper's rule (smoother.tri_plan) takes
-// the block where it measured faster.
+// the block where it measured faster.  Both routes load each row's data
+// from device memory on the chain of steps.  The staged route (bfloat16,
+// k = 1) streams it into shared memory ahead of the solve, so a step is a
+// named barrier, the row's shared-memory gathers and its division: 0.241
+// us on a chain (about 0.165 of it the set loop and barrier, measured
+// without the rows), 0.132 ms over level 0's 218 sets, where the bulk
+// copies move about 25 GB/s an SM (PERF.md).
 //
 // Design.  No rank's triangle depends on another's (cols are rank-local), so
 // each rank solves on its own; `order` [D, m] lists each rank's rows by
@@ -45,6 +51,34 @@
 //   ids, values, r, x and diag (and the row index after it) before it
 //   solves the current one.  No memset and no scratch in device memory:
 //   captured in a CUDA graph, a launch is one kernel node.
+// * Staged route (bfloat16 operands, k = 1): one thread block a rank, as the
+//   block route, but every row's data streamed ahead of the solve.  The
+//   wrapper builds a "slab" once a factor and row order (smoother.TriSlab):
+//   each rank's rows in `order`, cut into stages of R = STAGED_ROWS rows, a
+//   stage one contiguous, 16-byte aligned run of 32-bit words laid out as
+//   [row header R][slot words KP x R] (slot-major, so lanes of consecutive
+//   rows read consecutive words).  A header is the row index in its low 16
+//   bits and the diagonal's bfloat16 bits in its high 16, a slot word the
+//   column in its low 16 bits and the value's bfloat16 bits in its high
+//   16: a bfloat16 widens to float32 by its place in the word, one AND.
+//   Rows of K <= 32 slots take KP = K slots (an instance of the kernel for
+//   each K, every slot's load unrolled), longer ones K rounded up to 32; the
+//   extra slots, and the padding ones, are column m and value 0: z[m] is
+//   0, so they add +0 and no slot is tested.  m < 65536 (z fits a block
+//   only below 58,000 rows).  One producer thread copies stage after stage
+//   by cp.async.bulk into a ring of shared-memory stages, each with a full
+//   and an empty mbarrier (kernels/csrc/bulk_copy.cuh); it runs as far
+//   ahead as the ring holds, never meeting the set barrier.  Shared memory also holds the
+//   rank's z as float32 [m + 1], filled first with widened r (one coalesced
+//   pass), so each row solves in place, z_i <- (z_i - sum v z_c) / d_i, and
+//   the rank's level-set starts.  STAGED_CONSUMERS threads take a level
+//   set's rows by a static stride, one lane a row: all of the row's z
+//   gathers from shared memory at once, then its sum in the L2 route's
+//   order (below), one division, one store; then a named barrier of the
+//   consumers alone (bar.sync, never __syncthreads).  After each set one
+//   consumer releases the stages whose rows are all solved.  An epilogue
+//   writes y = x + w z for all m rows, coalesced, rounded once.  No memset
+//   and no scratch in device memory: captured, a launch is one kernel node.
 // * L2 route: z [D, m, k] in device memory, set to all-ones bits by a memset
 //   on the same stream (a memset node and a kernel node in a graph), and a
 //   persistent grid (two blocks an SM) whose groups take global positions p
@@ -65,8 +99,16 @@
 // Each row's sum runs in a fixed order (k = 1: lane g of a group of G lanes
 // sums slots g, g + G, ... in turn, then a butterfly over the G lanes;
 // k > 1: lane j sums column j over the slots in turn), so results repeat bit
-// for bit whatever order the rows of a level set come in, and the two
-// routes give the same bits.
+// for bit whatever order the rows of a level set come in, and the routes
+// give the same bits.  The staged route's one lane keeps the L2 route's
+// order at G = 32: slot e goes into leaf e mod 32 (a fused multiply-add,
+// in increasing e), and the leaves meet as the butterfly's lane 0 sums
+// them, leaf[i] += leaf[i + o] for o = 16, 8, 4, 2, 1 (a float sum is
+// commutative, so every lane of the butterfly holds the same bits).  The
+// staged route keeps the least power of two of leaves that holds its KP
+// slots and skips the butterfly's steps past them, which add zeros, as its
+// padding slots do (x + 0 = x: only a zero's sign could differ).
+// kernels/smoother/bf16_order.py emulates both orders on the CPU.
 //
 // Value types (value_types.cuh): float32 and float64 compute and keep z in
 // their own type.  bfloat16 loads vals, diag, r and x as bfloat16 and widens
@@ -77,7 +119,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
+#include "bulk_copy.cuh"
 #include "value_types.cuh"
 
 namespace {
@@ -96,6 +140,18 @@ constexpr int L2_THREADS = 256;
 // the L2 to the loads that find their value
 constexpr int L2_BLOCKS_PER_SM = 2;
 constexpr long long TRAP_CYCLES = 2000000000ll; // about a second of waiting
+// the staged route (smoother.py reads these four): rows a stage (a multiple
+// of 4, so every stage stays 16-byte aligned), the threads that solve rows,
+// and the ring's stages, at least (a pass of one row a consumer must fit
+// the ring) and at most
+constexpr int STAGED_ROWS = 128;
+constexpr int STAGED_CONSUMERS = 256;
+constexpr int STAGED_MIN_STAGES = 3;
+constexpr int STAGED_MAX_STAGES = 8;
+// a pass of one row a consumer spans this many stages at most
+static_assert(STAGED_MIN_STAGES >= STAGED_CONSUMERS / STAGED_ROWS + 1, "the ring");
+constexpr int STAGED_THREADS = STAGED_CONSUMERS + 32;   // and one producer warp
+constexpr int STAGED_BARRIER = 1;                       // the consumers' named barrier
 
 template <typename T> struct Bits;
 template <> struct Bits<float> {
@@ -480,6 +536,202 @@ tri_solve_block_kernel(Args<T> a, const int* __restrict__ order,
   }
 }
 
+// ----------------------------------------------------------- staged route
+// the slots a row takes in the slab for rows of K slots: K up to 32 (an
+// instance each), past 32 K rounded up to 32 (the extra slots padding)
+__host__ __device__ constexpr int64_t staged_slots(int64_t K) {
+  return K <= 32 ? K : (K + 31) / 32 * 32;
+}
+// a stage's bytes, and the shared memory before the ring (z with its zero
+// slot z[m], then the level-set starts, each rounded up to 16 bytes)
+__host__ __device__ constexpr int64_t staged_stage_bytes(int64_t K) {
+  return 4 * STAGED_ROWS * (1 + staged_slots(K));
+}
+__host__ __device__ constexpr int64_t round16(int64_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int64_t staged_fixed_bytes(int64_t m, int64_t nlev) {
+  return round16(4 * (m + 1)) + round16(4 * (nlev + 1));
+}
+
+// mbar_wait that traps after about a second rather than hang the card on
+// a copy that never lands
+__device__ __forceinline__ void staged_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long t0 = 0;
+  for (int n = 0; !done; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done) {
+      if (n == 0) t0 = clock64();
+      else if (clock64() - t0 > TRAP_CYCLES) __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;" ::"n"(STAGED_BARRIER), "n"(STAGED_CONSUMERS) : "memory");
+}
+
+// leaf[j] += leaf[j + N / 2], ..., down to leaf[0] (constant indices: the
+// leaves stay in registers)
+template <int N>
+__device__ __forceinline__ void fold(float* leaf) {
+  if constexpr (N > 1) {
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) leaf[j] += leaf[j + N / 2];
+    fold<N / 2>(leaf);
+  }
+}
+
+// one row's sum at stage offset `off` (KP slots a row, 1 to 32; 0: none,
+// or past 32 `kp` of them in chunks of 32): every slot word of the
+// row and its z gather at once, each slot a fused multiply-add into leaf
+// e mod 32, then the leaves folded as the butterfly's lane 0 folds them
+// (NL leaves, the least power of two holding the slots; past NL the
+// butterfly adds zeros)
+template <int KP>
+__device__ __forceinline__ float staged_sum(const uint32_t* slots, int off, int kp,
+                                            const float* z) {
+  constexpr int NL = KP == 0 ? 32 : (KP <= 1 ? 1 : (KP <= 2 ? 2 : (KP <= 4 ? 4
+                     : (KP <= 8 ? 8 : (KP <= 16 ? 16 : 32)))));
+  constexpr int CH = KP == 0 ? 32 : KP;       // slots a chunk
+  float leaf[NL];
+#pragma unroll
+  for (int j = 0; j < NL; ++j) leaf[j] = 0.f;
+  const int n = KP == 0 ? kp : KP;
+  for (int e0 = 0; e0 < n; e0 += CH) {
+    uint32_t w[CH];
+    float zc[CH];
+#pragma unroll
+    for (int j = 0; j < CH; ++j) w[j] = slots[(e0 + j) * STAGED_ROWS + off];
+#pragma unroll
+    for (int j = 0; j < CH; ++j) zc[j] = z[w[j] & 0xffffu];
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+      leaf[j % NL] = fmaf(__uint_as_float(w[j] & 0xffff0000u), zc[j], leaf[j % NL]);
+  }
+  fold<NL>(leaf);
+  return leaf[0];
+}
+
+// one block a rank (blockIdx.x): the producer warp's first thread streams
+// the rank's stages; STAGED_CONSUMERS threads solve the level sets
+template <int KP>
+__global__ void __launch_bounds__(STAGED_THREADS, 1)
+tri_solve_staged_kernel(const unsigned char* __restrict__ slab,
+                        const __nv_bfloat16* __restrict__ r,
+                        const __nv_bfloat16* __restrict__ x,
+                        __nv_bfloat16* __restrict__ y,
+                        const int* __restrict__ starts, int m, int K, int nlev,
+                        int stages, float w) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int d = static_cast<int>(blockIdx.x);
+  const int nst = (m + STAGED_ROWS - 1) / STAGED_ROWS;
+  const int kp = static_cast<int>(staged_slots(K));
+  const int64_t sb = staged_stage_bytes(K);
+  float* z = reinterpret_cast<float*>(smem);
+  int* st = reinterpret_cast<int*>(smem + round16(4 * (static_cast<int64_t>(m) + 1)));
+  unsigned char* ring = smem + staged_fixed_bytes(m, nlev);
+  const uint32_t bars = smem_u32(ring + stages * sb);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (stages + s); };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= STAGED_CONSUMERS) {
+    // the producer: stage q into ring slot q % stages, once its rows of
+    // round q / stages - 1 are released
+    if (threadIdx.x == STAGED_CONSUMERS) {
+      const unsigned char* src = slab + static_cast<int64_t>(d) * nst * sb;
+      int s = 0;
+      uint32_t round = 0;
+      for (int q = 0; q < nst; ++q) {
+        if (round > 0) staged_wait(empty(s), (round - 1) & 1);
+        mbar_expect_tx(full(s), static_cast<uint32_t>(sb));
+        bulk_load(smem_u32(ring + s * sb), src + q * sb, static_cast<uint32_t>(sb), full(s));
+        if (++s == stages) {
+          s = 0;
+          ++round;
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: z <- r widened (z[m] = 0, the padding slots' column),
+  // the starts, then the level sets
+  const int t = static_cast<int>(threadIdx.x);
+  const __nv_bfloat16* rd = r + static_cast<int64_t>(d) * m;
+  for (int i = t; i <= m; i += STAGED_CONSUMERS) z[i] = i < m ? __bfloat162float(rd[i]) : 0.f;
+  const int* sd = starts + static_cast<int64_t>(d) * (nlev + 1);
+  for (int L = t; L <= nlev; L += STAGED_CONSUMERS) st[L] = sd[L];
+  consumers_sync();
+  // this thread's stage (q, its ring slot and round), advanced as its rows
+  // move on; thread 0's next stage to release and its slot
+  int q = -1, slot = -1;
+  uint32_t round = 0;
+  const uint32_t* stage = nullptr;
+  int released = 0, rslot = 0;
+  int lo = st[0];
+  for (int L = 0; L < nlev; ++L) {
+    const int hi = st[L + 1];
+    // the set in passes of one row a consumer; a pass touches at most
+    // STAGED_MIN_STAGES stages, and the stages before it are released, so
+    // a set wider than the ring cannot wait on stages the producer holds
+    for (int a = lo;; a += STAGED_CONSUMERS) {
+      const int b = a + STAGED_CONSUMERS < hi ? a + STAGED_CONSUMERS : hi;
+      const int p = a + t;
+      if (p < b) {
+        const int pq = static_cast<int>(static_cast<unsigned>(p) / STAGED_ROWS);
+        if (pq != q) {
+          while (q < pq) {
+            ++q;
+            if (++slot == stages) {
+              slot = 0;
+              ++round;
+            }
+          }
+          staged_wait(full(slot), round & 1);
+          stage = reinterpret_cast<const uint32_t*>(ring + slot * sb);
+        }
+        const int off = p - pq * STAGED_ROWS;
+        const uint32_t h = stage[off];             // row index | diag's bf16 bits
+        const int i = static_cast<int>(h & 0xffffu);
+        const float s = staged_sum<KP>(stage + STAGED_ROWS, off, kp, z);
+        z[i] = (z[i] - s) / __uint_as_float(h & 0xffff0000u);
+      }
+      consumers_sync();   // the pass's z written before the next set reads
+      if (t == 0) {
+        // every stage whose rows all lie before b is free for the producer
+        while (released < nst &&
+               (released + 1 < nst ? (released + 1) * STAGED_ROWS : m) <= b) {
+          mbar_arrive(empty(rslot));
+          ++released;
+          if (++rslot == stages) rslot = 0;
+        }
+      }
+      if (b >= hi) break;
+    }
+    lo = hi;
+  }
+  const __nv_bfloat16* xd = x + static_cast<int64_t>(d) * m;
+  __nv_bfloat16* yd = y + static_cast<int64_t>(d) * m;
+  for (int i = t; i < m; i += STAGED_CONSUMERS)
+    yd[i] = __float2bfloat16_rn(fmaf(w, z[i], __bfloat162float(xd[i])));
+}
+
 // ------------------------------------------------------------------ launch
 constexpr int MAX_DEVICES = 32;
 
@@ -551,25 +803,92 @@ int launch_l2(const Args<T>& a, const int* order, void* z, int64_t D,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int KP>
+int launch_staged_kp(const unsigned char* slab, const __nv_bfloat16* r,
+                     const __nv_bfloat16* x, __nv_bfloat16* y, const int* starts,
+                     int64_t D, int64_t m, int64_t K, int64_t nlev, int64_t stages,
+                     size_t bytes, float w, cudaStream_t stream) {
+  static bool ready[MAX_DEVICES] = {false};   // the opt-in set, a device
+  const int dev = device_index();
+  if (dev >= MAX_DEVICES || !ready[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tri_solve_staged_kernel<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_optin());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < MAX_DEVICES) ready[dev] = true;
+  }
+  tri_solve_staged_kernel<KP><<<static_cast<unsigned>(D), STAGED_THREADS, bytes, stream>>>(
+      slab, r, x, y, starts, static_cast<int>(m), static_cast<int>(K),
+      static_cast<int>(nlev), static_cast<int>(stages), w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the ring takes as many stages as the opt-in leaves beside z and the starts,
+// STAGED_MIN_STAGES at least and STAGED_MAX_STAGES at most; rows and
+// columns fit 16 bits (m < 65536); else cudaErrorInvalidValue
+// (smoother.tri_plan never plans the route there).  An instance a slot
+// count up to 32 (every slot's load unrolled), one for longer rows (and
+// for none).
+int launch_staged(const void* slab, const __nv_bfloat16* r, const __nv_bfloat16* x,
+                  __nv_bfloat16* y, const int* starts, int64_t D, int64_t m,
+                  int64_t K, int64_t nlev, double w, cudaStream_t stream) {
+  const int64_t fixed = staged_fixed_bytes(m, nlev);
+  const int64_t sb = staged_stage_bytes(K);
+  int64_t stages = (smem_optin() - fixed - 16 * STAGED_MAX_STAGES) / sb;
+  if (stages > STAGED_MAX_STAGES) stages = STAGED_MAX_STAGES;
+  if (stages < STAGED_MIN_STAGES || m >= 65536)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = static_cast<size_t>(fixed + stages * (sb + 16));
+  const auto* s = static_cast<const unsigned char*>(slab);
+  const float wf = static_cast<float>(w);
+#define STAGED_CASE(KP) \
+  case KP:              \
+    return launch_staged_kp<KP>(s, r, x, y, starts, D, m, K, nlev, stages, bytes, wf, stream);
+  switch (K > 32 ? 0 : K) {
+    STAGED_CASE(0) STAGED_CASE(1) STAGED_CASE(2) STAGED_CASE(3) STAGED_CASE(4)
+    STAGED_CASE(5) STAGED_CASE(6) STAGED_CASE(7) STAGED_CASE(8) STAGED_CASE(9)
+    STAGED_CASE(10) STAGED_CASE(11) STAGED_CASE(12) STAGED_CASE(13) STAGED_CASE(14)
+    STAGED_CASE(15) STAGED_CASE(16) STAGED_CASE(17) STAGED_CASE(18) STAGED_CASE(19)
+    STAGED_CASE(20) STAGED_CASE(21) STAGED_CASE(22) STAGED_CASE(23) STAGED_CASE(24)
+    STAGED_CASE(25) STAGED_CASE(26) STAGED_CASE(27) STAGED_CASE(28) STAGED_CASE(29)
+    STAGED_CASE(30) STAGED_CASE(31) STAGED_CASE(32)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef STAGED_CASE
+}
+
+// the routes' codes (smoother.TRI_ROUTE_CODES)
+constexpr int ROUTE_L2 = 0, ROUTE_BLOCK = 1, ROUTE_STAGED = 2;
+
 template <typename T, int G, bool MULTI>
 int launch_route(const Args<T>& a, const int* order, const int* starts,
-                 int64_t nlev, void* z, int64_t D, int block, cudaStream_t stream) {
-  if (block) return launch_block<T, G, MULTI>(a, order, starts, nlev, D, stream);
+                 int64_t nlev, void* z, int64_t D, int route, cudaStream_t stream) {
+  if (route == ROUTE_BLOCK)
+    return launch_block<T, G, MULTI>(a, order, starts, nlev, D, stream);
   return launch_l2<T, G, MULTI>(a, order, z, D, stream);
 }
 
 template <typename T>
 int launch(const int* cols, const T* vals, const T* diag, const T* r, const T* x,
            const int* order, const int* starts, void* z, T* y, int64_t D,
-           int64_t m, int64_t K, int64_t k, int64_t nlev, double w, int block,
+           int64_t m, int64_t K, int64_t k, int64_t nlev, double w, int route,
            cudaStream_t stream) {
+  if (route == ROUTE_STAGED) {
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      if (k == 1) return launch_staged(z, r, x, y, starts, D, m, K, nlev, w, stream);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route != ROUTE_L2 && route != ROUTE_BLOCK)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args<T> a{cols, vals, diag, r, x, y, m, static_cast<int>(K), k,
                   static_cast<typename Acc<T>::type>(w)};
   if (k == 1)
-    return launch_route<T, LANES, false>(a, order, starts, nlev, z, D, block, stream);
-  if (k <= 8) return launch_route<T, 8, true>(a, order, starts, nlev, z, D, block, stream);
-  if (k <= 16) return launch_route<T, 16, true>(a, order, starts, nlev, z, D, block, stream);
-  return launch_route<T, 32, true>(a, order, starts, nlev, z, D, block, stream);
+    return launch_route<T, LANES, false>(a, order, starts, nlev, z, D, route, stream);
+  if (k <= 8) return launch_route<T, 8, true>(a, order, starts, nlev, z, D, route, stream);
+  if (k <= 16) return launch_route<T, 16, true>(a, order, starts, nlev, z, D, route, stream);
+  return launch_route<T, 32, true>(a, order, starts, nlev, z, D, route, stream);
 }
 
 }  // namespace
@@ -577,21 +896,25 @@ int launch(const int* cols, const T* vals, const T* diag, const T* r, const T* x
 // y = x + w * T^-1 r.  `order` [D, m] lists each rank's rows by level set
 // (ref.rank_level_order), `starts` [D, nlev + 1] where each of the nlev level
 // sets begins in it (ref.rank_level_starts; nlev the most level sets of any
-// rank).  dtype: 0 float32, 1 float64, 2 bfloat16 (z in float32).  `block`
-// != 0 takes the block route (m*k*sizeof(z) bytes of shared memory at most
-// the card's opt-in limit, tri_solve_smem; z unused), 0 the L2 route (z:
-// scratch of D*m*k elements of z's type, 8-byte aligned; starts and nlev
-// unused).  Returns the memset's error, else the launch's, else
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for an unknown
-// dtype code.  The caller guarantees D, m, k > 0, K >= 0, contiguous
-// operands on one device, D * m < 2^31, cols != -1 only for columns of the
-// row's rank that it depends on, and y apart from every input.
+// rank).  dtype: 0 float32, 1 float64, 2 bfloat16 (z in float32).  `route`:
+// 0 the L2 route (z: scratch of D*m*k elements of z's type, 8-byte aligned;
+// starts and nlev unused), 1 the block route (m*k*sizeof(z) bytes of shared
+// memory at most the card's opt-in limit, tri_solve_smem; z unused), 2 the
+// staged route, bfloat16 and k = 1 only (z: the slab, smoother.TriSlab's
+// bytes for this order, 16-byte aligned; cols, vals, diag and order unused;
+// z, the starts and STAGED_MIN_STAGES stages within the opt-in).  Returns
+// the memset's error, else the launch's, else cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for an unknown dtype or route code or
+// a case the route cannot take.  The caller guarantees D, m, k > 0, K >= 0,
+// contiguous operands on one device, D * m < 2^31, cols != -1 only for
+// columns of the row's rank that it depends on, and y apart from every
+// input.
 extern "C" int tri_solve_launch(const void* cols, const void* vals,
                                 const void* diag, const void* r, const void* x,
                                 const void* order, const void* starts, void* z,
                                 void* y, int64_t D, int64_t m, int64_t K,
                                 int64_t k, int64_t nlev, double w, int dtype,
-                                int block, void* stream) {
+                                int route, void* stream) {
   const auto* c = static_cast<const int*>(cols);
   const auto* o = static_cast<const int*>(order);
   const auto* st = static_cast<const int*>(starts);
@@ -602,20 +925,20 @@ extern "C" int tri_solve_launch(const void* cols, const void* vals,
                            static_cast<const float*>(diag),
                            static_cast<const float*>(r), static_cast<const float*>(x),
                            o, st, z, static_cast<float*>(y), D, m, K, k, nlev, w,
-                           block, s);
+                           route, s);
     case 1:
       return launch<double>(c, static_cast<const double*>(vals),
                             static_cast<const double*>(diag),
                             static_cast<const double*>(r),
                             static_cast<const double*>(x), o, st, z,
-                            static_cast<double*>(y), D, m, K, k, nlev, w, block, s);
+                            static_cast<double*>(y), D, m, K, k, nlev, w, route, s);
     case 2:
       return launch<__nv_bfloat16>(c, static_cast<const __nv_bfloat16*>(vals),
                                    static_cast<const __nv_bfloat16*>(diag),
                                    static_cast<const __nv_bfloat16*>(r),
                                    static_cast<const __nv_bfloat16*>(x), o, st, z,
                                    static_cast<__nv_bfloat16*>(y), D, m, K, k,
-                                   nlev, w, block, s);
+                                   nlev, w, route, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

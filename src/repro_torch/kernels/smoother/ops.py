@@ -7,7 +7,9 @@ wrapper (``use_kernel=None``/``True``: the CUDA kernel for CUDA tensors,
 the plain version for CPU ones) or, with ``use_kernel=False``, through the
 plain version explicitly.  ``VALUES`` names the tensors a refresh copies
 new values into, in place, so captured graphs read them on their next
-replay.
+replay; ``sync_values()`` then rewrites, in place too, what a factor
+derives from them (a bfloat16 triangle's slab for the staged route, where
+it holds one).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 
 from .ref import (block_diag_apply_ref, dag_levels, level_schedule,
                   rank_level_order, rank_level_starts, tri_solve_ref)
-from .smoother import block_diag_apply, tri_solve
+from .smoother import TriSlab, block_diag_apply, tri_plan, tri_smem, tri_solve
 
 
 @dataclasses.dataclass(eq=False)
@@ -35,6 +37,9 @@ class BlockFactor:
     def tensors(self) -> tuple[torch.Tensor, ...]:
         return (self.binv,)
 
+    def sync_values(self) -> None:
+        """Nothing derives from ``binv``."""
+
     def apply(self, r, x, w: float, use_kernel: bool = True):
         if use_kernel is False:
             return block_diag_apply_ref(self.binv, r, x, w)
@@ -50,7 +55,11 @@ class TriFactor:
     :func:`.ref.rank_level_order`) and ``starts`` (int32 ``[D, nlev + 1]``,
     where each rank's level sets begin in it, :func:`.ref.rank_level_starts`).
     ``host_cols`` and ``levels`` stay on the host (pattern only: a refresh
-    keeps them) for the plain version's level sets, built on first use."""
+    keeps them) for the plain version's level sets, built on first use.
+    A factor whose launches at k = 1 the rule sends to the staged route
+    (bfloat16 on the card, :func:`.smoother.tri_plan`) also holds ``slab``,
+    that route's operand for its own order (:class:`.smoother.TriSlab`),
+    built when it is placed; other factors hold None."""
 
     cols: torch.Tensor
     vals: torch.Tensor
@@ -61,21 +70,32 @@ class TriFactor:
     host_cols: np.ndarray
     levels: np.ndarray
     _schedule: list | None = dataclasses.field(default=None, repr=False)
+    slab: TriSlab | None = dataclasses.field(default=None, repr=False)
     VALUES = ("vals", "diag")
 
     @classmethod
     def place(cls, host: dict, device, dtype) -> "TriFactor":
         upper = bool(host["upper"])
         levels = dag_levels(host["cols"], upper)
-        return cls(torch.as_tensor(host["cols"]).to(device=device),
-                   torch.as_tensor(host["vals"]).to(device=device, dtype=dtype),
-                   torch.as_tensor(host["diag"]).to(device=device, dtype=dtype),
-                   torch.as_tensor(rank_level_order(levels)).to(device=device),
-                   torch.as_tensor(rank_level_starts(levels)).to(device=device),
-                   upper, host["cols"], levels)
+        f = cls(torch.as_tensor(host["cols"]).to(device=device),
+                torch.as_tensor(host["vals"]).to(device=device, dtype=dtype),
+                torch.as_tensor(host["diag"]).to(device=device, dtype=dtype),
+                torch.as_tensor(rank_level_order(levels)).to(device=device),
+                torch.as_tensor(rank_level_starts(levels)).to(device=device),
+                upper, host["cols"], levels)
+        if _plans_staged(f.cols, f.starts, f.vals.dtype):
+            f.slab = TriSlab(f.cols, f.vals, f.diag, f.order)
+        return f
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
-        return (self.cols, self.vals, self.diag, self.order, self.starts)
+        return ((self.cols, self.vals, self.diag, self.order, self.starts)
+                + (() if self.slab is None else (self.slab.data,)))
+
+    def sync_values(self) -> None:
+        """Rewrite the slab, where there is one, in place from ``vals`` and
+        ``diag``."""
+        if self.slab is not None:
+            self.slab.fill()
 
     def schedule(self) -> list[torch.Tensor]:
         """The plain version's level sets (flat row indices on the factor's
@@ -96,7 +116,19 @@ class TriFactor:
         on_cpu = self.cols.device.type == "cpu"
         return tri_solve(self.cols, self.vals, self.diag, r, x, w,
                          upper=self.upper, order=(self.order, self.starts),
-                         schedule=self.schedule() if on_cpu else None)
+                         schedule=self.schedule() if on_cpu else None,
+                         slab=self.slab)
+
+
+def _plans_staged(cols: torch.Tensor, starts: torch.Tensor,
+                  dtype: torch.dtype) -> bool:
+    """Whether the rule sends this triangle's launches at k = 1 to the
+    staged route: on the card only (the plain version reads no slab)."""
+    if cols.device.type != "cuda" or dtype != torch.bfloat16:
+        return False
+    _, m, K = cols.shape
+    return tri_plan(m, starts.shape[1] - 1, 1, dtype, tri_smem(cols.device),
+                    K=K) == "staged"
 
 
 def place_factor(host: dict, device, dtype):

@@ -23,8 +23,9 @@ it launches its kernel on the current stream or raises.
 ``<wrapper>.launches`` counts the launches the device ran, replays of a
 captured CUDA graph included (:mod:`..launches`).  A ``tri_solve`` launch is
 one kernel on its block route (each rank's solution in the shared memory of
-one thread block) and a memset of its scratch and one kernel on its L2
-route (:func:`tri_plan` says which).
+one thread block) and on its staged route (the same, bfloat16 at k = 1,
+every row's data streamed ahead from a :class:`TriSlab`), and a memset of
+its scratch and one kernel on its L2 route (:func:`tri_plan` says which).
 """
 from __future__ import annotations
 
@@ -91,8 +92,16 @@ def block_diag_apply(binv: torch.Tensor, r: torch.Tensor, x: torch.Tensor,
     return y
 
 
-# the two routes of the tri_solve kernel (csrc/tri_solve.cu)
-TRI_ROUTES = ("block", "l2")
+# the three routes of the tri_solve kernel (csrc/tri_solve.cu) and their
+# codes at its C entry point
+TRI_ROUTES = ("block", "l2", "staged")
+TRI_ROUTE_CODES = {"l2": 0, "block": 1, "staged": 2}
+# the staged route's constants (csrc/tri_solve.cu: STAGED_*; a CPU test reads
+# them there): rows a stage of the slab, and the ring's stages at least (a
+# pass of one row a consumer thread spans that many) and at most
+STAGED_ROWS = 128
+STAGED_MIN_STAGES = 3
+STAGED_MAX_STAGES = 8
 # The rule's widest level sets for the block route at k = 1: the most rows
 # a level set may hold on average, m / nlev, by bytes a value.  Measured on
 # an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6): on the 27-point
@@ -100,11 +109,20 @@ TRI_ROUTES = ("block", "l2")
 # --kernel tri_solve --size 0 --cube N), the block route won up to 43.5
 # rows a set in f64 and lost from 48.6; in f32 it won up to 29.8 and lost
 # from 34.1, but lost at level 1 of laplace_3d(64) on 2 x 4 (28.3 rows a
-# set, chip_smoke.py) and won at 25.8.  bfloat16 operands keep a float32
-# z and take f32's width, which was not measured for them: at level 2 of
-# laplace_3d(64) the rule picks the block route where the L2 route ran
-# faster (PERF.md section 7).
+# set, chip_smoke.py) and won at 25.8.  bfloat16 operands that do not take
+# the staged route keep a float32 z and take f32's width.
 BLOCK_MAX_WIDTH = {4: 26, 8: 44}
+# The staged route's widest level sets (bfloat16, k = 1): the most rows a
+# level set may hold on average, the widest it was measured faster at.  On
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6) it ran faster than
+# the block and L2 routes at every non-coarsest level of laplace_3d(64) on
+# 2 x 4, both triangles (1.4 to 150 rows a set), on a chain, on the
+# 27-point stencil's n^3 boxes (10 to 200 rows a set) and on 32,768 rows a
+# rank in sets of 150 to 4,096 rows of 13 slots and of 150 and 600 rows of
+# 40 (scripts/tune_kernel.py --kernel tri_solve --dtype bfloat16 --cube N
+# --wide W[:K]): one SM streams a rank's slab in about 0.087 ms there,
+# while the L2 route still took 0.116 ms at 8 sets of 4,096 rows.
+STAGED_MAX_WIDTH = 4096
 _SMEM: dict[int, int] = {}
 
 
@@ -130,12 +148,55 @@ def z_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
-def tri_plan(m: int, nlev: int, k: int, itemsize: int, smem: int,
-             route: str | None = None) -> str:
+def staged_slots(K: int) -> int:
+    """The slots a row takes in a :class:`TriSlab` for rows of ``K``
+    slots: K up to 32 (the kernel's unrolled counts), past 32 K rounded up
+    to 32."""
+    return K if K <= 32 else -(-K // 32) * 32
+
+
+def staged_stage_bytes(K: int) -> int:
+    """The bytes of one stage of a :class:`TriSlab` for rows of ``K``
+    slots: STAGED_ROWS 32-bit row headers, then ``staged_slots(K)`` ×
+    STAGED_ROWS 32-bit slot words; a multiple of 16, as a bulk copy
+    takes."""
+    return 4 * STAGED_ROWS * (1 + staged_slots(K))
+
+
+def staged_smem(m: int, nlev: int, K: int) -> int:
+    """The least shared memory a block of the staged route needs: the
+    rank's z (float32 ``[m + 1]``, z[m] = 0 for the padding slots) and its
+    ``nlev + 1`` level-set starts, each rounded up to 16 bytes,
+    STAGED_MIN_STAGES stages and the ring's barriers (16 bytes a stage,
+    reserved for STAGED_MAX_STAGES)."""
+    def round16(n):
+        return -(-n // 16) * 16
+    return (round16(4 * (m + 1)) + round16(4 * (nlev + 1))
+            + STAGED_MIN_STAGES * staged_stage_bytes(K) + 16 * STAGED_MAX_STAGES)
+
+
+def tri_routes(m: int, nlev: int, k: int, dtype: torch.dtype, smem: int, *,
+               K: int = 0) -> list[str]:
+    """The routes that can take a launch (:func:`tri_plan`'s arguments):
+    the L2 route always, the block route where a rank's z fits a block, the
+    staged route for bfloat16 operands at k = 1 where z, the starts and its
+    smallest ring fit one (and rows and columns fit 16 bits)."""
+    out = ["l2"]
+    if m * k * z_dtype(dtype).itemsize <= smem:
+        out.append("block")
+    if (dtype == torch.bfloat16 and k == 1 and m < 1 << 16
+            and staged_smem(m, nlev, K) <= smem):
+        out.append("staged")
+    return [r for r in TRI_ROUTES if r in out]
+
+
+def tri_plan(m: int, nlev: int, k: int, dtype: torch.dtype, smem: int,
+             route: str | None = None, *, K: int = 0) -> str:
     """The route of a ``tri_solve`` launch for ranks of ``m`` rows in
-    ``nlev`` level sets and ``k`` right-hand sides whose solution ``z``
-    takes ``itemsize`` bytes an element (:func:`z_dtype`'s: 4 for bfloat16
-    operands), decided before the launch: ``"block"`` or ``"l2"``.
+    ``nlev`` level sets and ``k`` right-hand sides of type ``dtype``, rows
+    of ``K`` slots (the staged route's ring), decided before the launch:
+    ``"block"``, ``"l2"`` or ``"staged"``.  Its solution ``z`` takes
+    ``z_dtype(dtype)``'s bytes an element (4 for bfloat16 operands).
 
     The rule: the block route (one thread block a rank, its solution in
     shared memory) where the rank's solution fits the block, m·k·itemsize
@@ -147,10 +208,18 @@ def tri_plan(m: int, nlev: int, k: int, itemsize: int, smem: int,
     laplace_3d(64) on 2 x 4 that it holds, but on the 27-point stencil's
     cubes it lost up to 34.1 rows a set (and won from 38.6 in f32;
     PERF.md): the rule follows the solve's levels there.
-    ``route`` forces one, for tests and measurement: ``"l2"``, or
-    ``"block"`` (raises where the rank does not fit the block)."""
+    bfloat16 operands at k = 1 take the staged route where it can
+    (:func:`tri_routes`) and their level sets hold at most
+    ``STAGED_MAX_WIDTH`` rows on average.
+    ``route`` forces one, for tests and measurement: ``"l2"``, ``"block"``
+    (raises where the rank does not fit the block) or ``"staged"`` (raises
+    where the route cannot take the case)."""
+    itemsize = z_dtype(dtype).itemsize
     fits = m * k * itemsize <= smem
+    can = tri_routes(m, nlev, k, dtype, smem, K=K)
     if route is None:
+        if "staged" in can and m <= STAGED_MAX_WIDTH * max(nlev, 1):
+            return "staged"
         wide = k == 1 and m > BLOCK_MAX_WIDTH[itemsize] * max(nlev, 1)
         return "block" if fits and not wide else "l2"
     if route == "l2":
@@ -160,7 +229,81 @@ def tri_plan(m: int, nlev: int, k: int, itemsize: int, smem: int,
             raise ValueError(f"tri_solve: {m} rows of {k} x {itemsize} bytes "
                              f"do not fit a block's {smem} bytes")
         return route
+    if route == "staged":
+        if "staged" not in can:
+            raise ValueError(
+                f"tri_solve: the staged route takes bfloat16 at k = 1 where "
+                f"z, the starts and {STAGED_MIN_STAGES} stages fit a block's "
+                f"{smem} bytes; got {dtype}, k = {k}, {m} rows in {nlev} "
+                f"level sets of {K} slots ({staged_smem(m, nlev, K)} bytes)")
+        return route
     raise ValueError(f"tri_solve: route {route!r}, not one of {TRI_ROUTES}")
+
+
+def staged_slab(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
+                order: torch.Tensor) -> torch.Tensor:
+    """The staged route's slab: uint8 ``[D, nst, staged_stage_bytes(K)]``,
+    ``nst = ceil(m / R)``, R = STAGED_ROWS; stage q of rank d holds the
+    rank's rows at positions q·R … q·R + R − 1 of ``order`` as 32-bit
+    words, R row headers (row index | diagonal's bfloat16 bits << 16) and
+    then KP = ``staged_slots(K)`` × R slot words, slot-major (column |
+    value's bfloat16 bits << 16; padding slots column m, value 0).
+    Positions past m hold zero words.  A level-ordered gather on the
+    factor's device; raises unless m < 65536 (16-bit rows and columns)."""
+    D, m, K = cols.shape
+    if m >= 1 << 16:
+        raise ValueError(f"tri_solve: the staged route's slab holds 16-bit "
+                         f"rows and columns; got {m} rows a rank")
+    R, KP = STAGED_ROWS, staged_slots(K)
+    nst = -(-m // R)
+    o = order.long()
+    dev = cols.device
+
+    def u16(t):                      # values 0 .. 65535 as int16 bits
+        t = t.to(torch.int32)
+        return torch.where(t >= 1 << 15, t - (1 << 16), t).to(torch.int16)
+
+    def words(lo, hi):               # int16 halves -> int32 words
+        return torch.stack([lo, hi], dim=-1).view(torch.int32)[..., 0]
+
+    head = torch.zeros((D, nst * R), dtype=torch.int32, device=dev)
+    head[:, :m] = words(u16(order), diag.to(torch.bfloat16).gather(1, o)
+                        .view(torch.int16))
+    slot = torch.zeros((D, nst * R, KP), dtype=torch.int32, device=dev)
+    pad = torch.full((D, m, KP), m, dtype=torch.int32, device=dev)
+    val = torch.zeros((D, m, KP), dtype=torch.bfloat16, device=dev)
+    if K:
+        ok = o[..., None].expand(D, m, K)
+        c = cols.gather(1, ok)
+        pad[..., :K] = torch.where(c >= 0, c, m)
+        val[..., :K] = torch.where(c >= 0, vals.to(torch.bfloat16).gather(1, ok), 0)
+    slot[:, :m] = words(u16(pad), val.view(torch.int16))
+    slot = slot.reshape(D, nst, R, KP).transpose(2, 3).reshape(D, nst, KP * R)
+    return torch.cat([head.reshape(D, nst, R), slot], dim=2).view(torch.uint8)
+
+
+class TriSlab:
+    """A triangle's slab (:func:`staged_slab`) for one row order, with the
+    tensors it was built from: a launch takes it only for those tensors
+    (the same objects) holding the values it was built from (their version
+    counters unchanged); :meth:`fill` rewrites it in place from their
+    current values, so captured graphs read the new ones."""
+
+    def __init__(self, cols, vals, diag, order):
+        self.source = (cols, vals, diag, order)
+        self.data = staged_slab(cols, vals, diag, order)
+        self._versions = self._now()
+
+    def _now(self) -> tuple[int, ...]:
+        return tuple(t._version for t in self.source)
+
+    def serves(self, cols, vals, diag, order) -> bool:
+        return (all(a is b for a, b in zip(self.source, (cols, vals, diag, order)))
+                and self._now() == self._versions)
+
+    def fill(self) -> None:
+        self.data.copy_(staged_slab(*self.source))
+        self._versions = self._now()
 
 
 def _check_index(name: str, t, shape: tuple, dev) -> None:
@@ -177,7 +320,8 @@ def tri_solve(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
               r: torch.Tensor, x: torch.Tensor, w: float = 1.0, *,
               upper: bool, order=None,
               schedule: list[torch.Tensor] | None = None,
-              route: str | None = None) -> torch.Tensor:
+              route: str | None = None,
+              slab: TriSlab | None = None) -> torch.Tensor:
     """``x + w · T⁻¹ r`` with ``T`` the strict triangle ``cols``/``vals``
     ``[D, m, K]`` (-1 padding; columns below the row for the lower
     triangle, above it for ``upper``) plus ``diag`` ``[D, m]``.
@@ -187,9 +331,12 @@ def tri_solve(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
     and :func:`.ref.rank_level_starts` (``TriFactor.order``, ``.starts``; the
     rows of a level set may come in any order), and the launch takes the
     route :func:`tri_plan` gives (``route`` forces one, for tests).  The
-    plain version solves ``schedule`` (:func:`.ref.level_schedule`, computed
-    from ``cols`` where it is not given); it ignores ``order`` and
-    ``route``."""
+    staged route reads ``slab`` where it serves these tensors and this
+    order (:meth:`TriSlab.serves`; ``TriFactor.slab``), else builds one for
+    the order given (refused under graph capture).  The plain version
+    solves ``schedule`` (:func:`.ref.level_schedule`, computed from
+    ``cols`` where it is not given); it ignores ``order``, ``route`` and
+    ``slab``."""
     on_card = _on_card("tri_solve", {"cols": cols, "vals": vals, "diag": diag},
                        r, x)
     D, m = r.shape[:2]
@@ -218,15 +365,23 @@ def tri_solve(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
     _check_index("starts", starts, (D, None), r.device)
     nlev = starts.shape[1] - 1
     zt = z_dtype(r.dtype)
-    block = tri_plan(m, nlev, k, zt.itemsize, tri_smem(r.device),
-                     route) == "block"
-    # the L2 route's solution in device memory, set empty by the launch
-    z = None if block else torch.empty_like(r, dtype=zt)
+    plan = tri_plan(m, nlev, k, r.dtype, tri_smem(r.device), route, K=K)
+    z = None
+    if plan == "l2":      # its solution in device memory, set empty by the launch
+        z = torch.empty_like(r, dtype=zt)
+    elif plan == "staged":
+        if slab is None or not slab.serves(cols, vals, diag, o):
+            if r.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("tri_solve: the staged route's slab for "
+                                   "these values and this order is built "
+                                   "before a capture (TriFactor.slab)")
+            slab = TriSlab(cols, vals, diag, o)
+        z = slab.data
     rc = kernel("tri_solve")(
         cols.data_ptr(), vals.data_ptr(), diag.data_ptr(), r.data_ptr(),
         x.data_ptr(), o.data_ptr(), starts.data_ptr(),
         None if z is None else z.data_ptr(), y.data_ptr(), D, m, K, k, nlev,
-        float(w), DTYPE_CODES[r.dtype], int(block),
+        float(w), DTYPE_CODES[r.dtype], TRI_ROUTE_CODES[plan],
         torch.cuda.current_stream(r.device).cuda_stream)
     raise_on_error("tri_solve", rc)
     note(tri_solve)

@@ -17,7 +17,8 @@
 //     block a contiguous run of units.  A unit is R consecutive rows, R*K
 //     contiguous slots in the row-major layout (R a multiple of 8, so a
 //     unit starts 16-byte aligned for both ids and values).
-//   - A's stream by 1-D bulk copies (cp.async.bulk, no tensor map): one
+//   - A's stream by 1-D bulk copies (cp.async.bulk, no tensor map; the
+//     PTX in kernels/csrc/bulk_copy.cuh): one
 //     producer thread copies each unit's ids and values, in chunks of at
 //     most STAGE_SLOTS slots (a multiple of 8), into a ring of STAGES
 //     shared-memory stages, each guarded by a full and an empty mbarrier.
@@ -54,6 +55,7 @@
 
 #include <cstdint>
 
+#include "bulk_copy.cuh"
 #include "value_types.cuh"
 
 // internal linkage: both kernel libraries hold this code, and a function-
@@ -93,48 +95,6 @@ struct Args {
   int64_t tiles;   // column tiles of KT columns
   int64_t works;   // units x column tiles
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// arrive (one of the count) and add `bytes` to the transactions the phase awaits
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// `bytes` (a multiple of 16) from the 16-byte aligned global src into shared
-// memory at dst; completion is reported to bar
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
 
 template <bool BULK>
 __device__ __forceinline__ int load_id(const int* p) {
@@ -251,7 +211,7 @@ __global__ void __launch_bounds__(THREADS) ell_bf16_kernel(const Args a) {
         mbar_init(full(s), 1);
         mbar_init(empty(s), CONSUMERS / 32);
       }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_init_fence();
     }
     __syncthreads();
   }

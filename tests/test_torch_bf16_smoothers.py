@@ -13,7 +13,19 @@ level set to the next, and ``y = x + w·…`` rounded to bfloat16 once.
 * float32 and float64 compute in their own type, as before.
 * A factor's float64 host values reach bfloat16 through float32, placed
   and refreshed alike (the rounding the reference's ``astype`` makes).
+* The CUDA instances' orders of sums (``smoother/bf16_order.py``): its
+  ``fmaf`` rounds once; the staged ``tri_solve`` route's one lane a row
+  sums as the L2 route's 32-lane butterfly does, bit for bit; the whole
+  emulated solve and ``block_diag_apply`` lie within one rounding.
+* The staged route's slab: the level-ordered gather of the factor for any
+  valid order, rewritten in place by a refresh, held only by the factors
+  the rule sends to that route.
+* The bfloat16 ``block_diag_apply`` vector path's guard keeps every offset
+  of its 32-bit indices below 2^31.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -219,3 +231,242 @@ def test_wrappers_refuse_other_types():
     rb = torch.zeros(D, 8, dtype=BF16)
     with pytest.raises(TypeError, match="binv"):
         sm.block_diag_apply(torch.zeros(D, 2, 4, 4), rb, rb.clone())
+
+
+# ------------------------------------------------ the bfloat16 kernels' orders
+from fractions import Fraction  # noqa: E402
+
+from repro_torch.kernels.smoother import bf16_order as bo  # noqa: E402
+
+
+def test_fma32_rounds_once():
+    """``bf16_order.fma32`` is ``fmaf``: a·b + c rounded once to float32.
+    The product of two float32 values is exact in float64; the sum is
+    rounded to float64 with round-to-odd and then to float32, which at 53
+    bits against 24 is the one correct rounding (no double rounding).  Held
+    here against the exact sum in rationals, at addends across 60 binades."""
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal(600).astype(np.float32)
+    b = rng.standard_normal(600).astype(np.float32)
+    c = (rng.standard_normal(600) * np.exp2(rng.integers(-30, 30, 600))).astype(np.float32)
+    got = bo.fma32(a, b, c)
+    for ai, bi, ci, gi in zip(a, b, c, got):
+        exact = Fraction(float(ai)) * Fraction(float(bi)) + Fraction(float(ci))
+        near = np.float32(float(exact))
+        cands = (near, np.nextafter(near, np.float32(np.inf)),
+                 np.nextafter(near, np.float32(-np.inf)))
+        # nearest, ties to the even significand
+        want = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                         int(np.array(v).view(np.int32)) & 1))
+        assert gi == want
+
+
+@pytest.mark.parametrize("K", [7, 13, 26, 33, 70])
+def test_staged_sum_order_is_the_l2_butterfly(K):
+    """The staged route's one lane a row (slot e into leaf e mod 32 by a
+    fused multiply-add, leaves met as the butterfly's lane 0 meets them,
+    the o = 16 step skipped at K <= 16) equals, bit for bit, the L2 route's
+    32 lanes emulated lane by lane (lane g's slots g, g + 32, ..., then
+    ``acc += shfl_xor(acc, o)``), on random bfloat16 values and float32 z
+    with padding slots; K > 32 puts several slots on a leaf.  Each
+    multiply-add rounds once (``fma32``, above): a bfloat16 value times a
+    float32 z is not exact in float32."""
+    rng = np.random.default_rng(K)
+    n = 400
+    v = torch.as_tensor(rng.standard_normal((n, K))).to(BF16)
+    zg = torch.as_tensor(rng.standard_normal((n, K)).astype(np.float32)
+                         * np.exp2(rng.integers(-8, 8, (n, K))).astype(np.float32))
+    keep = rng.random((n, K)) < 0.8
+    keep[0] = False                                   # a row of padding only
+    staged = bo.staged_sums(v, zg, keep)
+    butterfly = bo.butterfly_sums(v, zg, keep)
+    assert staged.dtype == butterfly.dtype == np.float32
+    assert np.array_equal(staged.view(np.int32), butterfly.view(np.int32))
+    # the order matters: a plain float32 sum in slot order differs
+    plain = np.zeros(n, dtype=np.float32)
+    for e in range(K):
+        plain = np.where(keep[:, e], bo.fma32(v[:, e].float(), zg[:, e], plain), plain)
+    assert K < 26 or not np.array_equal(plain, staged)
+
+
+@pytest.mark.parametrize("upper", [False, True], ids=["lower", "upper"])
+@pytest.mark.parametrize("m,K", [(60, 7), (150, 13), (90, 40)])
+def test_tri_solve_bf16_emulation_is_one_rounding(m, K, upper):
+    """The whole bfloat16 solve in the staged order and in the butterfly
+    order gives the same bits, within one rounding of the float64 truth as
+    the plain version is."""
+    rng = np.random.default_rng(m * K)
+    cols, vals, diag = _triangle(rng, m, K, upper)
+    f = TriFactor.place({"cols": cols, "vals": vals, "diag": diag,
+                         "upper": upper}, "cpu", BF16)
+    r, x = _bf16(rng, (D, m)), _bf16(rng, (D, m))
+    sched = f.schedule()
+    staged = bo.tri_solve_emulate(f.cols, f.vals, f.diag, r, x, 0.9, sched)
+    butterfly = bo.tri_solve_emulate(f.cols, f.vals, f.diag, r, x, 0.9, sched,
+                                     order="butterfly")
+    assert torch.equal(staged.view(torch.int16), butterfly.view(torch.int16))
+    truth = sref.tri_solve_ref(f.cols, f.vals.double(), f.diag.double(),
+                               r.double(), x.double(), 0.9, sched)
+    absum = sref.tri_solve_absum(f.cols, f.vals, f.diag, r, x, 0.9, sched)
+    assert _one_rounding(staged, truth, absum) <= 1
+
+
+@pytest.mark.parametrize("k", [None, 8])
+@pytest.mark.parametrize("bs,m", [(4, 64), (4, 1001), (3, 13), (8, 101)])
+def test_block_diag_apply_bf16_emulation_within_the_bar(bs, m, k):
+    """The kernel's order (c = 0 .. bs − 1 in turn, then fma(w, sum, x),
+    rounded once) lies within the card's bfloat16 bar of the plain version
+    (one ulp of plain + 2^-16 Σ|·|, ``chip_smoke.py:bf16_bar``), and within
+    one rounding of the float64 truth."""
+    rng = np.random.default_rng(bs * m + 7)
+    nb = -(-m // bs)
+    shape = (D, m) + (() if k is None else (k,))
+    binv, r, x = _bf16(rng, (D, nb, bs, bs)), _bf16(rng, shape), _bf16(rng, shape)
+    got = bo.block_diag_apply_emulate(binv, r, x, 0.7)
+    plain = sref.block_diag_apply_ref(binv, r, x, 0.7)
+    absum = sref.block_diag_apply_absum(binv, r, x, 0.7)
+    assert got.dtype == BF16 and got.shape == plain.shape
+    m_, e = torch.frexp(plain.double())
+    ulp = torch.where(plain == 0, 0.0, torch.ldexp(torch.ones_like(m_), e - 8))
+    assert bool(((got.double() - plain.double()).abs()
+                 <= ulp + 2.0**-16 * absum).all())
+    truth = sref.block_diag_apply_ref(binv.double(), r.double(), x.double(), 0.7)
+    assert _one_rounding(got, truth, absum) <= 1
+
+
+# ------------------------------------------------ the staged route's slab
+def _unpack(slab, K):
+    """A slab's stages back as (row index, diag, cols, vals), each by
+    position: ``[D, nst·R]`` and ``[D, nst·R, KP]`` (padding slots column
+    m, value 0)."""
+    Dn, nst, nbytes = slab.shape
+    R, KP = sm.STAGED_ROWS, sm.staged_slots(K)
+    assert nbytes == sm.staged_stage_bytes(K) == 4 * R * (1 + KP)
+    halves = slab.contiguous().view(torch.int16).reshape(Dn, nst, 1 + KP, R, 2)
+    lo = halves[..., 0].to(torch.int32) & 0xffff            # [D, nst, 1 + KP, R]
+    hi = halves[..., 1].contiguous().view(BF16)
+
+    def by_position(t):                     # [D, nst, KP, R] -> [D, nst·R, KP]
+        return t.transpose(2, 3).reshape(Dn, nst * R, -1)
+
+    return (lo[:, :, 0].reshape(Dn, nst * R), hi[:, :, 0].reshape(Dn, nst * R),
+            by_position(lo[:, :, 1:]), by_position(hi[:, :, 1:]))
+
+
+@pytest.mark.parametrize("m,K", [(1, 0), (130, 5), (300, 13)])
+def test_slab_is_the_level_ordered_gather(m, K):
+    """A bfloat16 factor's slab holds each rank's rows in its own order (row
+    index and diagonal, K columns and values, the padding slots and those
+    up to ``staged_slots(K)`` column m and value 0), STAGED_ROWS rows a
+    stage, padded positions zero words; another valid order (each level set
+    reversed) gives that order's gather, built by the wrapper's own
+    ``TriSlab``, and a factor's slab serves only its own order and values.
+    A factor on the CPU holds none (the plain version reads none)."""
+    rng = np.random.default_rng(m + K)
+    cols, vals, diag = _triangle(rng, m, K, False)
+    f = TriFactor.place({"cols": cols, "vals": vals, "diag": diag,
+                         "upper": False}, "cpu", BF16)
+    assert f.slab is None and len(f.tensors()) == 5
+    f.sync_values()                           # nothing to rewrite
+    f.slab = sm.TriSlab(f.cols, f.vals, f.diag, f.order)
+    order2 = f.order.clone()
+    st = f.starts.numpy()
+    for d in range(D):
+        for lo, hi in zip(st[d, :-1], st[d, 1:]):
+            order2[d, lo:hi] = order2[d, lo:hi].flip(0)
+    for order, slab in ((f.order, f.slab.data),
+                        (order2, sm.TriSlab(f.cols, f.vals, f.diag, order2).data)):
+        nst, KP = -(-m // sm.STAGED_ROWS), sm.staged_slots(K)
+        assert slab.dtype == torch.uint8
+        assert tuple(slab.shape) == (D, nst, sm.staged_stage_bytes(K))
+        idx, dg, c, v = _unpack(slab, K)
+        o = order.long()
+        assert torch.equal(idx[:, :m], order) and bool((idx[:, m:] == 0).all())
+        assert torch.equal(dg[:, :m].view(torch.int16),
+                           f.diag.gather(1, o).view(torch.int16))
+        assert bool((c[:, m:] == 0).all()) and bool((v[:, m:] == 0).all())
+        assert bool((c[:, :m, K:] == m).all()) and bool((v[:, :m, K:] == 0).all())
+        if K:
+            ok = o[..., None].expand(D, m, K)
+            want = f.cols.gather(1, ok)
+            assert torch.equal(c[:, :m, :K], torch.where(want >= 0, want, m))
+            assert torch.equal(
+                v[:, :m, :K].view(torch.int16),
+                torch.where(want >= 0, f.vals.gather(1, ok), 0).view(torch.int16))
+    assert f.slab.serves(f.cols, f.vals, f.diag, f.order)
+    assert not f.slab.serves(f.cols, f.vals, f.diag, order2)
+    assert f.tensors()[-1] is f.slab.data
+    f.vals.mul_(2)                            # values moved without a refill
+    assert not f.slab.serves(f.cols, f.vals, f.diag, f.order)
+    f.sync_values()
+    assert f.slab.serves(f.cols, f.vals, f.diag, f.order)
+    f32 = TriFactor.place({"cols": cols, "vals": vals, "diag": diag,
+                           "upper": False}, "cpu", torch.float32)
+    assert f32.slab is None
+
+
+def test_refresh_rewrites_the_slab_in_place(monkeypatch):
+    """``BoundSolver.update`` on a bfloat16 hybrid_gs_sym session refreshes
+    its triangles' values and rewrites each slab in place: the same
+    ``data_ptr``, holding the level-ordered gather of the new values.  The
+    factors are placed as on the card, where the rule sends their launches
+    to the staged route (``ops._plans_staged``: here every factor)."""
+    from repro_torch.amg import AMGConfig, AMGSolver
+    from repro_torch.kernels.smoother import ops
+
+    monkeypatch.setattr(ops, "_plans_staged", lambda cols, starts, dtype: True)
+    from repro_torch.amg.api import SessionStore
+    from repro_torch.amg.csr import CSR
+    from repro_torch.amg.problems import laplace_3d
+    from repro_torch.amg.solve import SolveOptions
+
+    A = laplace_3d(8)
+    cfg = AMGConfig(backend="torch", n_pods=2, lanes=4, dtype="bfloat16",
+                    device="cpu", max_coarse=30, tol=1e-2,
+                    opts=SolveOptions(smoother="hybrid_gs_sym"))
+    bound = AMGSolver(cfg, store=SessionStore(),
+                      setup_store=SessionStore()).setup(A)
+    bound.pcg(np.ones(A.nrows))
+    dh = bound.dist_hierarchy
+    tris = [f for f in dh._factors.values() if isinstance(f, TriFactor)]
+    assert tris and all(f.slab is not None for f in tris)
+    ptrs = [f.slab.data.data_ptr() for f in tris]
+    old = [f.slab.data.clone() for f in tris]
+    drift = np.random.default_rng(1)
+    data = A.data * (1.0 + 0.03 * drift.random(A.nnz))
+    At = CSR(A.shape, A.indptr.copy(), A.indices.copy(), data).T
+    assert bound.update(delta=0.5 * (data + At.data) - A.data) == "refresh"
+    assert bound.dist_hierarchy is dh
+    for f, ptr, before in zip(tris, ptrs, old):
+        assert f.slab.data.data_ptr() == ptr
+        assert not torch.equal(f.slab.data, before)
+        assert torch.equal(f.slab.data, sm.staged_slab(f.cols, f.vals, f.diag,
+                                                       f.order))
+        assert f.slab.serves(f.cols, f.vals, f.diag, f.order)
+
+
+def _bs4_guard():
+    """The size condition of ``bs4_width`` in ``block_diag_apply.cu`` (the
+    first ``if (...) return 0;``), as a Python function of D, m, bs, k."""
+    cu = (Path(sm.__file__).parent / "csrc" / "block_diag_apply.cu").read_text()
+    body = cu[cu.index("int bs4_width("):]
+    cond = re.search(r"if \((.*?)\)\s*return 0;", body, re.S).group(1)
+    expr = (" ".join(cond.split()).replace("||", " or ").replace("int64_t{1}", "1")
+            .replace("BS4", "4").replace("/", "//"))
+    return lambda D, m, bs, k: eval(expr, {}, dict(D=D, m=m, bs=bs, k=k))
+
+
+@pytest.mark.parametrize("D,m,k", [(1, 1 << 29, 1), (8, 1 << 26, 1),
+                                   (2, 1 << 28, 1), (1, 1 << 28, 8)])
+def test_bs4_width_keeps_every_offset_in_32_bits(D, m, k):
+    """The bfloat16 vector path indexes r, x and y (D·m·k) and Binv (its
+    last block's largest offset, D·nb·16 = 4·D·m) in 32 bits: its guard
+    (read from the source) refuses every size where either reaches 2^31,
+    which then takes the kernel whose indices are 64-bit, and admits the
+    sizes four rows short of that."""
+    refuses = _bs4_guard()
+    for D_, m_, k_ in ((D, m, k), (D, m - 4, k)):
+        over = D_ * m_ * k_ >= 1 << 31 or 4 * D_ * m_ >= 1 << 31
+        assert refuses(D_, m_, 4, k_) == over
+    assert refuses(D, m, 4, k) and not refuses(D, m - 4, 4, k)
+    assert refuses(1, 64, 3, 1) and refuses(1, 66, 4, 1)

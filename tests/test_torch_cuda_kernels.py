@@ -57,6 +57,7 @@ from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_f64, attention_ref, rel_err_rows)
+from repro_torch.kernels.smoother import bf16_order as sorder  # noqa: E402
 from repro_torch.kernels.smoother import ref as sref  # noqa: E402
 from repro_torch.kernels.smoother import smoother as sm  # noqa: E402
 from repro_torch.kernels.spmv import bcsr, ref, spmv  # noqa: E402
@@ -1154,6 +1155,15 @@ def _fits(m, k, dtype, dev):
     return m * (k or 1) * sm.z_dtype(dtype).itemsize <= sm.tri_smem(dev)
 
 
+def _takes(route, cols, k, dtype, dev, upper=False):
+    """Whether ``route`` can take the case (``sm.tri_routes``: the staged
+    route only for bfloat16 at k = 1 where z, the starts and its smallest
+    ring fit a block)."""
+    Dn, m, K = cols.shape
+    nlev = int(sref.dag_levels(cols.cpu().numpy(), upper).max(initial=-1)) + 1
+    return route in sm.tri_routes(m, nlev, k or 1, dtype, sm.tri_smem(dev), K=K)
+
+
 @pytest.mark.parametrize("route", sm.TRI_ROUTES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("k", [None, 1, 2, 8, 33])
@@ -1174,6 +1184,14 @@ def test_tri_solve(dev, Dn, m, K, chain, upper, k, dtype, route):
         with pytest.raises(ValueError, match="do not fit"):
             sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper,
                          order=_order(cols, upper), route=route)
+        return
+    if route == "staged":
+        # bfloat16 only (test_tri_solve_bf16): a forced staged route refuses
+        before = sm.tri_solve.launches
+        with pytest.raises(ValueError, match="staged route"):
+            sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper,
+                         order=_order(cols, upper), route=route)
+        assert sm.tri_solve.launches == before
         return
     got = _solve_checked(cols, vals, diag, r, x, 0.9, upper, route)
     # the rows in another valid order (plain row order on the L2 route,
@@ -1205,8 +1223,7 @@ def test_tri_solve_at_the_level_0_rank_size(dev, upper, k, dtype):
     assert len(sref.level_schedule(cols.cpu().numpy(), upper)) == 218
     kk = None if k == 1 else k
     r, x = _rhs(rng, Dn, m, kk, dtype, dev), _rhs(rng, Dn, m, kk, dtype, dev)
-    s = vals.element_size()
-    assert sm.tri_plan(m, 218, k, s, sm.tri_smem(dev)) == "l2"
+    assert sm.tri_plan(m, 218, k, dtype, sm.tri_smem(dev)) == "l2"
     got = _solve_checked(cols, vals, diag, r, x, 1.0, upper, None)
     assert _fits(m, k, dtype, dev) == (dtype == torch.float32 and k == 1)
     if _fits(m, k, dtype, dev):
@@ -1244,10 +1261,10 @@ def test_tri_solve_at_the_route_rule_edge(dev, edge, side):
     assert len(sref.level_schedule(cols.cpu().numpy(), False)) == nlev
     r, x = _rhs(rng, 1, m, None, torch.float64, dev), _rhs(rng, 1, m, None,
                                                            torch.float64, dev)
-    assert sm.tri_plan(m, nlev, 1, 8, smem) == ("l2" if more else "block")
+    assert sm.tri_plan(m, nlev, 1, torch.float64, smem) == ("l2" if more else "block")
     if edge == "shared memory" and more:
         with pytest.raises(ValueError):
-            sm.tri_plan(m, nlev, 1, 8, smem, "block")
+            sm.tri_plan(m, nlev, 1, torch.float64, smem, "block")
     _solve_checked(cols, vals, diag, r, x, 1.0, False, None)
 
 
@@ -1270,7 +1287,10 @@ def test_tri_solve_nan_in_r_stays_nan(dev, k, route):
     """A NaN in r (the canonical one, and all-ones bits: the empty pattern
     the L2 route's z starts from) comes out as NaN in y at its row and at
     every row that depends on it, as in the plain version; the rest holds
-    its bars."""
+    its bars.  (The staged route takes bfloat16 only: its NaN case is
+    test_tri_solve_staged_edges'.)"""
+    if route == "staged":
+        pytest.skip("the staged route takes bfloat16 operands only")
     rng = np.random.default_rng(6)
     cols, vals, diag = _triangle(rng, 2, 300, 5, False, torch.float64, dev)
     r, x = _rhs(rng, 2, 300, k, torch.float64, dev), _rhs(rng, 2, 300, k,
@@ -1306,23 +1326,36 @@ def test_tri_solve_without_an_order_raises(dev):
 @pytest.mark.parametrize("route", sm.TRI_ROUTES)
 @pytest.mark.parametrize("upper", [False, True], ids=["lower", "upper"])
 def test_tri_solve_replays_in_a_graph(dev, upper, route):
-    """Captured, a solve is one kernel node on the block route (its z in
-    shared memory, no scratch to clear) and a memset node (its z set empty)
+    """Captured, a solve is one kernel node on the block and staged routes
+    (z in shared memory, no scratch to clear; the staged route's slab built
+    before the capture, in bfloat16) and a memset node (its z set empty)
     and a kernel node on the L2 route; every replay solves the values its
     static inputs hold then."""
     rng = np.random.default_rng(1)
-    cols, vals, diag = _triangle(rng, 8, 500, 13, upper, torch.float64, dev)
-    r = _rhs(rng, 8, 500, None, torch.float64, dev)
+    dtype = BF16 if route == "staged" else torch.float64
+    cols, vals, diag = _triangle(rng, 8, 500, 13, upper, dtype, dev)
+    r = _rhs(rng, 8, 500, None, dtype, dev)
     x = torch.zeros_like(r)
-    # each rank's rows by level set, built before the capture
-    kw = dict(upper=upper, order=_order(cols, upper), route=route)
+    # each rank's rows by level set (and the slab), built before the capture
+    order = _order(cols, upper)
+    kw = dict(upper=upper, order=order, route=route)
+    if route == "staged":
+        kw["slab"] = sm.TriSlab(cols, vals, diag, order[0])
     sm.tri_solve(cols, vals, diag, r, x, **kw)  # build, load
     y, nodes = _graph_nodes(lambda: sm.tri_solve(cols, vals, diag, r, x, **kw))
-    want = ["KERNEL"] if route == "block" else ["KERNEL", "MEMSET"]
+    want = ["KERNEL", "MEMSET"] if route == "l2" else ["KERNEL"]
     assert sorted(kind for kind, _ in nodes) == want, nodes
     assert any(f"tri_solve_{route}_kernel" in label for _, label in nodes)
     sched = sref.level_schedule(cols.cpu().numpy(), upper, dev)
-    _close(y, sref.tri_solve_ref(cols, vals, diag, r, x, 1.0, sched))
+    if route == "staged":
+        _close_bf16(y, sref.tri_solve_ref(cols, vals, diag, r, x, 1.0, sched),
+                    sref.tri_solve_absum(cols, vals, diag, r, x, 1.0, sched))
+        # a slab that does not serve the values is refused under capture
+        vals.mul_(0.5)
+        with pytest.raises(RuntimeError, match="before a capture"):
+            _graph_nodes(lambda: sm.tri_solve(cols, vals, diag, r, x, **kw))
+    else:
+        _close(y, sref.tri_solve_ref(cols, vals, diag, r, x, 1.0, sched))
 
 
 @pytest.mark.parametrize("smoother", ["block_jacobi", "hybrid_gs",
@@ -1379,6 +1412,9 @@ def test_block_diag_apply_bf16(dev, bs, m, k):
     _close_bf16(got, sref.block_diag_apply_ref(binv, r, x, 0.7),
                 sref.block_diag_apply_absum(binv, r, x, 0.7))
     assert torch.equal(got, sm.block_diag_apply(binv, r, x, 0.7))
+    # the order of sums of both paths (bs 4 with whole blocks: a thread a
+    # block; else a thread an output), bit for bit
+    assert torch.equal(got, sorder.block_diag_apply_emulate(binv, r, x, 0.7))
 
 
 def _solve_checked_bf16(cols, vals, diag, r, x, w, upper, route):
@@ -1406,8 +1442,10 @@ def _solve_checked_bf16(cols, vals, diag, r, x, w, upper, route):
                                           (2, 3000, 3, True)])
 def test_tri_solve_bf16(dev, Dn, m, K, chain, upper, k, route):
     """bfloat16 on each route: against the plain version at the bar, bit
-    for bit run to run, in another valid order and across routes (z is
-    float32 on both, so a rank fits a block at 4 bytes a value)."""
+    for bit run to run, in another valid order and across every route that
+    takes the case (z is float32 on all, so a rank fits a block at 4 bytes
+    a value; the staged route at k = 1 only, where a forced one at k > 1
+    refuses)."""
     rng = np.random.default_rng(m + K + 1)
     cols, vals, diag = _triangle(rng, Dn, m, K, upper, BF16, dev, chain)
     r, x = _rhs(rng, Dn, m, k, BF16, dev), _rhs(rng, Dn, m, k, BF16, dev)
@@ -1416,34 +1454,122 @@ def test_tri_solve_bf16(dev, Dn, m, K, chain, upper, k, route):
             sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper,
                          order=_order(cols, upper), route=route)
         return
+    if route == "staged" and not _takes(route, cols, k, BF16, dev, upper):
+        assert k not in (None, 1)
+        with pytest.raises(ValueError, match="staged route"):
+            sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=upper,
+                         order=_order(cols, upper), route=route)
+        return
     got = _solve_checked_bf16(cols, vals, diag, r, x, 0.9, upper, route)
     assert torch.equal(got, sm.tri_solve(
         cols, vals, diag, r, x, 0.9, upper=upper,
         order=_another_order(cols, upper, route), route=route))
-    if _fits(m, k, BF16, dev):
-        assert torch.equal(got, sm.tri_solve(
-            cols, vals, diag, r, x, 0.9, upper=upper, order=_order(cols, upper),
-            route="block" if route == "l2" else "l2"))
+    for other in sm.TRI_ROUTES:
+        if other != route and _takes(other, cols, k, BF16, dev, upper):
+            assert torch.equal(got, sm.tri_solve(
+                cols, vals, diag, r, x, 0.9, upper=upper,
+                order=_order(cols, upper), route=other)), other
+    if k in (None, 1):                    # the kernels' order of sums
+        sched = sref.level_schedule(cols.cpu().numpy(), upper, dev)
+        assert torch.equal(got, sorder.tri_solve_emulate(
+            cols, vals, diag, r.reshape(Dn, m), x.reshape(Dn, m), 0.9,
+            sched).reshape(got.shape))
 
 
 @pytest.mark.parametrize("k", [1, 8])
 @pytest.mark.parametrize("upper", [False, True], ids=["lower", "upper"])
 def test_tri_solve_bf16_at_the_level_0_rank_size(dev, upper, k):
     """Level 0's rank size (32,768 rows, 218 level sets) in bfloat16: the
-    rule takes the L2 route at k = 1 (z's 4 bytes a value, about 150 rows a
-    set), the block route fits at k = 1 only (128 KiB of float32 z), and
-    the two routes agree bit for bit."""
+    rule takes the staged route at k = 1 (z's 128 KiB and a ring of 13-slot
+    stages) and the L2 route at k = 8, the block route fits at k = 1 only
+    (128 KiB of float32 z), and the routes agree bit for bit."""
     rng = np.random.default_rng(k + 2)
     Dn, m = 2, 32_768
     cols, vals, diag = _stencil_triangle(rng, Dn, m, 32, 32, upper, BF16, dev)
     kk = None if k == 1 else k
     r, x = _rhs(rng, Dn, m, kk, BF16, dev), _rhs(rng, Dn, m, kk, BF16, dev)
-    assert sm.tri_plan(m, 218, k, 4, sm.tri_smem(dev)) == "l2"
+    assert sm.tri_plan(m, 218, k, BF16, sm.tri_smem(dev),
+                       K=13) == ("staged" if k == 1 else "l2")
     got = _solve_checked_bf16(cols, vals, diag, r, x, 1.0, upper, None)
     assert _fits(m, k, BF16, dev) == (k == 1)
     if k == 1:
-        assert torch.equal(got, _solve_checked_bf16(cols, vals, diag, r, x,
-                                                    1.0, upper, "block"))
+        for route in ("block", "l2"):
+            assert torch.equal(got, _solve_checked_bf16(cols, vals, diag, r, x,
+                                                        1.0, upper, route))
+
+
+@pytest.mark.parametrize("case", ["chain 20000", "chain 8192 on 8 ranks",
+                                  "one set of 5000", "sets across stages",
+                                  "ranks apart", "rows of 40 slots", "nan"])
+def test_tri_solve_staged_edges(dev, case):
+    """The staged route at its edges, bfloat16, k = 1, against the plain
+    version at the bar and the L2 route bit for bit: a 20,000-row chain
+    (20,000 barriers, 157 stages through a ring of 8); a pure chain of
+    8,192 rows on each of 8 ranks (the one-step floor's operand), solved 20
+    times, the same bits each time; one level set of 5,000 rows (wider
+    than the ring: solved in passes that release their stages); level sets
+    of 100-300 rows that straddle stages; 8 ranks with different depths
+    (each block its own number of sets, the rest empty); rows of up to 40
+    slots (the instance for K past 32); a NaN in r, which stays at its row
+    and those that depend on it."""
+    rng = np.random.default_rng(len(case))
+    if case == "chain 20000":
+        cols, vals, diag = _triangle(rng, 1, 20_000, 3, False, BF16, dev,
+                                     chain=True)
+    elif case == "chain 8192 on 8 ranks":
+        m = 8192
+        dep = np.arange(-1, m - 1, dtype=np.int32)
+        cols = torch.as_tensor(np.tile(dep, (8, 1))[..., None], device=dev)
+        vals = torch.as_tensor(rng.standard_normal((8, m, 1)) * 0.5, dtype=BF16,
+                               device=dev).masked_fill(cols < 0, 0)
+        diag = torch.as_tensor(1.0 + rng.random((8, m)), dtype=BF16, device=dev)
+    elif case == "rows of 40 slots":
+        cols, vals, diag = _triangle(rng, 4, 2000, 40, False, BF16, dev)
+    elif case == "one set of 5000":
+        cols = torch.full((2, 5000, 3), -1, dtype=torch.int32, device=dev)
+        vals = torch.zeros((2, 5000, 3), dtype=BF16, device=dev)
+        diag = torch.as_tensor(1.0 + rng.random((2, 5000)), dtype=BF16,
+                               device=dev)
+    elif case == "sets across stages":
+        # level sets of 100-300 consecutive rows, each row depending on a
+        # random row of the set before
+        m = 3000
+        edges = np.concatenate([[0], np.cumsum(100 + rng.integers(0, 200, 30))])
+        edges = np.append(edges[edges < m], m)
+        dep = np.full(m, -1)
+        for a, b, c in zip(edges[:-2], edges[1:-1], edges[2:]):
+            dep[b:c] = rng.integers(a, b, c - b)
+        cols = torch.as_tensor(dep.reshape(1, m, 1).astype(np.int32), device=dev)
+        vals = torch.as_tensor(np.where(dep >= 0, 0.3, 0.0).reshape(1, m, 1),
+                               dtype=BF16, device=dev)
+        diag = torch.as_tensor(1.0 + rng.random((1, m)), dtype=BF16, device=dev)
+    else:
+        cols, vals, diag = _triangle(rng, 8, 1000, 13, False, BF16, dev)
+        cols[3, :, :] = -1                     # a rank of one level set
+    Dn, m, _ = cols.shape
+    r, x = _rhs(rng, Dn, m, None, BF16, dev), _rhs(rng, Dn, m, None, BF16, dev)
+    if case == "nan":
+        r[0, 17] = float("nan")
+    assert _takes("staged", cols, 1, BF16, dev)
+    order = _order(cols, False)
+    got = sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=False, order=order,
+                       route="staged")
+    if case == "chain 8192 on 8 ranks":
+        slab = sm.TriSlab(cols, vals, diag, order[0])
+        for _ in range(20):
+            assert torch.equal(got, sm.tri_solve(
+                cols, vals, diag, r, x, 0.9, upper=False, order=order,
+                route="staged", slab=slab))
+    sched = sref.level_schedule(cols.cpu().numpy(), False, dev)
+    want = sref.tri_solve_ref(cols, vals, diag, r, x, 0.9, sched)
+    torch.cuda.synchronize()
+    keep = ~torch.isnan(want)
+    assert torch.equal(torch.isnan(got), ~keep)
+    _close_bf16(got[keep], want[keep],
+                sref.tri_solve_absum(cols, vals, diag, r, x, 0.9, sched)[keep])
+    l2 = sm.tri_solve(cols, vals, diag, r, x, 0.9, upper=False, order=order,
+                      route="l2")
+    assert torch.equal(got[keep], l2[keep])
 
 
 # ------------------------------------------------ ERT micro-kernels

@@ -2,10 +2,15 @@
 (``ref.rank_level_order``: each rank's rows by level set) and where each
 rank's level sets begin (``ref.rank_level_starts``), the route rule
 (``smoother.tri_plan``) at its thresholds and against the routes' times
-measured on the card, a replay of the L2 route's static schedule (groups
+measured on the card, the staged route's rule (bfloat16 at k = 1 where z,
+the starts and its smallest ring fit a block, its constants read from the
+kernel's source), a replay of the L2 route's static schedule (groups
 taking positions by a fixed stride over every rank, each waiting on its
 row's dependencies) that must finish with every row once, and the plain
 version, which the route and order keywords leave as it was."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -140,7 +145,10 @@ def test_tri_plan_at_its_thresholds(k, itemsize):
     L2 is taken anywhere."""
     per = H100_SMEM // (k * itemsize)         # rows one block holds
     width = sm.BLOCK_MAX_WIDTH[itemsize]
-    plan = sm.tri_plan
+    dtype = {4: torch.float32, 8: torch.float64}[itemsize]
+
+    def plan(m, nlev, k, itemsize, smem, route=None):
+        return sm.tri_plan(m, nlev, k, dtype, smem, route)
     assert plan(1, 1, k, itemsize, H100_SMEM) == "block"
     # the width's edge, 3 level sets
     assert plan(3 * width, 3, k, itemsize, H100_SMEM) == "block"
@@ -175,14 +183,14 @@ def test_tri_plan_of_the_main_path():
     2-4 (9 rows a level set and fewer) one block a rank; level 1 (28 rows
     a set) by the width of its type and k."""
     for k in (1, 8):
-        for s in (4, 8):
-            assert sm.tri_plan(*MAIN_PATH[0], k, s, H100_SMEM) == "l2"
+        for s, dtype in ((4, torch.float32), (8, torch.float64)):
+            assert sm.tri_plan(*MAIN_PATH[0], k, dtype, H100_SMEM) == "l2"
             for level in (2, 3, 4):
-                assert sm.tri_plan(*MAIN_PATH[level], k, s, H100_SMEM) == "block"
+                assert sm.tri_plan(*MAIN_PATH[level], k, dtype, H100_SMEM) == "block"
             if (k, s) != (1, 4):
                 with pytest.raises(ValueError):
-                    sm.tri_plan(*MAIN_PATH[0], k, s, H100_SMEM, "block")
-    assert sm.tri_plan(*MAIN_PATH[0], 1, 4, H100_SMEM, "block") == "block"
+                    sm.tri_plan(*MAIN_PATH[0], k, dtype, H100_SMEM, "block")
+    assert sm.tri_plan(*MAIN_PATH[0], 1, torch.float32, H100_SMEM, "block") == "block"
 
 
 @pytest.mark.parametrize("dtype,code,zbytes", [
@@ -191,8 +199,11 @@ def test_tri_plan_reads_the_bytes_of_z(monkeypatch, dtype, code, zbytes):
     """The launch plans its route on the bytes of z, the solution it keeps
     between level sets: float32's 4 for bfloat16 operands (no rule keyed
     by 2 bytes, and the block's shared memory counted as the block route
-    uses it); it passes the type's dtype code and, on the L2 route, a
-    scratch z of that type (the kernel itself stubbed: no card here)."""
+    uses it), and on the operands' type and slots (the staged route's
+    needs: bfloat16 at k = 1 takes it at level 0); it passes the type's
+    dtype code and the route's code and, on the L2 route, a scratch z of
+    that type, on the staged route the slab (the kernel itself stubbed: no
+    card here)."""
     planned, launched, scratch = [], [], []
     monkeypatch.setattr(sm, "_on_card", lambda *a: True)
     monkeypatch.setattr(sm, "tri_smem", lambda dev: H100_SMEM)
@@ -201,9 +212,9 @@ def test_tri_plan_reads_the_bytes_of_z(monkeypatch, dtype, code, zbytes):
                         lambda dev=None: type("S", (), {"cuda_stream": 0})())
     real_plan, real_empty = sm.tri_plan, torch.empty_like
 
-    def plan(*args):
-        planned.append(args)
-        return real_plan(*args)
+    def plan(*args, **kw):
+        planned.append((args, kw))
+        return real_plan(*args, **kw)
 
     def empty_like(t, **kw):
         z = real_empty(t, **kw)
@@ -216,7 +227,7 @@ def test_tri_plan_reads_the_bytes_of_z(monkeypatch, dtype, code, zbytes):
         lambda *args: launched.append(args) or 0))
     rng = np.random.default_rng(3)
     m, nlev = MAIN_PATH[0]
-    for k, route in ((1, "l2"), (8, "l2"), (1, "block")):
+    for k, route in ((1, None), (8, None), (1, "block"), (1, "staged")):
         cols = torch.as_tensor(np.full((2, m, 1), -1, dtype=np.int32))
         vals = torch.zeros((2, m, 1), dtype=dtype)
         diag = torch.ones((2, m), dtype=dtype)
@@ -230,13 +241,24 @@ def test_tri_plan_reads_the_bytes_of_z(monkeypatch, dtype, code, zbytes):
                 sm.tri_solve(cols, vals, diag, r, r, upper=False, order=order,
                              route=route)
             continue
+        if route == "staged" and dtype != torch.bfloat16:
+            with pytest.raises(ValueError, match="staged route"):
+                sm.tri_solve(cols, vals, diag, r, r, upper=False, order=order,
+                             route=route)
+            continue
         sm.tri_solve(cols, vals, diag, r, r, upper=False, order=order,
-                     route=None if route == "l2" else route)
-        assert planned[-1][:4] == (m, nlev, k, zbytes)
-        assert launched[-1][15:17] == (code, int(route == "block"))
+                     route=route)
+        want = route or ("staged" if dtype == torch.bfloat16 and k == 1
+                         else "l2")
+        assert planned[-1][0][:4] == (m, nlev, k, dtype)
+        assert sm.z_dtype(dtype).itemsize == zbytes
+        assert planned[-1][1] == {"K": 1}
+        assert launched[-1][15:17] == (code, sm.TRI_ROUTE_CODES[want])
         # y, then (on the L2 route) the scratch z
         assert [z.dtype for z in scratch] == (
-            [dtype, sm.z_dtype(dtype)] if route == "l2" else [dtype])
+            [dtype, sm.z_dtype(dtype)] if want == "l2" else [dtype])
+        if want == "staged":            # the slab in z's place
+            assert launched[-1][7] not in (None, 0)
     assert sm.z_dtype(torch.bfloat16) == torch.float32
 
 
@@ -267,7 +289,7 @@ def test_tri_plan_takes_the_faster_measured_route(dtype, k, level):
     m, nlev = MAIN_PATH[level]
     assert (block_ms is None) == (m * k * itemsize > H100_SMEM)
     want = "l2" if block_ms is None or l2_ms < block_ms else "block"
-    assert sm.tri_plan(m, nlev, k, itemsize, H100_SMEM) == want
+    assert sm.tri_plan(m, nlev, k, getattr(torch, dtype), H100_SMEM) == want
 
 
 @pytest.mark.parametrize("k", [None, 3])
@@ -338,3 +360,142 @@ def test_block_level_starts_bound_each_level_set(m):
             assert np.all(lev[d, got] == L)
             assert len(got) == np.count_nonzero(lev[d] == L)
     assert np.all(starts[2, 1:] == m)
+
+
+# ------------------------------------------------------------ the staged route
+CU = (Path(sm.__file__).parent / "csrc" / "tri_solve.cu").read_text()
+
+
+def _cu_int(name):
+    """A ``constexpr int`` of the kernel's source."""
+    m = re.search(rf"constexpr int {name} = (\d+);", CU)
+    assert m, name
+    return int(m.group(1))
+
+
+def test_staged_constants_are_the_kernels():
+    """The wrapper's staged-route constants are the kernel's (read from
+    ``csrc/tri_solve.cu``), its stage bytes the kernel's formula, a pass
+    of one row a consumer fits the smallest ring, and a stage is a multiple
+    of 16 bytes (one bulk copy) for every K."""
+    assert sm.STAGED_ROWS == _cu_int("STAGED_ROWS")
+    assert sm.STAGED_MIN_STAGES == _cu_int("STAGED_MIN_STAGES")
+    assert sm.STAGED_MAX_STAGES == _cu_int("STAGED_MAX_STAGES")
+    assert "return 4 * STAGED_ROWS * (1 + staged_slots(K));" in CU
+    assert "return K <= 32 ? K : (K + 31) / 32 * 32;" in CU
+    assert [sm.staged_slots(K) for K in (0, 1, 4, 13, 32, 33, 70)] == [
+        0, 1, 4, 13, 32, 64, 96]
+    # an instance of the kernel for each slot count up to 32
+    assert all(f"STAGED_CASE({K})" in CU for K in range(33))
+    assert "constexpr int ROUTE_L2 = 0, ROUTE_BLOCK = 1, ROUTE_STAGED = 2;" in CU
+    assert sm.TRI_ROUTE_CODES == {"l2": 0, "block": 1, "staged": 2}
+    consumers = _cu_int("STAGED_CONSUMERS")
+    assert sm.STAGED_MIN_STAGES >= consumers // sm.STAGED_ROWS + 1
+    assert sm.STAGED_ROWS % 8 == 0
+    for K in range(0, 80):
+        assert sm.staged_stage_bytes(K) % 16 == 0
+
+
+@pytest.mark.parametrize("K", [1, 13, 26, 40])
+def test_tri_plan_staged_only_for_bf16_at_k1(K):
+    """The staged route is planned for bfloat16 operands at k = 1 where it
+    fits (at the main path's sizes, rows of up to 32 slots everywhere),
+    never for float32 or float64 (whatever their bytes), never at k > 1,
+    forced, it raises in each of those cases."""
+    bf16 = torch.bfloat16
+    for m, nlev in [(13, 9), (375, 42), (2_689, 95), (32_768, 218)]:
+        fits = sm.staged_smem(m, nlev, K) <= H100_SMEM
+        assert fits or (K > 32 and m == 32_768)
+        assert (sm.tri_plan(m, nlev, 1, bf16, H100_SMEM, K=K)
+                == "staged") == fits
+        assert ("staged" in sm.tri_routes(m, nlev, 1, bf16, H100_SMEM,
+                                          K=K)) == fits
+        if not fits:
+            continue
+        for dtype in (torch.float32, torch.float64):
+            assert sm.tri_plan(m, nlev, 1, dtype, H100_SMEM, K=K) != "staged"
+            assert "staged" not in sm.tri_routes(m, nlev, 1, dtype, H100_SMEM, K=K)
+            with pytest.raises(ValueError, match="staged route"):
+                sm.tri_plan(m, nlev, 1, dtype, H100_SMEM, "staged", K=K)
+        for k in (2, 8):
+            assert sm.tri_plan(m, nlev, k, bf16, H100_SMEM, K=K) != "staged"
+            assert "staged" not in sm.tri_routes(m, nlev, k, bf16, H100_SMEM,
+                                                 K=K)
+            with pytest.raises(ValueError, match="staged route"):
+                sm.tri_plan(m, nlev, k, bf16, H100_SMEM, "staged", K=K)
+        assert sm.tri_plan(m, nlev, 1, bf16, H100_SMEM, "staged",
+                           K=K) == "staged"
+
+
+@pytest.mark.parametrize("K", [0, 13, 40, 70])
+def test_tri_plan_staged_at_its_shared_memory_edge(K):
+    """z (4 bytes a row and a zero slot), the starts (4 a level set, each
+    rounded to 16),
+    STAGED_MIN_STAGES stages of K slots and 16 bytes a stage of barriers at
+    STAGED_MAX_STAGES: the rank that just fits takes the staged route, one
+    row more (a chain: one more level set too) does not, where a forced
+    staged route raises and the rule falls back to the other routes."""
+    fixed = sm.STAGED_MIN_STAGES * sm.staged_stage_bytes(K) + 16 * sm.STAGED_MAX_STAGES
+    bf16 = torch.bfloat16
+    if fixed + 32 > H100_SMEM:           # rows of 65+ slots: no ring fits
+        assert "staged" not in sm.tri_routes(1, 1, 1, bf16, H100_SMEM, K=K)
+        with pytest.raises(ValueError, match="staged route"):
+            sm.tri_plan(1, 1, 1, bf16, H100_SMEM, "staged", K=K)
+        return
+    m = (H100_SMEM - fixed) // 8 // 4 * 4 - 1     # a chain: nlev = m
+    assert sm.staged_smem(m, m, K) <= H100_SMEM < sm.staged_smem(m + 4, m + 4, K)
+    while sm.staged_smem(m + 1, m + 1, K) <= H100_SMEM:
+        m += 1
+    assert sm.tri_plan(m, m, 1, bf16, H100_SMEM, K=K) == "staged"
+    assert sm.tri_plan(m + 1, m + 1, 1, bf16, H100_SMEM,
+                       K=K) == sm.tri_plan(m + 1, m + 1, 1, torch.float32, H100_SMEM)
+    with pytest.raises(ValueError, match="staged route"):
+        sm.tri_plan(m + 1, m + 1, 1, bf16, H100_SMEM, "staged", K=K)
+    # few level sets leave room for more rows (forced past the rule's width)
+    assert "staged" in sm.tri_routes(m + 1, 1, 1, bf16, H100_SMEM, K=K)
+    assert sm.tri_plan(m + 1, 1, 1, bf16, H100_SMEM, "staged", K=K) == "staged"
+
+
+def test_tri_plan_of_the_bf16_main_path():
+    """laplace_3d(64) on 2 x 4 ranks in bfloat16: every non-coarsest level
+    takes the staged route at k = 1 (level 0's z is 128 KiB, its slab's
+    ring the rest), and the k = 8 chunk keeps the routes of float32."""
+    bf16 = torch.bfloat16
+    for level, (m, nlev) in MAIN_PATH.items():
+        assert sm.tri_plan(m, nlev, 1, bf16, H100_SMEM, K=13) == "staged"
+        assert sm.tri_plan(m, nlev, 8, bf16, H100_SMEM,
+                           K=13) == sm.tri_plan(m, nlev, 8, torch.float32, H100_SMEM)
+
+
+@pytest.mark.parametrize("nlev", [1, 4, 8])
+def test_tri_plan_staged_up_to_its_width(nlev):
+    """The rule takes the staged route up to STAGED_MAX_WIDTH rows a level
+    set on average (the widest it measured faster at) and, one row past
+    it, the route float32's rule gives; forced, the staged route is still
+    taken there where it fits."""
+    bf16, K = torch.bfloat16, 13
+    m = sm.STAGED_MAX_WIDTH * nlev
+    assert "staged" in sm.tri_routes(m + 1, nlev, 1, bf16, H100_SMEM, K=K)
+    assert sm.tri_plan(m, nlev, 1, bf16, H100_SMEM, K=K) == "staged"
+    assert sm.tri_plan(m + 1, nlev, 1, bf16, H100_SMEM, K=K) == sm.tri_plan(
+        m + 1, nlev, 1, torch.float32, H100_SMEM) != "staged"
+    assert sm.tri_plan(m + 1, nlev, 1, bf16, H100_SMEM, "staged", K=K) == "staged"
+
+
+@pytest.mark.parametrize("m", [65_535, 65_536])
+def test_staged_slab_refuses_rows_past_16_bits(m):
+    """The slab holds 16-bit row and column ids: it is built for 65,535
+    rows a rank and refused from 65,536 (where the route is never
+    planned), never wrapped."""
+    cols = torch.full((1, m, 0), -1, dtype=torch.int32)
+    vals = torch.zeros((1, m, 0), dtype=torch.bfloat16)
+    diag = torch.ones((1, m), dtype=torch.bfloat16)
+    order = torch.arange(m, dtype=torch.int32)[None]
+    assert "staged" not in sm.tri_routes(65_536, 1, 1, torch.bfloat16, 1 << 30)
+    if m < 1 << 16:
+        slab = sm.staged_slab(cols, vals, diag, order)
+        assert tuple(slab.shape) == (1, -(-m // sm.STAGED_ROWS),
+                                     sm.staged_stage_bytes(0))
+        return
+    with pytest.raises(ValueError, match="16-bit"):
+        sm.staged_slab(cols, vals, diag, order)
