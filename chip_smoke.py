@@ -36,7 +36,7 @@ version at the shapes its path gives it:
   in f32 and bf16, and ``recurrentgemma-9b`` (38 layers: RG-LRU blocks and
   local attention, 16 query heads on one KV head of 256 dims, 10.4 B
   parameters) in bf16, its prefill attention through ``flash_attention``'s
-  head-dim-256 instance;
+  head-dim-256 instance (``flash_attention_wgmma`` in bf16);
 - training in f32, ``make_step_fn`` (loss, autograd, AdamW) at full width:
   qwen3-1.7b whole through ``launch/train.py``, xlstm-125m, and the MoE and
   hybrid-recurrent archs cut in depth (mixtral-8x22b and
@@ -187,8 +187,12 @@ Phases (any failure exits non-zero):
    window, 64:4) in bf16, against its plain version (each row's error over
    the row's max|plain|: float32 2e-5, bfloat16 1e-2), each through the
    kernel the route table names (float32: ``flash_attention.cu``, 3xTF32 on
-   ``mma.sync``; bfloat16: ``flash_attention_wgmma.cu``, ``wgmma`` fed by
-   TMA), its per-kernel count checked, with device times of the kernel, the
+   ``mma.sync``, at head dims 64 and 128, ``flash_attention_tf32.cu``,
+   3xTF32 on ``wgmma`` fed by TMA, at 96 and 256; bfloat16:
+   ``flash_attention_wgmma.cu``, ``wgmma`` fed by TMA), its per-kernel count
+   checked, then ``flash_attention_tf32`` against the float64 truth at S 301
+   with q x 8 and with k + 50 (32:32 at head dim 96, 16:1 at 256; each row
+   within 2e-5), with device times of the kernel, the
    plain version and ``scaled_dot_product_attention``, and the flop / byte
    bound (float32 as 3xTF32 at a third of the tensor cores' 495 TFLOP/s,
    with the FMA units' 67 TFLOP/s bound beside it; bfloat16 at the tensor
@@ -240,8 +244,9 @@ Phases (any failure exits non-zero):
    with the states' errors and the layer's ms); each model freed before
    the next;
 13. the embedding-input phase: phi-3-vision-4.2b (32 heads of 96: the
-   flash kernel's head-dim-96 instances, checked at its prefill shape in
-   the flash cases of 8) and musicgen-medium, each at full width and depth
+   flash kernels' head-dim-96 instances, ``flash_attention_tf32`` in f32,
+   checked at its prefill shape in the flash cases of 8) and musicgen-medium,
+   each at full width and depth
    in f32 and bf16, served on the stub frontend's embeddings at the first 4
    prompts' lengths (32 and 48 flash launches a batch, counted as in 9);
    kernel vs plain logits teacher-forced with zero embeddings at decode, as
@@ -331,9 +336,12 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12,
 TF32X3_FLOPS = 495e12 / 3
 # the flash kernels (``flash_attention.route`` picks one by dtype and head
 # dim) and the design each runs for a dtype
-FLASH_KERNELS = ("flash_attention", "flash_attention_wgmma")
+FLASH_KERNELS = ("flash_attention", "flash_attention_tf32", "flash_attention_wgmma")
 FLASH_DESIGN = {
     ("flash_attention", torch.float32): "3xTF32 on the tensor cores (mma.sync m16n8k8)",
+    ("flash_attention_tf32", torch.float32):
+        "3xTF32 on wgmma m64nNk8, TMA into mbarrier'd rings, a producer thread and two "
+        "consumer warpgroups splitting the head dim (hi / lo planes, V^T in shared memory)",
     ("flash_attention_wgmma", torch.bfloat16):
         "bf16 on wgmma m64nNk16, TMA into a 2-stage ring, a producer warp and two "
         "consumer warpgroups"}
@@ -412,6 +420,7 @@ REPLACES = {
     "block_diag_apply": "src/repro/amg/dist_solve.py:557-569",
     "tri_solve": "src/repro/amg/dist_solve.py:557-569",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:86",
+    "flash_attention_tf32": "src/repro/kernels/flash_attention/flash_attention.py:86",
     "flash_attention_wgmma": "src/repro/kernels/flash_attention/flash_attention.py:86",
 }
 # the block-smoother phase: the stationary hybrid_gs solve's cycle limit;
@@ -465,7 +474,7 @@ RECURRENT_REQUESTS = 4
 # relative each), so 3e-2, as the LM tests' bfloat16 bar
 LAYER_RTOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 # the embedding-input phase: phi-3-vision-4.2b (32 heads of 96: the flash
-# kernel's head-dim-96 instances) and musicgen-medium at full width and depth,
+# kernels' head-dim-96 instances) and musicgen-medium at full width and depth,
 # in f32 and bf16, each fed the stub frontend's embeddings (standard normals
 # from SEED) at the first 4 prompts' lengths; decode steps take zero
 # embeddings, as the engine feeds them
@@ -1559,8 +1568,8 @@ def born_block_phase(born, b, host_iters: int) -> dict:
 
 def launch_counters() -> dict:
     """Every kernel wrapper, by kernel name (each carries ``.launches``);
-    ``flash_attention`` counts both flash kernels, ``flash_attention_wgmma``
-    the Hopper kernel's launches alone."""
+    ``flash_attention`` counts every flash kernel, ``flash_attention_tf32``
+    and ``flash_attention_wgmma`` the Hopper kernels' launches alone."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.smoother.smoother import block_diag_apply, tri_solve
     from repro_torch.kernels.spmv.bcsr import bcsr_spmm
@@ -1568,8 +1577,9 @@ def launch_counters() -> dict:
     return {"ell_spmv": ell_spmv, "ell_spmm": ell_spmm,
             "bcsr_spmm": bcsr_spmm, "block_diag_apply": block_diag_apply,
             "tri_solve": tri_solve, "flash_attention": flash_attention,
-            # the wrapper counts both flash kernels; this one the Hopper
-            # kernel's own launches
+            # the wrapper counts every flash kernel; these the Hopper
+            # kernels' own launches
+            "flash_attention_tf32": flash_attention.by_kernel["flash_attention_tf32"],
             "flash_attention_wgmma": flash_attention.by_kernel["flash_attention_wgmma"]}
 
 
@@ -1806,6 +1816,44 @@ def flash_phase(S: int, head_dims=None) -> list[dict]:
     return rows
 
 
+def tf32_truth_phase() -> list[dict]:
+    """``flash_attention_tf32`` where float32 scores are themselves inexact:
+    S 301, causal, q x 8 (one key dominates a row) and k + 50 (scores in the
+    hundreds, their differences between keys in the units), at phi-3-vision's
+    32:32 (head dim 96) and recurrentgemma's 16:1 (256); each row within
+    ``FLASH_RTOL`` of the float64 truth (``attention_f64``), the float32
+    plain version's error beside it (itself past the bar with k + 50)."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention, route
+    from repro_torch.kernels.flash_attention.ref import (attention_f64, attention_ref,
+                                                         rel_err_rows)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows = []
+    for Hq, Hkv, D in ((32, 32, 96), (16, 1, 256)):
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE)
+                   for shape in ((1, Hq, 301, D), (1, Hkv, 301, D), (1, Hkv, 301, D)))
+        for kind, (qq, kk) in (("peaked", (q * 8, k)), ("offset", (q, k + 50))):
+            name = route(torch.float32, D)
+            before = flash_attention.by_kernel[name].launches
+            out = flash_attention(qq, kk, v, True)
+            torch.cuda.synchronize()
+            check(name == "flash_attention_tf32"
+                  and flash_attention.by_kernel[name].launches == before + 1,
+                  f"float64-truth case at head dim {D}: {name} did not launch once")
+            truth = attention_f64(qq, kk, v)
+            err = rel_err_rows(out, truth)
+            plain = rel_err_rows(attention_ref(qq, kk, v), truth)
+            log(f"  {name} {kind} [1, {Hq}, {Hkv}, 301, {D}] over the float64 truth: "
+                f"{err:.3e} a row at most (plain float32 {plain:.3e})")
+            check(err <= FLASH_RTOL[torch.float32],
+                  f"{name} {kind} at head dim {D}: {err:.3e} of the float64 truth, "
+                  f"above {FLASH_RTOL[torch.float32]:g}")
+            rows.append({"kernel": name, "shape": [1, Hq, Hkv, 301, D], "kind": kind,
+                         "rel_err": err, "plain_rel_err": plain})
+            del truth, out
+    return rows
+
+
 def lm_workload(vocab: int) -> list[np.ndarray]:
     rng = np.random.default_rng(SEED)
     lengths = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)
@@ -1854,10 +1902,10 @@ def lm_serve(cfg, prompts, dtype) -> dict:
           f"flash_attention launched {counts['flash_attention']} times, want "
           f"{n_attn} attention layers x {n_batches} prefill batches")
     flash_kernel = route(dtype, cfg.head_dim)
-    want = counts["flash_attention"] if flash_kernel == "flash_attention_wgmma" else 0
-    check(counts["flash_attention_wgmma"] == want,
-          f"{cfg.name} {dtype}: flash_attention_wgmma launched "
-          f"{counts['flash_attention_wgmma']} times, want {want} (route: {flash_kernel})")
+    for k in FLASH_KERNELS[1:]:
+        want = counts["flash_attention"] if flash_kernel == k else 0
+        check(counts[k] == want, f"{cfg.name} {dtype}: {k} launched {counts[k]} times, "
+              f"want {want} (route: {flash_kernel})")
     s = eng.stats
     name = str(dtype).replace("torch.", "")
     info = {"arch": cfg.name, "dtype": name, "layers": cfg.n_layers,
@@ -2415,7 +2463,8 @@ def recurrent_phase() -> tuple[dict, dict]:
 
 def flash_counts(run) -> dict:
     """A serving run's flash launches: all of them (``flash_attention``, the
-    wrapper) and the Hopper kernel's (``flash_attention_wgmma``)."""
+    wrapper) and each Hopper kernel's (``flash_attention_tf32``,
+    ``flash_attention_wgmma``)."""
     return {k: run["info"]["launches"][k] for k in FLASH_KERNELS}
 
 
@@ -4646,21 +4695,23 @@ def smoother_bf16_top(rows: list, bf16: dict, name: str) -> dict:
 
 
 def flash_instances(rows, ptxas, head_dim: int) -> dict:
-    """The flash instances at ``head_dim``, by type: the kernel that serves
-    it, ``ptxas -v``'s registers and spills of its instance, and each case's
-    kernel, bound, plain and SDPA ms and error."""
+    """The flash instances at ``head_dim``, by type: the kernel the route
+    table sends it to, ``ptxas -v``'s registers and spills of its instance,
+    and each case's kernel, bound, plain and SDPA ms and error."""
+    from repro_torch.kernels.flash_attention.flash_attention import route
     out = {}
-    # demangled: "void <unnamed>::flash_attention_kernel<float, (int)256>",
+    # demangled: "void <unnamed>::flash_attention_kernel<float, (int)128>",
+    # "void <unnamed>::flash_tf32_kernel<(int)96>",
     # "void <unnamed>::flash_wgmma_kernel<(int)256>"
-    for dt, kname, tag in (("float32", "flash_attention", "<float, "),
-                           ("bfloat16", "flash_attention_wgmma", "<")):
+    for dt, tdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        kname = route(tdt, head_dim)
+        tag = f"<float, (int){head_dim}>" if kname == "flash_attention" else f"<(int){head_dim}>"
         cases = {r["case"]: {key: r.get(key) for key in (
             "kernel", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
             "tflops", "rel_err", "max_abs_err")}
             for r in rows if r["dtype"] == dt and r["head_dim"] == head_dim}
         out[dt] = {"kernel": sorted({c["kernel"] for c in cases.values()}),
-                   "ptxas": [u for n, u in ptxas[kname]
-                             if f"{tag}(int){head_dim}>" in n],
+                   "ptxas": [u for n, u in ptxas[kname] if tag in n],
                    "cases": cases}
         check(len(out[dt]["ptxas"]) == 1 and out[dt]["kernel"] == [kname],
               f"flash_attention {dt} at head dim {head_dim}: {out[dt]}")
@@ -5053,6 +5104,7 @@ def main() -> int:
     all_flash = flash_phase(S)
     for k in FLASH_KERNELS:
         rows[k] = [r for r in all_flash if r["kernel"] == k]
+    tf32_truth = tf32_truth_phase()
     torch.cuda.empty_cache()
     lap("flash")
 
@@ -5097,12 +5149,12 @@ def main() -> int:
     embed["phase_s"] = time.perf_counter() - t0
     log(f"embedding-input phase: {embed['phase_s']:.1f} s in all")
     flash_runs.update(embed_flash)
-    # the Hopper kernel's launches, and the mma.sync source's own (the
-    # wrapper counts both)
-    launches["flash_attention_wgmma"] = sum(v["flash_attention_wgmma"]
-                                            for v in flash_runs.values())
+    # the Hopper kernels' launches, and the mma.sync source's own (the
+    # wrapper counts all three)
+    for k in FLASH_KERNELS[1:]:
+        launches[k] = sum(v[k] for v in flash_runs.values())
     launches["flash_attention"] = sum(v["flash_attention"] for v in flash_runs.values()) \
-        - launches["flash_attention_wgmma"]
+        - sum(launches[k] for k in FLASH_KERNELS[1:])
     for k in FLASH_KERNELS:
         check(launches[k] > 0, f"{k} launched no time on the serving path")
     lap("embedding-input")
@@ -5138,7 +5190,8 @@ def main() -> int:
     # 18. the kernels line: top-level numbers are the main path's case
     # (sparse kernels: the first float64 case on its operands, BCSR at its
     # block size with one RHS; flash: float32 at the prefill shape, the
-    # wgmma kernel bf16 at recurrentgemma-9b's prefill shape); every dtype /
+    # float32 wgmma kernel at phi-3-vision-4.2b's prefill shape, the bf16
+    # one at recurrentgemma-9b's); every dtype /
     # shape case is under "variants"; a flash kernel's launches are the
     # serving runs' through it; a sparse kernel's are the solve path's, with
     # the dist-born session's counted runs beside them
@@ -5147,6 +5200,8 @@ def main() -> int:
         if k == "flash_attention":
             top = next(r for r in rows[k] if r["main_path"]
                        and r["dtype"] == "float32")
+        elif k == "flash_attention_tf32":
+            top = next(r for r in rows[k] if r["case"] == "phi-3-vision prefill")
         elif k == "flash_attention_wgmma":
             top = next(r for r in rows[k] if r["case"] == "recurrentgemma-9b prefill")
         else:
@@ -5163,14 +5218,17 @@ def main() -> int:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "card": smi,
             **({"launches_per_run": {run: v["flash_attention"] - v["flash_attention_wgmma"]
+                                     - v["flash_attention_tf32"]
                                      for run, v in flash_runs.items()},
                 "bound_fma_ms": top["bound_fma_ms"], "design": top["design"],
                 **{f"instances_head_dim_{d}": flash_instances(all_flash, ptxas, d)
                    for d in (256, 96, 128, 64)}}
                if k == "flash_attention" else
                {"launches_per_run": {run: v[k] for run, v in flash_runs.items()},
-                "design": top["design"], "tflops": top["tflops"]}
-               if k == "flash_attention_wgmma" else
+                "design": top["design"], "tflops": top["tflops"],
+                **({"bound_fma_ms": top["bound_fma_ms"], "float64_truth": tf32_truth}
+                   if k == "flash_attention_tf32" else {})}
+               if k in ("flash_attention_tf32", "flash_attention_wgmma") else
                {"pallas": False,
                 "launches_per_run": {r["run"]: r["launches"][k]
                                      for r in block["runs"] + block["bf16"]["runs"]},

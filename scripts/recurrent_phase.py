@@ -2,8 +2,9 @@
 alone on one card: the quickest check that the recurrent archs still serve
 there.
 
-Builds the kernels and prints every instance's ``ptxas -v`` line of both
-flash kernels (``flash_attention``, ``flash_attention_wgmma``), then runs
+Builds the kernels and prints every instance's ``ptxas -v`` line of the
+flash kernels (``flash_attention``, ``flash_attention_tf32``,
+``flash_attention_wgmma``), then runs
 ``chip_smoke.flash_phase`` at head dim 256 only (recurrentgemma-9b's
 prefill, and with a 256-key window, in f32 and bf16,
 against the plain version, beside SDPA and the bound) and
@@ -42,7 +43,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     build()
     ptxas = {k: build_report(k) for k in cs.FLASH_KERNELS}
-    for inst, used in ptxas["flash_attention"] + ptxas["flash_attention_wgmma"]:
+    for inst, used in (row for k in cs.FLASH_KERNELS for row in ptxas[k]):
         print(f"ptxas {inst}: {used}", flush=True)
     S = max(len(p) for p in cs.lm_workload(get_arch(cs.LM_ARCH).vocab))
     rows = cs.flash_phase(S, head_dims=(256,))

@@ -2,8 +2,8 @@
 one card.
 
 Builds the kernel's source (``--kernel ell_spmv``, the default,
-``ell_spmm``, ``flash_attention``, ``flash_attention_wgmma``, ``tri_solve``
-or ``block_diag_apply``; ``repro_torch.kernels.build``) and each
+``ell_spmm``, ``flash_attention``, ``flash_attention_tf32``,
+``flash_attention_wgmma``, ``tri_solve`` or ``block_diag_apply``; ``repro_torch.kernels.build``) and each
 source SRC given (same C interface, e.g. an earlier commit's source or an
 edited copy; named by its file stem) into ``build/tune_<kernel>/``, one
 ``nvcc -Xptxas -v`` each, all at once, and prints each build's register and
@@ -34,6 +34,14 @@ kernel, ...SRC; each version reports the mean of its two times.  The cases:
   ``scaled_dot_product_attention`` and the flop bound (3xTF32 on the tensor
   cores, with the FMA units' bound beside it); then large scores (q x 8, k
   + 50) against a float64 truth, beside the float32 plain version's error;
+- ``flash_attention_tf32`` (float32, 3xTF32 on ``wgmma`` fed by TMA, same C
+  interface; head dims 96 and 256): the float32 cases above at those head
+  dims (recurrentgemma-9b's 16:1 with its 2048-key window and a 256-key one;
+  phi-3-vision-4.2b's 32:32 prefill), then their large scores.  An earlier
+  commit's ``flash_attention.cu`` as SRC (``git show 7d8f434:src/repro_torch/
+  kernels/flash_attention/csrc/flash_attention.cu > build/mma_sync.cu``, one
+  that still has the float32 ``mma.sync`` instances at 96 and 256) holds the
+  two designs against each other;
 - ``flash_attention_wgmma`` (bfloat16, the Hopper design, same C
   interface): the same cases and the MoE archs' (mixtral-8x22b 48:8 with
   its 4096-key window, qwen3-moe 64:4) in bfloat16, beside SDPA and the
@@ -349,7 +357,8 @@ def flash_large_scores(fns, head_dims=None) -> list:
     rows = []
     for B, Hq, Hkv, S, D in ((2, 16, 8, 256, 128), (1, 14, 2, 301, 64),
                              (4, 16, 8, FLASH_S, 128), (1, 16, 1, 301, 256),
-                             (4, 16, 1, FLASH_S, 256)):
+                             (4, 16, 1, FLASH_S, 256), (1, 32, 32, 301, 96),
+                             (4, 32, 32, FLASH_S, 96)):
         if head_dims and D not in head_dims:
             continue
         gen = torch.Generator(device="cuda").manual_seed(2)
@@ -627,6 +636,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=64)
     ap.add_argument("--kernel", choices=("ell_spmv", "ell_spmm", "flash_attention",
+                                         "flash_attention_tf32",
                                          "flash_attention_wgmma", "tri_solve",
                                          "block_diag_apply"),
                     default="ell_spmv")
@@ -658,7 +668,8 @@ def main() -> int:
                          "given), k = 1 (repeatable)")
     ap.add_argument("--head-dim", type=int, action="append", dest="head_dims",
                     default=None, metavar="D",
-                    help="flash_attention: only the cases at head dim D (repeatable)")
+                    help="flash_attention(_tf32): only the cases at head dim D "
+                         "(repeatable)")
     ap.add_argument("--unchecked", action="append", default=[], metavar="NAME",
                     help="a version (file stem) to time whose error is reported "
                          "but not held to the bar: a variant that trades accuracy "
@@ -685,6 +696,10 @@ def main() -> int:
     if args.kernel == "flash_attention":
         rows = (flash_cases(cs, fns, order, args.head_dims, dtypes=(torch.float32,))
                 + flash_large_scores(fns, args.head_dims))
+    elif args.kernel == "flash_attention_tf32":
+        head_dims = args.head_dims or [96, 256]
+        rows = (flash_cases(cs, fns, order, head_dims, dtypes=(torch.float32,))
+                + flash_large_scores(fns, head_dims))
     elif args.kernel == "flash_attention_wgmma":
         rows = flash_cases(cs, fns, order, args.head_dims, dtypes=(torch.bfloat16,))
     elif args.kernel == "tri_solve":

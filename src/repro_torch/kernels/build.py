@@ -59,6 +59,13 @@ KERNELS = {
                               "flash_attention_launch",
                               [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
                               + [_INT, _I64, _INT, _P]),
+    # the float32 Hopper design (3xTF32 on wgmma fed by TMA, warp-specialised)
+    # at head dims 96 and 256, with flash_attention's C signature (bfloat16
+    # operands and other head dims are refused)
+    "flash_attention_tf32": ("flash_attention/csrc/flash_attention_tf32.cu",
+                             "flash_attention_launch",
+                             [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
+                             + [_INT, _I64, _INT, _P]),
     # the roofline's measured ceilings: x, y; n, t; a, c, f64, stream
     "ert_stream": ("ert/csrc/ert.cu", "ert_stream_launch",
                    [_P, _P, _I64, _INT, ctypes.c_double, ctypes.c_double,

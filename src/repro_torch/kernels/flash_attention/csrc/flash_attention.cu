@@ -93,11 +93,11 @@
 // of the 3xTF32 bound: each TF32 pass costs about as much as the softmax,
 // loads and barriers together.
 //
-// Head dims 64, 96, 128 and 256.  At D = 256 (recurrentgemma-9b: 16 query heads
-// on one KV head) the shape above fits neither the registers nor two
-// blocks an SM, so it takes its own (Cfg<float, 256>, with the arithmetic
-// beside it): 8 warps of one m-tile each, 128 query rows a block, one
-// block an SM.  The skeleton and the products are the same code.
+// Head dims 64 and 128.  Head dims 96 (phi-3-vision-4.2b) and 256
+// (recurrentgemma-9b) run flash_attention_tf32.cu, the Hopper design (3xTF32
+// on wgmma fed by TMA), which replaced this file's instances there (PERF.md
+// keeps their times: 2.0255 and 3.7144 ms at the served prefills on an
+// H100).
 //
 // Masking: a masked score is -inf while the running max starts at -1e30,
 // so its term is exactly 0 and no inf - inf arises; every row that sees a
@@ -130,37 +130,6 @@ struct Cfg<float, D> {
   static constexpr int WARPS = 4, MT = 1, BK = 32, BLOCKS = 2;
   static constexpr int LDQ = D + 16, LDK = D + 16, LDV = D + 4;
 };
-
-// D = 256 (recurrentgemma-9b's heads), re-derived: the D = 128 shape takes
-// 4 * (64 * 272 + 2 * 32 * (272 + 260)) = 205,824 B, so two blocks an SM no
-// longer fit, and one block of 4 warps leaves one warp a scheduler.  8
-// warps of 16 rows (128 query rows) with 16-key tiles take 4 * (128 * 272
-// + 2 * 16 * (272 + 260)) = 207,360 B: one block, 8 warps an SM as at D = 128, 255 registers a thread
-// under __launch_bounds__(256, 1), of which the accumulator takes 128 and a
-// 16-key tile's scores, their rounding errors and pending chunk 8 each.
-// ptxas spills 76 bytes here; 8-key tiles (16 bytes) and a partly unrolled
-// chunk loop (76-88) were no faster on an H100 (PERF.md), so the spill stays
-// until a design that splits D or keeps O out of the registers.
-template <>
-struct Cfg<float, 256> {
-  static constexpr int WARPS = 8, MT = 1, BK = 16, BLOCKS = 1;
-  static constexpr int LDQ = 256 + 16, LDK = 256 + 16, LDV = 256 + 4;
-};
-
-// D = 96 (phi-3-vision-4.2b: 32 heads of 3072 / 32), re-derived: the
-// generic shape above carries over, for these reasons.
-// 96 is 0 mod 32 as 128 is, so the strides keep their residues:
-// LDQ = LDK = 112 = 16 mod 32 and LDV = 100 = 4 mod 32 words, and the
-// float4 reads of a quarter warp (rows g, g + 1 at words 4t, or V rows 2t,
-// 2t + 1 at words 4g) still fall in distinct banks.  scores takes D / 16 =
-// 6 chunks, an even number, so every even chunk's sum is folded in with its
-// odd partner (an odd count would drop the last one); accumulate_pv and
-// store_row take D / 32 = 3 groups of four n-tiles; load_tile copies 24
-// float4s a row.  48 accumulators a thread (64 at D = 128) under the same
-// __launch_bounds__(128, 2) (ptxas: 219 registers, no spill); shared memory 4 * (64 * 112 + 2 * 32 * (112 +
-// 100)) = 82,944 B, two blocks an SM.
-static_assert(96 % 16 == 0 && (96 / 16) % 2 == 0 && 96 % 32 == 0,
-              "the D = 96 instance relies on these divisions");
 
 template <typename T, int D>
 constexpr int BQ = 16 * Cfg<T, D>::MT * Cfg<T, D>::WARPS;   // query rows a block
@@ -600,9 +569,10 @@ int launch(const Launch& a) {
 
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for bfloat16 operands (flash_attention_wgmma.cu
-// takes those), a head dim other than 64, 96, 128 or 256 or a grid the
-// card cannot take.  The caller checks everything else (types, shapes,
-// alignment, Sq <= Skv, Hq % Hkv == 0) before calling.  window < 0: none.
+// takes those), a head dim other than 64 or 128 (flash_attention_tf32.cu
+// takes 96 and 256) or a grid the card cannot take.  The caller checks
+// everything else (types, shapes, alignment, Sq <= Skv, Hq % Hkv == 0)
+// before calling.  window < 0: none.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int64_t B,
     int64_t Hq, int64_t Hkv, int64_t Sq, int64_t Skv, int64_t D, int64_t qsb,
@@ -615,8 +585,6 @@ extern "C" int flash_attention_launch(
                  {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
                  causal, window, static_cast<cudaStream_t>(stream)};
   if (D == 64) return launch<float, 64>(a);
-  if (D == 96) return launch<float, 96>(a);
   if (D == 128) return launch<float, 128>(a);
-  if (D == 256) return launch<float, 256>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,9 @@
 """Causal GQA flash attention: the wrapper of the hand-written CUDA kernels
-``csrc/flash_attention.cu`` (``mma.sync``: float32 as 3xTF32) and
+``csrc/flash_attention.cu`` (``mma.sync``: float32 as 3xTF32 at head dims 64
+and 128), ``csrc/flash_attention_tf32.cu`` (float32 as 3xTF32 on ``wgmma``
+fed by TMA, warp-specialised, at head dims 96 and 256) and
 ``csrc/flash_attention_wgmma.cu`` (bfloat16: ``wgmma`` fed by TMA,
-warp-specialised), one C signature for both.
+warp-specialised), one C signature for all three.
 
 They replace the Pallas kernel ``flash_attention`` of
 ``repro/kernels/flash_attention/flash_attention.py``.  Layout
@@ -28,10 +30,14 @@ from .ref import attention_ref
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (64, 96, 128, 256)
 # The kernel (its name in ``build.KERNELS``) that serves each (dtype, head
-# dim).  float32 runs 3xTF32 on mma.sync; bfloat16 runs the Hopper design at
+# dim).  float32 runs 3xTF32: on mma.sync at head dims 64 and 128, on the
+# Hopper design at 96 and 256 (phi-3-vision-4.2b's and recurrentgemma-9b's
+# heads; PERF.md has both designs' times); bfloat16 runs the Hopper design at
 # every head dim: an H100 ran it 1.7-2.5x faster than the bfloat16 mma.sync
 # instances it replaced, at each served shape (PERF.md).
-ROUTE = {**{(torch.float32, d): "flash_attention" for d in HEAD_DIMS},
+TF32_HEAD_DIMS = (96, 256)
+ROUTE = {**{(torch.float32, d): "flash_attention_tf32" if d in TF32_HEAD_DIMS
+            else "flash_attention" for d in HEAD_DIMS},
          **{(torch.bfloat16, d): "flash_attention_wgmma" for d in HEAD_DIMS}}
 
 

@@ -22,7 +22,7 @@ from repro.kernels.flash_attention.flash_attention import \
     flash_attention as jflash  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as jref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
-from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops, ref, tf32_order  # noqa: E402
 
 TOL = 2e-5
 
@@ -275,7 +275,8 @@ KERNEL_SRC = (Path(fa.__file__).parent / "csrc" / "flash_attention.cu").read_tex
 # the float32 instance's key tile, as the kernel source sets it
 BK = int(re.search(r"struct Cfg<float, D> \{\s*static constexpr int WARPS = \d+, "
                    r"MT = \d+, BK = (\d+)", KERNEL_SRC).group(1))
-# the head dims with a shape of their own (Cfg<float, 256>)
+# the head dims with a shape of their own (Cfg<float, D>; none since the
+# float32 head dims 96 and 256 went to flash_attention_tf32.cu)
 BK_OF = {int(D): int(bk) for D, bk in re.findall(
     r"struct Cfg<float, (\d+)> \{\s*static constexpr int WARPS = \d+, MT = \d+, "
     r"BK = (\d+)", KERNEL_SRC)}
@@ -567,13 +568,29 @@ def test_attention_f64_is_the_plain_function(case, causal):
     assert ref.rel_err_rows(ref.attention_ref(tq, tk, tv, causal, case[-1]), truth) <= TOL
 
 
+def _routed_emulation(D):
+    """The float32 design that serves head dim D, as an emulation: the
+    mma.sync kernel's above, or the Hopper design's
+    (``tf32_order.emulate`` with its source's key tile and chains)."""
+    if D not in fa.TF32_HEAD_DIMS:
+        return lambda q, k, v, passes=3: emulate(q, k, v, True, None, passes=passes,
+                                                 bk=BK_OF.get(D, BK))
+    src = (Path(fa.__file__).parent / "csrc" / "flash_attention_tf32.cu").read_text()
+    body = re.search(rf"struct Cfg<{D}> \{{(.*?)\}};", src, re.S).group(1)
+    bk, chains = (int(re.search(rf"{n} = (\d+)", body).group(1)) for n in ("BK", "CHAINS"))
+    return lambda q, k, v, passes=3: tf32_order.emulate(q, k, v, True, None, bk=bk,
+                                                        chains=chains, passes=passes)
+
+
 @pytest.mark.parametrize("D", [64, 96, 128, 256])
 @pytest.mark.parametrize("kind", ["peaked", "offset"])
 def test_3xtf32_emulation_holds_large_scores(kind, D):
-    """At the kernel's head dims, with q scaled by 8 (one key dominates a
-    row's softmax) or k + 50 (scores in the hundreds, where the low parts
-    carry the differences between keys): the emulation is within 2e-5 of
-    the float64 truth and no further from it than the float32 plain
+    """At the kernels' head dims, each through the design the route table
+    sends it to (``mma.sync`` at 64 and 128, the ``wgmma`` design of
+    ``flash_attention_tf32.cu`` at 96 and 256), with q scaled by 8 (one key
+    dominates a row's softmax) or k + 50 (scores in the hundreds, where the
+    low parts carry the differences between keys): the emulation is within
+    2e-5 of the float64 truth and no further from it than the float32 plain
     version, which in the offset case is itself further than 2e-5 from the
     truth (so the card holds these cases to ``ref.attention_f64``).  One
     TF32 pass fails the bar in both."""
@@ -585,10 +602,9 @@ def test_3xtf32_emulation_holds_large_scores(kind, D):
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     truth = ref.attention_f64(tq, tk, tv)
     plain = ref.rel_err_rows(ref.attention_ref(tq, tk, tv), truth)
-    bk = BK_OF.get(D, BK)        # the key tile of this head dim's instance
-    got = ref.rel_err_rows(emulate(q, k, v, True, None, bk=bk), truth)
+    run = _routed_emulation(D)
+    got = ref.rel_err_rows(run(q, k, v), truth)
     assert got <= TOL and got <= plain, (got, plain)
     if kind == "offset":
         assert plain > TOL
-    assert ref.rel_err_rows(emulate(q, k, v, True, None, passes=1, bk=bk),
-                            truth) > TOL
+    assert ref.rel_err_rows(run(q, k, v, passes=1), truth) > TOL

@@ -192,22 +192,28 @@ def test_tma_and_shared_memory_plan(head_dim):
 
 def test_route_sends_each_call_to_one_kernel():
     """Every (dtype, head dim) the wrapper takes maps to exactly one kernel
-    of ``build.KERNELS``; float32 goes to the mma.sync source and bfloat16
-    to the Hopper one, each of which refuses the other type, with an
-    instance at every head dim; the wrapper counts launches of every kernel
-    the table names."""
+    of ``build.KERNELS``; float32 goes to the mma.sync source at head dims
+    64 and 128 and to the float32 Hopper design (``flash_attention_tf32``)
+    at 96 and 256, bfloat16 to the bfloat16 Hopper one at every head dim;
+    each source refuses the other type and has an instance at every head dim
+    the table sends it; the wrapper counts launches of every kernel the
+    table names."""
     assert set(fa.ROUTE) == {(dt, d) for dt in fa.DTYPES for d in fa.HEAD_DIMS}
     for (dt, d), name in fa.ROUTE.items():
         assert name in build.KERNELS and fa.route(dt, d) == name
         assert build.KERNELS[name][1] == "flash_attention_launch"
         if dt == torch.float32:
-            assert name == "flash_attention"
+            assert name == ("flash_attention_tf32" if d in fa.TF32_HEAD_DIMS
+                            else "flash_attention")
     assert "if (!is_bf16 ||" in SRC
-    mma_sync = (Path(fa.__file__).parent / "csrc" / "flash_attention.cu").read_text()
-    assert "if (is_bf16 ||" in mma_sync
+    csrc = Path(fa.__file__).parent / "csrc"
+    mma_sync = (csrc / "flash_attention.cu").read_text()
+    tf32 = (csrc / "flash_attention_tf32.cu").read_text()
+    assert "if (is_bf16 ||" in mma_sync and "if (is_bf16 ||" in tf32
     for d in fa.HEAD_DIMS:
         assert fa.ROUTE[torch.bfloat16, d] == WGMMA
-        assert f"if (D == {d}) return launch<float, {d}>(a);" in mma_sync
+        f32_src = tf32 if d in fa.TF32_HEAD_DIMS else mma_sync
+        assert re.search(rf"if \(D == {d}\) return launch<(float, )?{d}>\(a\);", f32_src)
     assert set(fa.flash_attention.by_kernel) == set(fa.ROUTE.values())
     assert build.KERNELS[WGMMA][2] == build.KERNELS["flash_attention"][2]
 
